@@ -1,0 +1,155 @@
+"""K2: stable LSD radix sort of (key, payload) rows.
+
+Port of ``repro/kernels/radix_sort.py`` (``sort_kv_segments_radix`` /
+``sort_segments_radix``, the Pallas ``_make_radix_kernel``). Keys
+(int32/uint32/float32; NaN unsupported) map through an order-preserving
+bijection onto unsigned 32-bit "sortable bits", sort as 4 passes of 8-bit
+digits, and map back; -0.0 orders before +0.0. A 32-bit payload moves
+bit-exactly. Stable: equal keys keep their input order, so — unlike the
+bitonic network — no key value is reserved for padding.
+
+On a CUDA tensor this launches ``csrc/radix_sort.cu``; on a CPU tensor it
+takes the plain LSD radix below (:func:`sort_kv_segments_radix_ref`).
+
+Bound on the H100: memory. Two TPU-only pieces are not carried over: the
+one-hot matmul permutation (Mosaic has no scatter; CUDA scatters
+natively) and the 4 MiB VMEM envelope. Each pass is the multisplit of
+``csrc/multisplit.cuh`` with the digit as bucket: per-tile histograms, a
+scan over tiles, a stable scatter. The port's envelope
+(:func:`radix_supported`) is the CUDA grid's.
+
+The bijection and the plain radix work on int32 bit patterns: torch on
+the CPU has no shift or ``~`` for uint32.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.kernels.bitonic_sort import KEY_MODES, check_sort_args
+from repro_torch.kernels.build import Kernel, require_cuda
+
+KERNEL = Kernel("radix_sort",
+                replaces="src/repro/kernels/radix_sort.py:227")
+
+#: digit width of every pass (4 passes over 32-bit keys).
+BITS = 8
+#: grid.y carries the row; positions inside a row are int32.
+MAX_ROWS = 65535
+MAX_SEGMENT_LEN = (1 << 31) - 1
+TILE = 4096  # ms::kTile in csrc/multisplit.cuh
+
+_SIGN = -(1 << 31)           # 0x80000000 as an int32
+
+
+# -- order-preserving key <-> uint32 bijections ------------------------------
+
+
+def key_to_sortable_bits(keys: torch.Tensor) -> torch.Tensor:
+    """Map int32/uint32/float32 keys onto uint32 so that unsigned order
+    equals key order (monotone bijection)."""
+    if keys.dtype == torch.uint32:
+        return keys
+    if keys.dtype == torch.int32:
+        return (keys ^ _SIGN).view(torch.uint32)
+    if keys.dtype == torch.float32:
+        bits = keys.view(torch.int32)
+        return torch.where(bits < 0, ~bits, bits | _SIGN).view(torch.uint32)
+    raise TypeError(f"radix sort supports int32/uint32/float32 keys, "
+                    f"got {keys.dtype}")
+
+
+def sortable_bits_to_key(bits: torch.Tensor, dtype: torch.dtype
+                         ) -> torch.Tensor:
+    """Inverse of :func:`key_to_sortable_bits`."""
+    if dtype == torch.uint32:
+        return bits
+    b = bits.view(torch.int32)
+    if dtype == torch.int32:
+        return b ^ _SIGN
+    if dtype == torch.float32:
+        # sign bit of the sortable form set <=> the key was non-negative
+        return torch.where(b < 0, b & 0x7FFFFFFF, ~b).view(torch.float32)
+    raise TypeError(f"radix sort supports int32/uint32/float32 keys, "
+                    f"got {dtype}")
+
+
+def radix_supported(segment_len: int, num_segments: int = 1
+                    ) -> Optional[str]:
+    """None when the Hopper kernel's envelope covers the cell, else the
+    reason (callers record it — never a silent skip)."""
+    if segment_len > MAX_SEGMENT_LEN:
+        return (f"segment_len={segment_len} exceeds the int32 position "
+                f"range of the CUDA radix kernel ({MAX_SEGMENT_LEN})")
+    if num_segments > MAX_ROWS:
+        return (f"{num_segments} segments exceed the CUDA grid's "
+                f"{MAX_ROWS} rows")
+    return None
+
+
+# -- plain version (CPU) -----------------------------------------------------
+
+
+def sort_kv_segments_radix_ref(keys: torch.Tensor, values) -> Tuple:
+    """Plain LSD radix, 8-bit digits: per pass, a stable sort of the rows
+    by digit. Same arithmetic as the kernel on int32 bit patterns."""
+    bits = key_to_sortable_bits(keys).view(torch.int32)
+    vals = None if values is None else values.view(torch.int32)
+    for shift in range(0, 32, BITS):
+        digit = (bits >> shift) & ((1 << BITS) - 1)
+        order = torch.argsort(digit, dim=-1, stable=True)
+        bits = torch.take_along_dim(bits, order, dim=-1)
+        if vals is not None:
+            vals = torch.take_along_dim(vals, order, dim=-1)
+    out_k = sortable_bits_to_key(bits.view(torch.uint32), keys.dtype)
+    out_v = None if vals is None else vals.view(values.dtype)
+    return out_k, out_v
+
+
+# -- kernel wrappers ---------------------------------------------------------
+
+
+def _radix(keys: torch.Tensor, values) -> Tuple:
+    require_cuda(keys, *([] if values is None else [values]))
+    n, s = keys.shape
+    reason = radix_supported(s, n)
+    if reason is not None:
+        raise ValueError(f"radix kernel unsupported here: {reason}")
+    if n == 0 or s == 0:
+        return keys.clone(), None if values is None else values.clone()
+    dev = keys.device
+    k_in = keys.contiguous().view(torch.int32)
+    out_k = torch.empty((n, s), dtype=torch.int32, device=dev)
+    tmp_k = torch.empty_like(out_k)
+    v_in = out_v = tmp_v = None
+    if values is not None:
+        v_in = values.contiguous().view(torch.int32)
+        out_v = torch.empty_like(out_k)
+        tmp_v = torch.empty_like(out_k)
+    tiles = -(-s // TILE)
+    hist = torch.empty((n, 1 << BITS, tiles), dtype=torch.int32, device=dev)
+    counts = torch.empty((n, 1 << BITS), dtype=torch.int32, device=dev)
+    KERNEL.launch("radix_sort_launch", k_in, v_in, out_k, out_v, tmp_k, tmp_v,
+                  hist, counts, n, s, KEY_MODES[keys.dtype][0])
+    return (out_k.view(keys.dtype),
+            None if out_v is None else out_v.view(values.dtype))
+
+
+def sort_kv_segments_radix(keys: torch.Tensor, values: torch.Tensor
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Stable-sort each row of ``keys`` ascending, permuting ``values``
+    (any 32-bit dtype, moved bit-exactly) alongside."""
+    check_sort_args(keys, values)
+    if keys.device.type == "cpu":
+        return sort_kv_segments_radix_ref(keys, values)
+    return _radix(keys, values)
+
+
+def sort_segments_radix(keys: torch.Tensor) -> torch.Tensor:
+    """Keys-only row sort (no payload moves)."""
+    check_sort_args(keys, None)
+    if keys.device.type == "cpu":
+        return sort_kv_segments_radix_ref(keys, None)[0]
+    return _radix(keys, None)[0]

@@ -48,3 +48,9 @@ def _install_hypothesis_stub() -> None:
 
 
 _install_hypothesis_stub()
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU; skipped without one (run on "
+        "the card: pytest -m cuda tests/test_torch_cuda.py)")
