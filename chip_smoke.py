@@ -1,30 +1,50 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's Terasort main path on one NVIDIA GPU.
+"""Drive the PyTorch port's paths on one NVIDIA GPU.
 
     python3 chip_smoke.py                 # N = 2^25 100-byte records
     python3 chip_smoke.py --n-log2 20     # a quick, smaller run
+    python3 chip_smoke.py --profile DIR   # + a profiled warm rerun of each
+                                          #   path, traces written to DIR
 
 Phases, in order (any failure ends the script with a non-zero exit):
 
 1. the card's name and power limit (``nvidia-smi``);
-2. build the Hopper kernels K1 (partition rank), K3 (bitonic sort) and
-   K2 (radix sort) from ``src/repro_torch/kernels/csrc`` with ``nvcc``,
-   all at once, printing seconds and the ``-Xptxas -v`` lines;
+2. build the Hopper kernels K1 (partition rank), K3 (bitonic sort), K2
+   (radix sort) and K4 (bucket histogram) from
+   ``src/repro_torch/kernels/csrc`` with ``nvcc``, all at once, printing
+   seconds and the ``-Xptxas -v`` lines;
 3. hold each kernel against its plain PyTorch version on the card, at the
-   main path's shapes and at edge cases, and time kernel, plain version
-   and the nearest single PyTorch call (CUDA events, median of 10 warm
-   runs) beside the memory bound;
-4. the main path: ``Dataflow.source().sort(...)`` over 8 stacked ranks of
+   shapes the paths below give it and at edge cases, and time kernel,
+   plain version and the nearest single PyTorch call (CUDA events, median
+   of 10 warm runs) beside the memory bound;
+4. K4's path, its entry point ``kernels.ops.bucket_histogram`` (on no
+   dataflow path, as in the JAX package), on the main path's stage-1
+   bucket ids;
+5. the main path: ``Dataflow.source().sort(...)`` over 8 stacked ranks of
    100-byte records ``{"key": int32, "value": uint8[96]}``, bitonic
    pinned; checks a globally sorted permutation with every value row
    still beside its key and no drops, and that K1 and K3 ran;
-5. the ``terasort()`` shim three ways — ``sort_algo="radix"`` (K2 must
+6. the wide-area path: the same pipeline and records on the ``(dc, node)
+   = (2, 4)`` grid of ranks (the two-level hierarchical shuffle); the
+   same checks, the same sorted keys as phase 5, K1 3 times, K3 once, two
+   ``all_to_all``; cold and warm wall time and the WAN profile of both
+   plans;
+7. MapReduce wordcount: ``map -> shuffle(default_hash) ->
+   reduce(reduce_by_key_sum(algo="radix"))`` over 8 ranks on 2^(n+1)
+   Zipf(1.1) word ids in a 2^20-word vocabulary; every (word, count) must
+   equal ``np.bincount`` of the input, and K2 must run (radix is pinned:
+   the autotuner would pick the ``torch.sort`` oracle on this cell); K2
+   is then held against its plain version and timed on the reduce's own
+   sort input;
+8. the ``terasort()`` shim three ways — ``sort_algo="radix"`` (K2 must
    run), ``buckets_per_device=4``, and ``hadoop_style_sort`` against
    ``terasort`` — and the autotuner's choice for the main-path cell.
 
-The last lines are the kernel table as one JSON object, the
-``nvidia-smi`` name/power line, and ``{"ok": true, "device": {...}}``.
-Imports nothing of JAX and nothing of the JAX package.
+Each path's launch counts are read from zero: every count is reset just
+before the path runs and read just after. The last lines are the kernel
+table as one JSON object, the ``nvidia-smi`` name/power line, and
+``{"ok": true, "device": {...}}``. Imports nothing of JAX and nothing of
+the JAX package.
 """
 
 from __future__ import annotations
@@ -43,7 +63,10 @@ sys.path.insert(0, os.path.join(HERE, "src"))
 #: H100 SXM device-memory rate (NVIDIA data sheet), bytes/s.
 HBM_BYTES_PER_S = 3.35e12
 WORLD = 8
+GRID = (2, 4)                # the wide-area (dc, node) grid of the 8 ranks
 VALUE_BYTES = 96             # + the 4-byte key = one 100-byte record
+VOCAB = 1 << 20              # wordcount vocabulary
+ZIPF_A = 1.1
 TIMED_ITERS = 10
 
 
@@ -143,12 +166,35 @@ def make_keys(torch, gen, shape, dtype, dev):
     return bits if dtype == torch.int32 else bits.view(torch.uint32)
 
 
-def check_partition(torch, dev, gen, n_local: int, recv: int):
+class Shapes:
+    """The shapes each path gives the kernels, from the record counts."""
+
+    def __init__(self, n_log2: int):
+        self.n = 1 << n_log2
+        self.n_local = self.n // WORLD
+        cap = int(self.n_local / WORLD * 2.0) + 1
+        self.recv = WORLD * cap                   # flat stage-2 segment
+        dcs, nodes = GRID
+        self.cap_a = int(self.n_local / nodes * 2.0) + 1
+        self.cap_b = int(self.n_local / dcs * 2.0) + 1
+        self.staged = nodes * self.cap_a          # stage-B send rows
+        self.recv_grid = dcs * self.cap_b         # grid stage-2 segment
+        self.words = 2 * self.n                   # wordcount input
+        self.words_local = self.words // WORLD
+        # the shuffle stage's default capacity_factor is 4
+        self.wc_recv = WORLD * (int(self.words_local / WORLD * 4.0) + 1)
+
+
+def check_partition(torch, dev, gen, sh: Shapes):
     from repro_torch.kernels import partition, ref
     chk = Check("partition_rank")
-    cases = [((WORLD, n_local), WORLD, WORLD + 1),       # send path (+overflow)
-             ((WORLD, recv), 1, 2),                       # regroup, bpd = 1
-             ((WORLD, recv), 4, 5),                       # regroup, bpd = 4
+    cases = [((WORLD, sh.n_local), WORLD, WORLD + 1),    # send path (+overflow)
+             ((WORLD, sh.recv), 1, 2),                    # regroup, bpd = 1
+             ((WORLD, sh.recv), 4, 5),                    # regroup, bpd = 4
+             ((WORLD, sh.n_local), GRID[1], GRID[1] + 1),  # grid stage A
+             ((WORLD, sh.staged), GRID[0], GRID[0] + 1),   # grid stage B
+             ((WORLD, sh.recv_grid), 1, 2),                # grid regroup
+             ((WORLD, sh.words_local), WORLD, WORLD + 1),  # wordcount shuffle
              ((3, 5000), 9, 12), ((17, 33), 1, 3), ((1, 4097), 4096, 4096),
              ((2, 1), 8, 9)]
     for shape, nd, hi in cases:
@@ -159,6 +205,7 @@ def check_partition(torch, dev, gen, n_local: int, recv: int):
         chk.equal(f"counts {shape} D={nd}", counts, rcounts)
         chk.equal(f"rank {shape} D={nd}", rank, rrank,
                   mask=(dest >= 0) & (dest < nd))
+        del dest, rank, rrank
     # counts stay exact past 2^24 (a float32 accumulator would not)
     n = (1 << 24) + 9
     dest = torch.zeros((1, n), dtype=torch.int32, device=dev)
@@ -171,12 +218,12 @@ def check_partition(torch, dev, gen, n_local: int, recv: int):
     torch.cuda.synchronize()
 
     # timing at the send-path shape
-    dest = torch.randint(0, WORLD + 1, (WORLD, n_local), generator=gen,
+    dest = torch.randint(0, WORLD + 1, (WORLD, sh.n_local), generator=gen,
                          device=dev, dtype=torch.int32)
     offs = (torch.arange(WORLD, device=dev, dtype=torch.int32)[:, None]
             * (WORLD + 1))
     timing = {
-        "shape": [WORLD, n_local], "num_dest": WORLD,
+        "shape": [WORLD, sh.n_local], "num_dest": WORLD,
         "ms": time_ms(torch, lambda: partition.partition_rank(dest, WORLD)),
         "plain_ms": time_ms(torch,
                             lambda: ref.partition_rank_ref(dest, WORLD)),
@@ -189,7 +236,71 @@ def check_partition(torch, dev, gen, n_local: int, recv: int):
     return chk, timing
 
 
-def check_sort(torch, dev, gen, kernel: str, seg_len: int):
+def check_bucket_hist(torch, dev, gen, sh: Shapes):
+    """K4 against its plain version, tolerance 0: the stage-1 shape, one
+    long row, a grid of small shapes and bucket counts, the ids just
+    outside the range, and one bucket counting past 2^24."""
+    from repro_torch.kernels import bucket_hist, ref
+    chk = Check("bucket_hist")
+    i32 = torch.iinfo(torch.int32)
+
+    def compare(what, ids, nb):
+        got = bucket_hist.bucket_histogram(ids, nb)
+        chk.equal(what, got, ref.bucket_histogram_ref(ids, nb))
+
+    stage1 = torch.randint(-1, WORLD, (WORLD, sh.n_local), generator=gen,
+                           device=dev, dtype=torch.int32)
+    compare(f"stage-1 ids {tuple(stage1.shape)} B={WORLD}", stage1, WORLD)
+    long_row = torch.randint(0, 256, (1, sh.n), generator=gen, device=dev,
+                             dtype=torch.int32)
+    compare(f"one row {tuple(long_row.shape)} B=256", long_row, 256)
+    for n in (0, 1, 7, 4097):
+        for nb in (1, 4, 17, 128, 513, 4096):
+            ids = torch.randint(-2, nb + 2, (2, n), generator=gen, device=dev,
+                                dtype=torch.int32)
+            compare(f"(2, {n}) B={nb}", ids, nb)
+            compare(f"({n},) B={nb}", ids[0], nb)
+    for nb in (1, 4, 4096):
+        edge = torch.tensor([-1, nb, i32.min, i32.max, 0, nb - 1, -nb],
+                            dtype=torch.int32, device=dev).repeat(3, 1000)
+        compare(f"ids -1, B, INT32_MIN/MAX B={nb}", edge, nb)
+    n = 1 << 25
+    ones = torch.zeros((n + 5,), dtype=torch.int32, device=dev)
+    ones[n:] = 1
+    want = torch.tensor([n, 5, 0, 0], dtype=torch.int32, device=dev)
+    chk.equal("2^25 zeros and five ones",
+              bucket_hist.bucket_histogram(ones, 4), want)
+    chk.equal("2^25 zeros and five ones (plain)",
+              ref.bucket_histogram_ref(ones, 4), want)
+    del ones
+    torch.cuda.synchronize()
+
+    def library(ids, nb):
+        """One ``torch.bincount`` over row-offset ids; ids out of range
+        were moved to the spare last bin beforehand (not timed)."""
+        rows = ids.shape[0]
+        offs = torch.arange(rows, device=dev, dtype=torch.int32)[:, None] * nb
+        flat = torch.where((ids >= 0) & (ids < nb), ids + offs,
+                           rows * nb).reshape(-1)
+        return lambda: torch.bincount(flat, minlength=rows * nb + 1)
+
+    def timed(ids, nb):
+        return {"shape": list(ids.shape), "num_buckets": nb,
+                "ms": time_ms(torch,
+                              lambda: bucket_hist.bucket_histogram(ids, nb)),
+                "plain_ms": time_ms(torch,
+                                    lambda: ref.bucket_histogram_ref(ids, nb)),
+                "library_ms": time_ms(torch, library(ids, nb)),
+                "library_call": "torch.bincount of row-offset ids",
+                # read ids once, write counts once
+                "bound_ms": bound_ms(4 * ids.numel() + 4 * ids.shape[0] * nb)}
+
+    timing = timed(stage1, WORLD)
+    timing["one_row"] = timed(long_row, 256)
+    return chk, timing
+
+
+def check_sort(torch, dev, gen, kernel: str, seg_lens, time_len: int):
     from repro_torch.kernels import ref
     from repro_torch.kernels.bitonic_sort import sort_kv_segments_bitonic
     from repro_torch.kernels.radix_sort import (sort_kv_segments_radix,
@@ -238,41 +349,339 @@ def check_sort(torch, dev, gen, kernel: str, seg_len: int):
             torch.arange(u.numel(), dtype=torch.int32,
                          device=dev).reshape(u.shape))
 
-    # the main-path segments: keys of valid records, sentinel padding
-    keys = torch.randint(0, (1 << 31) - 1, (WORLD, seg_len), generator=gen,
-                         device=dev, dtype=torch.int32)
-    keys[:, seg_len - seg_len // 9:] = 0x7FFFFFFF
-    vals = torch.arange(seg_len, dtype=torch.int32,
-                        device=dev).expand(WORLD, -1).contiguous()
-    compare(f"main path {(WORLD, seg_len)}", keys, vals)
+    def path_rows(seg_len):
+        """Keys of valid records with sentinel padding, as the paths give
+        them: the stage-2 segments and the wordcount's receive rows."""
+        keys = torch.randint(0, (1 << 31) - 1, (WORLD, seg_len),
+                             generator=gen, device=dev, dtype=torch.int32)
+        keys[:, seg_len - seg_len // 9:] = 0x7FFFFFFF
+        vals = torch.arange(seg_len, dtype=torch.int32,
+                            device=dev).expand(WORLD, -1).contiguous()
+        return keys, vals
+
+    for seg_len in seg_lens:
+        keys, vals = path_rows(seg_len)
+        compare(f"path rows {(WORLD, seg_len)}", keys, vals)
+        del keys, vals
     torch.cuda.synchronize()
 
-    def library():
-        s = torch.sort(keys, dim=-1, stable=True)
-        return s.values, torch.gather(vals, -1, s.indices)
+    def timed(seg_len):
+        keys, vals = path_rows(seg_len)
 
-    timing = {
-        "shape": [WORLD, seg_len],
-        "ms": time_ms(torch, lambda: fn(keys, vals)),
-        "plain_ms": time_ms(torch, lambda: plain(keys, vals)),
-        "library_ms": time_ms(torch, library),
-        "library_call": "torch.sort(stable=True) + torch.gather",
-        # read keys and values once, write both once
-        "bound_ms": bound_ms(16 * keys.numel()),
-    }
+        def library():
+            s = torch.sort(keys, dim=-1, stable=True)
+            return s.values, torch.gather(vals, -1, s.indices)
+
+        return {"shape": [WORLD, seg_len],
+                "ms": time_ms(torch, lambda: fn(keys, vals)),
+                "plain_ms": time_ms(torch, lambda: plain(keys, vals)),
+                "library_ms": time_ms(torch, library),
+                "library_call": "torch.sort(stable=True) + torch.gather",
+                # read keys and values once, write both once
+                "bound_ms": bound_ms(16 * keys.numel())}
+
+    timing = timed(time_len)
+    timing["other_shapes"] = [timed(n) for n in seg_lens if n != time_len]
     return chk, timing
 
 
-# -- phases 4 and 5 -------------------------------------------------------------
+# -- phases 4 to 8 ---------------------------------------------------------------
 
 
-def profile_run(torch, ex, df, records, out_dir: str):
-    """Two more runs of the main path: one warm (steady-state wall time),
-    one under ``torch.profiler``. From the profiled run alone: the time of
+def kernels():
+    from repro_torch.kernels import bitonic_sort, bucket_hist, partition, \
+        radix_sort
+    return (partition.KERNEL, bitonic_sort.KERNEL, radix_sort.KERNEL,
+            bucket_hist.KERNEL)
+
+
+def reset_launches() -> None:
+    for k in kernels():
+        k.launches = 0
+
+
+def read_launches() -> dict:
+    return {k.name: k.launches for k in kernels()}
+
+
+def make_records(torch, dev, gen, n: int):
+    """N 100-byte records; the first 4 value bytes carry the input index."""
+    n_local = n // WORLD
+    keys = torch.randint(0, (1 << 31) - 1, (WORLD, n_local), generator=gen,
+                         device=dev, dtype=torch.int32)
+    value = torch.randint(0, 256, (WORLD, n_local, VALUE_BYTES),
+                          generator=gen, device=dev, dtype=torch.uint8)
+    index = torch.arange(n, dtype=torch.int32, device=dev)
+    value[..., :4] = index.view(torch.uint8).reshape(WORLD, n_local, 4)
+    return keys, value
+
+
+def entry_point_k4(torch, dev, keys):
+    """K4's path: ``kernels.ops.bucket_histogram`` on the main path's
+    stage-1 bucket ids (the range partition against the default
+    splitters)."""
+    from repro_torch.kernels import ops as kops
+    from repro_torch.sphere.dataflow import default_splitters
+    spl = torch.from_numpy(default_splitters(WORLD)).to(dev)
+    bucket = torch.searchsorted(spl, keys, right=True, out_int32=True)
+    reset_launches()
+    counts = kops.bucket_histogram(bucket, WORLD)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    offs = torch.arange(WORLD, device=dev, dtype=torch.int64)[:, None] * WORLD
+    want = torch.bincount((bucket + offs).reshape(-1),
+                          minlength=WORLD * WORLD).reshape(WORLD, WORLD)
+    if not torch.equal(counts.to(torch.int64), want):
+        raise AssertionError("bucket_histogram of the stage-1 ids differs "
+                             "from torch.bincount")
+    if int(counts.sum()) != keys.numel() or launches["bucket_hist"] != 1:
+        raise AssertionError(f"K4 entry point: {int(counts.sum())} ids "
+                             f"counted, launches {launches}")
+    return {"phase": "bucket_histogram_entry_point",
+            "shape": list(bucket.shape), "num_buckets": WORLD,
+            "per_bucket": counts.sum(dim=0).tolist(), "launches": launches}
+
+
+def check_sorted_permutation(torch, res, keys, value, what: str):
+    """The checks of a 100-byte sort: no drops, every record once, globally
+    sorted, each value row beside its key. Returns the sorted keys."""
+    from repro_torch.core.sort import SortResult, is_globally_sorted
+    n = keys.numel()
+    valid = res.valid
+    out_k = res.records["key"][valid]
+    out_v = res.records["value"][valid]
+    dropped = int(res.dropped)
+    if dropped != 0:
+        raise AssertionError(f"{what} dropped {dropped} records")
+    if out_k.numel() != n:
+        raise AssertionError(f"{what}: {out_k.numel()} valid records, "
+                             f"expected {n}")
+    if not is_globally_sorted(SortResult(res.records["key"], None, valid,
+                                         res.dropped), WORLD):
+        raise AssertionError(f"{what} output is not globally sorted")
+    idx = out_v[:, :4].contiguous().view(torch.int32).reshape(-1).to(torch.int64)
+    if not torch.equal(torch.sort(idx).values,
+                       torch.arange(n, device=keys.device, dtype=torch.int64)):
+        raise AssertionError(f"{what}: delivered records are not a "
+                             f"permutation")
+    if not torch.equal(keys.reshape(-1)[idx], out_k):
+        raise AssertionError(f"{what}: a delivered key does not match its "
+                             f"record")
+    if not torch.equal(value.reshape(n, VALUE_BYTES)[idx], out_v):
+        raise AssertionError(f"{what}: a delivered value row does not match "
+                             f"its key")
+    return out_k
+
+
+def run_path(torch, ex, df, records):
+    """One cold run of ``df``: launch counts read from zero, host wall
+    time ending in a synchronize, peak device memory."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    a2a = ex.ranks.collectives["all_to_all"]
+    t0 = time.perf_counter()
+    res = ex.run(df, records)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return res, {"wall_ms": wall * 1e3, "launches": read_launches(),
+                 "all_to_all": ex.ranks.collectives["all_to_all"] - a2a,
+                 "peak_mem_bytes": torch.cuda.max_memory_allocated()}
+
+
+def main_path(torch, keys, value, profile_dir=None):
+    from repro_torch.comm import Ranks
+    from repro_torch.sphere.dataflow import Dataflow, SPMDExecutor
+
+    n = keys.numel()
+    df = Dataflow.source().sort(key=lambda r: r["key"], num_buckets=WORLD,
+                                capacity_factor=2.0)
+    ex = SPMDExecutor(Ranks(WORLD), sort_algo="bitonic")
+    res, run = run_path(torch, ex, df, {"key": keys, "value": value})
+    sorted_keys = check_sorted_permutation(torch, res, keys, value,
+                                           "main path").clone()
+    for name in ("partition", "bitonic_sort"):
+        if run["launches"][name] == 0:
+            raise AssertionError(f"kernel {name} was not launched on the "
+                                 f"main path")
+    out = {"phase": "main_path", "records": n, "record_bytes": 4 + VALUE_BYTES,
+           "ranks": WORLD, "sort_algo": "bitonic",
+           "records_per_s": n / run["wall_ms"] * 1e3, **run,
+           "dropped": int(res.dropped), "cache": ex.cache_info()._asdict()}
+    del res
+    if profile_dir:
+        out["profile"] = profile_run(torch, ex, df,
+                                     {"key": keys, "value": value},
+                                     profile_dir, "main_path")
+    torch.cuda.empty_cache()
+    return out, sorted_keys
+
+
+def grid_path(torch, keys, value, flat_sorted_keys, profile_dir=None):
+    """The wide-area path: the main path's pipeline and records on the
+    ``(dc, node)`` grid, so each shuffle is the two-level exchange."""
+    from repro_torch.comm import Ranks
+    from repro_torch.core.shuffle import ShufflePlan
+    from repro_torch.sphere.dataflow import Dataflow, SPMDExecutor
+
+    n = keys.numel()
+    grid = Ranks(shape=GRID, axes=("dc", "node"))
+    df = Dataflow.source().sort(key=lambda r: r["key"], num_buckets=WORLD,
+                                capacity_factor=2.0)
+    ex = SPMDExecutor(grid, sort_algo="bitonic")
+    res, run = run_path(torch, ex, df, {"key": keys, "value": value})
+    out_k = check_sorted_permutation(torch, res, keys, value,
+                                     "wide-area path")
+    if not torch.equal(out_k, flat_sorted_keys):
+        raise AssertionError("wide-area sorted keys differ from the flat "
+                             "path's")
+    want = {"partition": 3, "bitonic_sort": 1}
+    got = {k: run["launches"][k] for k in want}
+    if got != want or run["all_to_all"] != 2:
+        raise AssertionError(f"wide-area path launched {run['launches']} "
+                             f"with {run['all_to_all']} all_to_all; expected "
+                             f"{want} and 2")
+    del res, out_k
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    warm = ex.run(df, {"key": keys, "value": value})
+    torch.cuda.synchronize()
+    warm_ms = (time.perf_counter() - t0) * 1e3
+    del warm
+    n_local = n // WORLD
+    hier = ShufflePlan.for_ranks(grid, WORLD, n_local, 2.0)
+    flat = ShufflePlan.for_ranks(Ranks(WORLD), WORLD, n_local, 2.0)
+    wan = {name: {meta: plan.wan_profile(*GRID, 4 + VALUE_BYTES,
+                                         wire_meta=meta)
+                  for meta in ("full", "min")}
+           for name, plan in (("hierarchical", hier), ("flat", flat))}
+    if (wan["hierarchical"]["min"]["wan_tiles"] != GRID[0] - 1
+            or wan["flat"]["min"]["wan_tiles"] != (GRID[0] - 1) * GRID[1]):
+        raise AssertionError(f"WAN tiles per rank: {wan}")
+    out = {"phase": "wide_area_path", "records": n, "grid": list(GRID),
+           "axes": ["dc", "node"], "sort_algo": "bitonic",
+           "records_per_s": n / run["wall_ms"] * 1e3, **run,
+           "warm_wall_ms": warm_ms, "warm_records_per_s": n / warm_ms * 1e3,
+           "same_keys_as_flat": True, "cache": ex.cache_info()._asdict(),
+           "plans": {"hierarchical": [hier.axes, hier.capacities],
+                     "flat": [flat.axes, flat.capacities]},
+           "wan_profile": wan}
+    if profile_dir:
+        out["profile"] = profile_run(torch, ex, df,
+                                     {"key": keys, "value": value},
+                                     profile_dir, "wide_area_path")
+    torch.cuda.empty_cache()
+    return out
+
+
+def wordcount_path(torch, dev, seed: int, sh: Shapes, profile_dir=None):
+    """MapReduce wordcount over 8 ranks, the reduce's sort pinned to K2."""
+    import numpy as np
+    from repro_torch.comm import Ranks
+    from repro_torch.core.mapreduce import default_hash, reduce_by_key_sum
+    from repro_torch.sphere.dataflow import Dataflow, SPMDExecutor
+
+    n_words = sh.words
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(seed)
+    words = ((rng.zipf(ZIPF_A, size=n_words) - 1) % VOCAB).astype(np.int32)
+    gen_s = time.perf_counter() - t0
+    word_t = torch.from_numpy(words).reshape(WORLD, -1).to(dev)
+
+    def count(rec, valid):
+        k, s, d = reduce_by_key_sum(rec["key"], rec["value"], valid,
+                                    algo="radix")
+        return {"key": k, "value": s}, k >= 0, d
+
+    shuffled = (Dataflow.source()
+                .map(lambda r: {"key": r["word"],
+                                "value": torch.ones_like(r["word"])})
+                .shuffle(by=lambda r: default_hash(r["key"], WORLD),
+                         num_buckets=WORLD))
+    df = shuffled.reduce(count)
+    ex = SPMDExecutor(Ranks(WORLD))
+    res, run = run_path(torch, ex, df, {"word": word_t})
+    if run["launches"]["radix_sort"] == 0 or run["launches"]["partition"] == 0:
+        raise AssertionError(f"wordcount launched {run['launches']}")
+    dropped = int(res.dropped)
+    keys = res.records["key"][res.valid].cpu().numpy()
+    counts = res.records["value"][res.valid].cpu().numpy()
+    want = np.bincount(words, minlength=VOCAB)
+    if dropped != 0:
+        raise AssertionError(f"wordcount dropped {dropped}")
+    if np.unique(keys).size != keys.size:
+        raise AssertionError("a word was reduced on two ranks")
+    got = np.zeros(VOCAB, np.int64)
+    got[keys] = counts
+    if not np.array_equal(got, want):
+        bad = int((got != want).sum())
+        raise AssertionError(f"wordcount differs from np.bincount on {bad} "
+                             f"words")
+    if keys.size != int((want > 0).sum()):
+        raise AssertionError("wrong number of distinct words")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    warm = ex.run(df, {"word": word_t})
+    torch.cuda.synchronize()
+    warm_ms = (time.perf_counter() - t0) * 1e3
+    del warm, res
+    out = {"phase": "wordcount", "words": n_words, "vocab": VOCAB,
+           "zipf": ZIPF_A, "ranks": WORLD, "reduce_sort": "radix",
+           "distinct_words": int(keys.size), "top_word_share":
+           float(want.max() / n_words), "dropped": dropped,
+           "words_per_s": n_words / run["wall_ms"] * 1e3, **run,
+           "warm_wall_ms": warm_ms, "warm_words_per_s": n_words / warm_ms
+           * 1e3, "numpy_words_s": gen_s, "recv_rows_per_rank": sh.wc_recv}
+    out["k2_on_path_rows"] = radix_on_reduce_input(torch, ex, shuffled,
+                                                   word_t)
+    if profile_dir:
+        out["profile"] = profile_run(torch, ex, df, {"word": word_t},
+                                     profile_dir, "wordcount")
+    torch.cuda.empty_cache()
+    return out
+
+
+def radix_on_reduce_input(torch, ex, shuffled, word_t):
+    """K2 against its plain version, tolerance 0, on the wordcount's own
+    sort input: every rank's received keys with the int32 maximum in the
+    empty slots, as ``reduce_by_key_sum`` hands them to the sort. Word ids
+    below 2^20 and mostly-empty rows make its scatters far more regular
+    than the random keys of phase 3."""
+    from repro_torch.kernels.radix_sort import (sort_kv_segments_radix,
+                                                sort_kv_segments_radix_ref)
+    res = ex.run(shuffled, {"word": word_t})
+    keys = torch.where(res.valid, res.records["key"], 0x7FFFFFFF).contiguous()
+    del res
+    vals = torch.arange(keys.shape[1], dtype=torch.int32,
+                        device=keys.device).expand(WORLD, -1).contiguous()
+    chk = Check("radix_sort")
+    gk, gv = sort_kv_segments_radix(keys, vals)
+    rk, rv = sort_kv_segments_radix_ref(keys, vals)
+    chk.equal("keys on the reduce input", gk, rk)
+    chk.equal("values on the reduce input", gv, rv)
+    del gk, gv, rk, rv
+
+    def library():
+        srt = torch.sort(keys, dim=-1, stable=True)
+        return srt.values, torch.gather(vals, -1, srt.indices)
+
+    return {"shape": list(keys.shape), "cases": chk.cases,
+            "max_abs_err": chk.max_abs_err,
+            "valid_share": float((keys != 0x7FFFFFFF).float().mean()),
+            "ms": time_ms(torch, lambda: sort_kv_segments_radix(keys, vals)),
+            "plain_ms": time_ms(torch, lambda: sort_kv_segments_radix_ref(
+                keys, vals)),
+            "library_ms": time_ms(torch, library),
+            "bound_ms": bound_ms(16 * keys.numel())}
+
+
+def profile_run(torch, ex, df, records, out_dir: str, name: str):
+    """Two more runs of a path: one warm (steady-state wall time), one
+    under ``torch.profiler``. From the profiled run alone: the time of
     every device-side event (kernels, copies, fills; an operator's own row
     is left out so that no time is counted twice), the union of their
     intervals, and that union's share of the profiled run's wall time.
-    Writes the Chrome trace to ``out_dir``."""
+    Writes the Chrome trace to ``out_dir/<name>_trace.json``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -287,7 +696,7 @@ def profile_run(torch, ex, df, records, out_dir: str):
         torch.cuda.synchronize()
         prof_wall = time.perf_counter() - t0
     os.makedirs(out_dir, exist_ok=True)
-    prof.export_chrome_trace(os.path.join(out_dir, "main_path_trace.json"))
+    prof.export_chrome_trace(os.path.join(out_dir, f"{name}_trace.json"))
     spans = sorted((e.time_range.start, e.time_range.end, e.name)
                    for e in prof.events() if e.device_type == DeviceType.CUDA)
     if not spans:
@@ -310,76 +719,6 @@ def profile_run(torch, ex, df, records, out_dir: str):
             "device_busy_share": busy_us / 1e3 / (prof_wall * 1e3),
             "top": [{"op": k[:90], "ms": us / 1e3, "calls": c}
                     for k, (us, c) in rows[:25]]}
-
-
-def main_path(torch, dev, gen, n_log2: int, profile_dir=None):
-    from repro_torch.comm import Ranks
-    from repro_torch.core.sort import SortResult, is_globally_sorted
-    from repro_torch.kernels import bitonic_sort, partition, radix_sort
-    from repro_torch.sphere.dataflow import Dataflow, SPMDExecutor
-
-    n = 1 << n_log2
-    n_local = n // WORLD
-    keys = torch.randint(0, (1 << 31) - 1, (WORLD, n_local), generator=gen,
-                         device=dev, dtype=torch.int32)
-    value = torch.randint(0, 256, (WORLD, n_local, VALUE_BYTES),
-                          generator=gen, device=dev, dtype=torch.uint8)
-    # the first 4 value bytes carry the record's input index
-    index = torch.arange(n, dtype=torch.int32, device=dev)
-    value[..., :4] = index.view(torch.uint8).reshape(WORLD, n_local, 4)
-    df = Dataflow.source().sort(key=lambda r: r["key"], num_buckets=WORLD,
-                                capacity_factor=2.0)
-    ex = SPMDExecutor(Ranks(WORLD), sort_algo="bitonic")
-
-    for k in (partition.KERNEL, bitonic_sort.KERNEL, radix_sort.KERNEL):
-        k.launches = 0
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    res = ex.run(df, {"key": keys, "value": value})
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = {k.name: k.launches
-                for k in (partition.KERNEL, bitonic_sort.KERNEL,
-                          radix_sort.KERNEL)}
-    peak = torch.cuda.max_memory_allocated()
-
-    valid = res.valid
-    out_k = res.records["key"][valid]
-    out_v = res.records["value"][valid]
-    dropped = int(res.dropped)
-    if dropped != 0:
-        raise AssertionError(f"main path dropped {dropped} records")
-    if out_k.numel() != n:
-        raise AssertionError(f"{out_k.numel()} valid records, expected {n}")
-    if not is_globally_sorted(SortResult(res.records["key"], None, valid,
-                                         res.dropped), WORLD):
-        raise AssertionError("main path output is not globally sorted")
-    idx = out_v[:, :4].contiguous().view(torch.int32).reshape(-1).to(torch.int64)
-    if not torch.equal(torch.sort(idx).values,
-                       torch.arange(n, device=dev, dtype=torch.int64)):
-        raise AssertionError("delivered records are not a permutation")
-    if not torch.equal(keys.reshape(-1)[idx], out_k):
-        raise AssertionError("a delivered key does not match its record")
-    if not torch.equal(value.reshape(n, VALUE_BYTES)[idx], out_v):
-        raise AssertionError("a delivered value row does not match its key")
-    for name in ("partition", "bitonic_sort"):
-        if launches[name] == 0:
-            raise AssertionError(f"kernel {name} was not launched on the "
-                                 f"main path")
-    out = {"phase": "main_path", "records": n, "record_bytes": 4 + VALUE_BYTES,
-           "ranks": WORLD, "sort_algo": "bitonic", "wall_ms": wall * 1e3,
-           "records_per_s": n / wall, "peak_mem_bytes": peak,
-           "launches": launches, "dropped": dropped,
-           "cache": ex.cache_info()._asdict()}
-    del res, out_k, out_v, idx
-    if profile_dir:
-        out["profile"] = profile_run(torch, ex, df,
-                                     {"key": keys, "value": value},
-                                     profile_dir)
-    del keys, value
-    torch.cuda.empty_cache()
-    return out
 
 
 def shim_runs(torch, dev, gen, n_log2: int):
@@ -448,11 +787,13 @@ def shim_runs(torch, dev, gen, n_log2: int):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n-log2", type=int, default=25,
-                    help="log2 of the record count of the main path")
+                    help="log2 of the record count of the sort paths (the "
+                         "wordcount reads twice as many words)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", metavar="DIR", default=None,
-                    help="also profile two warm reruns of the main path "
-                         "and write the trace to DIR")
+                    help="also profile two warm reruns of the flat, the "
+                         "wide-area and the wordcount path and write their "
+                         "traces to DIR")
     args = ap.parse_args(argv)
 
     import torch
@@ -460,15 +801,14 @@ def main(argv=None) -> int:
         print("chip_smoke: torch.cuda.is_available() is False — this script "
               "needs an NVIDIA GPU", file=sys.stderr)
         return 2
-    from repro_torch.kernels import bitonic_sort, build, partition, radix_sort
+    from repro_torch.kernels import build
 
     dev = torch.device("cuda")
     smi = nvidia_smi_line()
     log(f"device: {smi} | torch {torch.__version__} cuda {torch.version.cuda}")
 
     t0 = time.perf_counter()
-    kernels = (partition.KERNEL, bitonic_sort.KERNEL, radix_sort.KERNEL)
-    built = build.build_all([k.name for k in kernels])
+    built = build.build_all([k.name for k in kernels()])
     log(json.dumps({"phase": "build", "seconds": time.perf_counter() - t0,
                     "per_source_s": {k: r.seconds for k, r in built.items()}}))
     for name, r in built.items():
@@ -477,40 +817,66 @@ def main(argv=None) -> int:
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(args.seed)
-    n_local = (1 << args.n_log2) // WORLD
-    recv = WORLD * (int(n_local / WORLD * 2.0) + 1)   # stage-2 segment length
-    checks = {}
-    chk, timing = check_partition(torch, dev, gen, n_local, recv)
-    checks[partition.KERNEL.name] = (chk, timing)
-    for k in (bitonic_sort.KERNEL, radix_sort.KERNEL):
-        checks[k.name] = check_sort(torch, dev, gen, k.name, recv)
+    sh = Shapes(args.n_log2)
+    checks = {"partition": check_partition(torch, dev, gen, sh),
+              "bitonic_sort": check_sort(torch, dev, gen, "bitonic_sort",
+                                         [sh.recv, sh.recv_grid], sh.recv),
+              "radix_sort": check_sort(torch, dev, gen, "radix_sort",
+                                       [sh.recv, sh.wc_recv], sh.wc_recv),
+              "bucket_hist": check_bucket_hist(torch, dev, gen, sh)}
     for name, (chk, timing) in checks.items():
         log(json.dumps({"phase": "kernel_check", "name": name,
                         "cases": chk.cases, "max_abs_err": chk.max_abs_err,
                         **timing}))
     torch.cuda.empty_cache()
 
-    mp = main_path(torch, dev, gen, args.n_log2, args.profile)
+    keys, value = make_records(torch, dev, gen, sh.n)
+    k4 = entry_point_k4(torch, dev, keys)
+    log(json.dumps(k4))
+    mp, flat_sorted = main_path(torch, keys, value, args.profile)
     log(json.dumps(mp))
+    wide = grid_path(torch, keys, value, flat_sorted, args.profile)
+    log(json.dumps(wide))
+    del keys, value, flat_sorted
+    torch.cuda.empty_cache()
+    wc = wordcount_path(torch, dev, args.seed, sh, args.profile)
+    log(json.dumps(wc))
     shim, radix_launches = shim_runs(torch, dev, gen, args.n_log2)
     log(json.dumps({"phase": "terasort_shim", **shim}))
 
+    paths = {
+        "partition": {"dataflow sort, flat": mp["launches"]["partition"],
+                      "dataflow sort, (dc, node)":
+                          wide["launches"]["partition"],
+                      "wordcount": wc["launches"]["partition"]},
+        "bitonic_sort": {"dataflow sort, flat": mp["launches"]["bitonic_sort"],
+                         "dataflow sort, (dc, node)":
+                             wide["launches"]["bitonic_sort"]},
+        "radix_sort": {"wordcount reduce_by_key_sum(algo='radix')":
+                           wc["launches"]["radix_sort"],
+                       "terasort sort_algo='radix'": radix_launches},
+        "bucket_hist": {"kernels.ops.bucket_histogram (entry point; on no "
+                        "dataflow path, as in the JAX package)":
+                            k4["launches"]["bucket_hist"]},
+    }
     rows = []
-    for k in kernels:
+    for k in kernels():
         chk, timing = checks[k.name]
-        on_main = k.name != "radix_sort"
         rows.append({
             "name": k.name, "route": "cuda", "source": k.source,
             "replaces": k.replaces,
-            "launches": (mp["launches"][k.name] if on_main
-                         else radix_launches),
-            "path": ("dataflow sort, bitonic" if on_main
-                     else "terasort sort_algo='radix'"),
+            "launches": sum(paths[k.name].values()),
+            "launches_by_path": paths[k.name],
+            "path": " + ".join(paths[k.name]),
             "max_abs_err": chk.max_abs_err, "tolerance": 0,
             "ms": timing["ms"],
             "plain_ms": timing["plain_ms"], "bound_ms": timing["bound_ms"],
             "bound_by": "bytes", "library_ms": timing["library_ms"],
             "shape": timing["shape"], "check": "ok"})
+        if k.name == "radix_sort":
+            rows[-1]["on_path_rows"] = {
+                f: wc["k2_on_path_rows"][f]
+                for f in ("ms", "plain_ms", "library_ms", "bound_ms")}
     log(json.dumps({"kernels": rows}))
     log(nvidia_smi_line())
     log(json.dumps({"ok": True, "device": {

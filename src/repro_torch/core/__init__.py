@@ -1,1 +1,2 @@
-"""Records, the flat bucket shuffle and Terasort (port of ``repro.core``)."""
+"""Records, the bucket shuffles, Terasort, MapReduce, streams and UDFs
+(port of ``repro.core``)."""

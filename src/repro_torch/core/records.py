@@ -58,17 +58,19 @@ def tree_flatten(tree: Any) -> Tuple[List[Any], Any]:
 
 
 def tree_unflatten(treedef: Any, leaves: Sequence[Any]) -> Any:
-    it = iter(leaves)
+    return _build(treedef, iter(leaves))
 
-    def build(d):
-        if d == LEAF:
-            return next(it)
-        if d[0] == "dict":
-            return {k: build(c) for k, c in zip(d[1], d[2])}
-        items = [build(c) for c in d[1]]
-        return tuple(items) if d[0] == "tuple" else items
 
-    return build(treedef)
+def _build(d: Any, it) -> Any:
+    # module-level, not a recursive closure: a closure that calls itself is
+    # a reference cycle, which would keep ``leaves`` (whole record buffers)
+    # alive until the cyclic garbage collector happens to run
+    if d == LEAF:
+        return next(it)
+    if d[0] == "dict":
+        return {k: _build(c, it) for k, c in zip(d[1], d[2])}
+    items = [_build(c, it) for c in d[1]]
+    return tuple(items) if d[0] == "tuple" else items
 
 
 def tree_map(fn, tree: Any) -> Any:

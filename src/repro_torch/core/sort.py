@@ -24,7 +24,7 @@ JAX package's global layout).
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -84,6 +84,7 @@ def _as_splitters(splitters, num_buckets: int, device) -> torch.Tensor:
 
 
 def terasort(keys, payload, ranks: Optional[Ranks] = None,
+             axis: Union[str, Sequence[str], None] = None,
              splitters=None, capacity_factor: float = 2.0,
              use_pallas: bool = True, buckets_per_device: int = 1,
              plan: Optional[ShufflePlan] = None,
@@ -93,23 +94,29 @@ def terasort(keys, payload, ranks: Optional[Ranks] = None,
 
     keys: ``(ranks, n_local)`` int32 >= 0; payload: ``(ranks, n_local)``
     int32 (e.g. the record index into the 90-byte values). ``ranks``
-    defaults to ``Ranks()`` (8 ranks on the card). ``sort_algo`` pins the
-    stage-2 sort (``"bitonic"`` / ``"radix"`` / ``"oracle"``); ``None``
+    defaults to ``Ranks()`` (8 ranks on the card). ``axis`` names the rank
+    axes to shuffle over (default: all of them): one axis is the flat
+    bucket shuffle, a ``(dc_axis, node_axis)`` pair the wide-area
+    two-level shuffle of :mod:`repro_torch.core.shuffle`, keeping cross-DC
+    traffic to one dense tile per remote data center. ``sort_algo`` pins
+    the stage-2 sort (``"bitonic"`` / ``"radix"`` / ``"oracle"``); ``None``
     defers to ``use_pallas`` (``True`` -> bitonic, ``False`` -> the
-    autotuner). An explicit ``plan`` overrides ``buckets_per_device`` and
-    ``capacity_factor``.
+    autotuner). An explicit ``plan`` overrides ``axis``,
+    ``buckets_per_device`` and ``capacity_factor``.
     """
     ranks = ranks if ranks is not None else Ranks()
     if plan is not None:
+        axes = plan.axes
         num_buckets = plan.num_buckets
     else:
-        num_buckets = ranks.world * buckets_per_device
+        axes = ranks.axis_names(axis)
+        num_buckets = ranks.axis_size(axes) * buckets_per_device
     spl = _as_splitters(splitters, num_buckets, ranks.device)
     df = Dataflow.source().sort(key=lambda r: r["key"], splitters=spl,
                                 num_buckets=num_buckets,
                                 capacity_factor=capacity_factor)
-    ex = SPMDExecutor(ranks, plan=plan, use_pallas=use_pallas, chunks=chunks,
-                      sort_algo=sort_algo)
+    ex = SPMDExecutor(ranks, axes=axes, plan=plan, use_pallas=use_pallas,
+                      chunks=chunks, sort_algo=sort_algo)
     res = ex.run(df, {"key": torch.as_tensor(keys).to(torch.int32),
                       "payload": torch.as_tensor(payload)})
     return SortResult(keys=res.records["key"],

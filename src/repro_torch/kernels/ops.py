@@ -2,8 +2,8 @@
 
 Each function runs where its tensors lie: on a CUDA tensor the Hopper
 kernel, on a CPU tensor its plain version (the wrappers in
-:mod:`repro_torch.kernels.partition`, ``bitonic_sort`` and ``radix_sort``
-decide). The segment sorts dispatch through the autotuner
+:mod:`repro_torch.kernels.partition`, ``bucket_hist``, ``bitonic_sort``
+and ``radix_sort`` decide). The segment sorts dispatch through the autotuner
 (:mod:`repro_torch.kernels.autotune`): ``algo=None`` measures
 bitonic vs radix vs the ``torch.sort`` oracle once per cell; ``algo``
 pins one; ``REPRO_KERNEL_FORCE`` overrides both.
@@ -19,14 +19,15 @@ from typing import List, Optional, Sequence, Tuple
 
 import torch
 
-from repro_torch.kernels import autotune, ref
+from repro_torch.kernels import autotune, bucket_hist, ref
 from repro_torch.kernels.bitonic_sort import (sort_kv_segments_bitonic,
                                               sort_segments_bitonic)
 from repro_torch.kernels.partition import partition_rank
 from repro_torch.kernels.radix_sort import (sort_kv_segments_radix,
                                             sort_segments_radix)
 
-__all__ = ["pad_sentinel", "resolve_sort_algo", "partition_rank",
+__all__ = ["pad_sentinel", "resolve_sort_algo", "bucket_histogram",
+           "partition_rank",
            "partition_pack", "sort_segments", "sort_kv_segments"]
 
 
@@ -54,6 +55,16 @@ def resolve_sort_algo(num_segments: int, segment_len: int,
         return algo
     return autotune.choose(num_segments, segment_len, dtype, kv=kv,
                            device=device).algo
+
+
+def bucket_histogram(bucket_ids: torch.Tensor,
+                     num_buckets: int) -> torch.Tensor:
+    """int32 ``(num_buckets,)`` histogram of ``(n,)`` ids, or ``(rows,
+    num_buckets)`` of ``(rows, n)``; ids outside range are ignored (kernel
+    K4 on the card). Ids are cast to int32 first, as the JAX wrapper
+    does."""
+    return bucket_hist.bucket_histogram(bucket_ids.to(torch.int32),
+                                        num_buckets)
 
 
 def partition_pack(

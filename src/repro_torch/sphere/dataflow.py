@@ -8,21 +8,24 @@ declarative chain of stages over *records* — any fixed-shape dict / tuple
 
     df = Dataflow.source().sort(key=lambda r: r["key"], splitters=...)
     res = SPMDExecutor(Ranks(8)).run(df, records)        # paper §4.2
+    grid = Ranks(shape=(2, 4), axes=("dc", "node"))
+    res = SPMDExecutor(grid).run(df, records)            # wide area, §2.2
 
 :class:`SPMDExecutor` runs every stage once over all ranks of a
 :class:`repro_torch.comm.Ranks` (records carry a leading rank axis):
 maps and reduces inline per rank, shuffles as capacity-bounded
-``all_to_all`` through :class:`repro_torch.core.shuffle.ShufflePlan`,
-and a sort stage as the two-stage terasort — a range-partition shuffle,
-then a bucket-major regroup (kernel K1) and one multi-segment sort
-(kernel K3 or K2, or the ``torch.sort`` oracle).
+exchanges through :class:`repro_torch.core.shuffle.ShufflePlan` (one
+``all_to_all`` over a flat axis, two over a ``(dc, node)`` grid), and a
+sort stage as the two-stage terasort — a range-partition shuffle, then a
+bucket-major regroup (kernel K1) and one multi-segment sort (kernel K3 or
+K2, or the ``torch.sort`` oracle).
 
 UDF contracts are the JAX package's: ``map(fn)`` maps records to records
 (padding-oblivious); ``shuffle(by)`` gives ``(ranks, n)`` bucket ids,
 negative meaning "emit nothing"; ``reduce(fn)`` takes ``(records,
 valid)`` of one rank group and returns ``(records, valid)`` or ``(records,
 valid, dropped)`` — here over all ranks at once, each leaf leading with
-the rank axis.
+the rank axis (``dropped`` a scalar or one count per rank, summed).
 """
 
 from __future__ import annotations
@@ -30,7 +33,8 @@ from __future__ import annotations
 import dataclasses
 import os
 from collections import OrderedDict, namedtuple
-from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
+from typing import (Any, Callable, Dict, List, NamedTuple, Optional,
+                    Sequence, Tuple)
 
 import numpy as np
 import torch
@@ -194,6 +198,10 @@ class _CacheEntry(NamedTuple):
 class SPMDExecutor:
     """Runs a :class:`Dataflow` over stacked ranks (see module docstring).
 
+    ``axes`` are the rank axes the shuffles exchange over, as the JAX
+    executor's ``axes=``: one axis gives the flat ``all_to_all``, a ``(dc,
+    node)`` pair the two-level wide-area path. They must cover every rank
+    (default: all axes of ``ranks``); an explicit ``plan`` brings its own.
     Every shuffle hop ships one fused wire tensor with no per-record
     metadata (``wire_meta="min"``): the executor regroups from the
     records themselves. ``chunks`` sets the pipeline depth of every hop
@@ -218,6 +226,7 @@ class SPMDExecutor:
     """
 
     def __init__(self, ranks: Optional[Ranks] = None,
+                 axes: Optional[Sequence[str]] = None,
                  plan: Optional[ShufflePlan] = None,
                  use_pallas: bool = False,
                  chunks: Optional[int] = None,
@@ -225,9 +234,15 @@ class SPMDExecutor:
                  debug_checks: bool = True,
                  sort_algo: Optional[str] = None):
         self.ranks = ranks if ranks is not None else Ranks()
-        if plan is not None and plan.world != self.ranks.world:
-            raise ValueError(f"plan is for {plan.world} ranks, executor has "
-                             f"{self.ranks.world}")
+        if plan is not None:
+            plan.check(self.ranks)
+            self.axes = tuple(plan.axes)
+        else:
+            self.axes = self.ranks.axis_names(axes)
+        if self.ranks.axis_size(self.axes) != self.ranks.world:
+            raise ValueError(f"axes={self.axes} cover "
+                             f"{self.ranks.axis_size(self.axes)} of "
+                             f"{self.ranks.world} ranks")
         self.plan = plan
         self.sort_algo = (sort_algo if sort_algo is not None
                           else ("bitonic" if use_pallas else None))
@@ -248,7 +263,7 @@ class SPMDExecutor:
 
     @property
     def axis_size(self) -> int:
-        return self.ranks.world
+        return self.ranks.axis_size(self.axes)
 
     def cache_info(self) -> CacheInfo:
         return CacheInfo(self._hits, self._misses, self._evictions,
@@ -277,7 +292,7 @@ class SPMDExecutor:
         else:
             valid = torch.as_tensor(valid).to(dev).reshape(world, n)
         leaves, treedef = tree_flatten(records)
-        key = (id(pipeline), self.plan, self.chunks, self.sort_algo,
+        key = (id(pipeline), self.plan, self.axes, self.chunks, self.sort_algo,
                os.environ.get(autotune.FORCE_ENV), treedef,
                tuple((tuple(l.shape), l.dtype) for l in leaves), str(dev))
         with tr.span("spmd.run", pipeline=pipeline.describe(),
@@ -404,7 +419,7 @@ class SPMDExecutor:
             return dataclasses.replace(self.plan, chunks=w)
         nb = num_buckets or self.axis_size
         return ShufflePlan.for_ranks(self.ranks, nb, n_local, capacity_factor,
-                                     chunks=1 if w is None else w)
+                                     self.axes, chunks=1 if w is None else w)
 
     def _exchange(self, records, valid, ids, num_buckets, capacity_factor,
                   chunks, entry: _CacheEntry, i: int):
@@ -482,7 +497,7 @@ class SPMDExecutor:
         leaves, treedef = tree_flatten(records)
         tiles, in_rng, _, seg_drop = kops.partition_pack(
             [skey] + leaves, seg_dest, bpd, seg_cap)
-        dropped = dropped + self.ranks.psum(seg_drop)
+        dropped = dropped + self.ranks.psum(seg_drop, plan.pmean_axes())
 
         # ... then one multi-segment sort: ranks*bpd rows of seg_cap. Empty
         # slots carry the max-key sentinel so each segment's valid records

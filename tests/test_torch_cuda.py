@@ -6,7 +6,8 @@ Marked ``cuda``: without a GPU every test here skips (decided inside the
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
 
 Comparisons are exact (tolerance 0); the unstable bitonic sort is held to
-equal keys and an equal (key, value) multiset.
+equal keys and an equal (key, value) multiset. The grid terasort and the
+wordcount on the card must equal the port's CPU run of the same input.
 """
 
 import numpy as np
@@ -16,7 +17,10 @@ import torch
 from repro_torch import interop
 from repro_torch.comm import Ranks
 from repro_torch.core.sort import is_globally_sorted, terasort
-from repro_torch.kernels import bitonic_sort, partition, radix_sort, ref
+from repro_torch.core.mapreduce import default_hash, reduce_by_key_sum
+from repro_torch.kernels import (bitonic_sort, bucket_hist, partition,
+                                 radix_sort, ref)
+from repro_torch.sphere.dataflow import Dataflow, SPMDExecutor
 
 pytestmark = pytest.mark.cuda
 
@@ -46,6 +50,29 @@ def test_partition_rank_kernel_matches_plain(card, rows, n, num_dest):
     ok = (dest >= 0) & (dest < num_dest)
     assert torch.equal(counts, rcounts)
     assert torch.equal(rank[ok], rrank[ok])
+
+
+@pytest.mark.parametrize("rows,n,num_buckets", [
+    (1, 1, 1), (1, 7, 4), (8, 5000, 8), (3, 70001, 17), (2, 4097, 513),
+    (1, 100_000, 4096), (4, 0, 3)])
+def test_bucket_hist_kernel_matches_plain(card, rows, n, num_buckets):
+    ids = torch.randint(-2, num_buckets + 2, (rows, n), device=card,
+                        dtype=torch.int32, generator=_gen(card, n + 1))
+    if n:
+        ids[0, 0] = torch.iinfo(torch.int32).min
+        ids[-1, -1] = torch.iinfo(torch.int32).max
+    before = bucket_hist.KERNEL.launches
+    got = bucket_hist.bucket_histogram(ids, num_buckets)
+    assert bucket_hist.KERNEL.launches == before + (1 if n else 0)
+    assert torch.equal(got, ref.bucket_histogram_ref(ids, num_buckets))
+
+
+def test_bucket_hist_kernel_one_id_past_2_24(card):
+    n = 1 << 25
+    ids = torch.zeros((1, n + 5), dtype=torch.int32, device=card)
+    ids[0, -5:] = 1
+    got = bucket_hist.bucket_histogram(ids, 4)
+    assert got.tolist() == [[n, 5, 0, 0]]
 
 
 @pytest.mark.parametrize("dtype", [torch.int32, torch.uint32, torch.float32])
@@ -87,3 +114,46 @@ def test_terasort_on_the_card_equals_the_cpu_port(card):
         results[dev] = interop.sort_result_to_global(res)
     for f in ("keys", "payload", "valid"):
         np.testing.assert_array_equal(results["cuda"][f], results["cpu"][f])
+
+
+def test_grid_terasort_on_the_card_equals_the_cpu_port(card):
+    rng = np.random.default_rng(1)
+    n = 8 * 4096
+    keys = rng.integers(0, 2**31 - 2, size=n).astype(np.int32)
+    payload = np.arange(n, dtype=np.int32)
+    results = {}
+    for dev in ("cpu", "cuda"):
+        rk = Ranks(shape=(2, 4), axes=("dc", "node"), device=dev)
+        res = terasort(interop.to_ranks(keys, rk),
+                       interop.to_ranks(payload, rk), rk, sort_algo="radix")
+        assert is_globally_sorted(res, 8) and int(res.dropped) == 0
+        assert rk.collectives["all_to_all"] == 2
+        results[dev] = interop.sort_result_to_global(res)
+    for f in ("keys", "payload", "valid"):
+        np.testing.assert_array_equal(results["cuda"][f], results["cpu"][f])
+
+
+def test_wordcount_on_the_card_equals_the_cpu_port(card):
+    words = ((np.random.default_rng(2).zipf(1.1, size=8 * 8192) - 1)
+             % 4096).astype(np.int32)
+
+    def count(rec, valid):
+        k, s, d = reduce_by_key_sum(rec["key"], rec["value"], valid,
+                                    algo="radix")
+        return {"key": k, "value": s}, k >= 0, d
+
+    df = (Dataflow.source()
+          .map(lambda r: {"key": r["word"], "value": r["word"] * 0 + 1})
+          .shuffle(by=lambda r: default_hash(r["key"], 8), num_buckets=8)
+          .reduce(count))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        rk = Ranks(8, device=dev)
+        before = radix_sort.KERNEL.launches
+        res = SPMDExecutor(rk).run(df, {"word": interop.to_ranks(words, rk)})
+        assert radix_sort.KERNEL.launches == before + (dev == "cuda")
+        assert int(res.dropped) == 0
+        out[dev] = [interop.to_global(t) for t in
+                    (res.valid, res.records["key"], res.records["value"])]
+    for a, b in zip(out["cuda"], out["cpu"]):
+        np.testing.assert_array_equal(a, b)

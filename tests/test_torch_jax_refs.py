@@ -1,14 +1,16 @@
 """The JAX references of the port's multi-device tests, from ONE subprocess.
 
-``tests/test_torch_shuffle.py`` and ``tests/test_torch_terasort.py`` hold
-the port on ``Ranks(8, device="cpu")`` against the JAX package on 8
-virtual CPU devices (Auto-axis mesh from ``repro.compat.make_mesh``).
-Starting JAX with 8 devices and compiling its programs is most of their
-cost, so one subprocess computes every reference both modules need and
-writes it to an ``.npz``; :func:`jax_references` returns it, once per
-process. Under pytest-xdist the workers of one session share that file
-through a lock in the session's common temp directory, so the subprocess
-runs once per session whichever workers the two modules land on.
+``tests/test_torch_shuffle.py``, ``tests/test_torch_terasort.py``,
+``tests/test_torch_hier_shuffle.py`` and ``tests/test_torch_mapreduce.py``
+hold the port on ``Ranks(8, device="cpu")`` (or the ``(dc, node) = (2,
+4)`` grid) against the JAX package on 8 virtual CPU devices (Auto-axis
+meshes from ``repro.compat.make_mesh``). Starting JAX with 8 devices and
+compiling its programs is most of their cost, so one subprocess computes
+every reference these modules need and writes it to an ``.npz``;
+:func:`jax_references` returns it, once per process. Under pytest-xdist
+the workers of one session share that file through a lock in the
+session's common temp directory, so the subprocess runs once per session
+whichever workers the modules land on.
 
 This module holds no tests of its own.
 """
@@ -41,6 +43,34 @@ MSR_SRC = ("Dataflow.source()"
            ".shuffle(by=lambda r: r['k'] % 16, num_buckets=16, "
            "capacity_factor=1.1)"
            ".reduce(lambda r, v: (r, v))")
+
+
+# -- the wide-area (dc, node) shuffle (tests/test_torch_hier_shuffle.py) --------
+
+CAP_A, CAP_B = 120, 230     # n_local 512 over 4 nodes / 2 DCs: some drops
+#: (wire_meta, chunks) cases of the hierarchical shuffle
+HIER_CASES = (("full", 1), ("full", 2), ("min", 1))
+
+# -- MapReduce (tests/test_torch_mapreduce.py) ----------------------------------
+
+N_WORDS = 8 * 1024
+VOCAB = 1 << 10
+
+#: the wordcount pipeline, the same source text for both packages
+#: (``ALGO`` pins the reduce's sort).
+WORDCOUNT_SRC = (
+    "Dataflow.source()"
+    ".map(lambda r: {'key': r['word'], 'value': r['word'] * 0 + 1})"
+    ".shuffle(by=lambda r: default_hash(r['key'], 8), num_buckets=8)"
+    ".reduce(lambda r, v: (lambda k, s, d: ({'key': k, 'value': s}, "
+    "k >= 0, d))(*reduce_by_key_sum(r['key'], r['value'], v, algo=ALGO)))")
+
+
+def word_inputs():
+    """Word ids: Zipf exponent 1.1 folded into a ``VOCAB``-word vocabulary
+    (the shape of ``chip_smoke.py``'s wordcount input, smaller)."""
+    rng = np.random.default_rng(3)
+    return ((rng.zipf(1.1, size=N_WORDS) - 1) % VOCAB).astype(np.int32)
 
 
 def shuffle_inputs():
@@ -77,7 +107,7 @@ def _run_references(d) -> None:
     data, buckets, valid = shuffle_inputs()
     keys, payload, value = terasort_inputs()
     np.savez(d / "in.npz", data=data, buckets=buckets, valid=valid,
-             keys=keys, payload=payload, value=value)
+             keys=keys, payload=payload, value=value, words=word_inputs())
     run_jax_8dev(f"""
         import numpy as np, jax, jax.numpy as jnp
         from jax.sharding import NamedSharding, PartitionSpec as P
@@ -152,6 +182,142 @@ def _run_references(d) -> None:
             out["msr_v"] = np.asarray(res.records["v"])
             out["msr_valid"] = np.asarray(res.valid)
             out["msr_dropped"] = np.asarray(res.dropped)
+
+        # -- the wide-area (dc, node) grid --------------------------------
+        from repro.core.shuffle import (ShufflePlan, hierarchical_shuffle,
+                                        hierarchical_combine, sphere_combine)
+        from repro.core.introspect import collective_counts
+        from repro.core.mapreduce import (default_hash, map_reduce,
+                                          reduce_by_key_sum)
+        from repro.core.stream import make_stream
+        from repro.core.udf import sphere_map
+        import dataclasses
+        mesh2 = make_mesh((2, 4), ("dc", "node"))
+        s2 = P(("dc", "node"))
+        sh2 = NamedSharding(mesh2, s2)
+        put2 = lambda a: jax.device_put(jnp.asarray(a), sh2)
+        args2 = [put2(src[k]) for k in ("data", "buckets", "valid")]
+        hier_fields = ("data", "valid", "bucket", "src_pos", "b_pos",
+                       "a_valid", "a_src")
+        for wire_meta, chunks in {HIER_CASES!r}:
+            def udf(x, b, v):
+                r = hierarchical_shuffle(
+                    x, b.reshape(-1), 16, {CAP_A}, {CAP_B}, "dc", "node",
+                    valid=v.reshape(-1), chunks=chunks, wire_meta=wire_meta)
+                outs = [getattr(r, f) for f in hier_fields]
+                outs = [jnp.zeros((1,), jnp.int32) if o is None else o
+                        for o in outs]
+                return tuple(outs) + (r.dropped,)
+            with mesh2:
+                res = jax.jit(shard_map(
+                    udf, mesh=mesh2, in_specs=(s2,) * 3,
+                    out_specs=(s2,) * 7 + (P(),), check_vma=False))(*args2)
+            tag = f"hier_{{wire_meta}}{{chunks}}"
+            for name, a in zip(hier_fields + ("dropped",), res):
+                out[f"{{tag}}_{{name}}"] = np.asarray(a)
+
+        # combines: int32 results (data * 3) routed back to the origin rows
+        def hier_round(x, b, v):
+            r = hierarchical_shuffle(x, b.reshape(-1), 16, {CAP_A}, {CAP_B},
+                                     "dc", "node", valid=v.reshape(-1))
+            return hierarchical_combine(r.data * 3, r, "dc", "node",
+                                        x.shape[0])
+        def flat_round(x, b, v):
+            r = sphere_shuffle(x, b.reshape(-1), 16, {CAP}, "data",
+                               valid=v.reshape(-1))
+            return sphere_combine(r.data * 3, r, "data", x.shape[0])
+        with mesh2:
+            c, h = jax.jit(shard_map(hier_round, mesh=mesh2,
+                                     in_specs=(s2,) * 3, out_specs=(s2, s2),
+                                     check_vma=False))(*args2)
+        out["hcombine_out"], out["hcombine_hits"] = np.asarray(c), np.asarray(h)
+        with mesh:
+            c, h = jax.jit(shard_map(flat_round, mesh=mesh,
+                                     in_specs=(P("data"),) * 3,
+                                     out_specs=(P("data"),) * 2,
+                                     check_vma=False))(*args)
+        out["fcombine_out"], out["fcombine_hits"] = np.asarray(c), np.asarray(h)
+
+        # the collective counts of every hop kind (traced, not run)
+        flat_p = ShufflePlan.for_mesh(mesh, 16, 512, 2.5, ("data",))
+        hier_p = ShufflePlan.for_mesh(mesh2, 16, 512, 2.5, ("dc", "node"))
+        d0, b0 = jnp.zeros((4096, 3), jnp.int32), jnp.zeros((4096,), jnp.int32)
+        def counts(plan, m, spec, combine):
+            def f(d, b):
+                r = plan.shuffle(d, b.reshape(-1))
+                if combine:
+                    return plan.combine(r.data * 2, r, 512)
+                return r.data, r.valid
+            g = shard_map(f, mesh=m, in_specs=(spec, spec),
+                          out_specs=(spec, spec), check_vma=False)
+            c = collective_counts(g, d0, b0)
+            return np.array([c["all_to_all"], c["all_gather"]])
+        for kind, plan, m, spec in (("flat", flat_p, mesh, P("data")),
+                                    ("hier", hier_p, mesh2, s2)):
+            for w in (1, 2, 4):
+                pw = dataclasses.replace(plan, chunks=w)
+                out[f"count_{{kind}}{{w}}"] = counts(pw, m, spec, False)
+            out[f"count_{{kind}}_combine"] = counts(plan, m, spec, True)
+
+        # terasort and the 100-byte Dataflow sort on the grid
+        k2, p2 = put2(src["keys"]), put2(src["payload"])
+        with mesh2:
+            save("hier_bitonic", terasort(k2, p2, mesh2, axis=("dc", "node"),
+                                          use_pallas=True))
+            save("hier_radix", terasort(put2(src["keys"][:{N_RADIX}]),
+                                        put2(src["payload"][:{N_RADIX}]),
+                                        mesh2, axis=("dc", "node"),
+                                        sort_algo="radix"))
+            recs = {{"key": put2(src["keys"][:{N_BYTES}]),
+                     "value": put2(src["value"])}}
+            df = Dataflow.source().sort(key=lambda r: r["key"],
+                                        num_buckets=8)
+            res = SPMDExecutor(mesh2, axes=("dc", "node"),
+                               sort_algo="bitonic").run(df, recs)
+            out["hbytes_key"] = np.asarray(res.records["key"])
+            out["hbytes_value"] = np.asarray(res.records["value"])
+            out["hbytes_valid"] = np.asarray(res.valid)
+            out["hbytes_dropped"] = np.asarray(res.dropped)
+
+        # wordcount on the flat mesh and on the grid
+        WC = eval({WORDCOUNT_SRC!r}, {{"Dataflow": Dataflow,
+                                      "default_hash": default_hash,
+                                      "reduce_by_key_sum": reduce_by_key_sum,
+                                      "ALGO": "oracle"}})
+        for tag, m, ax, pt in (("wc_flat", mesh, ("data",), put),
+                               ("wc_hier", mesh2, ("dc", "node"), put2)):
+            with m:
+                res = SPMDExecutor(m, axes=ax).run(WC, {{"word": pt(src["words"])}})
+            out[f"{{tag}}_key"] = np.asarray(res.records["key"])
+            out[f"{{tag}}_value"] = np.asarray(res.records["value"])
+            out[f"{{tag}}_valid"] = np.asarray(res.valid)
+            out[f"{{tag}}_dropped"] = np.asarray(res.dropped)
+
+        # the deprecated map_reduce shim, with max_unique truncation drops
+        with mesh:
+            mk, mv, mval, mdrop = map_reduce(
+                lambda seg: (seg % 300, seg * 0 + 1),
+                lambda k, v, ok: reduce_by_key_sum(k, v, ok, max_unique=20,
+                                                   algo="oracle"),
+                put(src["words"]), mesh, num_buckets=8)
+        out["mr_key"], out["mr_value"] = np.asarray(mk), np.asarray(mv)
+        out["mr_valid"], out["mr_dropped"] = np.asarray(mval), np.asarray(mdrop)
+
+        # sphere_map: record-wise with validity, whole-segment, two streams,
+        # and a replicated output
+        st = make_stream(src["data"], mesh)
+        st = dataclasses.replace(st, valid=put(src["valid"]))
+        r1 = sphere_map(lambda x: x * 2 + 1, st, mesh)
+        out["smap_rec"], out["smap_rec_valid"] = (np.asarray(r1.data),
+                                                  np.asarray(r1.valid))
+        r2 = sphere_map(lambda x: x.sum(axis=0, keepdims=True), st, mesh)
+        out["smap_seg"] = np.asarray(r2.data)
+        out["smap_seg_valid"] = np.array(r2.valid is None)
+        r3 = sphere_map(lambda a, b: a - b[:, :1], [st, make_stream(
+            src["data"] * 5, mesh)], mesh)
+        out["smap_two"] = np.asarray(r3.data)
+        r4 = sphere_map(lambda x: x[:2] * 0 + 7, st, mesh, out_axis=None)
+        out["smap_rep"] = np.asarray(r4.data)
         np.savez({str(d / "out.tmp.npz")!r}, **out)
     """)
     os.replace(d / "out.tmp.npz", d / "out.npz")

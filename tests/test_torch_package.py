@@ -14,7 +14,7 @@ import torch
 
 from repro_torch.comm import Ranks, resolve_device
 from repro_torch.core.sort import terasort
-from repro_torch.kernels import bitonic_sort, partition, radix_sort
+from repro_torch.kernels import bitonic_sort, bucket_hist, partition, radix_sort
 from repro_torch.sphere.dataflow import SPMDExecutor
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -45,11 +45,15 @@ def test_port_file_list_covers_the_slice():
              for p in PORT_FILES[:-1]}
     for want in ("comm.py", "interop.py", "kernels/partition.py",
                  "kernels/bitonic_sort.py", "kernels/radix_sort.py",
-                 "kernels/build.py", "core/shuffle.py", "core/sort.py",
-                 "sphere/dataflow.py", "obs/trace.py"):
+                 "kernels/bucket_hist.py", "kernels/build.py",
+                 "core/shuffle.py", "core/sort.py", "core/mapreduce.py",
+                 "core/stream.py", "core/udf.py", "core/introspect.py",
+                 "sector/topology.py", "sphere/dataflow.py", "obs/trace.py"):
         assert want in names
     csrc = ROOT / "src" / "repro_torch" / "kernels" / "csrc"
-    for k in (partition.KERNEL, bitonic_sort.KERNEL, radix_sort.KERNEL):
+    assert (csrc / "bucket_hist.cu").exists()
+    for k in (partition.KERNEL, bitonic_sort.KERNEL, radix_sort.KERNEL,
+              bucket_hist.KERNEL):
         assert (csrc / f"{k.name}.cu").exists(), k.name
         assert (ROOT / k.source).exists()
 
@@ -57,13 +61,17 @@ def test_port_file_list_covers_the_slice():
 def test_entry_points_default_to_cuda(monkeypatch):
     if torch.cuda.is_available():
         assert Ranks().device.type == "cuda"
+        assert Ranks(shape=(2, 4), axes=("dc", "node")).device.type == "cuda"
     else:
         with pytest.raises(RuntimeError, match="cuda"):
             Ranks()
+        with pytest.raises(RuntimeError, match="cuda"):
+            Ranks(shape=(2, 4), axes=("dc", "node"))
     # without a card every default entry point refuses, never runs on CPU
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert resolve_device("cpu").type == "cpu"
     for call in (lambda: resolve_device(None), lambda: Ranks(),
+                 lambda: Ranks(shape=(2, 4), axes=("dc", "node")),
                  lambda: SPMDExecutor(),
                  lambda: terasort(np.zeros((8, 4), np.int32),
                                   np.zeros((8, 4), np.int32))):
@@ -72,15 +80,16 @@ def test_entry_points_default_to_cuda(monkeypatch):
 
 
 def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
-    before = [k.launches for k in (partition.KERNEL, bitonic_sort.KERNEL,
-                                   radix_sort.KERNEL)]
+    kernels = (partition.KERNEL, bitonic_sort.KERNEL, radix_sort.KERNEL,
+               bucket_hist.KERNEL)
+    before = [k.launches for k in kernels]
     d = torch.tensor([0, 1, 0, 5], dtype=torch.int32)
     partition.partition_rank(d, 2)
+    bucket_hist.bucket_histogram(d, 2)
     k = torch.tensor([[3, 1, 2]], dtype=torch.int32)
     bitonic_sort.sort_kv_segments_bitonic(k, k)
     radix_sort.sort_kv_segments_radix(k, k)
-    after = [k.launches for k in (partition.KERNEL, bitonic_sort.KERNEL,
-                                  radix_sort.KERNEL)]
+    after = [k.launches for k in kernels]
     assert after == before
 
 

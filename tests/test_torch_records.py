@@ -5,6 +5,9 @@ file written by one package is readable by the other).
 """
 
 import jax.numpy as jnp
+import gc
+import weakref
+
 import numpy as np
 import pytest
 import torch
@@ -164,3 +167,20 @@ def test_wireframe_explicit_valid_bytes_match_jax():
         tf.seal(trows.reshape(3, 4, -1), torch.zeros(3, dtype=torch.int32))
     with pytest.raises(ValueError):
         tf.frame_rows(torch.from_numpy(payload), src=torch.from_numpy(src))
+
+
+def test_tree_unflatten_frees_its_leaves_without_the_cycle_collector():
+    """Rebuilding a tree must leave no reference cycle behind: one would
+    keep whole record buffers alive until the cyclic collector ran (on the
+    card, gigabytes of peak memory)."""
+    tree = {"a": torch.zeros(4), "b": (torch.ones(2), [torch.ones(3)])}
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        out = trec.tree_map(lambda x: x * 2, tree)
+        refs = [weakref.ref(t) for t in trec.tree_flatten(out)[0]]
+        del out
+        assert all(r() is None for r in refs)
+    finally:
+        if enabled:
+            gc.enable()

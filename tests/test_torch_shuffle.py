@@ -80,12 +80,14 @@ def test_plan_geometry_matches_jax():
     for n_local, cf, chunks in [(512, 2.0, 1), (2048, 1.5, 4), (100, 4.0, 3)]:
         jp = JShufflePlan.for_mesh(mesh, 16, n_local, cf, chunks=chunks)
         tp = ShufflePlan.for_ranks(ranks, 16, n_local, cf, chunks=chunks)
-        assert tp.capacity == jp.capacities[0]
-        assert tp.stage_slots == jp.stage_slots(0)
+        assert (tp.axes, tp.shape) == (jp.axes, jp.shape)
+        assert tp.capacities == jp.capacities
+        assert tp.stage_slots(0) == jp.stage_slots(0)
         assert tp.recv_slots == jp.recv_slots
         assert tp.buckets_per_device == jp.buckets_per_device
     with pytest.raises(ValueError):
-        ShufflePlan(num_buckets=12, world=8, capacity=4)
+        ShufflePlan(num_buckets=12, axes=("data",), shape=(8,),
+                    capacities=(4,))
 
 
 @pytest.fixture(scope="module")
