@@ -16,7 +16,13 @@ Phases, in order (any failure ends the script with a non-zero exit):
 3. hold each kernel against its plain PyTorch version on the card, at the
    shapes the paths below give it and at edge cases, and time kernel,
    plain version and the nearest single PyTorch call (CUDA events, median
-   of 10 warm runs) beside the memory bound;
+   of 10 warm runs) beside the memory bound. K3 also at its design's
+   edges (rows of T - 1, T, T + 1 for its 8192-element tile, 1 to 4
+   merge passes, all-equal, all-maximum, sorted and reversed rows, 65535
+   rows of 3), keys-only against ``ref.sort_segments_ref``, timed on
+   random keys and on the main path's own stage-2 sort input at the flat
+   and the grid shape, with its CUDA launches per call counted by
+   ``torch.profiler``;
 4. K4's path, its entry point ``kernels.ops.bucket_histogram`` (on no
    dataflow path, as in the JAX package), on the main path's stage-1
    bucket ids;
@@ -144,17 +150,13 @@ def as_wide(t):
 
 
 def pairs_sorted(torch, keys, vals):
-    """Each row's multiset of (key, value) pairs whose key is below the
-    dtype maximum, as sorted int64 codes (pairs keyed by the maximum — the
-    padding sentinel — may trade payloads with padding in an unstable
-    sort; the rows' keys are compared separately)."""
+    """Each row's multiset of (key, value) pairs as sorted int64 codes
+    (key in sortable-bit order, then payload bits). K3 pads nothing in
+    memory, so pairs keyed by the dtype maximum are compared too."""
     from repro_torch.kernels.radix_sort import key_to_sortable_bits
     kb = key_to_sortable_bits(keys).view(torch.int32).to(torch.int64)
     kb = kb & 0xFFFFFFFF
     code = (kb << 32) | (vals.view(torch.int32).to(torch.int64) & 0xFFFFFFFF)
-    # sortable bits of the dtype maximum: int32/uint32 max, float32 +inf
-    top = 0xFF800000 if keys.dtype == torch.float32 else 0xFFFFFFFF
-    code = torch.where(kb == top, torch.iinfo(torch.int64).max, code)
     return torch.sort(code, dim=-1).values
 
 
@@ -300,9 +302,14 @@ def check_bucket_hist(torch, dev, gen, sh: Shapes):
     return chk, timing
 
 
-def check_sort(torch, dev, gen, kernel: str, seg_lens, time_len: int):
+def check_sort(torch, dev, gen, kernel: str, seg_lens, time_len: int,
+               stage2_real: int = 0):
+    """K2 or K3 against its plain version (tolerance 0) and timed.
+    ``stage2_real``: for K3, the real keys per row of the main path's
+    stage-2 sort input (the rest of the row is the int32 maximum)."""
     from repro_torch.kernels import ref
-    from repro_torch.kernels.bitonic_sort import sort_kv_segments_bitonic
+    from repro_torch.kernels.bitonic_sort import (sort_kv_segments_bitonic,
+                                                  sort_segments_bitonic)
     from repro_torch.kernels.radix_sort import (sort_kv_segments_radix,
                                                 sort_kv_segments_radix_ref)
     stable = kernel == "radix_sort"
@@ -321,33 +328,31 @@ def check_sort(torch, dev, gen, kernel: str, seg_lens, time_len: int):
         else:
             chk.equal(f"(key, value) multiset {what}",
                       pairs_sorted(torch, gk, gv), pairs_sorted(torch, rk, rv))
+            chk.equal(f"keys-only {what}", sort_segments_bitonic(keys),
+                      ref.sort_segments_ref(keys))
+
+    def numbered(shape):
+        return torch.arange(shape[0] * shape[1], dtype=torch.int32,
+                            device=dev).reshape(shape)
 
     for dtype in (torch.int32, torch.uint32, torch.float32):
         for shape in ((3, 1), (17, 3), (3, 1000), (5, 4097), (2, 70001),
                       (1, 1 << 16)):
             keys = make_keys(torch, gen, shape, dtype, dev)
-            vals = torch.arange(keys.numel(), dtype=torch.int32,
-                                device=dev).reshape(shape)
-            compare(f"{dtype} {shape}", keys, vals)
-    # duplicate runs, the dtype maximum, +-0.0 and +-inf (the maximum is
-    # also the bitonic padding sentinel: its payloads are compared only
-    # for the stable kernel)
+            compare(f"{dtype} {shape}", keys, numbered(shape))
+    # duplicate runs, the dtype maximum, +-0.0 and +-inf
     dup = torch.randint(0, 4, (4, 9000), generator=gen, device=dev,
                         dtype=torch.int32)
     dup[:, ::7] = 0x7FFFFFFF
-    compare("duplicates + int32 max", dup,
-            torch.arange(dup.numel(), dtype=torch.int32,
-                         device=dev).reshape(dup.shape))
+    compare("duplicates + int32 max", dup, numbered(dup.shape))
     f = torch.tensor([[0.0, -0.0, 1.0, -0.0, float("inf"), 0.0, -1.0,
                        float("-inf"), -0.0, 0.0]] * 3, device=dev)
-    compare("+-0.0 and inf", f,
-            torch.arange(f.numel(), dtype=torch.int32,
-                         device=dev).reshape(f.shape))
+    compare("+-0.0 and inf", f, numbered(f.shape))
     u = torch.full((2, 5000), -1, dtype=torch.int32, device=dev)
     u[:, ::3] = 5
-    compare("uint32 max", u.view(torch.uint32),
-            torch.arange(u.numel(), dtype=torch.int32,
-                         device=dev).reshape(u.shape))
+    compare("uint32 max", u.view(torch.uint32), numbered(u.shape))
+    if not stable:
+        bitonic_edges(torch, dev, gen, compare, numbered)
 
     def path_rows(seg_len):
         """Keys of valid records with sentinel padding, as the paths give
@@ -363,16 +368,18 @@ def check_sort(torch, dev, gen, kernel: str, seg_lens, time_len: int):
         keys, vals = path_rows(seg_len)
         compare(f"path rows {(WORLD, seg_len)}", keys, vals)
         del keys, vals
+        if not stable:
+            keys, vals = stage2_rows(torch, gen, dev, seg_len, stage2_real)
+            compare(f"stage-2 input {(WORLD, seg_len)}", keys, vals)
+            del keys, vals
     torch.cuda.synchronize()
 
-    def timed(seg_len):
-        keys, vals = path_rows(seg_len)
-
+    def timed(keys, vals):
         def library():
             s = torch.sort(keys, dim=-1, stable=True)
             return s.values, torch.gather(vals, -1, s.indices)
 
-        return {"shape": [WORLD, seg_len],
+        return {"shape": list(keys.shape),
                 "ms": time_ms(torch, lambda: fn(keys, vals)),
                 "plain_ms": time_ms(torch, lambda: plain(keys, vals)),
                 "library_ms": time_ms(torch, library),
@@ -380,9 +387,111 @@ def check_sort(torch, dev, gen, kernel: str, seg_lens, time_len: int):
                 # read keys and values once, write both once
                 "bound_ms": bound_ms(16 * keys.numel())}
 
-    timing = timed(time_len)
-    timing["other_shapes"] = [timed(n) for n in seg_lens if n != time_len]
+    if stable:
+        timing = timed(*path_rows(time_len))
+        timing["other_shapes"] = [timed(*path_rows(n)) for n in seg_lens
+                                  if n != time_len]
+        return chk, timing
+    keys = torch.randint(0, (1 << 31) - 1, (WORLD, time_len), generator=gen,
+                         device=dev, dtype=torch.int32)
+    vals = torch.arange(time_len, dtype=torch.int32,
+                        device=dev).expand(WORLD, -1).contiguous()
+    timing = {"data": "random int32 keys", **timed(keys, vals),
+              **bitonic_launches(torch, keys, vals)}
+    del keys, vals
+    timing["on_path_rows"] = []
+    for seg_len in seg_lens:
+        keys, vals = stage2_rows(torch, gen, dev, seg_len, stage2_real)
+        timing["on_path_rows"].append(
+            {"data": f"stage-2 input: {stage2_real} real keys a row, then "
+                     f"the int32 maximum", **timed(keys, vals)})
+        del keys, vals
     return chk, timing
+
+
+def bitonic_edges(torch, dev, gen, compare, numbered):
+    """K3 at its design's edges: rows one short of, at and one past the
+    block-sort tile T, with 2, 3 and 4 merge passes (the result comes from
+    either scratch buffer), all-equal, all-maximum (the padding sentinel),
+    sorted and reversed rows, and 65535 rows of 3."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.bitonic_sort import MAX_ROWS, TILE
+    tops = {torch.int32: 0x7FFFFFFF, torch.uint32: -1,
+            torch.float32: float("inf")}
+    for dtype in (torch.int32, torch.uint32, torch.float32):
+        for s in (TILE - 1, TILE, TILE + 1, 2 * TILE + 1, 4 * TILE + 1,
+                  9 * TILE + 5):
+            shape = (3, s)
+            keys = make_keys(torch, gen, shape, dtype, dev)
+            bits = keys.view(torch.int32)          # uint32 has few ops
+            bits[:, ::5] = bits[:, :1].clone()     # duplicate runs
+            compare(f"{dtype} tile edge {shape}", keys, numbered(shape))
+        for s in (2 * TILE + 1, 4 * TILE + 1):
+            shape = (2, s)
+            keys = make_keys(torch, gen, shape, dtype, dev)
+            bits = keys.view(torch.int32)
+            up = ref.sort_segments_ref(keys).view(torch.int32)
+            cases = {
+                "all equal": bits[:, :1].expand(shape).contiguous(),
+                "all maximum": torch.full(
+                    shape, tops[dtype], device=dev,
+                    dtype=torch.float32 if dtype == torch.float32
+                    else torch.int32).view(torch.int32),
+                "sorted": up,
+                "reversed": up.flip(-1).contiguous()}
+            for what, k in cases.items():
+                compare(f"{dtype} {what} {shape}", k.view(dtype),
+                        numbered(shape))
+    keys = make_keys(torch, gen, (MAX_ROWS, 3), torch.int32, dev)
+    compare(f"{MAX_ROWS} rows of 3", keys, numbered(keys.shape))
+
+
+def stage2_rows(torch, gen, dev, seg_len: int, real: int):
+    """The main path's stage-2 sort input (``dataflow.py``, the regroup's
+    ``seg_keys``): each rank's ``real`` received keys, all inside its
+    bucket's range of the default splitters, in the prefix of the row, the
+    rest the int32 maximum; payload = slot index."""
+    span = (1 << 31) // WORLD
+    keys = torch.randint(0, span, (WORLD, seg_len), generator=gen, device=dev,
+                         dtype=torch.int32)
+    keys += torch.arange(WORLD, device=dev, dtype=torch.int32)[:, None] * span
+    keys[:, real:] = 0x7FFFFFFF
+    vals = torch.arange(seg_len, dtype=torch.int32,
+                        device=dev).expand(WORLD, -1).contiguous()
+    return keys, vals
+
+
+def bitonic_launches(torch, keys, vals):
+    """CUDA launches one K3 call makes, counted by ``torch.profiler`` from
+    the device's kernel events and held to the wrapper's pass plan, and
+    the call's device memory beyond its inputs."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels.bitonic_sort import (pass_plan,
+                                                  sort_kv_segments_bitonic)
+    plan = pass_plan(*keys.shape)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out = sort_kv_segments_bitonic(keys, vals)
+        torch.cuda.synchronize()
+    del out
+    names = [e.name for e in prof.events()
+             if e.device_type == DeviceType.CUDA and "k3::" in e.name]
+    if len(names) != plan.cuda_launches:
+        raise AssertionError(f"one K3 call made {len(names)} CUDA launches, "
+                             f"its plan says {plan.cuda_launches}: {names}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out = sort_kv_segments_bitonic(keys, vals)
+    torch.cuda.synchronize()
+    extra = torch.cuda.max_memory_allocated() - base
+    del out
+    return {"merge_passes": plan.merge_passes, "tile": plan.tile,
+            "cuda_launches_per_call": len(names),
+            "launch_names": sorted(set(n.split("(")[0] for n in names)),
+            "call_device_bytes": extra}
 
 
 # -- phases 4 to 8 ---------------------------------------------------------------
@@ -820,7 +929,8 @@ def main(argv=None) -> int:
     sh = Shapes(args.n_log2)
     checks = {"partition": check_partition(torch, dev, gen, sh),
               "bitonic_sort": check_sort(torch, dev, gen, "bitonic_sort",
-                                         [sh.recv, sh.recv_grid], sh.recv),
+                                         [sh.recv, sh.recv_grid], sh.recv,
+                                         stage2_real=sh.n_local),
               "radix_sort": check_sort(torch, dev, gen, "radix_sort",
                                        [sh.recv, sh.wc_recv], sh.wc_recv),
               "bucket_hist": check_bucket_hist(torch, dev, gen, sh)}
@@ -877,6 +987,13 @@ def main(argv=None) -> int:
             rows[-1]["on_path_rows"] = {
                 f: wc["k2_on_path_rows"][f]
                 for f in ("ms", "plain_ms", "library_ms", "bound_ms")}
+        if k.name == "bitonic_sort":
+            rows[-1]["cuda_launches_per_call"] = \
+                timing["cuda_launches_per_call"]
+            rows[-1]["on_path_rows"] = [
+                {f: r[f] for f in ("shape", "ms", "plain_ms", "library_ms",
+                                   "bound_ms")}
+                for r in timing["on_path_rows"]]
     log(json.dumps({"kernels": rows}))
     log(nvidia_smi_line())
     log(json.dumps({"ok": True, "device": {

@@ -132,7 +132,7 @@ def _radix(keys: torch.Tensor, values) -> Tuple:
     hist = torch.empty((n, 1 << BITS, tiles), dtype=torch.int32, device=dev)
     counts = torch.empty((n, 1 << BITS), dtype=torch.int32, device=dev)
     KERNEL.launch("radix_sort_launch", k_in, v_in, out_k, out_v, tmp_k, tmp_v,
-                  hist, counts, n, s, KEY_MODES[keys.dtype][0])
+                  hist, counts, n, s, KEY_MODES[keys.dtype])
     return (out_k.view(keys.dtype),
             None if out_v is None else out_v.view(values.dtype))
 

@@ -100,6 +100,95 @@ def test_sort_kernels_match_plain(card, dtype, rows, s):
         assert got == want
 
 
+T = bitonic_sort.TILE
+
+
+def _bitonic_case(card, dtype, rows, s, kind, seed):
+    """Keys of one kind: random (with duplicates), all equal, all the
+    dtype maximum (the stage-2 padding sentinel), sorted, or reversed."""
+    g = _gen(card, seed)
+    if dtype == torch.float32:
+        keys = torch.randn((rows, s), device=card, generator=g)
+        top = float("inf")
+    else:
+        keys = torch.randint(-2**31, 2**31 - 1, (rows, s), device=card,
+                             dtype=torch.int32, generator=g).view(dtype)
+        top = -1 if dtype == torch.uint32 else 2**31 - 1
+    if kind == "dups":
+        keys[:, ::3] = keys[:, :1]
+    elif kind == "equal":
+        keys = keys[:, :1].expand(rows, s).contiguous()
+    elif kind == "max":
+        bits = torch.full((rows, s), top, device=card,
+                          dtype=torch.float32 if dtype == torch.float32
+                          else torch.int32)
+        keys = bits if dtype != torch.uint32 else bits.view(torch.uint32)
+    elif kind in ("sorted", "reversed"):
+        keys = ref.sort_segments_ref(keys)
+        if kind == "reversed":
+            keys = keys.flip(-1).contiguous()
+    return keys
+
+
+def _held_to_plain(keys, vals):
+    before = bitonic_sort.KERNEL.launches
+    keys_in, vals_in = keys.clone(), vals.clone()
+    bk, bv = bitonic_sort.sort_kv_segments_bitonic(keys, vals)
+    bko = bitonic_sort.sort_segments_bitonic(keys)
+    torch.cuda.synchronize()
+    assert bitonic_sort.KERNEL.launches == before + 2
+    assert torch.equal(keys.view(torch.int32), keys_in.view(torch.int32))
+    assert torch.equal(vals, vals_in)                # inputs untouched
+    rk, rv = ref.sort_kv_segments_ref(keys, vals)
+    assert torch.equal(bk.view(torch.int32), rk.view(torch.int32))
+    assert torch.equal(bko.view(torch.int32),
+                       ref.sort_segments_ref(keys).view(torch.int32))
+    # (key, value) multiset per row: sort both by the 64-bit (key, value)
+    # code, keys in sortable-bit order
+    def codes(k, v):
+        kb = radix_sort.key_to_sortable_bits(k).view(torch.int32)
+        c = ((kb.to(torch.int64) & 0xFFFFFFFF) << 32) | (
+            v.view(torch.int32).to(torch.int64) & 0xFFFFFFFF)
+        return torch.sort(c, dim=-1).values
+    assert torch.equal(codes(bk, bv), codes(rk, rv))
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.uint32, torch.float32])
+@pytest.mark.parametrize("s", [T - 1, T, T + 1, 2 * T + 1, 4 * T + 1,
+                               9 * T + 5])
+def test_bitonic_tile_and_pass_edges(card, dtype, s):
+    """Rows at the block-sort tile's edges and with 1, 2, 3 and 4 merge
+    passes (odd and even: the result comes from either scratch buffer)."""
+    for kind in ("random", "dups"):
+        keys = _bitonic_case(card, dtype, 3, s, kind, s)
+        vals = torch.arange(3 * s, dtype=torch.int32,
+                            device=card).reshape(3, s)
+        _held_to_plain(keys, vals)
+
+
+@pytest.mark.parametrize("kind", ["equal", "max", "sorted", "reversed"])
+@pytest.mark.parametrize("s", [T, 2 * T + 1, 4 * T + 1])
+def test_bitonic_special_rows(card, kind, s):
+    for dtype in (torch.int32, torch.uint32, torch.float32):
+        keys = _bitonic_case(card, dtype, 2, s, kind, s + 1)
+        vals = torch.arange(2 * s, dtype=torch.int32,
+                            device=card).reshape(2, s)
+        _held_to_plain(keys, vals)
+
+
+def test_bitonic_most_rows_and_the_main_path_row(card):
+    keys = _bitonic_case(card, torch.int32, 65535, 3, "random", 7)
+    vals = torch.arange(keys.numel(), dtype=torch.int32,
+                        device=card).reshape(keys.shape)
+    _held_to_plain(keys, vals)
+    # the stage-2 sort input: half real keys, then the int32 maximum
+    s = (1 << 23) + 8
+    keys = _bitonic_case(card, torch.int32, 2, s, "random", 8)
+    keys[:, 1 << 22:] = 2**31 - 1
+    vals = torch.arange(s, dtype=torch.int32, device=card).expand(2, -1)
+    _held_to_plain(keys, vals.contiguous())
+
+
 def test_terasort_on_the_card_equals_the_cpu_port(card):
     rng = np.random.default_rng(0)
     n = 8 * 4096
