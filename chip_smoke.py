@@ -22,7 +22,16 @@ Phases, in order (any failure ends the script with a non-zero exit):
    rows of 3), keys-only against ``ref.sort_segments_ref``, timed on
    random keys and on the main path's own stage-2 sort input at the flat
    and the grid shape, with its CUDA launches per call counted by
-   ``torch.profiler``;
+   ``torch.profiler``. K2 also at its design's edges (rows of T - 1, T,
+   T + 1, 2 T + 1 and 9 T + 5 for its 8192-element tile, all-equal,
+   all-maximum, sorted and reversed rows, a wordcount-like row, 65535
+   rows of 3, keys-only, inputs untouched, and a 2^24-element row sorted
+   three times bit-identically), timed at (8, 2^25 + 8) and (8, 2^23 + 8)
+   with its CUDA launches and memsets per call counted by
+   ``torch.profiler`` and held to ``radix_plan``; its phase line also
+   gives the time its design's 68 B/element would take at the card's
+   memory rate (computed like the bound, not measured; it stays out of
+   the kernel table);
 4. K4's path, its entry point ``kernels.ops.bucket_histogram`` (on no
    dataflow path, as in the JAX package), on the main path's stage-1
    bucket ids;
@@ -38,10 +47,10 @@ Phases, in order (any failure ends the script with a non-zero exit):
 7. MapReduce wordcount: ``map -> shuffle(default_hash) ->
    reduce(reduce_by_key_sum(algo="radix"))`` over 8 ranks on 2^(n+1)
    Zipf(1.1) word ids in a 2^20-word vocabulary; every (word, count) must
-   equal ``np.bincount`` of the input, and K2 must run (radix is pinned:
-   the autotuner would pick the ``torch.sort`` oracle on this cell); K2
-   is then held against its plain version and timed on the reduce's own
-   sort input;
+   equal ``np.bincount`` of the input, and K2 must run (radix is pinned,
+   so the path always measures K2); K2 is then held against its plain
+   version and timed on the reduce's own sort input, beside the library
+   call and its bound;
 8. the ``terasort()`` shim three ways — ``sort_algo="radix"`` (K2 must
    run), ``buckets_per_device=4``, and ``hadoop_style_sort`` against
    ``terasort`` — and the autotuner's choice for the main-path cell.
@@ -74,6 +83,9 @@ VALUE_BYTES = 96             # + the 4-byte key = one 100-byte record
 VOCAB = 1 << 20              # wordcount vocabulary
 ZIPF_A = 1.1
 TIMED_ITERS = 10
+#: bytes a kv element moves through K2's one-sweep design: 4 for the
+#: histogram's read of the keys, 16 in each of the 4 digit passes
+K2_BYTES_PER_KV = 4 + 4 * 16
 
 
 def log(*parts) -> None:
@@ -311,20 +323,28 @@ def check_sort(torch, dev, gen, kernel: str, seg_lens, time_len: int,
     from repro_torch.kernels.bitonic_sort import (sort_kv_segments_bitonic,
                                                   sort_segments_bitonic)
     from repro_torch.kernels.radix_sort import (sort_kv_segments_radix,
-                                                sort_kv_segments_radix_ref)
+                                                sort_kv_segments_radix_ref,
+                                                sort_segments_radix)
     stable = kernel == "radix_sort"
     fn = sort_kv_segments_radix if stable else sort_kv_segments_bitonic
     plain = sort_kv_segments_radix_ref if stable else ref.sort_kv_segments_ref
     chk = Check(kernel)
 
     def compare(what, keys, vals):
+        keys_in, vals_in = keys.clone(), vals.clone()
         gk, gv = fn(keys, vals)
         rk, rv = plain(keys, vals)
         chk.equal(f"keys {what}", gk, rk)
+        chk.equal(f"input keys untouched {what}", keys.view(torch.int32),
+                  keys_in.view(torch.int32))
+        chk.equal(f"input values untouched {what}", vals, vals_in)
         if stable:
             chk.equal(f"key bits {what}", gk.view(torch.int32),
                       rk.view(torch.int32))
             chk.equal(f"values {what}", gv, rv)
+            chk.equal(f"keys-only {what}",
+                      sort_segments_radix(keys).view(torch.int32),
+                      rk.view(torch.int32))
         else:
             chk.equal(f"(key, value) multiset {what}",
                       pairs_sorted(torch, gk, gv), pairs_sorted(torch, rk, rv))
@@ -351,7 +371,9 @@ def check_sort(torch, dev, gen, kernel: str, seg_lens, time_len: int,
     u = torch.full((2, 5000), -1, dtype=torch.int32, device=dev)
     u[:, ::3] = 5
     compare("uint32 max", u.view(torch.uint32), numbered(u.shape))
-    if not stable:
+    if stable:
+        radix_edges(torch, dev, gen, compare, numbered, chk)
+    else:
         bitonic_edges(torch, dev, gen, compare, numbered)
 
     def path_rows(seg_len):
@@ -375,22 +397,18 @@ def check_sort(torch, dev, gen, kernel: str, seg_lens, time_len: int,
     torch.cuda.synchronize()
 
     def timed(keys, vals):
-        def library():
-            s = torch.sort(keys, dim=-1, stable=True)
-            return s.values, torch.gather(vals, -1, s.indices)
-
-        return {"shape": list(keys.shape),
-                "ms": time_ms(torch, lambda: fn(keys, vals)),
-                "plain_ms": time_ms(torch, lambda: plain(keys, vals)),
-                "library_ms": time_ms(torch, library),
-                "library_call": "torch.sort(stable=True) + torch.gather",
-                # read keys and values once, write both once
-                "bound_ms": bound_ms(16 * keys.numel())}
+        return sort_timing(torch, fn, plain, keys, vals,
+                           K2_BYTES_PER_KV if stable else 0)
 
     if stable:
-        timing = timed(*path_rows(time_len))
-        timing["other_shapes"] = [timed(*path_rows(n)) for n in seg_lens
-                                  if n != time_len]
+        keys, vals = path_rows(time_len)
+        timing = {"data": "random int32 keys, the last ninth of each row "
+                          "the int32 maximum", **timed(keys, vals),
+                  **radix_launches(torch, keys, vals)}
+        del keys, vals
+        timing["other_shapes"] = [
+            {"data": "random int32 keys, the same kind",
+             **timed(*path_rows(n))} for n in seg_lens if n != time_len]
         return chk, timing
     keys = torch.randint(0, (1 << 31) - 1, (WORLD, time_len), generator=gen,
                          device=dev, dtype=torch.int32)
@@ -407,6 +425,142 @@ def check_sort(torch, dev, gen, kernel: str, seg_lens, time_len: int,
                      f"the int32 maximum", **timed(keys, vals)})
         del keys, vals
     return chk, timing
+
+
+def sort_timing(torch, fn, plain, keys, vals, design_bytes: int = 0):
+    """Kernel, plain version and ``torch.sort(stable=True)`` + ``gather``
+    on one (keys, values) input, beside the 16 B/element bound (keys and
+    values read once, written once) and, given ``design_bytes`` per
+    element, the time the design's own traffic would take at the same
+    rate (K2: 68 B, one read of the keys for the histogram, then every
+    pass reads and writes both), computed like the bound, not measured."""
+    def library():
+        s = torch.sort(keys, dim=-1, stable=True)
+        return s.values, torch.gather(vals, -1, s.indices)
+
+    out = {"shape": list(keys.shape),
+           "ms": time_ms(torch, lambda: fn(keys, vals)),
+           "plain_ms": time_ms(torch, lambda: plain(keys, vals)),
+           "library_ms": time_ms(torch, library),
+           "library_call": "torch.sort(stable=True) + torch.gather",
+           "bound_ms": bound_ms(16 * keys.numel())}
+    if design_bytes:
+        out["design_traffic_ms"] = bound_ms(design_bytes * keys.numel())
+    return out
+
+
+def radix_edges(torch, dev, gen, compare, numbered, chk):
+    """K2 at its design's edges: rows one short of, at and one past its
+    tile T, and of 2 T + 1 and 9 T + 5 (the look-back walks over earlier
+    tiles); all-equal, all the dtype maximum, sorted and reversed rows; a
+    wordcount-like row (three quarters the int32 maximum, the rest Zipf
+    word ids below 2^20); 65535 rows of 3; and one 2^24-element row sorted
+    three times, bit-identical each time (a race in the look-back would
+    show as a difference)."""
+    import numpy as np
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.radix_sort import (MAX_ROWS, TILE,
+                                                sort_kv_segments_radix)
+    tops = {torch.int32: 0x7FFFFFFF, torch.uint32: -1,
+            torch.float32: float("inf")}
+    for dtype in (torch.int32, torch.uint32, torch.float32):
+        for s in (TILE - 1, TILE, TILE + 1, 2 * TILE + 1, 9 * TILE + 5):
+            shape = (3, s)
+            keys = make_keys(torch, gen, shape, dtype, dev)
+            bits = keys.view(torch.int32)
+            bits[:, ::5] = bits[:, :1].clone()     # duplicate runs
+            compare(f"{dtype} tile edge {shape}", keys, numbered(shape))
+        shape = (2, 9 * TILE + 5)
+        keys = make_keys(torch, gen, shape, dtype, dev)
+        up = ref.sort_segments_ref(keys).view(torch.int32)
+        cases = {
+            "all equal": keys.view(torch.int32)[:, :1].expand(shape)
+            .contiguous(),
+            "all maximum": torch.full(
+                shape, tops[dtype], device=dev,
+                dtype=torch.float32 if dtype == torch.float32
+                else torch.int32).view(torch.int32),
+            "sorted": up,
+            "reversed": up.flip(-1).contiguous()}
+        for what, k in cases.items():
+            compare(f"{dtype} {what} {shape}", k.view(dtype), numbered(shape))
+    rng = np.random.default_rng(5)
+    s = 40 * TILE + 17
+    words = ((rng.zipf(ZIPF_A, size=(4, s)) - 1) % VOCAB).astype(np.int32)
+    keys = torch.from_numpy(words).to(dev)
+    run = s // 32
+    for r in range(32):                  # 8 source ranks of 4 slots each
+        keys[:, r * run + run // 4:(r + 1) * run] = 0x7FFFFFFF
+    compare(f"wordcount-like rows {tuple(keys.shape)}", keys,
+            numbered(keys.shape))
+    keys = make_keys(torch, gen, (MAX_ROWS, 3), torch.int32, dev)
+    compare(f"{MAX_ROWS} rows of 3", keys, numbered(keys.shape))
+    s = 1 << 24
+    keys = torch.randint(0, 1 << 12, (1, s), generator=gen, device=dev,
+                         dtype=torch.int32)
+    vals = numbered((1, s))
+    first = sort_kv_segments_radix(keys, vals)
+    for rep in (2, 3):
+        again = sort_kv_segments_radix(keys, vals)
+        chk.equal(f"2^24 row, run {rep} key bits", again[0], first[0])
+        chk.equal(f"2^24 row, run {rep} values", again[1], first[1])
+    compare("2^24 row", keys, vals)
+
+
+def device_events(torch, call, expected, sessions: int = 5):
+    """Names of the device events (kernels, memsets, copies) one ``call()``
+    makes, from ``torch.profiler``, and the profiler sessions it took. A
+    session can lose events of a call (on the H100, 1 or 2 of K2's 5
+    launches were seen in 2 of 17 processes) but never adds one, so a
+    session whose names fail ``expected`` is followed by another, up to
+    ``sessions``; the caller holds the last one to its plan."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for n in range(1, sessions + 1):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            out = call()
+            torch.cuda.synchronize()
+        del out
+        names = [e.name for e in prof.events()
+                 if e.device_type == DeviceType.CUDA]
+        if expected(names):
+            break
+    return names, n
+
+
+def radix_launches(torch, keys, vals):
+    """CUDA launches and memsets one K2 call makes, held to
+    ``radix_plan``; no other device event may come from the call."""
+    from repro_torch.kernels.radix_sort import (radix_plan,
+                                                sort_kv_segments_radix)
+    plan = radix_plan(*keys.shape, kv=True)
+
+    def split(events):
+        k2 = [n for n in events if "k2::" in n]
+        memsets = [n for n in events if n.startswith("Memset")]
+        return k2, memsets, [n for n in events
+                             if n not in k2 and n not in memsets]
+
+    def as_planned(events):
+        k2, memsets, other = split(events)
+        return (len(k2) == plan.cuda_launches
+                and len(memsets) == plan.memsets and not other)
+
+    events, sessions = device_events(
+        torch, lambda: sort_kv_segments_radix(keys, vals), as_planned)
+    k2, memsets, other = split(events)
+    if not as_planned(events):
+        raise AssertionError(f"one K2 call made {len(k2)} CUDA launches and "
+                             f"{len(memsets)} memsets, its plan says "
+                             f"{plan.cuda_launches} and {plan.memsets}; "
+                             f"other device events: {other}")
+    return {"tile": plan.tile, "cuda_launches_per_call": len(k2),
+            "memsets_per_call": len(memsets),
+            "launch_names": sorted(set(n.split("(")[0] for n in k2)),
+            "profiler_sessions": sessions,
+            "scratch_bytes": plan.scratch_bytes}
 
 
 def bitonic_edges(torch, dev, gen, compare, numbered):
@@ -465,19 +619,17 @@ def bitonic_launches(torch, keys, vals):
     """CUDA launches one K3 call makes, counted by ``torch.profiler`` from
     the device's kernel events and held to the wrapper's pass plan, and
     the call's device memory beyond its inputs."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.kernels.bitonic_sort import (pass_plan,
                                                   sort_kv_segments_bitonic)
     plan = pass_plan(*keys.shape)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        out = sort_kv_segments_bitonic(keys, vals)
-        torch.cuda.synchronize()
-    del out
-    names = [e.name for e in prof.events()
-             if e.device_type == DeviceType.CUDA and "k3::" in e.name]
+
+    def k3(events):
+        return [n for n in events if "k3::" in n]
+
+    events, sessions = device_events(
+        torch, lambda: sort_kv_segments_bitonic(keys, vals),
+        lambda ev: len(k3(ev)) == plan.cuda_launches)
+    names = k3(events)
     if len(names) != plan.cuda_launches:
         raise AssertionError(f"one K3 call made {len(names)} CUDA launches, "
                              f"its plan says {plan.cuda_launches}: {names}")
@@ -491,7 +643,7 @@ def bitonic_launches(torch, keys, vals):
     return {"merge_passes": plan.merge_passes, "tile": plan.tile,
             "cuda_launches_per_call": len(names),
             "launch_names": sorted(set(n.split("(")[0] for n in names)),
-            "call_device_bytes": extra}
+            "profiler_sessions": sessions, "call_device_bytes": extra}
 
 
 # -- phases 4 to 8 ---------------------------------------------------------------
@@ -770,18 +922,12 @@ def radix_on_reduce_input(torch, ex, shuffled, word_t):
     chk.equal("values on the reduce input", gv, rv)
     del gk, gv, rk, rv
 
-    def library():
-        srt = torch.sort(keys, dim=-1, stable=True)
-        return srt.values, torch.gather(vals, -1, srt.indices)
-
-    return {"shape": list(keys.shape), "cases": chk.cases,
+    return {"data": "the wordcount's own sort input", "cases": chk.cases,
             "max_abs_err": chk.max_abs_err,
             "valid_share": float((keys != 0x7FFFFFFF).float().mean()),
-            "ms": time_ms(torch, lambda: sort_kv_segments_radix(keys, vals)),
-            "plain_ms": time_ms(torch, lambda: sort_kv_segments_radix_ref(
-                keys, vals)),
-            "library_ms": time_ms(torch, library),
-            "bound_ms": bound_ms(16 * keys.numel())}
+            **sort_timing(torch, sort_kv_segments_radix,
+                          sort_kv_segments_radix_ref, keys, vals,
+                          K2_BYTES_PER_KV)}
 
 
 def profile_run(torch, ex, df, records, out_dir: str, name: str):
@@ -984,9 +1130,13 @@ def main(argv=None) -> int:
             "bound_by": "bytes", "library_ms": timing["library_ms"],
             "shape": timing["shape"], "check": "ok"})
         if k.name == "radix_sort":
-            rows[-1]["on_path_rows"] = {
-                f: wc["k2_on_path_rows"][f]
-                for f in ("ms", "plain_ms", "library_ms", "bound_ms")}
+            rows[-1]["cuda_launches_per_call"] = \
+                timing["cuda_launches_per_call"]
+            rows[-1]["shapes"] = [
+                {f: r[f] for f in ("data", "shape", "ms", "plain_ms",
+                                   "library_ms", "bound_ms")}
+                for r in (timing, wc["k2_on_path_rows"],
+                          *timing["other_shapes"])]
         if k.name == "bitonic_sort":
             rows[-1]["cuda_launches_per_call"] = \
                 timing["cuda_launches_per_call"]

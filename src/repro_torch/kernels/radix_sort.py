@@ -13,10 +13,15 @@ takes the plain LSD radix below (:func:`sort_kv_segments_radix_ref`).
 
 Bound on the H100: memory. Two TPU-only pieces are not carried over: the
 one-hot matmul permutation (Mosaic has no scatter; CUDA scatters
-natively) and the 4 MiB VMEM envelope. Each pass is the multisplit of
-``csrc/multisplit.cuh`` with the digit as bucket: per-tile histograms, a
-scan over tiles, a stable scatter. The port's envelope
-(:func:`radix_supported`) is the CUDA grid's.
+natively) and the 4 MiB VMEM envelope. The kernel is a one-sweep LSD
+radix sort (CUB's Onesweep): one launch reads the keys once and counts all
+four digits of every row, then one launch per digit ranks each
+8192-element tile stably, finds the tile's place among the row's earlier
+tiles by decoupled look-back, and writes keys and payloads out through
+shared memory in digit order (see the CUDA source). That is 68 bytes a
+kv element in five launches. :func:`radix_plan` is what the wrapper
+hands to the C entry point; the port's envelope (:func:`radix_supported`)
+is the CUDA grid's.
 
 The bijection and the plain radix work on int32 bit patterns: torch on
 the CPU has no shift or ``~`` for uint32.
@@ -24,7 +29,7 @@ the CPU has no shift or ``~`` for uint32.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -36,10 +41,15 @@ KERNEL = Kernel("radix_sort",
 
 #: digit width of every pass (4 passes over 32-bit keys).
 BITS = 8
-#: grid.y carries the row; positions inside a row are int32.
+PASSES = 32 // BITS
+#: the histogram's grid.y carries the row; positions inside a row are int32.
 MAX_ROWS = 65535
 MAX_SEGMENT_LEN = (1 << 31) - 1
-TILE = 4096  # ms::kTile in csrc/multisplit.cuh
+TILE = 8192  # k2::kTile in csrc/radix_sort.cu: one pass block's tile
+#: scratch: the passes' tile counters (k2::kHeaderInts int32), then
+#: (rows, PASSES, 256) int32 digit counts, then (rows, tiles, 256) int64
+#: look-back status words shared by all passes.
+HEADER_BYTES = 64
 
 _SIGN = -(1 << 31)           # 0x80000000 as an int32
 
@@ -89,6 +99,40 @@ def radix_supported(segment_len: int, num_segments: int = 1
     return None
 
 
+class RadixPlan(NamedTuple):
+    """One kernel call: a histogram launch, then one launch per digit
+    pass; pass p reads the input (p = 0) or ``writes[p - 1]`` and writes
+    ``writes[p]``."""
+
+    tile: int
+    tiles: int                 # per row
+    writes: Tuple[str, ...]    # "tmp" / "out", one per pass
+    scratch_bytes: int         # counters, histograms, status words
+    cuda_launches: int         # 1 histogram + 1 per pass
+    memsets: int               # of the scratch, once a call
+
+
+def radix_plan(rows: int, s: int, kv: bool = True) -> RadixPlan:
+    """The plan for a ``(rows, s)`` call, with a payload (``kv``) or
+    keys-only, which share one plan; raises outside the kernel's envelope
+    (``rows`` up to :data:`MAX_ROWS`, ``s`` up to :data:`MAX_SEGMENT_LEN`).
+    The C entry point refuses a call whose tiles or scratch bytes differ
+    from its own layout."""
+    reason = radix_supported(s, rows)
+    if reason is not None:
+        raise ValueError(reason)
+    if rows < 1 or s < 1:
+        raise ValueError(f"empty sort ({rows}, {s}) launches nothing")
+    tiles = -(-s // TILE)
+    radix = 1 << BITS
+    scratch = HEADER_BYTES + 4 * rows * PASSES * radix + 8 * rows * tiles * radix
+    return RadixPlan(tile=TILE, tiles=tiles,
+                     writes=tuple("tmp" if p % 2 == 0 else "out"
+                                  for p in range(PASSES)),
+                     scratch_bytes=scratch,
+                     cuda_launches=1 + PASSES, memsets=1)
+
+
 # -- plain version (CPU) -----------------------------------------------------
 
 
@@ -119,6 +163,7 @@ def _radix(keys: torch.Tensor, values) -> Tuple:
         raise ValueError(f"radix kernel unsupported here: {reason}")
     if n == 0 or s == 0:
         return keys.clone(), None if values is None else values.clone()
+    plan = radix_plan(n, s, values is not None)
     dev = keys.device
     k_in = keys.contiguous().view(torch.int32)
     out_k = torch.empty((n, s), dtype=torch.int32, device=dev)
@@ -128,11 +173,10 @@ def _radix(keys: torch.Tensor, values) -> Tuple:
         v_in = values.contiguous().view(torch.int32)
         out_v = torch.empty_like(out_k)
         tmp_v = torch.empty_like(out_k)
-    tiles = -(-s // TILE)
-    hist = torch.empty((n, 1 << BITS, tiles), dtype=torch.int32, device=dev)
-    counts = torch.empty((n, 1 << BITS), dtype=torch.int32, device=dev)
+    scratch = torch.empty(plan.scratch_bytes, dtype=torch.uint8, device=dev)
     KERNEL.launch("radix_sort_launch", k_in, v_in, out_k, out_v, tmp_k, tmp_v,
-                  hist, counts, n, s, KEY_MODES[keys.dtype])
+                  scratch, plan.scratch_bytes, n, s, plan.tiles,
+                  KEY_MODES[keys.dtype])
     return (out_k.view(keys.dtype),
             None if out_v is None else out_v.view(values.dtype))
 

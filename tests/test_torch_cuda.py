@@ -189,6 +189,122 @@ def test_bitonic_most_rows_and_the_main_path_row(card):
     _held_to_plain(keys, vals.contiguous())
 
 
+RT = radix_sort.TILE
+
+
+def _radix_held_to_plain(keys, vals):
+    """K2 kv and keys-only against the plain LSD radix: key bits and
+    values exactly equal (so stable), inputs untouched."""
+    before = radix_sort.KERNEL.launches
+    keys_in, vals_in = keys.clone(), vals.clone()
+    gk, gv = radix_sort.sort_kv_segments_radix(keys, vals)
+    gko = radix_sort.sort_segments_radix(keys)
+    torch.cuda.synchronize()
+    assert radix_sort.KERNEL.launches == before + 2
+    assert torch.equal(keys.view(torch.int32), keys_in.view(torch.int32))
+    assert torch.equal(vals, vals_in)                # inputs untouched
+    rk, rv = radix_sort.sort_kv_segments_radix_ref(keys, vals)
+    assert torch.equal(gk.view(torch.int32), rk.view(torch.int32))
+    assert torch.equal(gv, rv)
+    assert torch.equal(gko.view(torch.int32), rk.view(torch.int32))
+    return gk, gv
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.uint32, torch.float32])
+@pytest.mark.parametrize("s", [RT - 1, RT, RT + 1, 2 * RT + 1, 9 * RT + 5])
+def test_radix_tile_edges(card, dtype, s):
+    """Rows one short of, at and one past K2's tile, and rows of several
+    tiles whose look-back walks over earlier tiles."""
+    for kind in ("random", "dups"):
+        keys = _bitonic_case(card, dtype, 3, s, kind, s + 2)
+        vals = torch.arange(3 * s, dtype=torch.int32,
+                            device=card).reshape(3, s)
+        _radix_held_to_plain(keys, vals)
+
+
+@pytest.mark.parametrize("kind", ["equal", "max", "sorted", "reversed"])
+@pytest.mark.parametrize("s", [RT, 9 * RT + 5])
+def test_radix_special_rows(card, kind, s):
+    for dtype in (torch.int32, torch.uint32, torch.float32):
+        keys = _bitonic_case(card, dtype, 2, s, kind, s + 3)
+        vals = torch.arange(2 * s, dtype=torch.int32,
+                            device=card).reshape(2, s)
+        _radix_held_to_plain(keys, vals)
+
+
+def test_radix_wordcount_like_rows(card):
+    """The wordcount's sort input: 75% of each row the int32 maximum, the
+    rest Zipf word ids below 2^20, in runs as the shuffle frames them."""
+    rng = np.random.default_rng(5)
+    s = 40 * RT + 17
+    words = ((rng.zipf(1.1, size=(4, s)) - 1) % (1 << 20)).astype(np.int32)
+    keys = torch.from_numpy(words).to(card)
+    run = s // 32
+    for r in range(32):                  # 8 source ranks of 4 slots each
+        keys[:, r * run + run // 4:(r + 1) * run] = 2**31 - 1
+    vals = torch.arange(4 * s, dtype=torch.int32, device=card).reshape(4, s)
+    _radix_held_to_plain(keys, vals)
+
+
+def test_radix_signed_zeros_and_infinities(card):
+    f = torch.tensor([0.0, -0.0, 1.0, -0.0, float("inf"), 0.0, -1.0,
+                      float("-inf"), -0.0, 0.0], device=card)
+    keys = f.repeat(3, 2 * RT // 10 + 1)
+    vals = torch.arange(keys.numel(), dtype=torch.int32,
+                        device=card).reshape(keys.shape)
+    gk, _ = _radix_held_to_plain(keys, vals)
+    for row in gk:                   # -0.0 (int32 bits < 0) before +0.0
+        zeros = row[row == 0].view(torch.int32)
+        assert zeros.numel() and torch.all(zeros[1:] >= zeros[:-1])
+
+
+def test_radix_most_rows(card):
+    keys = _bitonic_case(card, torch.int32, 65535, 3, "random", 11)
+    vals = torch.arange(keys.numel(), dtype=torch.int32,
+                        device=card).reshape(keys.shape)
+    _radix_held_to_plain(keys, vals)
+
+
+def test_radix_long_row_repeats_bit_identically(card):
+    """A 2^24-element row sorted three times gives the same bits each time:
+    a race in the look-back would show as a difference."""
+    s = 1 << 24
+    keys = torch.randint(0, 1 << 12, (1, s), device=card, dtype=torch.int32,
+                         generator=_gen(card, 13))
+    vals = torch.arange(s, dtype=torch.int32, device=card).reshape(1, s)
+    first = radix_sort.sort_kv_segments_radix(keys, vals)
+    for _ in range(2):
+        again = radix_sort.sort_kv_segments_radix(keys, vals)
+        assert torch.equal(again[0], first[0])
+        assert torch.equal(again[1], first[1])
+    rk, rv = radix_sort.sort_kv_segments_radix_ref(keys, vals)
+    assert torch.equal(first[0], rk) and torch.equal(first[1], rv)
+
+
+@pytest.mark.parametrize("what", ["short scratch", "tiles", "right"])
+def test_radix_entry_point_holds_the_plan(card, what):
+    """The C entry point takes ``radix_plan``'s tiles and scratch bytes and
+    refuses a call whose plan differs from its own layout."""
+    n, s = 2, 3 * RT + 1
+    plan = radix_sort.radix_plan(n, s)
+    tiles = plan.tiles + (what == "tiles")
+    nbytes = plan.scratch_bytes - 8 * (what == "short scratch")
+    keys = _bitonic_case(card, torch.int32, n, s, "random", 17)
+    vals = torch.arange(n * s, dtype=torch.int32, device=card).reshape(n, s)
+    out = [torch.empty_like(keys) for _ in range(4)]
+    scratch = torch.empty(plan.scratch_bytes, dtype=torch.uint8,
+                          device=card)
+    args = (keys, vals, out[0], out[1], out[2], out[3], scratch, nbytes, n,
+            s, tiles, bitonic_sort.KEY_MODES[torch.int32])
+    if what != "right":
+        with pytest.raises(RuntimeError, match="radix_sort_launch"):
+            radix_sort.KERNEL.launch("radix_sort_launch", *args)
+        return
+    radix_sort.KERNEL.launch("radix_sort_launch", *args)
+    rk, rv = radix_sort.sort_kv_segments_radix_ref(keys, vals)
+    assert torch.equal(out[0], rk) and torch.equal(out[1], rv)
+
+
 def test_terasort_on_the_card_equals_the_cpu_port(card):
     rng = np.random.default_rng(0)
     n = 8 * 4096
