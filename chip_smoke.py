@@ -31,7 +31,16 @@ Phases, in order (any failure ends the script with a non-zero exit):
    ``torch.profiler`` and held to ``radix_plan``; its phase line also
    gives the time its design's 68 B/element would take at the card's
    memory rate (computed like the bound, not measured; it stays out of
-   the kernel table);
+   the kernel table). K1 also at its tile's edges in both forms (T - 1
+   to 9 T + 5 for 1 to 4096 destinations), one destination for all, none
+   in range, the int32 extremes, 65535 rows, a count past 2^24 and a
+   2^24-id row ranked three times identically, timed at each of its six
+   path shapes; K4 at its chunk's edges, with rows and 1-D views that
+   start off a 16-byte boundary, timed at (8, 2^22) with 8 buckets and
+   (1, 2^25) with 256. For K1, K2 and K4 the CUDA launches and memsets
+   of one call are counted by ``torch.profiler`` and held to the plan,
+   and the profiler's kernel and memset time of a call is given beside
+   the CUDA-event window, so that host time inside the window shows;
 4. K4's path, its entry point ``kernels.ops.bucket_histogram`` (on no
    dataflow path, as in the JAX package), on the main path's stage-1
    bucket ids;
@@ -199,27 +208,65 @@ class Shapes:
         self.wc_recv = WORLD * (int(self.words_local / WORLD * 4.0) + 1)
 
 
+def k1_path_shapes(sh: Shapes):
+    """(where, rows x ids, destinations) of every K1 launch on the paths."""
+    return [("flat send pack", (WORLD, sh.n_local), WORLD),
+            ("flat stage-2 regroup", (WORLD, sh.recv), 1),
+            ("grid stage A (node hop)", (WORLD, sh.n_local), GRID[1]),
+            ("grid stage B (dc hop)", (WORLD, sh.staged), GRID[0]),
+            ("grid stage-2 regroup", (WORLD, sh.recv_grid), 1),
+            ("wordcount shuffle", (WORLD, sh.words_local), WORLD)]
+
+
 def check_partition(torch, dev, gen, sh: Shapes):
+    """K1 against its plain version, tolerance 0: the paths' shapes, its
+    tile's edges in both forms (12288 ids up to 1024 destinations, 3072
+    above), one destination for all, none in range, the int32 extremes,
+    65535 rows, a count past 2^24 and a long row ranked three times
+    identically. Timed at every path shape beside its bound, with its
+    launches and memsets held to ``partition_plan``."""
     from repro_torch.kernels import partition, ref
     chk = Check("partition_rank")
-    cases = [((WORLD, sh.n_local), WORLD, WORLD + 1),    # send path (+overflow)
-             ((WORLD, sh.recv), 1, 2),                    # regroup, bpd = 1
-             ((WORLD, sh.recv), 4, 5),                    # regroup, bpd = 4
-             ((WORLD, sh.n_local), GRID[1], GRID[1] + 1),  # grid stage A
-             ((WORLD, sh.staged), GRID[0], GRID[0] + 1),   # grid stage B
-             ((WORLD, sh.recv_grid), 1, 2),                # grid regroup
-             ((WORLD, sh.words_local), WORLD, WORLD + 1),  # wordcount shuffle
-             ((3, 5000), 9, 12), ((17, 33), 1, 3), ((1, 4097), 4096, 4096),
-             ((2, 1), 8, 9)]
+    i32 = torch.iinfo(torch.int32)
+
+    def compare(what, dest, nd):
+        rank, counts = partition.partition_rank(dest, nd)
+        rrank, rcounts = ref.partition_rank_ref(dest, nd)
+        ok = (dest >= 0) & (dest < nd)
+        chk.equal(f"counts {what} D={nd}", counts, rcounts)
+        chk.equal(f"rank {what} D={nd}", rank, rrank, mask=ok)
+        chk.equal(f"rank 0 out of range {what} D={nd}", rank,
+                  torch.zeros_like(rank), mask=~ok)
+        return rank, counts
+
+    cases = [(shape, nd, nd + 1) for _, shape, nd in k1_path_shapes(sh)]
+    cases += [((WORLD, sh.recv), 4, 5),                   # regroup, bpd = 4
+              ((3, 5000), 9, 12), ((17, 33), 1, 3), ((1, 4097), 4096, 4096),
+              ((2, 1), 8, 9)]
+    for nd in (1, 8, 256, 1025, 4096):
+        t = partition.partition_plan(1, 1, nd).tile
+        cases += [((3, s), nd, nd + 2)
+                  for s in (t - 1, t, t + 1, 2 * t + 1, 9 * t + 5)]
     for shape, nd, hi in cases:
         dest = torch.randint(-2, hi, shape, generator=gen, device=dev,
                              dtype=torch.int32)
-        rank, counts = partition.partition_rank(dest, nd)
-        rrank, rcounts = ref.partition_rank_ref(dest, nd)
-        chk.equal(f"counts {shape} D={nd}", counts, rcounts)
-        chk.equal(f"rank {shape} D={nd}", rank, rrank,
-                  mask=(dest >= 0) & (dest < nd))
-        del dest, rank, rrank
+        compare(str(shape), dest, nd)
+        del dest
+    for nd in (8, 4096):
+        s = 9 * partition.partition_plan(1, 1, nd).tile + 5
+        for what, fill in (("all first", 0), ("all last", nd - 1),
+                           ("none in range", nd), ("extremes", i32.min)):
+            dest = torch.full((2, s), fill, dtype=torch.int32, device=dev)
+            if what == "none in range":
+                dest[:, ::2] = -1
+                dest[:, ::3] = i32.max
+            if what == "extremes":
+                dest[:, ::2] = i32.max
+                dest[:, ::7] = nd // 2
+            compare(f"{what} (2, {s})", dest, nd)
+    dest = torch.randint(-1, 9, (partition.MAX_ROWS, 3), generator=gen,
+                         device=dev, dtype=torch.int32)
+    compare(f"{partition.MAX_ROWS} rows of 3", dest, 8)
     # counts stay exact past 2^24 (a float32 accumulator would not)
     n = (1 << 24) + 9
     dest = torch.zeros((1, n), dtype=torch.int32, device=dev)
@@ -229,31 +276,55 @@ def check_partition(torch, dev, gen, sh: Shapes):
     chk.equal("counts past 2^24", counts, want)
     chk.equal("rank past 2^24", rank[0, -1:],
               torch.tensor([n - 6], dtype=torch.int32, device=dev))
+    # a race in the look-back would show as a difference between runs
+    dest = torch.randint(-1, 257, (1, 1 << 24), generator=gen, device=dev,
+                         dtype=torch.int32)
+    first = compare("2^24 row", dest, 256)
+    for rep in (2, 3):
+        again = partition.partition_rank(dest, 256)
+        chk.equal(f"2^24 row, run {rep} rank", again[0], first[0])
+        chk.equal(f"2^24 row, run {rep} counts", again[1], first[1])
+    del dest, rank, first, again
     torch.cuda.synchronize()
 
-    # timing at the send-path shape
-    dest = torch.randint(0, WORLD + 1, (WORLD, sh.n_local), generator=gen,
-                         device=dev, dtype=torch.int32)
-    offs = (torch.arange(WORLD, device=dev, dtype=torch.int32)[:, None]
-            * (WORLD + 1))
-    timing = {
-        "shape": [WORLD, sh.n_local], "num_dest": WORLD,
-        "ms": time_ms(torch, lambda: partition.partition_rank(dest, WORLD)),
-        "plain_ms": time_ms(torch,
-                            lambda: ref.partition_rank_ref(dest, WORLD)),
-        "library_ms": time_ms(torch, lambda: torch.bincount(
-            (dest + offs).reshape(-1), minlength=WORLD * (WORLD + 1))),
-        "library_call": "torch.bincount (histogram half only)",
-        # read ids once, write ranks once (counts are negligible)
-        "bound_ms": bound_ms(8 * dest.numel()),
-    }
+    # timing at every path shape: random ids in [0, D], D standing for an
+    # empty slot or the overflow destination
+    shapes = []
+    for where, shape, nd in k1_path_shapes(sh):
+        dest = torch.randint(0, nd + 1, shape, generator=gen, device=dev,
+                             dtype=torch.int32)
+        plan = partition.partition_plan(*shape, nd)
+        row = {"path": where, "shape": list(shape), "num_dest": nd,
+               "ms": time_ms(torch,
+                             lambda: partition.partition_rank(dest, nd)),
+               # read ids once, write ranks and counts once
+               "bound_ms": bound_ms(8 * dest.numel() + 4 * shape[0] * nd),
+               "tile": plan.tile, "scratch_bytes": plan.scratch_bytes,
+               **held_to_plan(torch, lambda: partition.partition_rank(dest,
+                                                                      nd),
+                              plan, "k1::", "K1")}
+        if not shapes:      # the send path: the row of the kernel table
+            offs = (torch.arange(WORLD, device=dev, dtype=torch.int32)[:, None]
+                    * (nd + 1))
+            row["plain_ms"] = time_ms(
+                torch, lambda: ref.partition_rank_ref(dest, nd))
+            row["library_ms"] = time_ms(torch, lambda: torch.bincount(
+                (dest + offs).reshape(-1), minlength=WORLD * (nd + 1)))
+            row["library_call"] = "torch.bincount (histogram half only)"
+        shapes.append(row)
+        del dest
+    timing = {**shapes[0], "shapes": shapes}
     return chk, timing
 
 
 def check_bucket_hist(torch, dev, gen, sh: Shapes):
     """K4 against its plain version, tolerance 0: the stage-1 shape, one
-    long row, a grid of small shapes and bucket counts, the ids just
-    outside the range, and one bucket counting past 2^24."""
+    long row, a grid of small shapes and bucket counts, its chunk's edges
+    (rows whose length is no multiple of 4 and 1-D views that start off a
+    16-byte boundary), one bucket for all, none in range, the int32
+    extremes, 65535 rows, and one bucket counting past 2^24. Timed at both
+    shapes beside its bound and ``torch.bincount``, with its launches and
+    memsets held to ``hist_plan``."""
     from repro_torch.kernels import bucket_hist, ref
     chk = Check("bucket_hist")
     i32 = torch.iinfo(torch.int32)
@@ -274,10 +345,29 @@ def check_bucket_hist(torch, dev, gen, sh: Shapes):
                                 dtype=torch.int32)
             compare(f"(2, {n}) B={nb}", ids, nb)
             compare(f"({n},) B={nb}", ids[0], nb)
+    c = bucket_hist.MIN_CHUNK
+    for nb in (1, 8, 256, 1025, 4096):
+        for n in (c - 1, c, c + 1, 2 * c + 1, 512 * c + 5):
+            rows = 3 if n < 512 * c else 1
+            ids = torch.randint(-2, nb + 2, (rows, n), generator=gen,
+                                device=dev, dtype=torch.int32)
+            compare(f"chunk edge ({rows}, {n}) B={nb}", ids, nb)
+            compare(f"chunk edge, last row as 1-D ({n},) B={nb}", ids[-1], nb)
     for nb in (1, 4, 4096):
         edge = torch.tensor([-1, nb, i32.min, i32.max, 0, nb - 1, -nb],
                             dtype=torch.int32, device=dev).repeat(3, 1000)
         compare(f"ids -1, B, INT32_MIN/MAX B={nb}", edge, nb)
+        for what, fill in (("all first", 0), ("all last", nb - 1),
+                           ("none in range", nb)):
+            ids = torch.full((2, 3 * c + 7), fill, dtype=torch.int32,
+                             device=dev)
+            if what == "none in range":
+                ids[:, ::2] = -1
+                ids[:, ::3] = i32.max
+            compare(f"{what} (2, {3 * c + 7}) B={nb}", ids, nb)
+    ids = torch.randint(-1, 9, (bucket_hist.MAX_ROWS, 3), generator=gen,
+                        device=dev, dtype=torch.int32)
+    compare(f"{bucket_hist.MAX_ROWS} rows of 3 B=8", ids, 8)
     n = 1 << 25
     ones = torch.zeros((n + 5,), dtype=torch.int32, device=dev)
     ones[n:] = 1
@@ -286,7 +376,7 @@ def check_bucket_hist(torch, dev, gen, sh: Shapes):
               bucket_hist.bucket_histogram(ones, 4), want)
     chk.equal("2^25 zeros and five ones (plain)",
               ref.bucket_histogram_ref(ones, 4), want)
-    del ones
+    del ones, ids
     torch.cuda.synchronize()
 
     def library(ids, nb):
@@ -299,6 +389,7 @@ def check_bucket_hist(torch, dev, gen, sh: Shapes):
         return lambda: torch.bincount(flat, minlength=rows * nb + 1)
 
     def timed(ids, nb):
+        plan = bucket_hist.hist_plan(*ids.shape, nb)
         return {"shape": list(ids.shape), "num_buckets": nb,
                 "ms": time_ms(torch,
                               lambda: bucket_hist.bucket_histogram(ids, nb)),
@@ -307,7 +398,11 @@ def check_bucket_hist(torch, dev, gen, sh: Shapes):
                 "library_ms": time_ms(torch, library(ids, nb)),
                 "library_call": "torch.bincount of row-offset ids",
                 # read ids once, write counts once
-                "bound_ms": bound_ms(4 * ids.numel() + 4 * ids.shape[0] * nb)}
+                "bound_ms": bound_ms(4 * ids.numel() + 4 * ids.shape[0] * nb),
+                "chunk": plan.chunk, "blocks": plan.blocks,
+                **held_to_plan(torch,
+                               lambda: bucket_hist.bucket_histogram(ids, nb),
+                               plan, "k4::", "K4")}
 
     timing = timed(stage1, WORLD)
     timing["one_row"] = timed(long_row, 256)
@@ -508,26 +603,100 @@ def radix_edges(torch, dev, gen, compare, numbered, chk):
 
 
 def device_events(torch, call, expected, sessions: int = 5):
-    """Names of the device events (kernels, memsets, copies) one ``call()``
-    makes, from ``torch.profiler``, and the profiler sessions it took. A
-    session can lose events of a call (on the H100, 1 or 2 of K2's 5
-    launches were seen in 2 of 17 processes) but never adds one, so a
-    session whose names fail ``expected`` is followed by another, up to
-    ``sessions``; the caller holds the last one to its plan."""
+    """The device events (kernels, memsets, copies) one ``call()`` makes,
+    as (name, ms) from ``torch.profiler``, the names of the CUDA runtime
+    calls it made on the host, and the profiler sessions it took. A session
+    can lose device events (on the H100 most often its first one: 1 or 2
+    of K2's 5 launches were seen in 2 of 17 processes, K1's memset or
+    K3's first launch in 5 sessions of 5 at some shapes), so each session
+    starts with a fill of its own and counts only what follows the call's
+    start. A session never adds an event, so one for which
+    ``expected(device names, runtime names)`` fails is followed by
+    another, up to ``sessions``; the caller holds the last one to its
+    plan."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
+    warm = torch.empty(1, dtype=torch.int8, device="cuda")
     for n in range(1, sessions + 1):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            out = call()
+            # the session's first device event is the one most often lost
+            # (K3's first launch, K1's memset): let it be this fill's
+            warm.fill_(1)
+            torch.cuda.synchronize()
+            with record_function("held_call"):
+                out = call()
             torch.cuda.synchronize()
         del out
-        names = [e.name for e in prof.events()
-                 if e.device_type == DeviceType.CUDA]
-        if expected(names):
+        start = min(e.time_range.start for e in prof.events()
+                    if e.name == "held_call")
+        mine = [e for e in prof.events()
+                if e.time_range.start >= start and e.name != "held_call"]
+        events = [(e.name, (e.time_range.end - e.time_range.start) / 1e3)
+                  for e in mine if e.device_type == DeviceType.CUDA]
+        runtime = [e.name for e in mine if e.device_type == DeviceType.CPU
+                   and e.name.startswith("cuda")]
+        if expected([name for name, _ in events], runtime):
             break
-    return names, n
+    return events, runtime, n
+
+
+def held_to_plan(torch, call, plan, tag: str, what: str,
+                 reps: int = TIMED_ITERS):
+    """CUDA launches and memsets one ``call()`` makes, counted by
+    ``torch.profiler`` and held to ``plan``: the device's kernel events
+    whose name holds ``tag``, and the ``cudaMemsetAsync`` calls the host
+    made (the device's memset events, which a session can lose, may not
+    outnumber them); no other device event may come from the call. Then
+    the device time of a call's own kernels and memsets from the
+    profiler: their summed durations over ``reps`` calls in one session,
+    over ``reps``, a lost memset counted at the mean of the seen ones (set
+    beside the CUDA-event window of ``time_ms``, it shows the host time
+    inside that window)."""
+    def split(names):
+        kernels = [n for n in names if tag in n]
+        memsets = [n for n in names if n.startswith("Memset")]
+        return kernels, memsets, [n for n in names
+                                  if n not in kernels and n not in memsets]
+
+    def as_planned(names, runtime, calls=1):
+        kernels, memsets, other = split(names)
+        return (len(kernels) == calls * plan.cuda_launches
+                and runtime.count("cudaMemsetAsync") == calls * plan.memsets
+                and len(memsets) <= calls * plan.memsets and not other)
+
+    events, runtime, sessions = device_events(torch, call, as_planned)
+    names = [n for n, _ in events]
+    kernels, memsets, other = split(names)
+    if not as_planned(names, runtime):
+        raise AssertionError(
+            f"one {what} call made {len(kernels)} CUDA launches and "
+            f"{runtime.count('cudaMemsetAsync')} memsets "
+            f"({len(memsets)} seen on the device), its plan says "
+            f"{plan.cuda_launches} and {plan.memsets}; other device events: "
+            f"{other}")
+
+    def repeated():
+        for _ in range(reps):
+            call()
+
+    timed, timed_runtime, timed_sessions = device_events(
+        torch, repeated, lambda n, r: as_planned(n, r, reps))
+    kernel_ms = sum(ms for n, ms in timed if tag in n) / reps
+    seen = [ms for n, ms in timed if n.startswith("Memset")]
+    memset_ms = (statistics.mean(seen) * plan.memsets if seen else 0.0)
+    return {"cuda_launches_per_call": len(kernels),
+            "memsets_per_call": runtime.count("cudaMemsetAsync"),
+            "device_memsets_seen": len(memsets),
+            "launch_names": sorted(set(n.split("(")[0] for n in kernels)),
+            "profiler_sessions": sessions,
+            "profiler_kernel_ms": kernel_ms, "profiler_memset_ms": memset_ms,
+            "profiler_ms": kernel_ms + memset_ms,
+            "profiler_memsets_seen": f"{len(seen)} of {reps * plan.memsets}",
+            "profiler_timed_sessions": timed_sessions,
+            "profiler_timed_as_planned": as_planned(
+                [n for n, _ in timed], timed_runtime, reps)}
 
 
 def radix_launches(torch, keys, vals):
@@ -536,31 +705,9 @@ def radix_launches(torch, keys, vals):
     from repro_torch.kernels.radix_sort import (radix_plan,
                                                 sort_kv_segments_radix)
     plan = radix_plan(*keys.shape, kv=True)
-
-    def split(events):
-        k2 = [n for n in events if "k2::" in n]
-        memsets = [n for n in events if n.startswith("Memset")]
-        return k2, memsets, [n for n in events
-                             if n not in k2 and n not in memsets]
-
-    def as_planned(events):
-        k2, memsets, other = split(events)
-        return (len(k2) == plan.cuda_launches
-                and len(memsets) == plan.memsets and not other)
-
-    events, sessions = device_events(
-        torch, lambda: sort_kv_segments_radix(keys, vals), as_planned)
-    k2, memsets, other = split(events)
-    if not as_planned(events):
-        raise AssertionError(f"one K2 call made {len(k2)} CUDA launches and "
-                             f"{len(memsets)} memsets, its plan says "
-                             f"{plan.cuda_launches} and {plan.memsets}; "
-                             f"other device events: {other}")
-    return {"tile": plan.tile, "cuda_launches_per_call": len(k2),
-            "memsets_per_call": len(memsets),
-            "launch_names": sorted(set(n.split("(")[0] for n in k2)),
-            "profiler_sessions": sessions,
-            "scratch_bytes": plan.scratch_bytes}
+    out = held_to_plan(torch, lambda: sort_kv_segments_radix(keys, vals),
+                       plan, "k2::", "K2")
+    return {"tile": plan.tile, **out, "scratch_bytes": plan.scratch_bytes}
 
 
 def bitonic_edges(torch, dev, gen, compare, numbered):
@@ -626,10 +773,10 @@ def bitonic_launches(torch, keys, vals):
     def k3(events):
         return [n for n in events if "k3::" in n]
 
-    events, sessions = device_events(
+    events, _, sessions = device_events(
         torch, lambda: sort_kv_segments_bitonic(keys, vals),
-        lambda ev: len(k3(ev)) == plan.cuda_launches)
-    names = k3(events)
+        lambda ev, _: len(k3(ev)) == plan.cuda_launches)
+    names = k3([n for n, _ in events])
     if len(names) != plan.cuda_launches:
         raise AssertionError(f"one K3 call made {len(names)} CUDA launches, "
                              f"its plan says {plan.cuda_launches}: {names}")
@@ -1137,6 +1284,23 @@ def main(argv=None) -> int:
                                    "library_ms", "bound_ms")}
                 for r in (timing, wc["k2_on_path_rows"],
                           *timing["other_shapes"])]
+        if k.name == "partition":
+            rows[-1]["cuda_launches_per_call"] = \
+                timing["cuda_launches_per_call"]
+            rows[-1]["memsets_per_call"] = timing["memsets_per_call"]
+            rows[-1]["shapes"] = [
+                {f: r[f] for f in ("path", "shape", "num_dest", "ms",
+                                   "profiler_ms", "bound_ms")}
+                for r in timing["shapes"]]
+        if k.name == "bucket_hist":
+            rows[-1]["cuda_launches_per_call"] = \
+                timing["cuda_launches_per_call"]
+            rows[-1]["memsets_per_call"] = timing["memsets_per_call"]
+            rows[-1]["shapes"] = [
+                {f: r[f] for f in ("shape", "num_buckets", "ms",
+                                   "profiler_ms", "plain_ms", "library_ms",
+                                   "bound_ms")}
+                for r in (timing, timing["one_row"])]
         if k.name == "bitonic_sort":
             rows[-1]["cuda_launches_per_call"] = \
                 timing["cuda_launches_per_call"]

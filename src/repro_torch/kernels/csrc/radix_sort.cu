@@ -62,7 +62,7 @@ KERNEL_ERROR_STRING_FN
 
 namespace k2 {
 
-using u64 = unsigned long long;
+using u64 = status_t;
 
 constexpr int kRadix = 256;
 constexpr int kPasses = 4;
@@ -91,22 +91,8 @@ __device__ __forceinline__ unsigned from_sortable(unsigned b, int mode) {
   return b;
 }
 
-// Look-back status word: (flag << 32) | count, one 64-bit access each.
-__device__ __forceinline__ void store_status(u64* p, unsigned flag,
-                                             int count) {
-  const u64 v = (static_cast<u64>(flag) << 32) | static_cast<unsigned>(count);
-  asm volatile("st.relaxed.gpu.global.u64 [%0], %1;" ::"l"(p), "l"(v)
-               : "memory");
-}
-
-__device__ __forceinline__ u64 load_status(const u64* p) {
-  u64 v;
-  asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];" : "=l"(v) : "l"(p)
-               : "memory");
-  return v;
-}
-
-// Flags of pass p: its tile's own count (aggregate) and the count of the
+// Look-back status words (store_status, look_back): common.cuh. Flags of
+// pass p: its tile's own count (aggregate) and the count of the
 // row's tiles up to and including it (inclusive). Zero, and the flags of
 // earlier passes, read as "not published yet".
 __device__ __forceinline__ unsigned flag_aggregate(int pass) {
@@ -297,21 +283,10 @@ pass_kernel(const unsigned* __restrict__ keys_in,
   if (tid < kRadix) {
     int prefix = 0;
     if (tile > 0) {
-      const unsigned fa = flag_aggregate(pass), fi = flag_inclusive(pass);
-      const u64* p = status + static_cast<u64>(g - 1) * kRadix + tid;
-      for (;;) {
-        const u64 w = load_status(p);
-        const unsigned flag = static_cast<unsigned>(w >> 32);
-        if (flag == fa) {
-          prefix += static_cast<int>(static_cast<unsigned>(w));
-          p -= kRadix;
-        } else if (flag == fi) {
-          prefix += static_cast<int>(static_cast<unsigned>(w));
-          break;
-        }
-      }
-      store_status(status + static_cast<u64>(g) * kRadix + tid, fi,
-                   prefix + total);
+      prefix = look_back(status + static_cast<u64>(g - 1) * kRadix + tid,
+                         kRadix, flag_aggregate(pass), flag_inclusive(pass));
+      store_status(status + static_cast<u64>(g) * kRadix + tid,
+                   flag_inclusive(pass), prefix + total);
     }
     s_delta[tid] = row_base + prefix - staged;
   }

@@ -89,3 +89,58 @@ def test_bucket_histogram_casts_ids_and_enforces_the_envelope():
                                                  device="meta"), 3)
     assert bucket_hist.KERNEL.launches == before      # CPU: no launch
     assert bucket_hist.KERNEL.replaces == "src/repro/kernels/bucket_hist.py:54"
+
+
+C = bucket_hist.MIN_CHUNK
+
+
+@pytest.mark.parametrize("rows,n,nb,chunk,per_row", [
+    # the entry point's stage-1 ids, and one long row of 256 buckets
+    (8, 1 << 22, 8, 1 << 16, 64),
+    (1, 1 << 25, 256, 1 << 16, 512),
+    # chunk edges
+    (1, 1, 1, 4, 1), (1, C - 1, 4, C, 1), (1, C, 4, C, 1),
+    (1, C + 1, 17, 8196, 2), (3, 2 * C + 1, 128, 10924, 3),
+    (1, 512 * C + 5, 513, C + 4, 512),
+    # the envelope's edges
+    (2, 70001, 1025, 14004, 5), (1, 100_000, 4096, 14288, 7),
+    (65535, 3, 8, 4, 1)])
+def test_hist_plan(rows, n, nb, chunk, per_row):
+    plan = bucket_hist.hist_plan(rows, n, nb)
+    assert plan.chunk == chunk and plan.chunk % 4 == 0
+    assert plan.blocks_per_row == per_row
+    assert (per_row - 1) * chunk < n <= per_row * chunk
+    assert plan.blocks == per_row * rows
+    assert plan.blocks <= max(bucket_hist.BLOCKS, rows)     # a bounded grid
+    assert plan.threads == 256
+    assert plan.smem_bytes == 4 * nb <= 16384     # one histogram a block
+    # the output is zeroed by one memset, then one launch; no scratch
+    assert plan.scratch_bytes == 0
+    assert plan.cuda_launches == 1 and plan.memsets == 1
+
+
+@pytest.mark.parametrize("rows,n,nb", [(bucket_hist.MAX_ROWS + 1, 4, 8),
+                                       (1, 4, 0), (1, 4, 4097), (0, 4, 8),
+                                       (1, 0, 8)])
+def test_hist_plan_rejects_outside_the_envelope(rows, n, nb):
+    with pytest.raises(ValueError):
+        bucket_hist.hist_plan(rows, n, nb)
+
+
+def test_hist_plan_constants_match_the_cuda_source():
+    import re
+    from pathlib import Path
+    src = (Path(bucket_hist.__file__).parent / "csrc"
+           / "bucket_hist.cu").read_text()
+
+    def const(name):
+        return int(re.search(rf"constexpr (?:int|long long) {name} = (\d+);",
+                             src).group(1))
+
+    assert const("kThreads") == bucket_hist.THREADS
+    assert const("kVec") == bucket_hist.VEC
+    assert const("kBlocks") == bucket_hist.BLOCKS
+    assert const("kMinChunk") == bucket_hist.MIN_CHUNK
+    assert const("kCopies") == 1
+    assert const("kMaxBuckets") == bucket_hist.MAX_NUM_BUCKETS
+    assert "__match_any_sync" not in src

@@ -75,6 +75,247 @@ def test_bucket_hist_kernel_one_id_past_2_24(card):
     assert got.tolist() == [[n, 5, 0, 0]]
 
 
+# -- K1 and K4 at their designs' edges ---------------------------------------
+
+I32 = torch.iinfo(torch.int32)
+
+
+def _profiled(call, expected, sessions=5):
+    """Names of the device events one ``call()`` makes and of the CUDA
+    runtime calls it makes on the host, from ``torch.profiler``, counted
+    from the call's start (each session's own fill goes first: a session's
+    first device event is the one most often lost). A session can lose
+    device events but never adds one, so a session that does not match
+    ``expected`` is followed by another."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    warm = torch.empty(1, dtype=torch.int8, device="cuda")
+    for _ in range(sessions):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            warm.fill_(1)     # the session's first event, the one most lost
+            torch.cuda.synchronize()
+            with record_function("held_call"):
+                call()
+            torch.cuda.synchronize()
+        start = min(e.time_range.start for e in prof.events()
+                    if e.name == "held_call")
+        mine = [e for e in prof.events()
+                if e.time_range.start >= start and e.name != "held_call"]
+        names = [e.name for e in mine if e.device_type == DeviceType.CUDA]
+        runtime = [e.name for e in mine if e.device_type == DeviceType.CPU
+                   and e.name.startswith("cuda")]
+        if expected(names, runtime):
+            break
+    return names, runtime
+
+
+def _k1_held_to_plain(dest, nd):
+    """K1 against its plain version: counts and in-range ranks exactly
+    equal, rank 0 outside the range, the input untouched."""
+    dest_in = dest.clone()
+    before = partition.KERNEL.launches
+    rank, counts = partition.partition_rank(dest, nd)
+    torch.cuda.synchronize()
+    assert partition.KERNEL.launches == before + 1
+    assert torch.equal(dest, dest_in)
+    rrank, rcounts = ref.partition_rank_ref(dest, nd)
+    ok = (dest >= 0) & (dest < nd)
+    assert torch.equal(counts, rcounts)
+    assert torch.equal(rank[ok], rrank[ok])
+    assert not torch.any(rank[~ok])
+    return rank, counts
+
+
+@pytest.mark.parametrize("nd", [1, 2, 8, 128, 256, 4096])
+@pytest.mark.parametrize("edge", ["T-1", "T", "T+1", "2T+1", "9T+5"])
+def test_partition_tile_and_look_back_edges(card, nd, edge):
+    """Rows of one tile (T - 1, T), two, three and ten, whose look-back
+    walks over earlier tiles, at the tile T of nd's form."""
+    t = partition.partition_plan(1, 1, nd).tile
+    s = {"T-1": t - 1, "T": t, "T+1": t + 1, "2T+1": 2 * t + 1,
+         "9T+5": 9 * t + 5}[edge]
+    dest = torch.randint(-2, nd + 2, (3, s), device=card, dtype=torch.int32,
+                         generator=_gen(card, s + nd))
+    dest[1, ::5] = nd - 1                                # a long run
+    _k1_held_to_plain(dest, nd)
+
+
+@pytest.mark.parametrize("nd", [8, 4096])
+@pytest.mark.parametrize("kind", ["first", "last", "none", "extremes"])
+def test_partition_special_rows(card, nd, kind):
+    """Every id one destination (the first or the last), none in range, or
+    the int32 extremes among a few in range."""
+    s = 9 * partition.partition_plan(1, 1, nd).tile + 5
+    dest = torch.full((2, s), {"first": 0, "last": nd - 1, "none": nd,
+                               "extremes": I32.min}[kind],
+                      dtype=torch.int32, device=card)
+    if kind == "none":
+        dest[:, ::2] = -1
+        dest[:, ::3] = I32.max
+    if kind == "extremes":
+        dest[:, ::2] = I32.max
+        dest[:, ::7] = nd // 2
+    rank, counts = _k1_held_to_plain(dest, nd)
+    if kind in ("first", "last"):
+        assert torch.equal(rank[0], torch.arange(s, device=card,
+                                                 dtype=torch.int32))
+
+
+def test_partition_most_rows_and_a_count_past_2_24(card):
+    dest = torch.randint(-1, 9, (65535, 3), device=card, dtype=torch.int32,
+                         generator=_gen(card, 3))
+    _k1_held_to_plain(dest, 8)
+    n = (1 << 24) + 9
+    dest = torch.zeros((1, n), dtype=torch.int32, device=card)
+    dest[0, :5] = 1
+    rank, counts = partition.partition_rank(dest, 4)
+    assert counts.tolist() == [[n - 5, 5, 0, 0]]
+    assert rank[0, -1].item() == n - 6
+
+
+def test_partition_long_row_repeats_identically(card):
+    """A 2^24-id row over 256 destinations ranked three times gives the
+    same ranks each time: a race in the look-back would show."""
+    dest = torch.randint(-1, 257, (1, 1 << 24), device=card,
+                         dtype=torch.int32, generator=_gen(card, 5))
+    first = _k1_held_to_plain(dest, 256)
+    for _ in range(2):
+        again = partition.partition_rank(dest, 256)
+        assert torch.equal(again[0], first[0])
+        assert torch.equal(again[1], first[1])
+
+
+@pytest.mark.parametrize("what", ["short scratch", "tile", "tiles", "right"])
+def test_partition_entry_point_holds_the_plan(card, what):
+    """The C entry point takes ``partition_plan``'s tile, tiles and scratch
+    bytes and refuses a call whose plan differs from its own layout."""
+    rows, n, nd = 2, 3 * 8192 + 1, 8
+    plan = partition.partition_plan(rows, n, nd)
+    dest = torch.randint(-1, nd + 1, (rows, n), device=card,
+                         dtype=torch.int32, generator=_gen(card, 6))
+    rank = torch.empty_like(dest)
+    counts = torch.empty((rows, nd), dtype=torch.int32, device=card)
+    scratch = torch.empty(plan.scratch_bytes, dtype=torch.uint8, device=card)
+    args = (dest, rank, counts, scratch,
+            plan.scratch_bytes - 8 * (what == "short scratch"), rows, n, nd,
+            plan.tile // (2 if what == "tile" else 1),
+            plan.tiles + (what == "tiles"))
+    if what != "right":
+        with pytest.raises(RuntimeError, match="partition_rank_launch"):
+            partition.KERNEL.launch("partition_rank_launch", *args)
+        return
+    partition.KERNEL.launch("partition_rank_launch", *args)
+    rrank, rcounts = ref.partition_rank_ref(dest, nd)
+    ok = (dest >= 0) & (dest < nd)
+    assert torch.equal(counts, rcounts) and torch.equal(rank[ok], rrank[ok])
+
+
+def _k4_held_to_plain(ids, nb):
+    before = bucket_hist.KERNEL.launches
+    got = bucket_hist.bucket_histogram(ids, nb)
+    torch.cuda.synchronize()
+    assert bucket_hist.KERNEL.launches == before + 1
+    assert torch.equal(got, ref.bucket_histogram_ref(ids, nb))
+    return got
+
+
+HC = bucket_hist.MIN_CHUNK
+
+
+@pytest.mark.parametrize("nb", [1, 8, 256, 1025, 4096])
+@pytest.mark.parametrize("s", [HC - 1, HC, HC + 1, 2 * HC + 1,
+                               512 * HC + 5])
+def test_bucket_hist_chunk_edges(card, nb, s):
+    """Rows one short of, at and one past a block's chunk, of three chunks,
+    and of more chunks than the bounded grid has blocks a row; rows whose
+    length is no multiple of 4, so rows (and the 1-D view of the second
+    row) start off a 16-byte boundary."""
+    rows = 3 if s < 512 * HC else 1
+    ids = torch.randint(-2, nb + 2, (rows, s), device=card, dtype=torch.int32,
+                        generator=_gen(card, s + nb))
+    _k4_held_to_plain(ids, nb)
+    _k4_held_to_plain(ids[-1], nb)
+
+
+@pytest.mark.parametrize("nb", [8, 256, 4096])
+@pytest.mark.parametrize("kind", ["first", "last", "none", "extremes"])
+def test_bucket_hist_special_rows(card, nb, kind):
+    s = 3 * HC + 7
+    ids = torch.full((2, s), {"first": 0, "last": nb - 1, "none": nb,
+                              "extremes": I32.min}[kind],
+                     dtype=torch.int32, device=card)
+    if kind == "none":
+        ids[:, ::2] = -1
+        ids[:, ::3] = I32.max
+    if kind == "extremes":
+        ids[:, ::2] = I32.max
+        ids[:, ::7] = nb // 2
+    got = _k4_held_to_plain(ids, nb)
+    if kind in ("first", "last"):
+        assert got[:, 0 if kind == "first" else nb - 1].tolist() == [s, s]
+
+
+def test_bucket_hist_most_rows_and_repeats(card):
+    ids = torch.randint(-1, 9, (65535, 3), device=card, dtype=torch.int32,
+                        generator=_gen(card, 7))
+    _k4_held_to_plain(ids, 8)
+    ids = torch.randint(0, 256, (1, 1 << 24), device=card, dtype=torch.int32,
+                        generator=_gen(card, 8))
+    first = _k4_held_to_plain(ids, 256)
+    for _ in range(2):
+        assert torch.equal(bucket_hist.bucket_histogram(ids, 256), first)
+
+
+@pytest.mark.parametrize("what", ["chunk", "blocks", "right"])
+def test_bucket_hist_entry_point_holds_the_plan(card, what):
+    rows, n, nb = 2, 5 * HC + 3, 8
+    plan = bucket_hist.hist_plan(rows, n, nb)
+    ids = torch.randint(-1, nb + 1, (rows, n), device=card, dtype=torch.int32,
+                        generator=_gen(card, 9))
+    out = torch.empty((rows, nb), dtype=torch.int32, device=card)
+    args = (ids, out, rows, n, nb, plan.chunk + 4 * (what == "chunk"),
+            plan.blocks_per_row + (what == "blocks"))
+    if what != "right":
+        with pytest.raises(RuntimeError, match="bucket_hist_launch"):
+            bucket_hist.KERNEL.launch("bucket_hist_launch", *args)
+        return
+    bucket_hist.KERNEL.launch("bucket_hist_launch", *args)
+    assert torch.equal(out, ref.bucket_histogram_ref(ids, nb))
+
+
+@pytest.mark.parametrize("kernel,rows,n,nd", [
+    ("partition", 8, 1 << 20, 8), ("partition", 2, 5000, 4096),
+    ("bucket_hist", 8, 1 << 20, 8), ("bucket_hist", 1, 1 << 22, 256)])
+def test_launches_and_memsets_match_the_plan(card, kernel, rows, n, nd):
+    """One call's CUDA launches (the device's kernel events) and memsets
+    (the host's ``cudaMemsetAsync`` calls), counted by ``torch.profiler``,
+    equal its plan's; no other device event comes from the call."""
+    ids = torch.randint(-1, nd + 1, (rows, n), device=card, dtype=torch.int32,
+                        generator=_gen(card, 10))
+    if kernel == "partition":
+        plan = partition.partition_plan(rows, n, nd)
+        call, tag = (lambda: partition.partition_rank(ids, nd)), "k1::"
+    else:
+        plan = bucket_hist.hist_plan(rows, n, nd)
+        call, tag = (lambda: bucket_hist.bucket_histogram(ids, nd)), "k4::"
+    call()                                          # built and warm
+
+    def as_planned(names, runtime):
+        """The device's kernels and the host's memset calls as planned; the
+        device's memset events are often lost, never more than planned."""
+        kernels = [x for x in names if tag in x]
+        memsets = [x for x in names if x.startswith("Memset")]
+        other = [x for x in names if x not in kernels and x not in memsets]
+        return (len(kernels) == plan.cuda_launches
+                and runtime.count("cudaMemsetAsync") == plan.memsets
+                and len(memsets) <= plan.memsets and not other)
+
+    names, runtime = _profiled(call, as_planned)
+    assert as_planned(names, runtime), (names, runtime)
+
+
 @pytest.mark.parametrize("dtype", [torch.int32, torch.uint32, torch.float32])
 @pytest.mark.parametrize("rows,s", [(1, 2), (3, 1000), (5, 4097),
                                     (2, 70001)])

@@ -67,8 +67,10 @@ def test_plan_constants_match_the_cuda_source():
 def test_k2_no_longer_builds_on_the_multisplit():
     assert '#include "multisplit.cuh"' not in (
         CSRC / "radix_sort.cu").read_text()
-    # K1 still does
-    assert '#include "multisplit.cuh"' in (CSRC / "partition.cu").read_text()
+    # neither does K1 since its own one-sweep redesign: the header is gone
+    assert '#include "multisplit.cuh"' not in (
+        CSRC / "partition.cu").read_text()
+    assert not (CSRC / "multisplit.cuh").exists()
 
 
 @pytest.mark.parametrize("kv", [True, False])
