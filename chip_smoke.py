@@ -62,7 +62,23 @@ Phases, in order (any failure ends the script with a non-zero exit):
    call and its bound;
 8. the ``terasort()`` shim three ways — ``sort_algo="radix"`` (K2 must
    run), ``buckets_per_device=4``, and ``hadoop_style_sort`` against
-   ``terasort`` — and the autotuner's choice for the main-path cell.
+   ``terasort`` — and the autotuner's choice for the main-path cell;
+9. the host path: Terasort over Sector files. ``make_sector`` builds 8
+   slaves in a temporary directory on the local disk (removed at the
+   end), replication 2 with the ``ReplicationDaemon``; phase 5's records
+   are uploaded as 8 slices, and 8 SPEs run
+   ``Dataflow.source(codec).sort(key, num_buckets=8)``
+   through ``HostExecutor`` on the card: phase 0 splits each slice into
+   bucket files with K1, phase 1 sorts each bucket file with K2. Checks a
+   globally sorted permutation with each value row beside its key, keys
+   equal to ``torch.sort`` of the input's and to phase 5's, no errors, K1 once per phase-0 segment and K2 once per phase-1
+   bucket file; prints cold and warm wall, records/s, the per-phase
+   split, the slaves' write, md5 and ``used_bytes`` seconds of the warm
+   run, disk bytes written and peak device memory (``--profile``: the
+   device busy share of a warm run); holds K1 and K2 to their plain
+   versions at this path's shapes; then sorts a 2^20-record prefix again
+   with one SPE crashing after its first segment (same output, retries
+   > 0).
 
 Each path's launch counts are read from zero: every count is reset just
 before the path runs and read just after. The last lines are the kernel
@@ -918,9 +934,9 @@ def main_path(torch, keys, value, profile_dir=None):
            "dropped": int(res.dropped), "cache": ex.cache_info()._asdict()}
     del res
     if profile_dir:
-        out["profile"] = profile_run(torch, ex, df,
-                                     {"key": keys, "value": value},
-                                     profile_dir, "main_path")
+        out["profile"] = profile_run(
+            torch, lambda: ex.run(df, {"key": keys, "value": value}),
+            profile_dir, "main_path")
     torch.cuda.empty_cache()
     return out, sorted_keys
 
@@ -975,9 +991,9 @@ def grid_path(torch, keys, value, flat_sorted_keys, profile_dir=None):
                      "flat": [flat.axes, flat.capacities]},
            "wan_profile": wan}
     if profile_dir:
-        out["profile"] = profile_run(torch, ex, df,
-                                     {"key": keys, "value": value},
-                                     profile_dir, "wide_area_path")
+        out["profile"] = profile_run(
+            torch, lambda: ex.run(df, {"key": keys, "value": value}),
+            profile_dir, "wide_area_path")
     torch.cuda.empty_cache()
     return out
 
@@ -1043,8 +1059,9 @@ def wordcount_path(torch, dev, seed: int, sh: Shapes, profile_dir=None):
     out["k2_on_path_rows"] = radix_on_reduce_input(torch, ex, shuffled,
                                                    word_t)
     if profile_dir:
-        out["profile"] = profile_run(torch, ex, df, {"word": word_t},
-                                     profile_dir, "wordcount")
+        out["profile"] = profile_run(
+            torch, lambda: ex.run(df, {"word": word_t}), profile_dir,
+            "wordcount")
     torch.cuda.empty_cache()
     return out
 
@@ -1077,9 +1094,409 @@ def radix_on_reduce_input(torch, ex, shuffled, word_t):
                           K2_BYTES_PER_KV)}
 
 
-def profile_run(torch, ex, df, records, out_dir: str, name: str):
-    """Two more runs of a path: one warm (steady-state wall time), one
-    under ``torch.profiler``. From the profiled run alone: the time of
+def host_input(torch, keys, value):
+    """Phase 5's input records, packed into 100-byte rows on the card and
+    copied to the host once: ``WORLD`` numpy slices, the Sector files of
+    phase 9."""
+    import numpy as np
+    from repro_torch.core.records import RecordCodec
+    codec = RecordCodec.from_fields({"key": "int32",
+                                     "value": ("uint8", (VALUE_BYTES,))})
+    rows = codec.pack({"key": keys.reshape(-1),
+                       "value": value.reshape(-1, VALUE_BYTES)})
+    block = rows.cpu().numpy()
+    del rows
+    return codec, np.array_split(block, WORLD)
+
+
+def filesystem_of(path: str) -> str:
+    """'<mount point> <type>' of the file system holding ``path``."""
+    best = ("?", "?")
+    real = os.path.realpath(path)
+    with open("/proc/mounts") as f:
+        for line in f:
+            parts = line.split()
+            mnt = parts[1]
+            if (real == mnt or real.startswith(mnt.rstrip("/") + "/")) \
+                    and len(mnt) >= len(best[0].rstrip("?")):
+                best = (mnt, parts[2])
+    return " ".join(best)
+
+
+class SectorDeployment:
+    """``make_sector`` over ``WORLD`` slaves in a temporary directory on the
+    machine's local disk (removed by :meth:`close`), replication 2, the
+    input uploaded as ``WORLD`` slices and replicated, one SPE per slave."""
+
+    def __init__(self, slices, tag: str):
+        import shutil
+        import tempfile
+        from repro_torch.launch.train import make_sector
+        self.root = tempfile.mkdtemp(prefix=f"chip_smoke_sector_{tag}_")
+        self.free_bytes = shutil.disk_usage(self.root).free
+        self.fs = filesystem_of(self.root)
+        # input and one run's bucket files, each twice (replication 2)
+        need = 4 * sum(s.nbytes for s in slices)
+        if self.free_bytes < need + (1 << 30):
+            self.close()
+            raise RuntimeError(f"{self.root} ({self.fs}) has "
+                               f"{self.free_bytes} bytes free; the host "
+                               f"path needs {need} and 1 GiB to spare")
+        try:
+            self.master, self.client, self.daemon = make_sector(
+                self.root, num_slaves=WORLD, replication=2)
+            t0 = time.perf_counter()
+            self.client.upload_dataset("/terasort/in",
+                                       [s.tobytes() for s in slices])
+            self.daemon.run_until_stable()
+            self.setup_s = time.perf_counter() - t0
+        except BaseException:
+            self.close()
+            raise
+        self.paths = [f"/terasort/in.{i:05d}" for i in range(len(slices))]
+
+    def spes(self, fail_after=None):
+        from repro_torch.sphere.spe import SPE
+        return [SPE(i, self.master.slaves[i].address, self.master,
+                    self.client.session_id,
+                    fail_after=(fail_after or {}).get(i))
+                for i in range(WORLD)]
+
+    def host_rates(self, block) -> dict:
+        """GB/s of the host work each bucket byte meets on this machine,
+        on one slice: ``tobytes``, md5 (every slave write hashes), a file
+        write and a read back on the deployment's file system."""
+        import hashlib
+        path = os.path.join(self.root, "rate_probe")
+        t0 = time.perf_counter()
+        data = block.tobytes()
+        t1 = time.perf_counter()
+        hashlib.md5(data).hexdigest()
+        t2 = time.perf_counter()
+        with open(path, "wb") as f:
+            f.write(data)
+        t3 = time.perf_counter()
+        with open(path, "rb") as f:
+            f.read()
+        t4 = time.perf_counter()
+        os.remove(path)
+        gb = len(data) / 1e9
+        return {"bytes": len(data), "tobytes_gb_s": gb / (t1 - t0),
+                "md5_gb_s": gb / (t2 - t1), "write_gb_s": gb / (t3 - t2),
+                "read_gb_s": gb / (t4 - t3)}
+
+    def disk_bytes(self) -> int:
+        return sum(s.used_bytes() for s in self.master.slaves.values())
+
+    def drop_scratch(self) -> None:
+        """Delete every bucket file of earlier runs (disk space)."""
+        for meta in self.client.ls("/.dataflow"):
+            self.client.delete(meta.path)
+
+    def close(self) -> None:
+        import shutil
+        shutil.rmtree(self.root, ignore_errors=True)
+
+
+class TimedDaemon:
+    """The executor's replication daemon, timed: ``seconds`` of
+    ``run_until_stable`` (the replication half of ``materialize_s``)."""
+
+    def __init__(self, daemon):
+        self.daemon = daemon
+        self.seconds = 0.0
+
+    def run_until_stable(self):
+        t0 = time.perf_counter()
+        made = self.daemon.run_until_stable()
+        self.seconds += time.perf_counter() - t0
+        return made
+
+
+class SlaveClock:
+    """While entered, the seconds and calls of every slave's
+    ``write_file`` and, inside it, of its md5, and of ``used_bytes`` (a
+    walk of the slave's directory, by every write and by the master's
+    placement): the host work each Sector write costs, measured on the
+    path."""
+
+    NAMES = ("write_file", "md5", "used_bytes")
+
+    def __init__(self):
+        self.seconds = dict.fromkeys(self.NAMES, 0.0)
+        self.calls = dict.fromkeys(self.NAMES, 0)
+
+    def _timed(self, name, fn):
+        def timed(*args, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                self.seconds[name] += time.perf_counter() - t0
+                self.calls[name] += 1
+        return timed
+
+    def __enter__(self):
+        from repro_torch.sector import slave
+        self._saved = [(slave, "_md5", slave._md5),
+                       (slave.SlaveNode, "used_bytes",
+                        slave.SlaveNode.used_bytes),
+                       (slave.SlaveNode, "write_file",
+                        slave.SlaveNode.write_file)]
+        for owner, attr, fn in self._saved:
+            setattr(owner, attr, self._timed(attr.lstrip("_"), fn))
+        return self
+
+    def __exit__(self, *exc):
+        for owner, attr, fn in self._saved:
+            setattr(owner, attr, fn)
+
+    def report(self) -> dict:
+        return {"seconds": dict(self.seconds), "calls": dict(self.calls)}
+
+
+def span_seconds(tracer) -> dict:
+    """Seconds of the host run's spans by phase: the SPEs' reads (download,
+    copy to the card, unpack) and UDFs (the phase's device work, ending
+    in the copy of the bucket rows to the host in phase 0; phase 1's
+    output stays on the card unsynchronised), and the bucket files'
+    upload and replication."""
+    spans = tracer.buffer.spans()
+    by_id = {sp.span_id: sp for sp in spans}
+    out = {}
+    for sp in spans:
+        if sp.duration is None:
+            continue
+        cur = sp
+        while cur is not None and not cur.name.startswith("phase["):
+            cur = by_id.get(cur.parent_id)
+        if cur is None:
+            continue
+        name = ("hop_buckets" if sp.name.startswith("hop[") else
+                "segments" if sp.name.startswith("segment[") else sp.name)
+        if name in ("spe.read", "spe.udf", "segments", "hop_buckets"):
+            row = out.setdefault(cur.name, {})
+            row[name] = row.get(name, 0.0) + sp.duration
+    return out
+
+
+def host_path(torch, dev, codec, slices, flat_sorted_keys, checks,
+              profile_dir=None):
+    """Phase 9: Terasort over Sector files through ``HostExecutor`` — the
+    paper's own data plane. Phase 0 decodes each input slice on the card
+    and splits it into bucket files with K1; phase 1 sorts each bucket
+    file with K2. Checks, cold and warm wall, the per-phase split, disk
+    bytes, peak memory; then K1 and K2 against their plain versions at
+    the shapes this path gave them; then a small run with a crashing
+    SPE."""
+    import numpy as np
+    from repro_torch.kernels import partition, radix_sort, ref
+    from repro_torch.obs.trace import Tracer
+    from repro_torch.sphere.dataflow import Dataflow, HostExecutor
+
+    n = sum(s.shape[0] for s in slices)
+    df = Dataflow.source(codec).sort(key=lambda r: r["key"],
+                                     num_buckets=WORLD)
+    rows = torch.from_numpy(np.concatenate(slices)).to(dev)
+    inp = codec.unpack(rows)
+    in_keys = inp["key"].clone()
+    in_value = inp["value"]
+    want_keys = torch.sort(in_keys).values
+    del rows, inp
+    if not torch.equal(want_keys, flat_sorted_keys.to(dev)):
+        raise AssertionError("torch.sort of the host input differs from "
+                             "phase 5's sorted keys")
+    sector = SectorDeployment(slices, "big")
+    try:
+        daemon = TimedDaemon(sector.daemon)
+        disk0 = sector.disk_bytes()
+        ex = HostExecutor(sector.master, sector.client, sector.spes(),
+                          daemon=daemon)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.perf_counter()
+        res = ex.run(df, sector.paths)
+        torch.cuda.synchronize()
+        cold = time.perf_counter() - t0
+        launches = read_launches()
+        peak = torch.cuda.max_memory_allocated()
+        disk_written = sector.disk_bytes() - disk0
+        segs = [p["segments"] for p in res.phase_times]
+        check_host_result(torch, res, in_keys, in_value, want_keys,
+                          "host path")
+        want = {"partition": segs[0], "radix_sort": segs[1]}
+        got = {k: launches[k] for k in want}
+        if got != want or launches["bitonic_sort"] or launches["bucket_hist"]:
+            raise AssertionError(f"host path launched {launches}; expected "
+                                 f"K1 once per phase-0 segment and K2 once "
+                                 f"per phase-1 bucket file: {want}")
+        phases = [{k: p[k] for k in ("phase", "terminator", "seconds",
+                                     "engine_s", "materialize_s",
+                                     "segments")} for p in res.phase_times]
+        cold_replication_s = daemon.seconds
+        del res
+        sector.drop_scratch()
+        tracer = Tracer()
+        daemon.seconds = 0.0
+        torch.cuda.synchronize()
+        with SlaveClock() as slave_clock:
+            t0 = time.perf_counter()
+            warm = ex.run(df, sector.paths, trace=tracer)
+            torch.cuda.synchronize()
+            warm_s = time.perf_counter() - t0
+        warm_phases = [{k: p[k] for k in ("seconds", "engine_s",
+                                          "materialize_s")}
+                       for p in warm.phase_times]
+        check_host_result(torch, warm, in_keys, in_value, want_keys,
+                          "host path, warm")
+        del warm
+        out = {"phase": "host_sector_terasort", "records": n,
+               "record_bytes": codec.nbytes, "slaves": WORLD,
+               "replication": 2, "spes": WORLD, "buckets": WORLD,
+               "segments": segs, "launches": launches,
+               "wall_ms": cold * 1e3, "records_per_s": n / cold,
+               "warm_wall_ms": warm_s * 1e3, "warm_records_per_s": n / warm_s,
+               "phase_times": phases, "warm_phase_times": warm_phases,
+               "replication_s": cold_replication_s,
+               "warm_replication_s": daemon.seconds,
+               "warm_spans_s": span_seconds(tracer),
+               "warm_slave_writes": slave_clock.report(),
+               "setup_s": sector.setup_s,
+               "disk_bytes_written": disk_written,
+               "disk_free_bytes_before": sector.free_bytes,
+               "disk": f"{sector.root} on {sector.fs}",
+               "peak_mem_bytes": peak, "errors": 0, "data_errors": 0,
+               "host_rates": sector.host_rates(slices[0]),
+               "same_keys_as_flat": True}
+        if profile_dir:
+            def once():
+                sector.drop_scratch()
+                return ex.run(df, sector.paths)
+            sector.drop_scratch()
+            out["profile"] = profile_run(torch, once, profile_dir,
+                                         "host_sector_terasort")
+    finally:
+        sector.close()
+    del in_keys, in_value, want_keys
+    torch.cuda.empty_cache()
+
+    # K1 and K2 held to their plain versions at this path's shapes
+    seg_n = slices[0].shape[0]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(9)
+    ids = torch.randint(0, WORLD, (seg_n,), generator=gen, device=dev,
+                        dtype=torch.int32)
+    k1 = checks["partition"][0]
+    rank, counts = partition.partition_rank(ids, WORLD)
+    rrank, rcounts = ref.partition_rank_ref(ids, WORLD)
+    k1.equal("host bucket split ranks", rank, rrank)
+    k1.equal("host bucket split counts", counts, rcounts)
+    keys = torch.randint(0, (1 << 31) - 1, (1, seg_n), generator=gen,
+                         device=dev, dtype=torch.int32)
+    pos = torch.arange(seg_n, dtype=torch.int32, device=dev)[None]
+    k2 = checks["radix_sort"][0]
+    gk, gv = radix_sort.sort_kv_segments_radix(keys, pos)
+    rk, rv = radix_sort.sort_kv_segments_radix_ref(keys, pos)
+    k2.equal("host stage-2 keys", gk, rk)
+    k2.equal("host stage-2 order", gv, rv)
+    out["kernels_at_path_shapes"] = [
+        {"name": "partition", "shape": [1, seg_n], "num_dest": WORLD,
+         "ms": time_ms(torch, lambda: partition.partition_rank(ids, WORLD)),
+         "plain_ms": time_ms(torch, lambda: ref.partition_rank_ref(
+             ids, WORLD), iters=3),
+         "library_ms": time_ms(torch, lambda: torch.bincount(
+             ids, minlength=WORLD)),
+         "bound_ms": bound_ms(8 * seg_n + 4 * WORLD)},
+        {"name": "radix_sort", "shape": [1, seg_n],
+         "ms": time_ms(torch, lambda: radix_sort.sort_kv_segments_radix(
+             keys, pos)),
+         "plain_ms": time_ms(torch, lambda: radix_sort.
+                             sort_kv_segments_radix_ref(keys, pos), iters=3),
+         "library_ms": time_ms(torch, lambda: torch.sort(
+             keys, dim=1, stable=True)),
+         "bound_ms": bound_ms(16 * seg_n)}]
+    del ids, rank, counts, rrank, rcounts, keys, pos, gk, gv, rk, rv
+    out["crash_run"] = host_crash_run(torch, dev, codec, slices, df)
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_host_result(torch, res, in_keys, in_value, want_keys, what: str):
+    """A host sort's output: no errors, every record once, globally sorted,
+    each value row beside its key, keys equal to ``torch.sort`` of the
+    input's."""
+    if res.errors or res.data_errors:
+        raise AssertionError(f"{what}: errors {res.errors}, data_errors "
+                             f"{res.data_errors}")
+    out_k, out_v = res.records["key"], res.records["value"]
+    n = in_keys.numel()
+    if out_k.numel() != n or not bool(res.valid.all()):
+        raise AssertionError(f"{what}: {out_k.numel()} records, expected {n}")
+    if not torch.equal(out_k, want_keys):
+        raise AssertionError(f"{what}: keys differ from torch.sort of the "
+                             f"input keys")
+    idx = out_v[:, :4].contiguous().view(torch.int32).reshape(-1).to(
+        torch.int64)
+    if not torch.equal(torch.sort(idx).values,
+                       torch.arange(n, device=idx.device, dtype=torch.int64)):
+        raise AssertionError(f"{what}: delivered records are not a "
+                             f"permutation")
+    if not torch.equal(in_keys[idx], out_k) or not torch.equal(
+            in_value[idx], out_v):
+        raise AssertionError(f"{what}: a delivered value row does not match "
+                             f"its key")
+
+
+def by_index(torch, res):
+    """A sort's records ordered by the input index in their first value
+    bytes."""
+    idx = res.records["value"][:, :4].contiguous().view(torch.int32)
+    order = torch.argsort(idx.reshape(-1))
+    return res.records["key"][order], res.records["value"][order]
+
+
+def host_crash_run(torch, dev, codec, slices, df, n_small: int = 1 << 20):
+    """The host sort of a small prefix of the input twice: once as is, then
+    with the SPE that did the most segments crashing after its first
+    (``fail_after=1``). The same sorted keys and the same records, and
+    the retry must show."""
+    from repro_torch.sphere.dataflow import HostExecutor
+    per = n_small // WORLD
+    small = [s[:per] for s in slices]
+    n_small = sum(s.shape[0] for s in small)
+    sector = SectorDeployment(small, "small")
+    try:
+        spes = sector.spes()
+        base = HostExecutor(sector.master, sector.client, spes,
+                            daemon=sector.daemon).run(df, sector.paths)
+        busiest = max(spes, key=lambda s: (s.segments_done, -s.spe_id))
+        crashing = sector.spes(fail_after={busiest.spe_id: 1})
+        res = HostExecutor(sector.master, sector.client, crashing,
+                           daemon=sector.daemon).run(df, sector.paths)
+        if res.retries < 1 or res.errors or res.data_errors:
+            raise AssertionError(f"crash run: retries {res.retries}, errors "
+                                 f"{res.errors}")
+        # equal keys may come out in another order: a re-pooled segment
+        # reaches the bucket files later (arrival order, as in the JAX
+        # package), so records are compared by their input index
+        if not torch.equal(res.records["key"], base.records["key"]):
+            raise AssertionError("crash run: keys differ from the run "
+                                 "without the crash")
+        for f, (a, b) in zip(("key", "value"), zip(by_index(torch, res),
+                                                   by_index(torch, base))):
+            if not torch.equal(a, b):
+                raise AssertionError(f"crash run: {f} of a record differs "
+                                     f"from the run without the crash")
+        return {"records": n_small, "crashing_spe": busiest.spe_id,
+                "retries": res.retries, "same_output": True}
+    finally:
+        sector.close()
+
+
+def profile_run(torch, run_once, out_dir: str, name: str):
+    """Two more runs of a path (``run_once()``): one warm (steady-state
+    wall time), one under ``torch.profiler``. From the profiled run alone: the time of
     every device-side event (kernels, copies, fills; an operator's own row
     is left out so that no time is counted twice), the union of their
     intervals, and that union's share of the profiled run's wall time.
@@ -1088,13 +1505,13 @@ def profile_run(torch, ex, df, records, out_dir: str, name: str):
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    ex.run(df, records)
+    run_once()
     torch.cuda.synchronize()
     warm = time.perf_counter() - t0
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        ex.run(df, records)
+        run_once()
         torch.cuda.synchronize()
         prof_wall = time.perf_counter() - t0
     os.makedirs(out_dir, exist_ok=True)
@@ -1240,24 +1657,36 @@ def main(argv=None) -> int:
     log(json.dumps(mp))
     wide = grid_path(torch, keys, value, flat_sorted, args.profile)
     log(json.dumps(wide))
+    host_codec, host_slices = host_input(torch, keys, value)
+    host_flat = flat_sorted.cpu()
     del keys, value, flat_sorted
     torch.cuda.empty_cache()
     wc = wordcount_path(torch, dev, args.seed, sh, args.profile)
     log(json.dumps(wc))
     shim, radix_launches = shim_runs(torch, dev, gen, args.n_log2)
     log(json.dumps({"phase": "terasort_shim", **shim}))
+    t0 = time.perf_counter()
+    host = host_path(torch, dev, host_codec, host_slices, host_flat, checks,
+                     args.profile)
+    host["phase_s"] = time.perf_counter() - t0
+    log(json.dumps(host))
+    del host_slices, host_flat
 
     paths = {
         "partition": {"dataflow sort, flat": mp["launches"]["partition"],
                       "dataflow sort, (dc, node)":
                           wide["launches"]["partition"],
-                      "wordcount": wc["launches"]["partition"]},
+                      "wordcount": wc["launches"]["partition"],
+                      "host terasort over Sector, bucket split":
+                          host["launches"]["partition"]},
         "bitonic_sort": {"dataflow sort, flat": mp["launches"]["bitonic_sort"],
                          "dataflow sort, (dc, node)":
                              wide["launches"]["bitonic_sort"]},
         "radix_sort": {"wordcount reduce_by_key_sum(algo='radix')":
                            wc["launches"]["radix_sort"],
-                       "terasort sort_algo='radix'": radix_launches},
+                       "terasort sort_algo='radix'": radix_launches,
+                       "host terasort over Sector, stage-2 sort":
+                           host["launches"]["radix_sort"]},
         "bucket_hist": {"kernels.ops.bucket_histogram (entry point; on no "
                         "dataflow path, as in the JAX package)":
                             k4["launches"]["bucket_hist"]},

@@ -111,10 +111,13 @@ def reduce_by_key_sum(keys: torch.Tensor, values: torch.Tensor,
     ``ranks`` rows (``algo`` pins ``"bitonic"`` / ``"radix"`` /
     ``"oracle"``; None autotunes), then each row's runs of equal keys are
     summed and each run's head (key, total) is scattered to slot = run
-    index. Summation is order-insensitive for integers, so the unstable
-    bitonic network's tie order does not change integer results; float
-    runs are summed as differences of float64 prefix sums, to within a
-    float32 rounding of the JAX package's scatter-add.
+    index. Integer runs are summed exactly, as differences of int64 prefix
+    sums over the flat buffer, so the unstable bitonic network's tie order
+    does not change integer results. Float runs are each summed on their
+    own in the value dtype (one ``torch.segment_reduce`` over the runs), as
+    the JAX package's ``at[seg_id].add``: a run's total never depends on
+    the values of other runs, and the same input gives the same bits on
+    every run.
 
     Returns (unique_keys, sums, dropped): keys/sums ``(..., max_unique or
     n)`` with key = -1 padding rows; ``dropped`` — per row, ``(ranks,)`` or
@@ -146,16 +149,24 @@ def reduce_by_key_sum(keys: torch.Tensor, values: torch.Tensor,
     real_head = is_head & (sk != sentinel)
     dropped = (real_head & (seg_id >= cap)).sum(dim=1, dtype=torch.int32)
     # every run's head, row-major (one host sync); a run ends where the
-    # next head of its row starts, and its total is a difference of
-    # exclusive prefix sums, so no two writers ever meet on one address
+    # next head of its row starts, so the runs tile the flat buffer
     hr, hp = is_head.nonzero(as_tuple=True)
     end = torch.full_like(hp, n)
     if hp.numel() > 1:
         end[:-1] = torch.where(hr[1:] == hr[:-1], hp[1:], n)
-    wide = torch.float64 if sv.dtype.is_floating_point else torch.int64
-    csum = torch.zeros((world * n + 1,), dtype=wide, device=dev)
-    torch.cumsum(sv.reshape(-1).to(wide), dim=0, out=csum[1:])
-    total = (csum[hr * n + end] - csum[hr * n + hp]).to(sv.dtype)
+    if hp.numel() == 0:
+        total = sv.reshape(-1)
+    elif sv.dtype.is_floating_point:
+        # one segmented sum over the runs: a float run's total never
+        # carries the rounding of the runs before it, and its order of
+        # summation is fixed (no atomics), so reruns agree bit for bit
+        total = torch.segment_reduce(sv.reshape(-1), "sum",
+                                     lengths=end - hp)
+    else:
+        # a run's total is a difference of exclusive int64 prefix sums
+        csum = torch.zeros((world * n + 1,), dtype=torch.int64, device=dev)
+        torch.cumsum(sv.reshape(-1).to(torch.int64), dim=0, out=csum[1:])
+        total = (csum[hr * n + end] - csum[hr * n + hp]).to(sv.dtype)
     run = seg_id[hr, hp]
     keep = real_head[hr, hp] & (run < cap)
     # kept heads land in slot = run index; the rest in one overflow column

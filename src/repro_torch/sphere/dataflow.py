@@ -1,7 +1,7 @@
-"""Unified Sphere dataflow on stacked ranks: the SPMD executor.
+"""Unified Sphere dataflow: one pipeline description, two executors.
 
-Port of ``repro/sphere/dataflow.py`` (the pipeline description and
-``SPMDExecutor``; the host executor, chaos/resume, streaming carry and
+Port of ``repro/sphere/dataflow.py``: the pipeline description,
+``SPMDExecutor`` and ``HostExecutor`` (chaos/resume, streaming carry and
 per-stage tracing are not ported yet). A :class:`Dataflow` is a
 declarative chain of stages over *records* — any fixed-shape dict / tuple
 / list tree of tensors sharing leading record axes::
@@ -10,6 +10,7 @@ declarative chain of stages over *records* — any fixed-shape dict / tuple
     res = SPMDExecutor(Ranks(8)).run(df, records)        # paper §4.2
     grid = Ranks(shape=(2, 4), axes=("dc", "node"))
     res = SPMDExecutor(grid).run(df, records)            # wide area, §2.2
+    res = HostExecutor(master, client, spes).run(df, sector_paths)  # §2-3
 
 :class:`SPMDExecutor` runs every stage once over all ranks of a
 :class:`repro_torch.comm.Ranks` (records carry a leading rank axis):
@@ -20,18 +21,31 @@ sort stage as the two-stage terasort — a range-partition shuffle, then a
 bucket-major regroup (kernel K1) and one multi-segment sort (kernel K3 or
 K2, or the ``torch.sort`` oracle).
 
+:class:`HostExecutor` runs the same pipeline on the Sector/SPE data
+plane (:mod:`repro_torch.sphere.engine`): SPEs decode Sector segments onto
+the executor's device, run the phase's UDFs there, and shuffle and sort
+stages materialize bucket files back into Sector, which the next phase
+reads — the paper's own architecture. Its per-segment work runs two of the
+port's kernels: the bucket split is K1 (:func:`repro_torch.kernels.partition.partition_rank`)
+and a sort's stage-2 stable argsort is K2
+(:func:`repro_torch.kernels.radix_sort.sort_kv_segments_radix`).
+
 UDF contracts are the JAX package's: ``map(fn)`` maps records to records
-(padding-oblivious); ``shuffle(by)`` gives ``(ranks, n)`` bucket ids,
-negative meaning "emit nothing"; ``reduce(fn)`` takes ``(records,
-valid)`` of one rank group and returns ``(records, valid)`` or ``(records,
-valid, dropped)`` — here over all ranks at once, each leaf leading with
-the rank axis (``dropped`` a scalar or one count per rank, summed).
+(padding-oblivious); ``shuffle(by)`` gives bucket ids, negative meaning
+"emit nothing"; ``reduce(fn)`` takes ``(records, valid)`` of one group and
+returns ``(records, valid)`` or ``(records, valid, dropped)``. On
+:class:`SPMDExecutor` the group is all ranks at once, each leaf leading
+with the rank axis (``dropped`` a scalar or one count per rank, summed);
+on :class:`HostExecutor` it is one segment or one bucket file, each leaf
+leading with its ``(n,)`` record axis.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import os
+import time
 from collections import OrderedDict, namedtuple
 from typing import (Any, Callable, Dict, List, NamedTuple, Optional,
                     Sequence, Tuple)
@@ -39,12 +53,13 @@ from typing import (Any, Callable, Dict, List, NamedTuple, Optional,
 import numpy as np
 import torch
 
-from repro_torch.comm import Ranks
+from repro_torch.comm import Ranks, resolve_device
 from repro_torch.core.records import (RecordCodec, tree_flatten, tree_map,
                                       tree_unflatten)
 from repro_torch.core.shuffle import ShufflePlan, record_hops
 from repro_torch.kernels import autotune
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels import partition, radix_sort
 from repro_torch.obs.metrics import REGISTRY
 from repro_torch.obs.trace import NULL_TRACER
 
@@ -136,15 +151,35 @@ class Dataflow:
 
 @dataclasses.dataclass
 class DataflowResult:
-    """records: output tree, each leaf ``(ranks, slots, ...)`` — mask with
-    ``valid`` ``(ranks, slots)``. dropped: ``()`` int32 records lost to
-    capacity bounds plus drops reported by reduce UDFs. trace: the tracer
-    the run recorded into (None when untraced)."""
+    """Executor-independent result.
+
+    records: output tree. SPMD: each leaf ``(ranks, slots, ...)`` — mask
+             with ``valid`` ``(ranks, slots)``. Host: dense ``(n, ...)``
+             tensors on the executor's device, ``valid`` all true.
+    dropped: ``()`` int32 records lost to capacity bounds (SPMD shuffles)
+             plus drops reported by reduce UDFs.
+    errors/retries/recoveries/data_errors/phase_times: host-executor
+             fault and time accounting (empty / 0 on SPMD).
+    trace:   the tracer the run recorded into (None when untraced).
+    """
 
     records: Any
     valid: torch.Tensor
     dropped: torch.Tensor
+    #: host executor: segments that failed, keyed ``(phase, segment)``
+    errors: Dict[Any, str] = dataclasses.field(default_factory=dict)
+    retries: int = 0
+    #: mid-job Sector re-replications of lost bucket files (host)
+    recoveries: int = 0
+    #: segments that permanently failed and are MISSING from ``records``
+    #: (every one also appears in ``errors`` with a ``DATA_ERROR:`` prefix)
+    data_errors: int = 0
     trace: Optional[Any] = None
+    #: host executor: one dict per phase with wall-clock accounting
+    #: (``seconds``, ``engine_s``, ``materialize_s``, segments, retries,
+    #: recoveries, data_errors) — populated even without a tracer
+    phase_times: List[Dict[str, Any]] = dataclasses.field(
+        default_factory=list)
 
 
 def _split_reduce_out(out):
@@ -162,16 +197,37 @@ def _leading(records) -> Tuple[int, int]:
 
 def default_splitters(num_buckets: int, key_min: int = 0,
                       key_max: int = _KEY_MAX) -> np.ndarray:
-    """Equal-width int32 range splitters, computed in float32 the way
-    ``jnp.linspace(key_min, key_max, nb + 1)[1:-1].astype(int32)`` does
-    (``start * (1 - t) + stop * t``, ``t = i / nb``). Equal to the JAX
-    package's for every power-of-two bucket count; XLA's float32 division
-    may differ by one ulp elsewhere. float64 would give other splitters."""
-    div = np.float32(num_buckets)
-    t = (np.arange(num_buckets, dtype=np.float32) / div).astype(np.float32)
-    start, stop = np.float32(key_min), np.float32(key_max)
-    edges = (start * (np.float32(1) - t) + stop * t).astype(np.float32)
+    """Equal-width int32 range splitters of the SPMD path, computed in
+    float32 the way XLA's CPU backend lowers ``jnp.linspace(key_min,
+    key_max, nb + 1)[1:-1].astype(int32)`` with constant bounds:
+    ``start * (1 - t) + i * (stop * r)`` with ``r = f32(1) / f32(nb)`` and
+    ``t = i * r`` (XLA turns the division by the constant ``nb`` into a
+    multiplication by its float32 reciprocal, and folds ``stop * r``),
+    each operation rounded to float32, then truncated toward zero.
+
+    On ``(0, INT32_MAX)``, the range both executors use, this equals the
+    JAX package's splitters for every bucket count 2..1024, whether
+    ``jnp.linspace`` runs inside a jitted program or eagerly. For other
+    ranges it equals the jitted form below 353 buckets; the eager form
+    (the JAX package's ``uniform_splitters(nb, key_min, key_max)`` called
+    outside ``jit``) is compiled with the bounds as arguments, where the
+    backend contracts some of these operations into fused multiply-adds
+    depending on ``nb``, and differs by up to one float32 ulp of
+    max(|key_min|, |key_max|) in some splitters (a known gap, pinned by
+    ``tests/test_torch_terasort.py``). The host executor's splitters are
+    float64 (:func:`host_splitters`)."""
+    f32 = np.float32
+    i = np.arange(num_buckets, dtype=f32)
+    r = f32(1) / f32(num_buckets)
+    edges = f32(key_min) * (f32(1) - i * r) + i * (f32(key_max) * r)
     return edges[1:].astype(np.int32)
+
+
+def host_splitters(num_buckets: int) -> np.ndarray:
+    """The host executor's default sort splitters: ``np.linspace`` in
+    float64, as the JAX package's ``HostExecutor`` computes them — not the
+    SPMD path's float32 ones (:func:`default_splitters`)."""
+    return np.linspace(0, _KEY_MAX, num_buckets + 1)[1:-1].astype(np.int32)
 
 
 #: ``SPMDExecutor.cache_info()`` result (``functools.lru_cache`` style plus
@@ -519,3 +575,410 @@ class SPMDExecutor:
                        .reshape((world, m) + tail))
         return (tree_unflatten(treedef, out), in_rng.reshape(world, m),
                 dropped, sentinel_hits)
+
+
+# -- host (Sector/SPE) executor ----------------------------------------------
+
+
+class _Phase:
+    """Consecutive record-wise stages, optionally ended by a shuffle/sort."""
+
+    def __init__(self, stages: List[Any], terminator: Optional[Any]):
+        self.stages = stages
+        self.terminator = terminator
+
+
+def _phases(df: Dataflow) -> List[_Phase]:
+    out, cur = [], []
+    for st in df.stages:
+        if isinstance(st, (ShuffleStage, SortStage)):
+            out.append(_Phase(cur, st))
+            cur = []
+        else:
+            cur.append(st)
+    out.append(_Phase(cur, None))
+    return out
+
+
+_STAGE_KIND = {MapStage: "map", ShuffleStage: "shuffle",
+               ReduceStage: "reduce", SortStage: "sort"}
+
+_scratch_counter = itertools.count()
+
+#: the positive quiet NaN every float sort key's NaN becomes before K2
+_CANONICAL_NAN_BITS = 0x7FC00000
+
+
+class ExecutorFault(RuntimeError):
+    """A failure of the host executor's own device steps — the stage-2
+    sort (K2, its envelope) or the bucket split (K1) — not of the user's
+    UDFs. The engine sees it as a UDF error of the segment, but
+    :meth:`HostExecutor.run` raises it once the phase's engine run ends,
+    so it is never reported as a data error and no partial result is
+    returned."""
+
+
+def _records_len(records) -> int:
+    """n of a host records tree (each leaf ``(n, ...)``)."""
+    return int(tree_flatten(records)[0][0].shape[0])
+
+
+def _sort_keys(keys: torch.Tensor) -> torch.Tensor:
+    """Float keys as ``np.argsort`` orders them: ``-0.0`` becomes ``+0.0``
+    (numpy keeps equal zeros in input order, the radix sort's bit order
+    puts ``-0.0`` first) and every NaN becomes the positive quiet NaN
+    (numpy puts NaNs last, the bit order puts sign-bit NaNs first)."""
+    if not keys.dtype.is_floating_point:
+        return keys
+    nan = torch.tensor(_CANONICAL_NAN_BITS, dtype=torch.int32).view(
+        torch.float32).to(device=keys.device, dtype=keys.dtype)
+    keys = torch.where(keys == 0, torch.zeros_like(keys), keys)
+    return torch.where(torch.isnan(keys), nan, keys)
+
+
+def stable_argsort(keys: torch.Tensor) -> torch.Tensor:
+    """int64 order of ``np.argsort(keys, kind="stable")`` for ``(n,)``
+    keys, on their device.
+
+    int32, uint32 and float32 keys (floats canonicalised by
+    :func:`_sort_keys`) go through K2, the stable LSD radix sort, with an
+    ``arange`` payload; a row longer than its envelope raises with the
+    reason. Keys of any other dtype (int64, float64, ...) take
+    ``torch.sort(stable=True)``, chosen by dtype alone and counted in the
+    ``host.sort_library`` metric; a kernel that fails to build or launch
+    raises, it never falls back to this branch. K2 is called directly, not
+    through ``kernels.ops.sort_kv_segments``, whose ``REPRO_KERNEL_FORCE``
+    override could substitute the unstable bitonic network."""
+    keys = _sort_keys(keys.reshape(-1))
+    n = keys.shape[0]
+    if keys.dtype not in (torch.int32, torch.uint32, torch.float32):
+        REGISTRY.counter("host.sort_library").inc()
+        return torch.sort(keys, stable=True).indices
+    reason = radix_sort.radix_supported(n, 1)
+    if reason is not None:
+        raise ValueError(f"host stage-2 sort of {n} records: {reason}")
+    pos = torch.arange(n, dtype=torch.int32, device=keys.device)
+    _, order = radix_sort.sort_kv_segments_radix(keys.contiguous()[None],
+                                                 pos[None])
+    return order[0].to(torch.int64)
+
+
+def _int32_keys(keys: torch.Tensor) -> torch.Tensor:
+    """``np.asarray(keys).astype(np.int32)`` on the device: integers wrap,
+    floats truncate toward zero, and a NaN or a float outside the int32
+    range becomes INT32_MIN (numpy's cast on x86; the card's own cast
+    would give 0 or saturate)."""
+    keys = keys.reshape(-1)
+    if not keys.dtype.is_floating_point:
+        return keys.to(torch.int32)
+    k = keys.to(torch.float64)
+    bad = torch.isnan(k) | (k <= -2.0 ** 31 - 1) | (k >= 2.0 ** 31)
+    k = torch.where(bad, torch.full_like(k, -2.0 ** 31), torch.trunc(k))
+    return k.to(torch.int32)
+
+
+def _searchsorted(splitters: Any, keys: torch.Tensor) -> torch.Tensor:
+    """``np.searchsorted(splitters, keys, side="right")`` with int32
+    keys: both sides are compared in int64, or in float64 when the
+    splitters are floats, so that no value is rounded."""
+    spl = torch.as_tensor(np.asarray(splitters)
+                          if not isinstance(splitters, torch.Tensor)
+                          else splitters).reshape(-1)
+    wide = torch.float64 if spl.dtype.is_floating_point else torch.int64
+    return torch.searchsorted(spl.to(device=keys.device, dtype=wide),
+                              keys.to(wide), right=True)
+
+
+def _bucket_major(packed: torch.Tensor, ids: torch.Tensor, nb: int):
+    """Lay the packed rows out bucket after bucket, each bucket in arrival
+    order, and drop ids outside ``[0, nb)`` — ``packed[ids == b]`` for
+    each ``b``, one after another. K1 gives each row its stable rank among
+    the earlier rows of its bucket and the counts; each row then goes to
+    ``offset[bucket] + rank``. Returns the host ``(rows, nbytes)`` block
+    and the ``(nb,)`` counts, from one device-to-host copy each."""
+    n, width = packed.shape
+    if n == 0:       # K1 launches nothing on an empty row
+        return (packed.cpu().numpy(), np.zeros((nb,), np.int64))
+    ids = ids.to(torch.int64)
+    ok = (ids >= 0) & (ids < nb)
+    ids = torch.where(ok, ids, -1).to(torch.int32)
+    rank, counts = partition.partition_rank(ids, nb)
+    counts_h = counts.cpu().numpy().astype(np.int64)
+    total = int(counts_h.sum())
+    offset = torch.cumsum(counts.to(torch.int64), dim=0) - counts
+    # rows out of range all land in one extra row past the end, dropped
+    dst = torch.where(ok, offset[ids.clamp(min=0).to(torch.int64)]
+                      + rank.to(torch.int64), total)
+    out = torch.empty((total + 1, width), dtype=packed.dtype,
+                      device=packed.device)
+    out.index_copy_(0, dst, packed)
+    return out[:total].cpu().numpy(), counts_h
+
+
+def _split_buckets(out) -> Dict[int, np.ndarray]:
+    block, counts = out
+    ends = np.cumsum(counts)
+    return {b: block[ends[b] - counts[b]:ends[b]]
+            for b in range(counts.shape[0])}
+
+
+class HostExecutor:
+    """Runs a :class:`Dataflow` on the Sector/SPE data plane.
+
+    The pipeline splits into phases at shuffle/sort boundaries. Each phase is
+    one :class:`repro_torch.sphere.engine.SphereProcess` stage: SPEs decode
+    Sector segments through the source codec onto ``device`` (``cuda``
+    unless the caller passes ``"cpu"``), run the phase's UDFs there, and
+    route the (re-encoded) outputs either back to the client or into
+    **bucket files** (the paper's §3.2 "bucket writers"), which are
+    uploaded to Sector and become the next phase's input stream. Locality
+    scheduling, SPE failure retry, and data-error reporting all come from
+    the engine; validity masks never appear on this path because host
+    buckets are variable-size (no capacity bound -> nothing is dropped by
+    shuffles here).
+
+    Per segment, on the device: a pending sort's stage 2 (the segment is
+    one range partition; K2 via :func:`stable_argsort`), the phase's map
+    and reduce stages, the valid filter, ``pack``, the bucket ids
+    (``torch.searchsorted`` over the float64 :func:`host_splitters`, or
+    the shuffle's ``by``), and the bucket split (K1 via
+    :func:`_bucket_major`); then one copy of the rows and the counts to
+    the host. A bucket count above K1's envelope raises before any work;
+    a failure of K1 or K2 (a row past K2's envelope, a build or launch
+    error) raises :class:`ExecutorFault` out of :meth:`run`.
+    """
+
+    def __init__(self, master, client, spes: Sequence[Any],
+                 max_retries: int = 2, scratch_prefix: str = "/.dataflow",
+                 daemon: Optional[Any] = None,
+                 retry_policy: Optional[Any] = None,
+                 device: Any = None):
+        self.master = master
+        self.client = client
+        self.spes = list(spes)
+        self.max_retries = max_retries
+        #: optional :class:`repro_torch.core.retry.RetryPolicy` for the
+        #: engine's segment re-pools (None keeps immediate zero-delay retries)
+        self.retry_policy = retry_policy
+        self.scratch_prefix = scratch_prefix
+        #: optional :class:`repro_torch.sector.master.ReplicationDaemon`;
+        #: when set, freshly uploaded bucket files are replicated before the
+        #: next phase reads them — without it a mid-job slave death can take
+        #: the only copy of a bucket with it (a DATA_ERROR, not silent loss)
+        self.daemon = daemon
+        self.device = resolve_device(device)
+
+    def run(self, pipeline: Dataflow, file_paths: Sequence[str],
+            trace: Optional[Any] = None) -> DataflowResult:
+        """Execute ``pipeline`` over Sector files. ``pipeline.codec`` is
+        required: it decodes the source records (record_bytes =
+        ``codec.nbytes``).
+
+        Recovery is always armed: segment reads that fail because every
+        listed replica is gone trigger ``SectorClient.recover`` (master
+        prunes stale locations, rediscovers survivors by §2.2 scan,
+        re-replicates) and the segment is re-pooled per §3.5.2.
+
+        ``trace``: a :class:`repro_torch.obs.trace.Tracer` — records
+        ``host.run`` → ``phase[i]`` → per-segment spans (with retry /
+        recovery sub-spans from the engine) and ``hop[i]:buckets`` spans
+        for bucket materialization. Per-phase wall time is ALWAYS
+        accounted in ``result.phase_times``, tracer or not."""
+        from repro_torch.sphere.engine import SphereProcess
+
+        if pipeline.codec is None:
+            raise ValueError("HostExecutor needs Dataflow.source(codec=...) "
+                             "to decode Sector records")
+        phases = _phases(pipeline)
+        for phase in phases:
+            nb = self._num_buckets(phase.terminator)
+            if phase.terminator is not None and not (
+                    1 <= nb <= partition.MAX_NUM_DEST):
+                raise ValueError(
+                    f"{nb} buckets outside the bucket split's (K1's) "
+                    f"envelope [1, {partition.MAX_NUM_DEST}]")
+        tr = trace if trace is not None else NULL_TRACER
+        codec = pipeline.codec
+        paths = list(file_paths)
+        scratch = f"{self.scratch_prefix}/run{next(_scratch_counter)}"
+        errors: Dict[Any, str] = {}
+        retries = 0
+        dropped = 0
+        recoveries = 0
+        data_errors = 0
+        pending_sort: Optional[SortStage] = None
+        phase_times: List[Dict[str, Any]] = []
+
+        with tr.span("host.run", pipeline=pipeline.describe(),
+                     files=len(paths)) as root:
+            for pi, phase in enumerate(phases):
+                t0 = time.monotonic()
+                term = phase.terminator
+                term_kind = ("output" if term is None else
+                             _STAGE_KIND[type(term)])
+                with tr.span(f"phase[{pi}]", paths=len(paths),
+                             terminator=term_kind) as psp:
+                    proc = SphereProcess(self.master, self.client.session_id,
+                                         self.spes,
+                                         max_retries=self.max_retries,
+                                         retry_policy=self.retry_policy,
+                                         device=self.device)
+                    holder: Dict[str, Any] = {"codec": None, "dropped": 0,
+                                              "fault": None}
+                    udf = self._phase_udf(phase, pending_sort, holder)
+                    nb = self._num_buckets(term)
+                    if term is not None:
+                        bucket_fn = _split_buckets
+                    else:
+                        bucket_fn, nb = None, 0
+                    # after a shuffle, a bucket file must stay one segment
+                    # (one reduce group) — force whole-file segmentation
+                    seg_kw = ({} if pi == 0 else
+                              {"s_min": 1 << 40, "s_max": 1 << 40})
+                    res = proc.run(paths, udf, record_bytes=codec.nbytes,
+                                   codec=codec, bucket_fn=bucket_fn,
+                                   num_buckets=nb,
+                                   recover=self.client.recover,
+                                   trace=trace, **seg_kw)
+                    if holder["fault"] is not None:
+                        raise holder["fault"]
+                    retries += res.retries
+                    recoveries += res.recoveries
+                    data_errors += res.data_errors
+                    dropped += holder["dropped"]
+                    errors.update({(pi, k): v for k, v in res.errors.items()})
+                    out_codec = holder["codec"] or codec
+                    psp.set(segments=res.segments_processed,
+                            retries=res.retries, recoveries=res.recoveries,
+                            data_errors=res.data_errors)
+                    materialize_s = 0.0
+                    if term is not None:
+                        # materialize bucket files as the next phase's input
+                        m0 = time.monotonic()
+                        with tr.span(f"hop[{pi}]:buckets", buckets=nb):
+                            prefix = f"{scratch}/s{pi}"
+                            self.client.upload_dataset(
+                                prefix,
+                                [np.ascontiguousarray(res.outputs[b])
+                                 .tobytes() for b in range(nb)])
+                            paths = [f"{prefix}.{b:05d}" for b in range(nb)]
+                            if self.daemon is not None:
+                                # replicate fresh bucket files before
+                                # anything can eat them
+                                self.daemon.run_until_stable()
+                        materialize_s = time.monotonic() - m0
+                    elapsed = time.monotonic() - t0
+                    phase_times.append({
+                        "phase": pi, "terminator": term_kind,
+                        "seconds": elapsed, "engine_s": res.elapsed_s,
+                        "materialize_s": materialize_s,
+                        "segments": res.segments_processed,
+                        "retries": res.retries,
+                        "recoveries": res.recoveries,
+                        "data_errors": res.data_errors,
+                    })
+                    REGISTRY.histogram("host.phase_seconds").observe(elapsed)
+                    if term is None:
+                        REGISTRY.counter("host.dropped").inc(dropped)
+                        root.set(phases=len(phase_times), dropped=dropped)
+                        parts = [res.outputs[i] for i in sorted(res.outputs)]
+                        packed = (torch.cat(parts, dim=0) if parts
+                                  else torch.zeros((0, out_codec.nbytes),
+                                                   dtype=torch.uint8,
+                                                   device=self.device))
+                        records = out_codec.unpack(packed)
+                        n = _records_len(records)
+                        return DataflowResult(
+                            records=records,
+                            valid=torch.ones((n,), dtype=torch.bool,
+                                             device=self.device),
+                            dropped=torch.tensor(dropped, dtype=torch.int32,
+                                                 device=self.device),
+                            errors=errors, retries=retries,
+                            recoveries=recoveries, data_errors=data_errors,
+                            trace=trace, phase_times=phase_times)
+                    codec = out_codec
+                    pending_sort = (term if isinstance(term, SortStage)
+                                    else None)
+        raise AssertionError("unreachable: final phase returns")
+
+    # -- phase lowering -------------------------------------------------------
+    def _num_buckets(self, term) -> int:
+        if term is None:
+            return 0
+        if term.num_buckets is not None:
+            return term.num_buckets
+        if isinstance(term, SortStage) and term.splitters is not None:
+            return int(np.asarray(term.splitters).shape[0]) + 1
+        return len(self.spes)
+
+    def _phase_udf(self, phase: _Phase, pending_sort: Optional[SortStage],
+                   holder: Dict[str, Any]) -> Callable:
+        """Build the (decoded records) -> packed rows UDF one SPE runs.
+
+        The output record schema is only known once a segment has been
+        processed; it is stashed in ``holder`` so the executor can decode the
+        bucket files / final outputs (every segment must agree). A phase
+        that ends in a shuffle or sort returns the host block of its rows in
+        bucket order and the per-bucket counts; the output phase returns the
+        packed rows on the device. A failure of the executor's own kernel
+        steps is kept in ``holder["fault"]`` (for :meth:`run` to raise) and
+        fails every later segment of the phase at once."""
+        term = phase.terminator
+        nb = self._num_buckets(term)
+        spl = None
+        if isinstance(term, SortStage):
+            spl = (term.splitters if term.splitters is not None
+                   else host_splitters(nb))
+        dev = self.device
+
+        def own(step, *args):
+            try:
+                return step(*args)
+            except Exception as e:
+                fault = ExecutorFault(f"{step.__name__}: {e}")
+                holder["fault"] = fault
+                raise fault from e
+
+        def udf(records):
+            if holder["fault"] is not None:
+                raise holder["fault"]
+            if pending_sort is not None and _records_len(records) > 0:
+                # stage 2 of a sort: this segment IS one range partition
+                order = own(stable_argsort, torch.as_tensor(
+                    pending_sort.key(records)).to(dev))
+                records = tree_map(lambda a: a[order], records)
+            valid = torch.ones((_records_len(records),), dtype=torch.bool,
+                               device=dev)
+            for stage in phase.stages:
+                if isinstance(stage, MapStage):
+                    records = stage.fn(records)
+                    if _records_len(records) != valid.shape[0]:
+                        valid = torch.ones((_records_len(records),),
+                                           dtype=torch.bool, device=dev)
+                elif isinstance(stage, ReduceStage):
+                    records, valid, rd = _split_reduce_out(
+                        stage.fn(records, valid))
+                    valid = torch.as_tensor(valid).to(dev).reshape(-1)
+                    if rd is not None:
+                        holder["dropped"] += int(rd)
+                else:
+                    raise TypeError(f"unexpected mid-phase stage {stage!r}")
+            records = tree_map(lambda a: a[valid], records)
+            codec = RecordCodec.from_example(records)
+            if holder["codec"] is None:
+                holder["codec"] = codec
+            elif holder["codec"] != codec:
+                raise ValueError("UDF output schema differs across segments: "
+                                 f"{holder['codec']} vs {codec}")
+            packed = codec.pack(records)
+            if term is None:
+                return packed
+            if isinstance(term, SortStage):
+                ids = _searchsorted(spl, _int32_keys(
+                    torch.as_tensor(term.key(records)).to(dev)))
+            else:
+                ids = torch.as_tensor(term.by(records)).to(dev).reshape(-1)
+            return own(_bucket_major, packed, ids, nb)
+
+        return udf

@@ -6,8 +6,10 @@ Marked ``cuda``: without a GPU every test here skips (decided inside the
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
 
 Comparisons are exact (tolerance 0); the unstable bitonic sort is held to
-equal keys and an equal (key, value) multiset. The grid terasort and the
-wordcount on the card must equal the port's CPU run of the same input.
+equal keys and an equal (key, value) multiset. The grid terasort, the
+wordcount and the host executor's sort over Sector files on the card must
+equal the port's CPU run of the same input; the host path's device steps
+(stable argsort, int32 key cast, bucket split) must equal numpy's.
 """
 
 import numpy as np
@@ -603,3 +605,131 @@ def test_wordcount_on_the_card_equals_the_cpu_port(card):
                     (res.valid, res.records["key"], res.records["value"])]
     for a, b in zip(out["cuda"], out["cpu"]):
         np.testing.assert_array_equal(a, b)
+
+
+def test_float_reduce_on_the_card_repeats_bit_identically(card):
+    """Float run totals on the card: the same bits on every call (a fixed
+    order of summation), the CPU port's keys, and each total within the
+    worst-case float32 summation bound ``(len - 1) * 2^-24 * sum|x|`` of
+    its float64 sum, on the card and on the CPU alike. One key holds half
+    of row 0 (a run of 2^21)."""
+    rng = np.random.default_rng(5)
+    rows, n = 2, 1 << 22
+    keys = rng.integers(0, 1 << 16, size=(rows, n)).astype(np.int32)
+    keys[0, rng.permutation(n)[:n // 2]] = 3
+    vals = (rng.standard_normal((rows, n))
+            * 10.0 ** rng.integers(-3, 4, (rows, n))).astype(np.float32)
+    valid = np.ones((rows, n), bool)
+    args = [torch.from_numpy(a) for a in (keys, vals, valid)]
+    on_card = [reduce_by_key_sum(*[a.to(card) for a in args], algo="radix")
+               for _ in range(2)]
+    for a, b in zip(*on_card):
+        assert torch.equal(a, b)
+    on_cpu = reduce_by_key_sum(*args, algo="radix")
+    assert torch.equal(on_card[0][0].cpu(), on_cpu[0])
+    for r in range(rows):
+        k = on_cpu[0][r].numpy()
+        k = k[k >= 0]
+        size = np.bincount(keys[r], minlength=1 << 16)[k]
+        exact = np.bincount(keys[r], weights=vals[r].astype(np.float64),
+                            minlength=1 << 16)[k]
+        bound = (size - 1) * 2.0 ** -24 * np.bincount(
+            keys[r], weights=np.abs(vals[r].astype(np.float64)),
+            minlength=1 << 16)[k]
+        for got in (on_card[0][1][r].cpu().numpy(), on_cpu[1][r].numpy()):
+            got = got[:k.shape[0]].astype(np.float64)
+            assert np.all(np.abs(got - exact) <= bound)
+
+
+# -- the host executor's device steps ------------------------------------------
+
+
+def test_host_stable_argsort_on_the_card_equals_numpy(card):
+    from repro_torch.sphere.dataflow import stable_argsort
+    rng = np.random.default_rng(5)
+    n = 70001
+    f = rng.choice(np.array([-0.0, 0.0, np.nan, -np.nan, np.inf, -np.inf,
+                             1.5, -1.5, 3.0], np.float32), n)
+    f.view(np.uint32)[rng.random(n) < 0.05] = 0xFFC00001
+    cases = [f, rng.integers(-50, 50, n).astype(np.int32),
+             rng.integers(0, 2**32, n, dtype=np.uint64).astype(np.uint32),
+             rng.integers(-(1 << 40), 1 << 40, n),
+             rng.standard_normal(n)]
+    for keys in cases:
+        before = radix_sort.KERNEL.launches
+        got = stable_argsort(torch.from_numpy(keys).to(card))
+        k2 = keys.dtype in (np.int32, np.uint32, np.float32)
+        assert radix_sort.KERNEL.launches == before + k2
+        np.testing.assert_array_equal(got.cpu().numpy(),
+                                      np.argsort(keys, kind="stable"))
+
+
+def test_host_int32_key_cast_on_the_card_equals_numpy(card):
+    from repro_torch.sphere.dataflow import _int32_keys
+    f = np.array([np.nan, -np.nan, np.inf, -np.inf, 3e9, -3e9, 2147483520.0,
+                  -2147483648.0, -0.0, 1.9, -1.9, 7.0], np.float32)
+    with np.errstate(invalid="ignore"):
+        for keys in (f, f.astype(np.float64),
+                     np.array([1 << 40, -(1 << 33) - 5, 7], np.int64)):
+            got = _int32_keys(torch.from_numpy(keys).to(card))
+            np.testing.assert_array_equal(got.cpu().numpy(),
+                                          keys.astype(np.int32))
+
+
+def test_host_bucket_split_on_the_card_equals_numpy(card):
+    from repro_torch.sphere.dataflow import _bucket_major
+    rng = np.random.default_rng(6)
+    n, nb = 100_003, 8
+    packed = rng.integers(0, 256, size=(n, 100), dtype=np.uint8)
+    ids = rng.integers(-2, nb + 2, size=n)
+    before = partition.KERNEL.launches
+    block, counts = _bucket_major(torch.from_numpy(packed).to(card),
+                                  torch.from_numpy(ids).to(card), nb)
+    assert partition.KERNEL.launches == before + 1
+    want = [packed[ids == b] for b in range(nb)]
+    assert counts.tolist() == [len(w) for w in want]
+    np.testing.assert_array_equal(block, np.concatenate(want))
+    empty, zeros = _bucket_major(torch.zeros((0, 100), dtype=torch.uint8,
+                                             device=card),
+                                 torch.zeros((0,), device=card), nb)
+    assert empty.shape == (0, 100) and zeros.tolist() == [0] * nb
+    assert partition.KERNEL.launches == before + 1
+
+
+def test_host_sort_over_sector_on_the_card_equals_the_cpu_port(card,
+                                                                tmp_path):
+    from repro_torch.core.records import RecordCodec
+    from repro_torch.launch.train import make_sector
+    from repro_torch.sphere.dataflow import HostExecutor
+    from repro_torch.sphere.spe import SPE
+    rng = np.random.default_rng(7)
+    n = 8 * 5000
+    keys = rng.integers(0, 2**31 - 1, size=n).astype(np.int32)
+    value = rng.integers(0, 256, size=(n, 96), dtype=np.uint8)
+    codec = RecordCodec.from_fields({"key": np.int32,
+                                     "value": (np.uint8, (96,))})
+    blob = codec.encode({"key": keys, "value": value})
+    df = Dataflow.source(codec).sort(key=lambda r: r["key"], num_buckets=8)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        master, client, daemon = make_sector(str(tmp_path / dev), 8, 2)
+        client.upload_dataset("/ts/in", [s.tobytes()
+                                         for s in np.split(blob, 8)])
+        daemon.run_until_stable()
+        spes = [SPE(i, master.slaves[i].address, master, client.session_id)
+                for i in range(8)]
+        k1, k2 = partition.KERNEL.launches, radix_sort.KERNEL.launches
+        res = HostExecutor(master, client, spes, daemon=daemon,
+                           device=dev).run(df, [f"/ts/in.{i:05d}"
+                                                for i in range(8)])
+        if dev == "cuda":
+            assert partition.KERNEL.launches - k1 == 8
+            assert radix_sort.KERNEL.launches - k2 == res.phase_times[1][
+                "segments"]
+            assert res.records["key"].device.type == "cuda"
+        assert not res.errors and res.data_errors == 0
+        out[dev] = {k: v.cpu().numpy() for k, v in res.records.items()}
+    for f in ("key", "value"):
+        np.testing.assert_array_equal(out["cuda"][f], out["cpu"][f])
+    order = np.argsort(keys, kind="stable")
+    np.testing.assert_array_equal(out["cuda"]["key"], keys[order])

@@ -5,13 +5,14 @@ One-rank functions (``default_hash``, ``reduce_by_key_sum``,
 multi-device ones (the wordcount Dataflow on the flat ranks and on the
 ``(dc, node)`` grid, the ``map_reduce`` shim, ``sphere_map``) against the
 references of the one subprocess of ``tests/test_torch_jax_refs.py``. The
-same numpy inputs go to both packages. Integers, masks and drop counts are
-compared exactly; float sums to 1e-6 relative (the port sums float runs as
-differences of float64 prefix sums, JAX with a float32 scatter-add).
+same numpy inputs go to both packages. Integers, masks, drop counts and
+float sums are compared exactly (both packages sum each float run on its
+own, in the value dtype).
 """
 
 import dataclasses
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -110,9 +111,61 @@ def test_reduce_by_key_sum_stacked_rows_and_float_values():
         want_k, want_v, want_d = _jax_rbks(keys[r], values[r], valid[r],
                                            max_unique=30)
         np.testing.assert_array_equal(got_k[r].numpy(), want_k)
-        np.testing.assert_allclose(got_v[r].numpy(), want_v, rtol=1e-6,
-                                   atol=1e-6)
+        np.testing.assert_array_equal(got_v[r].numpy(), want_v)
         assert int(got_d[r]) == int(want_d)
+
+
+def _mixed_magnitude_rows(dtype):
+    """Three rows of mixed magnitudes: the repro ``[1e20, 1, 3]``; a row
+    that starts with 1e20 and goes on with small runs; and a row whose
+    runs continue the previous row's keys (runs across rank boundaries).
+    Small values are multiples of 1/4, so every run's sum is exact in any
+    order."""
+    rng = np.random.default_rng(31)
+    n = 64
+    keys = np.zeros((3, n), np.int32)
+    vals = np.zeros((3, n), dtype)
+    keys[0, :3] = [0, 1, 2]
+    vals[0, :3] = [1e20, 1, 3]
+    keys[0, 3:] = 7                       # 61 more of one small run
+    vals[0, 3:] = rng.integers(-8, 9, n - 3) / 4
+    keys[1] = np.sort(rng.integers(0, 9, n))
+    keys[1, 0] = 0
+    vals[1] = rng.integers(-8, 9, n) / 4
+    vals[1, 0] = -1e20 if dtype == np.float64 else -3e38
+    keys[2] = np.sort(rng.integers(5, 12, n))
+    vals[2] = rng.integers(-8, 9, n) / 4
+    valid = np.ones((3, n), bool)
+    valid[2, ::5] = False
+    return keys, vals, valid
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("algo", ["radix", "oracle"])
+def test_reduce_by_key_sum_mixed_magnitude_floats_match_jax(dtype, algo):
+    """A float run's total must not depend on the runs before it, in its
+    row or in earlier rows (the port once took totals as differences of
+    prefix sums over the whole buffer and lost [1, 3] after 1e20)."""
+    keys, vals, valid = _mixed_magnitude_rows(dtype)
+    got_k, got_v, got_d = reduce_by_key_sum(
+        torch.from_numpy(keys[:1, :3]), torch.from_numpy(vals[:1, :3]),
+        torch.from_numpy(valid[:1, :3]), algo=algo)
+    np.testing.assert_array_equal(got_k[0].numpy(), [0, 1, 2])
+    np.testing.assert_array_equal(got_v[0].numpy(),
+                                  np.asarray([1e20, 1, 3], dtype))
+    got_k, got_v, got_d = reduce_by_key_sum(
+        torch.from_numpy(keys), torch.from_numpy(vals),
+        torch.from_numpy(valid), algo=algo)
+    assert got_v.dtype == torch.from_numpy(vals).dtype
+    with jax.enable_x64(dtype == np.float64):
+        for r in range(3):
+            want_k, want_v, want_d = _jax_rbks(keys[r], vals[r], valid[r])
+            assert want_v.dtype == dtype
+            np.testing.assert_array_equal(got_k[r].numpy(), want_k)
+            np.testing.assert_array_equal(got_v[r].numpy(), want_v)
+            assert int(got_d[r]) == int(want_d)
+        want = _jax_rbks(keys[0, :3], vals[0, :3], valid[0, :3])
+    np.testing.assert_array_equal(want[1], np.asarray([1e20, 1, 3], dtype))
 
 
 def test_plan_segments_matches_jax():

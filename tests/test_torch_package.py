@@ -48,7 +48,11 @@ def test_port_file_list_covers_the_slice():
                  "kernels/bucket_hist.py", "kernels/build.py",
                  "core/shuffle.py", "core/sort.py", "core/mapreduce.py",
                  "core/stream.py", "core/udf.py", "core/introspect.py",
-                 "sector/topology.py", "sphere/dataflow.py", "obs/trace.py"):
+                 "sector/topology.py", "sphere/dataflow.py", "obs/trace.py",
+                 "core/retry.py", "sector/security.py", "sector/slave.py",
+                 "sector/transport.py", "sector/master.py",
+                 "sector/client.py", "sphere/scheduler.py", "sphere/spe.py",
+                 "sphere/engine.py", "launch/train.py"):
         assert want in names
     csrc = ROOT / "src" / "repro_torch" / "kernels" / "csrc"
     assert (csrc / "bucket_hist.cu").exists()
