@@ -78,11 +78,38 @@ Phases, in order (any failure ends the script with a non-zero exit):
    device busy share of a warm run); holds K1 and K2 to their plain
    versions at this path's shapes; then sorts a 2^20-record prefix again
    with one SPE crashing after its first segment (same output, retries
-   > 0).
+   > 0);
+10. ``stream-wordcount-storm``: phase 7's pipeline as a
+    ``Dataflow.stream_source()`` through ``StreamExecutor`` over 8 ranks:
+    phase 7's 2^26 words cut into 256 requests of 2^18 from tenants
+    ``free``, ``pro`` and ``enterprise`` (weights 1:3:4, backlogged),
+    ``micro_batch = 2^21``, a carry of 2^18 rows a rank, 34 steps on a
+    virtual clock of 1.0 a step under ``ChaosSchedule([lose_batch@4,
+    lose_device@10, kill_slave@16 (wipe), rejoin_slave@24], seed=7)``,
+    with ``attach_sector`` on 8 slaves (replication 2, a temporary
+    directory removed at the end), a ``FailureDetector`` (suspect 0.5,
+    down 1.5) and a ``ReplicationDaemon``. Checks the final snapshot
+    against ``np.bincount`` of the 2^26 words, exactly-once delivery, no
+    drops, the four faults, 2 recoveries, 2 cache misses, 4 ranks after
+    the shrink, and K1 and K2 once a delivered batch; prints batch walls
+    (p50/p99 on 8 and on 4 ranks, the recovery), words/s, each
+    boundary's checkpoint bytes and upload seconds, peak memory; then
+    the same stream fault-free without Sector (the stream's own rate;
+    ``--profile``: the busy share of one more batch of each run);
+11. ``batch-chaos``: phase 5's records segmented with no fault, then
+    losing a rank at boundary 0 (resumes on 4 ranks), the ``(2, 4)`` grid
+    losing one at boundary 0 (resumes on ``(2, 2)``), each giving phase
+    5's sorted keys with the value rows beside them; the wordcount losing
+    a rank between shuffle and reduce, equal to ``np.bincount``; the host
+    sort of a 2^20-record prefix with ``kill_slave(phase=1, wipe=True)``
+    and with ``drop_bucket(phase=1)``, equal to the fault-free run. Prints
+    each run's wall beside the fault-free warm wall and the checkpoints'
+    bytes and seconds (snapshot and restore). Phase 3 holds K1, K3 and K2
+    at the shapes these two phases give them too.
 
 Each path's launch counts are read from zero: every count is reset just
-before the path runs and read just after. The last lines are the kernel
-table as one JSON object, the ``nvidia-smi`` name/power line, and
+before the path runs and read just after. The last lines are the
+script's total seconds, the kernel table as one JSON object, the ``nvidia-smi`` name/power line, and
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX and nothing of
 the JAX package.
 """
@@ -111,6 +138,14 @@ TIMED_ITERS = 10
 #: bytes a kv element moves through K2's one-sweep design: 4 for the
 #: histogram's read of the keys, 16 in each of the 4 digit passes
 K2_BYTES_PER_KV = 4 + 4 * 16
+#: phase 10: its words, words a micro-batch (8 requests of 2^18), the
+#: carry's rows a rank, the 256 requests' tenants and weights, the steps
+STREAM_WORDS = 1 << 26
+STREAM_BATCH = 1 << 21
+STREAM_REQUEST = 1 << 18
+STREAM_CARRY = 1 << 18
+TENANTS = {"free": 1.0, "pro": 3.0, "enterprise": 4.0}
+STREAM_STEPS = 34
 
 
 def log(*parts) -> None:
@@ -222,6 +257,112 @@ class Shapes:
         self.words_local = self.words // WORLD
         # the shuffle stage's default capacity_factor is 4
         self.wc_recv = WORLD * (int(self.words_local / WORLD * 4.0) + 1)
+        # phase 11: after a lost rank the sorts resume on 4 ranks (flat) or
+        # the (2, 2) grid, 2 buckets a rank, each rank holding twice the
+        # records; the wordcount lost at boundary 1 reduces on 4 ranks
+        half = WORLD // 2
+        self.r_local = self.n // half
+        self.r_recv = half * (int(self.r_local / half * 2.0) + 1)
+        self.r_staged = 2 * (int(self.r_local / 2 * 2.0) + 1)
+        self.r_recv_grid = 2 * (int(self.r_local / 2 * 2.0) + 1)
+        self.r_wc_recv = 2 * self.wc_recv
+        # phase 10: the stream's reduce rows, received slots plus the carry
+        self.s_local = STREAM_BATCH // WORLD
+        self.s_rows = (WORLD * (int(self.s_local / WORLD * 4.0) + 1)
+                       + STREAM_CARRY)
+        self.s_rows_4 = (half * (int(2 * self.s_local / half * 4.0) + 1)
+                         + 2 * STREAM_CARRY)
+
+
+def new_path_shapes(sh: Shapes):
+    """(kernel, where, (rows, len), destinations) of every launch shape
+    phases 10 and 11 add: the resumed sorts, the resumed wordcount's
+    reduce and the stream's shuffle and reduce, on 8 and on 4 ranks."""
+    half = WORLD // 2
+    return [("partition", "resumed flat send pack", (half, sh.r_local), half),
+            ("partition", "resumed flat stage-2 regroup", (half, sh.r_recv),
+             2),
+            ("partition", "resumed (2, 2) stage A", (half, sh.r_local), 2),
+            ("partition", "resumed (2, 2) stage B", (half, sh.r_staged), 2),
+            ("partition", "resumed (2, 2) stage-2 regroup",
+             (half, sh.r_recv_grid), 2),
+            ("partition", "stream shuffle, 8 ranks", (WORLD, sh.s_local),
+             WORLD),
+            ("partition", "stream shuffle, 4 ranks", (half, 2 * sh.s_local),
+             half),
+            ("bitonic_sort", "resumed flat stage-2 sort", (WORLD, sh.r_recv),
+             0),
+            ("bitonic_sort", "resumed (2, 2) stage-2 sort",
+             (WORLD, sh.r_recv_grid), 0),
+            ("radix_sort", "resumed wordcount reduce", (half, sh.r_wc_recv),
+             0),
+            ("radix_sort", "stream reduce, 8 ranks", (WORLD, sh.s_rows), 0),
+            ("radix_sort", "stream reduce, 4 ranks", (half, sh.s_rows_4), 0)]
+
+
+def check_new_shapes(torch, dev, gen, sh: Shapes, checks):
+    """Phase 3, continued: K1, K3 and K2 against their plain versions
+    (tolerance 0) at the shapes a lost rank and the stream give them
+    (:func:`new_path_shapes`), each timed beside its bound. K1's ids are
+    random over its destinations plus the overflow one; K3's rows hold a
+    quarter of real keys inside one bucket's range of the default
+    splitters, then the int32 maximum, as a resumed regroup gives them;
+    K2's rows hold Zipf word ids below 2^20, then the int32 maximum."""
+    import numpy as np
+    from repro_torch.kernels import partition, radix_sort, ref
+    from repro_torch.kernels.bitonic_sort import sort_kv_segments_bitonic
+    rng = np.random.default_rng(11)
+    out = []
+    for name, where, shape, nd in new_path_shapes(sh):
+        chk = checks[name][0]
+        rows, n = shape
+        if name == "partition":
+            dest = torch.randint(0, nd + 1, shape, generator=gen, device=dev,
+                                 dtype=torch.int32)
+            rank, counts = partition.partition_rank(dest, nd)
+            rrank, rcounts = ref.partition_rank_ref(dest, nd)
+            chk.equal(f"counts {where} {shape}", counts, rcounts)
+            chk.equal(f"rank {where} {shape}", rank, rrank, mask=dest < nd)
+            del rank, counts, rrank, rcounts
+            out.append({"kernel": name, "path": where, "shape": list(shape),
+                        "num_dest": nd,
+                        "ms": time_ms(torch, lambda: partition.partition_rank(
+                            dest, nd)),
+                        "bound_ms": bound_ms(8 * dest.numel() + 4 * rows * nd)})
+            del dest
+            continue
+        vals = torch.arange(n, dtype=torch.int32, device=dev).expand(
+            rows, n).contiguous()
+        if name == "bitonic_sort":
+            span = (1 << 31) // rows
+            keys = torch.randint(0, span, shape, generator=gen, device=dev,
+                                 dtype=torch.int32)
+            keys += torch.arange(rows, device=dev,
+                                 dtype=torch.int32)[:, None] * span
+            keys[:, n // 4:] = 0x7FFFFFFF
+            gk, gv = sort_kv_segments_bitonic(keys, vals)
+            rk, rv = ref.sort_kv_segments_ref(keys, vals)
+            chk.equal(f"keys {where} {shape}", gk, rk)
+            chk.equal(f"(key, value) multiset {where} {shape}",
+                      pairs_sorted(torch, gk, gv), pairs_sorted(torch, rk, rv))
+            fn = sort_kv_segments_bitonic
+        else:
+            words = ((rng.zipf(ZIPF_A, size=shape) - 1) % VOCAB).astype(
+                np.int32)
+            keys = torch.from_numpy(words).to(dev)
+            keys[:, n // 2:] = 0x7FFFFFFF
+            gk, gv = radix_sort.sort_kv_segments_radix(keys, vals)
+            rk, rv = radix_sort.sort_kv_segments_radix_ref(keys, vals)
+            chk.equal(f"keys {where} {shape}", gk, rk)
+            chk.equal(f"values {where} {shape}", gv, rv)
+            fn = radix_sort.sort_kv_segments_radix
+        del gk, gv, rk, rv
+        out.append({"kernel": name, "path": where, "shape": list(shape),
+                    "ms": time_ms(torch, lambda: fn(keys, vals)),
+                    "bound_ms": bound_ms(16 * keys.numel())})
+        del keys, vals
+        torch.cuda.empty_cache()
+    return out
 
 
 def k1_path_shapes(sh: Shapes):
@@ -881,7 +1022,7 @@ def check_sorted_permutation(torch, res, keys, value, what: str):
         raise AssertionError(f"{what}: {out_k.numel()} valid records, "
                              f"expected {n}")
     if not is_globally_sorted(SortResult(res.records["key"], None, valid,
-                                         res.dropped), WORLD):
+                                         res.dropped), valid.shape[0]):
         raise AssertionError(f"{what} output is not globally sorted")
     idx = out_v[:, :4].contiguous().view(torch.int32).reshape(-1).to(torch.int64)
     if not torch.equal(torch.sort(idx).values,
@@ -998,31 +1139,59 @@ def grid_path(torch, keys, value, flat_sorted_keys, profile_dir=None):
     return out
 
 
-def wordcount_path(torch, dev, seed: int, sh: Shapes, profile_dir=None):
+def draw_words(seed: int, n: int):
+    """The wordcount's input, drawn once for phases 7, 10 and 11: ``n``
+    Zipf(1.1) word ids folded into the 2^20-word vocabulary."""
+    import numpy as np
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(seed)
+    words = ((rng.zipf(ZIPF_A, size=n) - 1) % VOCAB).astype(np.int32)
+    return words, time.perf_counter() - t0
+
+
+def wordcount_emit(rec):
+    import torch
+    return {"key": rec["word"], "value": torch.ones_like(rec["word"])}
+
+
+def wordcount_count(rec, valid):
+    from repro_torch.core.mapreduce import reduce_by_key_sum
+    k, s, d = reduce_by_key_sum(rec["key"], rec["value"], valid,
+                                algo="radix")
+    return {"key": k, "value": s}, k >= 0, d
+
+
+def check_word_counts(words, keys, counts, what: str) -> None:
+    """Every (word, count) equal to ``np.bincount`` of the input, each word
+    on one rank only."""
+    import numpy as np
+    want = np.bincount(words, minlength=VOCAB)
+    if np.unique(keys).size != keys.size:
+        raise AssertionError(f"{what}: a word was reduced on two ranks")
+    got = np.zeros(VOCAB, np.int64)
+    got[keys] = counts
+    if not np.array_equal(got, want):
+        bad = int((got != want).sum())
+        raise AssertionError(f"{what} differs from np.bincount on {bad} "
+                             f"words")
+    if keys.size != int((want > 0).sum()):
+        raise AssertionError(f"{what}: wrong number of distinct words")
+
+
+def wordcount_path(torch, dev, words, gen_s, sh: Shapes, profile_dir=None):
     """MapReduce wordcount over 8 ranks, the reduce's sort pinned to K2."""
     import numpy as np
     from repro_torch.comm import Ranks
-    from repro_torch.core.mapreduce import default_hash, reduce_by_key_sum
+    from repro_torch.core.mapreduce import default_hash
     from repro_torch.sphere.dataflow import Dataflow, SPMDExecutor
 
     n_words = sh.words
-    t0 = time.perf_counter()
-    rng = np.random.default_rng(seed)
-    words = ((rng.zipf(ZIPF_A, size=n_words) - 1) % VOCAB).astype(np.int32)
-    gen_s = time.perf_counter() - t0
     word_t = torch.from_numpy(words).reshape(WORLD, -1).to(dev)
-
-    def count(rec, valid):
-        k, s, d = reduce_by_key_sum(rec["key"], rec["value"], valid,
-                                    algo="radix")
-        return {"key": k, "value": s}, k >= 0, d
-
     shuffled = (Dataflow.source()
-                .map(lambda r: {"key": r["word"],
-                                "value": torch.ones_like(r["word"])})
+                .map(wordcount_emit)
                 .shuffle(by=lambda r: default_hash(r["key"], WORLD),
                          num_buckets=WORLD))
-    df = shuffled.reduce(count)
+    df = shuffled.reduce(wordcount_count)
     ex = SPMDExecutor(Ranks(WORLD))
     res, run = run_path(torch, ex, df, {"word": word_t})
     if run["launches"]["radix_sort"] == 0 or run["launches"]["partition"] == 0:
@@ -1033,16 +1202,7 @@ def wordcount_path(torch, dev, seed: int, sh: Shapes, profile_dir=None):
     want = np.bincount(words, minlength=VOCAB)
     if dropped != 0:
         raise AssertionError(f"wordcount dropped {dropped}")
-    if np.unique(keys).size != keys.size:
-        raise AssertionError("a word was reduced on two ranks")
-    got = np.zeros(VOCAB, np.int64)
-    got[keys] = counts
-    if not np.array_equal(got, want):
-        bad = int((got != want).sum())
-        raise AssertionError(f"wordcount differs from np.bincount on {bad} "
-                             f"words")
-    if keys.size != int((want > 0).sum()):
-        raise AssertionError("wrong number of distinct words")
+    check_word_counts(words, keys, counts, "wordcount")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     warm = ex.run(df, {"word": word_t})
@@ -1603,6 +1763,466 @@ def shim_runs(torch, dev, gen, n_log2: int):
     return out, radix_launches
 
 
+# -- phases 10 and 11: a stream through a fault storm, faults in batch paths -----
+
+
+def stream_pipeline():
+    """Phase 7's pipeline as a stream: map -> shuffle(default_hash, 8
+    buckets, capacity_factor 4) -> reduce(reduce_by_key_sum(radix))."""
+    from repro_torch.core.mapreduce import default_hash
+    from repro_torch.sphere.dataflow import Dataflow
+    return (Dataflow.stream_source()
+            .map(wordcount_emit)
+            .shuffle(by=lambda r: default_hash(r["key"], WORLD),
+                     num_buckets=WORLD, capacity_factor=4.0)
+            .reduce(wordcount_count))
+
+
+def storm_schedule():
+    from repro_torch.sphere.chaos import ChaosSchedule, FaultPlan
+    return ChaosSchedule([
+        FaultPlan(kind="lose_batch", at_batch=4),
+        FaultPlan(kind="lose_device", at_batch=10),
+        FaultPlan(kind="kill_slave", at_batch=16, wipe=True),
+        FaultPlan(kind="rejoin_slave", at_batch=24),
+    ], seed=7)
+
+
+def percentile(xs, q):
+    import numpy as np
+    return float(np.percentile(np.asarray(xs), q)) if xs else None
+
+
+def stream_run(torch, words, storm: bool, profile_dir=None):
+    """One run of phase 10's stream over the 2^26 words, cut into 256
+    requests of 2^18 from tenants ``free``, ``pro`` and ``enterprise``
+    (32, 96 and 128 requests, their 1:3:4 weights, all admitted up front so
+    every queue stays backlogged) at ``micro_batch = 2^21`` and a carry of
+    2^18 rows a rank, on a virtual clock of 1.0 a step. ``storm``: the
+    four-fault schedule and the Sector deployment (8 slaves, replication 2,
+    a FailureDetector and a ReplicationDaemon on the virtual clock), the
+    boundaries' uploads timed; else neither. Checks the final snapshot
+    against ``np.bincount``, exactly-once delivery, no drops, the faults,
+    recoveries, cache misses, the grid after the shrink, and K1 and K2
+    once a delivered batch (counted from zero; the carry's schema probe
+    apart)."""
+    import collections
+    import shutil
+    import tempfile
+    import numpy as np
+    from repro_torch.comm import Ranks
+    from repro_torch.core.retry import RetryPolicy
+    from repro_torch.launch.train import make_sector
+    from repro_torch.sector.master import FailureDetector, ReplicationDaemon
+    from repro_torch.sphere.dataflow import SPMDExecutor
+    from repro_torch.sphere.streaming import StreamExecutor, TenantQueue
+
+    requests = words.reshape(-1, STREAM_REQUEST)
+    n_req = requests.shape[0]
+    per_batch = STREAM_BATCH // STREAM_REQUEST
+    pattern = [t for t, w in TENANTS.items() for _ in range(int(w))]
+    if len(pattern) != per_batch:
+        raise AssertionError(f"tenant weights {TENANTS} do not fill a batch")
+    queue = TenantQueue(quantum=float(STREAM_REQUEST), capacity=n_req,
+                        max_requeues=5,
+                        retry_policy=RetryPolicy(base=0.25, cap=2.0,
+                                                 jitter=0.1, seed=3))
+    for name, w in TENANTS.items():
+        queue.register(name, weight=w)
+    vclock = {"now": 0.0}
+    schedule = storm_schedule() if storm else None
+    ex = StreamExecutor(SPMDExecutor(Ranks(WORLD)), stream_pipeline(),
+                        micro_batch=STREAM_BATCH,
+                        carry_capacity=STREAM_CARRY, queue=queue,
+                        clock=lambda: vclock["now"], chaos=schedule)
+    root = tempfile.mkdtemp(prefix="chip_smoke_stream_") if storm else None
+    uploads, boundaries = [], []
+    try:
+        if storm:
+            master, client, _ = make_sector(root, num_slaves=WORLD,
+                                            replication=2)
+            det = FailureDetector(master, suspect_after=0.5, down_after=1.5,
+                                  clock=lambda: vclock["now"])
+            daemon = ReplicationDaemon(master, clock=lambda: vclock["now"],
+                                       detector=det)
+            ex.attach_sector(master, client, daemon=daemon, detector=det,
+                             retain=8)
+            upload, boundary = client.upload, ex._sector_boundary
+
+            def timed_upload(path, data):
+                t0 = time.perf_counter()
+                meta = upload(path, data)
+                uploads.append({"path": path, "bytes": len(data),
+                                "upload_s": time.perf_counter() - t0})
+                return meta
+
+            def timed_boundary(ckpt, now, tr):
+                t0 = time.perf_counter()
+                boundary(ckpt, now, tr)
+                boundaries.append(time.perf_counter() - t0)
+
+            client.upload = timed_upload
+            ex._sector_boundary = timed_boundary
+        for i in range(n_req):
+            ex.submit({"word": requests[i]}, tenant=pattern[i % per_batch])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        steps, delivered, dropped = [], collections.Counter(), []
+        t_run = time.perf_counter()
+        for step in range(STREAM_STEPS):
+            if not storm and not queue.pending():
+                break               # no fault: 32 steps deliver everything
+            vclock["now"] = float(step)
+            ranks = ex.inner.axis_size
+            t0 = time.perf_counter()
+            b = ex.step()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            lost = b is None or not b.delivered
+            steps.append({"step": step, "ranks_before": ranks,
+                          "ranks": ex.inner.axis_size, "wall_s": wall,
+                          "lost": lost})
+            if b is not None:
+                dropped.append(b.dropped)
+                for tk in b.delivered:
+                    delivered[tk.req_id] += 1
+        run_s = time.perf_counter() - t_run
+        launches = read_launches()
+        peak = torch.cuda.max_memory_allocated()
+        st = ex.stats()
+        snap = ex.carry_state()
+        check_word_counts(words, snap["key"], snap["value"],
+                          "stream snapshot")
+        if queue.pending() or len(delivered) != n_req:
+            raise AssertionError(f"{len(delivered)} of {n_req} requests "
+                                 f"delivered in {STREAM_STEPS} steps, "
+                                 f"{queue.pending()} pending")
+        if max(delivered.values()) != 1 or any(dropped):
+            raise AssertionError(f"a request delivered twice or records "
+                                 f"dropped: {max(delivered.values())}, "
+                                 f"{dropped}")
+        n_lost = sum(s["lost"] for s in steps)
+        done = len(steps) - n_lost
+        want_lost, want_rec, want_miss, want_ranks = (
+            (2, 2, 2, WORLD // 2) if storm else (0, 0, 1, WORLD))
+        if (n_lost, st["recoveries"], st["cache"]["misses"],
+                ex.inner.axis_size) != (want_lost, want_rec, want_miss,
+                                        want_ranks):
+            raise AssertionError(
+                f"stream: {n_lost} lost steps, {st['recoveries']} "
+                f"recoveries, {st['cache']['misses']} cache misses, "
+                f"{ex.inner.axis_size} ranks at the end; expected "
+                f"{(want_lost, want_rec, want_miss, want_ranks)}")
+        if storm and schedule.fired_count != 4:
+            raise AssertionError(f"{schedule.fired_count} of 4 faults fired: "
+                                 f"{schedule.events}")
+        path = {k: launches[k] - ex.init_launches.get(k, 0) for k in launches}
+        want = {"partition": done, "bitonic_sort": 0, "radix_sort": done,
+                "bucket_hist": 0}
+        if path != want:
+            raise AssertionError(f"stream launched {path} over {done} "
+                                 f"delivered batches (the carry's probe: "
+                                 f"{ex.init_launches}); expected {want}")
+        ok = [s for s in steps if not s["lost"]]
+        first4 = next((s["step"] for s in ok if s["ranks"] == WORLD // 2),
+                      None)
+        steady8 = [s["wall_s"] for s in ok
+                   if s["ranks"] == WORLD and s["step"] > 0]
+        steady4 = [s["wall_s"] for s in ok
+                   if s["ranks"] == WORLD // 2 and s["step"] != first4]
+        out = {"run": "storm" if storm else "clean, no Sector",
+               "requests": n_req, "words": int(words.size),
+               "micro_batch": STREAM_BATCH, "carry_rows_per_rank":
+               STREAM_CARRY, "steps": len(steps), "lost_steps": n_lost,
+               "delivered_batches": done, "run_s": run_s,
+               "stream_run_seconds": st["run_seconds"],
+               "words_per_s": st["records_per_s"],
+               "wall_words_per_s": words.size / run_s,
+               "first_batch_ms": steps[0]["wall_s"] * 1e3,
+               "steady_p50_ms_8_ranks": percentile(steady8, 50) * 1e3,
+               "steady_p99_ms_8_ranks": percentile(steady8, 99) * 1e3,
+               "recoveries": st["recoveries"], "cache": st["cache"],
+               "launches": path, "init_launches": ex.init_launches,
+               "peak_mem_bytes": peak,
+               "tenants": {k: {f: v[f] for f in ("delivered", "requeues",
+                                                   "records_served")}
+                           for k, v in st["tenants"].items()},
+               "step_walls_ms": [round(s["wall_s"] * 1e3, 3) for s in steps]}
+        if storm:
+            lose = next(s for s in steps if s["step"] == 10)
+            out.update({
+                "steady_p50_ms_4_ranks": percentile(steady4, 50) * 1e3,
+                "steady_p99_ms_4_ranks": percentile(steady4, 99) * 1e3,
+                "lose_device_step_ms": lose["wall_s"] * 1e3,
+                "first_batch_on_4_ranks_ms": next(
+                    s["wall_s"] for s in steps if s["step"] == first4) * 1e3,
+                "events": list(schedule.events),
+                "detector": dict(det.stats), "master": dict(master.stats),
+                "checkpoint_bytes": [u["bytes"] for u in uploads],
+                "checkpoint_upload_s": [u["upload_s"] for u in uploads],
+                "boundary_s": boundaries,
+                "boundary_p50_s": percentile(boundaries, 50),
+                "sector_root": filesystem_of(root)})
+        if profile_dir:
+            # after the checks: one more batch of 8 requests, twice (warm,
+            # then profiled), with the Sector boundary in the storm run
+            def one_batch():
+                for i in range(per_batch):
+                    ex.submit({"word": requests[i]},
+                              tenant=pattern[i % per_batch])
+                vclock["now"] += 1.0
+                return ex.step()
+            out["profile"] = profile_run(
+                torch, one_batch, profile_dir,
+                "stream_storm_batch" if storm else "stream_steady_batch")
+        return out
+    finally:
+        if root is not None:
+            shutil.rmtree(root, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+
+def stream_storm(torch, words, profile_dir=None):
+    """Phase 10: the stream through the four-fault storm with Sector
+    attached, then the same stream fault-free without Sector (the
+    stream's own rate)."""
+    t0 = time.perf_counter()
+    storm = stream_run(torch, words, storm=True, profile_dir=profile_dir)
+    clean = stream_run(torch, words, storm=False, profile_dir=profile_dir)
+    return {"phase": "stream_wordcount_storm", "storm": storm,
+            "clean": clean, "phase_s": time.perf_counter() - t0}
+
+
+class CheckpointClock:
+    """While entered, the seconds and bytes of every ``HopCheckpoint``
+    snapshot (records packed on the card, one copy to the host) and
+    restore (one copy back, unpacked and re-stacked there), each fenced
+    by ``torch.cuda.synchronize``."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.snapshots, self.restores = [], []
+
+    def __enter__(self):
+        from repro_torch.sphere.chaos import HopCheckpoint
+        self._saved = {k: HopCheckpoint.__dict__[k]
+                       for k in ("snapshot", "restore")}
+        snap = self._saved["snapshot"].__func__
+        restore = self._saved["restore"]
+        clock, torch = self, self.torch
+
+        def snapshot(cls, records, valid, hop, dropped):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ck = snap(cls, records, valid, hop, dropped)
+            clock.snapshots.append({
+                "hop": hop, "bytes": ck.payload.nbytes + ck.valid.nbytes,
+                "s": time.perf_counter() - t0})
+            return ck
+
+        def timed_restore(ck, ranks, axes):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = restore(ck, ranks, axes)
+            torch.cuda.synchronize()
+            clock.restores.append({
+                "hop": ck.hop, "bytes": ck.payload.nbytes + ck.valid.nbytes,
+                "ranks": list(ranks.shape), "s": time.perf_counter() - t0})
+            return out
+
+        HopCheckpoint.snapshot = classmethod(snapshot)
+        HopCheckpoint.restore = timed_restore
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.sphere.chaos import HopCheckpoint
+        for k, v in self._saved.items():
+            setattr(HopCheckpoint, k, v)
+
+
+def chaos_run(torch, ex, df, records, plan):
+    """One segmented run under ``plan``: launches from zero, wall, peak
+    memory, the checkpoints' bytes and seconds."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    with CheckpointClock(torch) as clock:
+        t0 = time.perf_counter()
+        res = ex.run(df, records, chaos=plan)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return res, {"fault": f"{plan.kind}@{plan.phase}",
+                 "wall_ms": wall * 1e3, "launches": read_launches(),
+                 "recoveries": res.recoveries, "events": list(plan.events),
+                 "ranks_after": list(res.valid.shape[:1]),
+                 "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+                 "snapshots": clock.snapshots, "restores": clock.restores}
+
+
+def warm_wall_ms(torch, ex, df, records) -> float:
+    """The fault-free one-pass run's warm wall (a cold run first)."""
+    ex.run(df, records)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ex.run(df, records)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def expect(run, what, want, recoveries):
+    got = {k: run["launches"][k] for k in ("partition", "bitonic_sort",
+                                            "radix_sort", "bucket_hist")}
+    if got != want or run["recoveries"] != recoveries:
+        raise AssertionError(f"{what}: launched {got} with "
+                             f"{run['recoveries']} recoveries; expected "
+                             f"{want} and {recoveries}")
+
+
+def batch_chaos(torch, dev, codec, slices, flat_sorted, words):
+    """Phase 11: faults in the batch paths. The Terasort main path
+    segmented with no fault and with ``lose_device`` at boundary 0 (resumes
+    on 4 ranks), the ``(dc, node)`` sort losing a rank at boundary 0
+    (resumes on ``(2, 2)``), the wordcount losing one at boundary 1
+    (between the shuffle and the reduce), each against the fault-free
+    result; then the host sort of a 2^20-record prefix under Sector faults
+    at boundary 1 (``kill_slave`` with its disk, ``drop_bucket``)."""
+    import numpy as np
+    from repro_torch.comm import Ranks
+    from repro_torch.core.mapreduce import default_hash
+    from repro_torch.sphere.chaos import FaultPlan
+    from repro_torch.sphere.dataflow import Dataflow, SPMDExecutor
+
+    t_phase = time.perf_counter()
+    rows = torch.from_numpy(np.concatenate(slices)).to(dev)
+    inp = codec.unpack(rows)
+    keys = inp["key"].reshape(WORLD, -1).clone()
+    value = inp["value"].reshape(WORLD, -1, VALUE_BYTES).clone()
+    del rows, inp
+    flat_sorted = flat_sorted.to(dev)
+    records = {"key": keys, "value": value}
+    df = Dataflow.source().sort(key=lambda r: r["key"], num_buckets=WORLD,
+                                capacity_factor=2.0)
+    out = {"phase": "batch_chaos", "runs": []}
+
+    def sorted_run(ex, plan, what, want, recoveries, ranks_after):
+        res, run = chaos_run(torch, ex, df, records, plan)
+        out_k = check_sorted_permutation(torch, res, keys, value, what)
+        if not torch.equal(out_k, flat_sorted):
+            raise AssertionError(f"{what}: sorted keys differ from phase 5's")
+        if run["ranks_after"] != [ranks_after]:
+            raise AssertionError(f"{what}: ended on {run['ranks_after']} "
+                                 f"ranks, expected {ranks_after}")
+        expect(run, what, want, recoveries)
+        del res, out_k
+        torch.cuda.empty_cache()
+        return {"run": what, **run}
+
+    ex = SPMDExecutor(Ranks(WORLD), sort_algo="bitonic")
+    warm = warm_wall_ms(torch, ex, df, records)
+    k13 = {"partition": 2, "bitonic_sort": 1, "radix_sort": 0,
+           "bucket_hist": 0}
+    for plan, rec, ranks in ((FaultPlan(kind="none"), 0, WORLD),
+                             (FaultPlan(kind="lose_device", phase=0, seed=0),
+                              1, WORLD // 2)):
+        run = sorted_run(ex, plan, f"terasort, {plan.kind}", k13, rec, ranks)
+        run["fault_free_warm_ms"] = warm
+        out["runs"].append(run)
+    del ex
+    torch.cuda.empty_cache()
+
+    ex = SPMDExecutor(Ranks(shape=GRID, axes=("dc", "node")),
+                      sort_algo="bitonic")
+    warm = warm_wall_ms(torch, ex, df, records)
+    run = sorted_run(ex, FaultPlan(kind="lose_device", phase=0, seed=0),
+                     "(dc, node) terasort, lose_device", {
+                         "partition": 3, "bitonic_sort": 1, "radix_sort": 0,
+                         "bucket_hist": 0}, 1, WORLD // 2)
+    if run["events"][-1] != "resumed hop 0 on mesh {'dc': 2, 'node': 2}":
+        raise AssertionError(f"grid resume: {run['events']}")
+    run["fault_free_warm_ms"] = warm
+    out["runs"].append(run)
+    del ex, records, keys, value, flat_sorted
+    torch.cuda.empty_cache()
+
+    word_t = torch.from_numpy(words).reshape(WORLD, -1).to(dev)
+    wdf = (Dataflow.source().map(wordcount_emit)
+           .shuffle(by=lambda r: default_hash(r["key"], WORLD),
+                    num_buckets=WORLD)
+           .reduce(wordcount_count))
+    ex = SPMDExecutor(Ranks(WORLD))
+    warm = warm_wall_ms(torch, ex, wdf, {"word": word_t})
+    res, run = chaos_run(torch, ex, wdf, {"word": word_t},
+                         FaultPlan(kind="lose_device", phase=1, seed=0))
+    if int(res.dropped) != 0:
+        raise AssertionError(f"resumed wordcount dropped {int(res.dropped)}")
+    check_word_counts(words, res.records["key"][res.valid].cpu().numpy(),
+                      res.records["value"][res.valid].cpu().numpy(),
+                      "resumed wordcount")
+    expect(run, "wordcount, lose_device at boundary 1", {
+        "partition": 1, "bitonic_sort": 0, "radix_sort": 1,
+        "bucket_hist": 0}, 1)
+    del res, word_t, ex
+    torch.cuda.empty_cache()
+    out["runs"].append({"run": "wordcount, lose_device at boundary 1",
+                        "fault_free_warm_ms": warm, **run})
+    out["host"] = host_chaos_runs(torch, codec, slices)
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
+def host_chaos_runs(torch, codec, slices, n_small: int = 1 << 20):
+    """The phase 9 sort of a 2^20-record prefix: fault-free, then with
+    ``kill_slave(phase=1, wipe=True)`` and with ``drop_bucket(phase=1)``,
+    each in a fresh deployment, held to the fault-free keys and records."""
+    from repro_torch.sphere.chaos import FaultPlan
+    from repro_torch.sphere.dataflow import Dataflow, HostExecutor
+    per = n_small // WORLD
+    small = [s[:per] for s in slices]
+    df = Dataflow.source(codec).sort(key=lambda r: r["key"],
+                                     num_buckets=WORLD)
+    runs, base = [], None
+    for plan in (None, FaultPlan(kind="kill_slave", phase=1, wipe=True),
+                 FaultPlan(kind="drop_bucket", phase=1)):
+        sector = SectorDeployment(small, "chaos")
+        try:
+            ex = HostExecutor(sector.master, sector.client, sector.spes(),
+                              daemon=sector.daemon)
+            torch.cuda.synchronize()
+            reset_launches()
+            t0 = time.perf_counter()
+            res = ex.run(df, sector.paths, chaos=plan)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = read_launches()
+        finally:
+            sector.close()
+        what = "fault-free" if plan is None else plan.kind
+        if res.errors or res.data_errors:
+            raise AssertionError(f"host {what}: errors {res.errors}")
+        segs = [p["segments"] for p in res.phase_times]
+        if launches["partition"] < segs[0] or launches["radix_sort"] < 1:
+            raise AssertionError(f"host {what}: launched {launches}")
+        if base is None:
+            base = res
+        else:
+            if not plan.fired:
+                raise AssertionError(f"host {what}: the fault did not fire")
+            if not torch.equal(res.records["key"], base.records["key"]):
+                raise AssertionError(f"host {what}: keys differ from the "
+                                     f"fault-free run")
+            for f, (a, b) in zip(("key", "value"), zip(
+                    by_index(torch, res), by_index(torch, base))):
+                if not torch.equal(a, b):
+                    raise AssertionError(f"host {what}: {f} of a record "
+                                         f"differs from the fault-free run")
+        runs.append({"run": what, "records": n_small, "wall_ms": wall * 1e3,
+                     "retries": res.retries, "recoveries": res.recoveries,
+                     "events": list(plan.events) if plan else [],
+                     "launches": launches, "segments": segs})
+    return runs
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n-log2", type=int, default=25,
@@ -1615,6 +2235,7 @@ def main(argv=None) -> int:
                          "traces to DIR")
     args = ap.parse_args(argv)
 
+    t_script = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — this script "
@@ -1644,10 +2265,13 @@ def main(argv=None) -> int:
               "radix_sort": check_sort(torch, dev, gen, "radix_sort",
                                        [sh.recv, sh.wc_recv], sh.wc_recv),
               "bucket_hist": check_bucket_hist(torch, dev, gen, sh)}
+    new_shapes = check_new_shapes(torch, dev, gen, sh, checks)
     for name, (chk, timing) in checks.items():
         log(json.dumps({"phase": "kernel_check", "name": name,
                         "cases": chk.cases, "max_abs_err": chk.max_abs_err,
                         **timing}))
+    log(json.dumps({"phase": "kernel_check_new_shapes",
+                    "shapes": new_shapes}))
     torch.cuda.empty_cache()
 
     keys, value = make_records(torch, dev, gen, sh.n)
@@ -1661,7 +2285,8 @@ def main(argv=None) -> int:
     host_flat = flat_sorted.cpu()
     del keys, value, flat_sorted
     torch.cuda.empty_cache()
-    wc = wordcount_path(torch, dev, args.seed, sh, args.profile)
+    words, gen_s = draw_words(args.seed, sh.words)
+    wc = wordcount_path(torch, dev, words, gen_s, sh, args.profile)
     log(json.dumps(wc))
     shim, radix_launches = shim_runs(torch, dev, gen, args.n_log2)
     log(json.dumps({"phase": "terasort_shim", **shim}))
@@ -1670,7 +2295,19 @@ def main(argv=None) -> int:
                      args.profile)
     host["phase_s"] = time.perf_counter() - t0
     log(json.dumps(host))
-    del host_slices, host_flat
+    # phase 10 keeps its sizes at any --n-log2: phase 7's words at the
+    # default, its own 2^26 words from the same seed otherwise
+    stream_words = (words if words.size == STREAM_WORDS
+                    else draw_words(args.seed, STREAM_WORDS)[0])
+    stream = stream_storm(torch, stream_words, args.profile)
+    del stream_words
+    log(json.dumps(stream))
+    chaos = batch_chaos(torch, dev, host_codec, host_slices, host_flat, words)
+    log(json.dumps(chaos))
+    del host_slices, host_flat, words
+    torch.cuda.empty_cache()
+    phase11 = {r["run"]: r["launches"] for r in chaos["runs"]}
+    host_faults = {r["run"]: r["launches"] for r in chaos["host"]}
 
     paths = {
         "partition": {"dataflow sort, flat": mp["launches"]["partition"],
@@ -1678,15 +2315,30 @@ def main(argv=None) -> int:
                           wide["launches"]["partition"],
                       "wordcount": wc["launches"]["partition"],
                       "host terasort over Sector, bucket split":
-                          host["launches"]["partition"]},
+                          host["launches"]["partition"],
+                      "stream storm, shuffle":
+                          stream["storm"]["launches"]["partition"],
+                      **{f"batch chaos: {k}": v["partition"]
+                         for k, v in phase11.items()},
+                      **{f"host sort, {k}, bucket split": v["partition"]
+                         for k, v in host_faults.items()}},
         "bitonic_sort": {"dataflow sort, flat": mp["launches"]["bitonic_sort"],
                          "dataflow sort, (dc, node)":
-                             wide["launches"]["bitonic_sort"]},
+                             wide["launches"]["bitonic_sort"],
+                         **{f"batch chaos: {k}": v["bitonic_sort"]
+                            for k, v in phase11.items()
+                            if v["bitonic_sort"]}},
         "radix_sort": {"wordcount reduce_by_key_sum(algo='radix')":
                            wc["launches"]["radix_sort"],
                        "terasort sort_algo='radix'": radix_launches,
                        "host terasort over Sector, stage-2 sort":
-                           host["launches"]["radix_sort"]},
+                           host["launches"]["radix_sort"],
+                       "stream storm, reduce":
+                           stream["storm"]["launches"]["radix_sort"],
+                       **{f"batch chaos: {k}": v["radix_sort"]
+                          for k, v in phase11.items() if v["radix_sort"]},
+                       **{f"host sort, {k}, stage-2 sort": v["radix_sort"]
+                          for k, v in host_faults.items()}},
         "bucket_hist": {"kernels.ops.bucket_histogram (entry point; on no "
                         "dataflow path, as in the JAX package)":
                             k4["launches"]["bucket_hist"]},
@@ -1737,6 +2389,8 @@ def main(argv=None) -> int:
                 {f: r[f] for f in ("shape", "ms", "plain_ms", "library_ms",
                                    "bound_ms")}
                 for r in timing["on_path_rows"]]
+    log(json.dumps({"phase": "total", "seconds":
+                    time.perf_counter() - t_script}))
     log(json.dumps({"kernels": rows}))
     log(nvidia_smi_line())
     log(json.dumps({"ok": True, "device": {

@@ -1,8 +1,8 @@
 """Unified Sphere dataflow: one pipeline description, two executors.
 
 Port of ``repro/sphere/dataflow.py``: the pipeline description,
-``SPMDExecutor`` and ``HostExecutor`` (chaos/resume, streaming carry and
-per-stage tracing are not ported yet). A :class:`Dataflow` is a
+``SPMDExecutor`` and ``HostExecutor``, with the reference's streaming
+carry, chaos/resume and per-stage tracing. A :class:`Dataflow` is a
 declarative chain of stages over *records* — any fixed-shape dict / tuple
 / list tree of tensors sharing leading record axes::
 
@@ -11,6 +11,8 @@ declarative chain of stages over *records* — any fixed-shape dict / tuple
     grid = Ranks(shape=(2, 4), axes=("dc", "node"))
     res = SPMDExecutor(grid).run(df, records)            # wide area, §2.2
     res = HostExecutor(master, client, spes).run(df, sector_paths)  # §2-3
+    stream = Dataflow.stream_source().map(...).shuffle(...).reduce(...)
+    StreamExecutor(SPMDExecutor(Ranks(8)), stream, micro_batch)   # §3.2
 
 :class:`SPMDExecutor` runs every stage once over all ranks of a
 :class:`repro_torch.comm.Ranks` (records carry a leading rank axis):
@@ -19,7 +21,11 @@ exchanges through :class:`repro_torch.core.shuffle.ShufflePlan` (one
 ``all_to_all`` over a flat axis, two over a ``(dc, node)`` grid), and a
 sort stage as the two-stage terasort — a range-partition shuffle, then a
 bucket-major regroup (kernel K1) and one multi-segment sort (kernel K3 or
-K2, or the ``torch.sort`` oracle).
+K2, or the ``torch.sort`` oracle). ``run(carry=...)`` merges a stream's
+cross-batch state into the last reduce; ``run(chaos=...)`` runs one phase
+per shuffle hop with a :class:`~repro_torch.sphere.chaos.HopCheckpoint`
+at every boundary and resumes on a smaller grid after a lost rank;
+``run(trace_stages=True)`` gives every stage its own span.
 
 :class:`HostExecutor` runs the same pipeline on the Sector/SPE data
 plane (:mod:`repro_torch.sphere.engine`): SPEs decode Sector segments onto
@@ -29,6 +35,7 @@ reads — the paper's own architecture. Its per-segment work runs two of the
 port's kernels: the bucket split is K1 (:func:`repro_torch.kernels.partition.partition_rank`)
 and a sort's stage-2 stable argsort is K2
 (:func:`repro_torch.kernels.radix_sort.sort_kv_segments_radix`).
+``run(chaos=...)`` fires Sector faults at every phase boundary.
 
 UDF contracts are the JAX package's: ``map(fn)`` maps records to records
 (padding-oblivious); ``shuffle(by)`` gives bucket ids, negative meaning
@@ -44,6 +51,7 @@ from __future__ import annotations
 
 import dataclasses
 import itertools
+import math
 import os
 import time
 from collections import OrderedDict, namedtuple
@@ -104,13 +112,28 @@ class Dataflow:
 
     stages: Tuple[Any, ...] = ()
     codec: Optional[RecordCodec] = None
+    #: declared as a *streaming* source (``stream_source``): the stage graph
+    #: is meant to run continuously over micro-batches via
+    #: :class:`repro_torch.sphere.streaming.StreamExecutor`. Batch executors
+    #: run it unchanged (one micro-batch == one batch).
+    stream: bool = False
 
     @classmethod
     def source(cls, codec: Optional[RecordCodec] = None) -> "Dataflow":
         return cls(stages=(), codec=codec)
 
+    @classmethod
+    def stream_source(cls, codec: Optional[RecordCodec] = None) -> "Dataflow":
+        """A continuous micro-batch source (paper §3.2: "Sphere takes
+        streams as inputs and produces streams as outputs"). The same stage
+        verbs apply; :class:`repro_torch.sphere.streaming.StreamExecutor`
+        runs the graph over an unbounded sequence of fixed-shape
+        micro-batches."""
+        return cls(stages=(), codec=codec, stream=True)
+
     def _with(self, stage) -> "Dataflow":
-        return Dataflow(stages=self.stages + (stage,), codec=self.codec)
+        return Dataflow(stages=self.stages + (stage,), codec=self.codec,
+                        stream=self.stream)
 
     def map(self, fn: Callable) -> "Dataflow":
         return self._with(MapStage(fn))
@@ -132,7 +155,7 @@ class Dataflow:
                                     capacity_factor, chunks))
 
     def describe(self) -> str:
-        parts = ["source"]
+        parts = ["stream-source" if self.stream else "source"]
         for st in self.stages:
             if isinstance(st, MapStage):
                 parts.append(f"map[{getattr(st.fn, '__name__', '<fn>')}]")
@@ -145,8 +168,19 @@ class Dataflow:
         return " |> ".join(parts)
 
     def run(self, executor: Any, data: Any, **kwargs: Any) -> "DataflowResult":
-        """The paper's §3.1 client call: ``df.run(executor, records)``."""
+        """The paper's §3.1 client call: ``df.run(executor, records)``; the
+        keyword arguments (``trace=``, ``chaos=``, ``valid=``, ...) pass
+        through to the executor's ``run``."""
         return executor.run(self, data, **kwargs)
+
+    def run_stream(self, inner: "SPMDExecutor", micro_batch: int,
+                   **kwargs: Any) -> Any:
+        """Wrap this ``stream_source`` pipeline in a
+        :class:`repro_torch.sphere.streaming.StreamExecutor` (accepts
+        ``carry_capacity=``, ``queue=``, ``clock=``, ``trace=``,
+        ``chaos=``)."""
+        from repro_torch.sphere.streaming import StreamExecutor
+        return StreamExecutor(inner, self, micro_batch, **kwargs)
 
 
 @dataclasses.dataclass
@@ -158,8 +192,12 @@ class DataflowResult:
              tensors on the executor's device, ``valid`` all true.
     dropped: ``()`` int32 records lost to capacity bounds (SPMD shuffles)
              plus drops reported by reduce UDFs.
-    errors/retries/recoveries/data_errors/phase_times: host-executor
-             fault and time accounting (empty / 0 on SPMD).
+    errors/retries/data_errors/phase_times: host-executor fault and time
+             accounting (empty / 0 on SPMD).
+    recoveries: Sector re-replications of lost files (host) or
+             hop-checkpoint resumes on a smaller grid (SPMD ``chaos=``).
+    carry:   streaming only: the ``(records, valid)`` cross-batch state,
+             each leaf ``(ranks, capacity, ...)``; None on one-shot runs.
     trace:   the tracer the run recorded into (None when untraced).
     """
 
@@ -169,17 +207,39 @@ class DataflowResult:
     #: host executor: segments that failed, keyed ``(phase, segment)``
     errors: Dict[Any, str] = dataclasses.field(default_factory=dict)
     retries: int = 0
-    #: mid-job Sector re-replications of lost bucket files (host)
+    #: mid-job recoveries: Sector re-replications of lost bucket files
+    #: (host) or hop-checkpoint resumes (SPMD)
     recoveries: int = 0
     #: segments that permanently failed and are MISSING from ``records``
     #: (every one also appears in ``errors`` with a ``DATA_ERROR:`` prefix)
     data_errors: int = 0
+    #: streaming only: the ``(records, valid)`` carry state the run
+    #: produced — feed it back as the next micro-batch's ``carry``
+    carry: Optional[Tuple[Any, Any]] = None
     trace: Optional[Any] = None
     #: host executor: one dict per phase with wall-clock accounting
     #: (``seconds``, ``engine_s``, ``materialize_s``, segments, retries,
     #: recoveries, data_errors) — populated even without a tracer
     phase_times: List[Dict[str, Any]] = dataclasses.field(
         default_factory=list)
+
+    def valid_records(self) -> Any:
+        """Dense numpy view: only real records, rank-major (SPMD) or in
+        bucket order (host)."""
+        return _valid_rows(self.records, self.valid)
+
+
+def _valid_rows(records, valid) -> Any:
+    """The rows of ``records`` (leaves leading with ``valid``'s axes)
+    where ``valid`` holds, flattened rank-major, as numpy."""
+    valid = torch.as_tensor(valid)
+    v, dims = valid.reshape(-1).to(torch.bool).cpu().numpy(), valid.dim()
+
+    def rows(a):
+        a = torch.as_tensor(a)
+        return a.reshape((-1,) + tuple(a.shape[dims:])).cpu().numpy()[v]
+
+    return tree_map(rows, records)
 
 
 def _split_reduce_out(out):
@@ -195,31 +255,124 @@ def _leading(records) -> Tuple[int, int]:
     return int(leaf.shape[0]), int(leaf.shape[1])
 
 
+def _rows_of(a: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``a[r, idx[r, j]]`` for every rank ``r``: one row gather over the
+    flattened ``(ranks * n, ...)`` buffer."""
+    world, n = a.shape[0], a.shape[1]
+    tail = tuple(a.shape[2:])
+    flat = (idx.to(torch.int64)
+            + torch.arange(world, dtype=torch.int64,
+                           device=a.device)[:, None] * n).reshape(-1)
+    return (a.reshape((world * n,) + tail).index_select(0, flat)
+            .reshape(tuple(idx.shape) + tail))
+
+
+def _compact_carry(records, valid: torch.Tensor, cap: int):
+    """Compress each rank's ``records[valid]`` into a fixed ``cap``-row
+    carry buffer.
+
+    Valid rows move (stably) to the prefix, then the invalid rows in their
+    order — the rows ``argsort(~valid, stable=True)[:cap]`` picks, found
+    by a prefix sum and a scatter; valid rows past ``cap`` are dropped and
+    counted (the carry is *bounded* state, the shuffle's §3.5.1 capacity
+    contract). Returns ``(carry_records, carry_valid, dropped)``, dropped
+    summed over ranks."""
+    world, n = valid.shape
+    dev = valid.device
+    if n < cap:
+        records = tree_map(
+            lambda a: torch.cat([a, torch.zeros(
+                (world, cap - n) + tuple(a.shape[2:]), dtype=a.dtype,
+                device=dev)], dim=1), records)
+        valid = torch.cat([valid, torch.zeros((world, cap - n),
+                                              dtype=torch.bool, device=dev)],
+                          dim=1)
+        n = cap
+    # each rank's running count of valid rows, from ONE scan of the flat
+    # buffer (a scan along a few very long rows is far slower on the card)
+    flat = torch.cumsum(valid.reshape(-1), dim=0).reshape(world, n)
+    base = torch.zeros((world, 1), dtype=flat.dtype, device=dev)
+    base[1:, 0] = flat[:-1, -1]
+    c = flat - base
+    nvalid = c[:, -1:]
+    # a valid row goes to its rank among the valid rows, an invalid one
+    # after all of them, in order: column j holds j + 1 - c[j] invalid rows
+    col = torch.arange(n, device=dev)
+    dst = torch.where(valid, c - 1, nvalid + col - c)
+    order = torch.empty_like(dst)
+    order.scatter_(1, dst, col.expand(world, n))
+    top = order[:, :cap]
+    carry = tree_map(lambda a: _rows_of(a, top), records)
+    cvalid = (torch.arange(cap, device=dev)[None, :]
+              < torch.clamp(nvalid, max=cap))
+    dropped = torch.clamp(nvalid - cap, min=0).sum().to(torch.int32)
+    return carry, cvalid, dropped
+
+
+def _last_reduce_index(df: Dataflow) -> int:
+    idx = [i for i, s in enumerate(df.stages) if isinstance(s, ReduceStage)]
+    if not idx:
+        raise ValueError(
+            "cross-batch carry state needs a reduce stage to merge into — "
+            f"pipeline is {df.describe()}")
+    return idx[-1]
+
+
+def _fma32(a, b, c) -> np.ndarray:
+    """float32 ``a * b + c`` rounded once, as the CPU's fused multiply-add.
+    The float64 product of two float32 values is exact; the float64 sum is
+    rounded to odd (TwoSum gives its error), so the final rounding to
+    float32 is the only one that counts."""
+    a, b, c = (np.asarray(x, np.float64) for x in (a, b, c))
+    p = a * b
+    s = p + c
+    t = s - p
+    err = (p - (s - t)) + (c - t)
+    odd = (err != 0) & ((s.view(np.int64) & 1) == 0)
+    s = np.where(odd, np.nextafter(s, np.where(err > 0, np.inf, -np.inf)), s)
+    return s.astype(np.float32)
+
+
+#: the CPU backend fully unrolls ``jnp.linspace``'s loop of ``nb`` elements
+#: up to this count; above it, a vector loop of 32 elements a trip runs over
+#: the first ``nb // 32 * 32`` of them and the rest is unrolled
+_UNROLLED_MAX = 351
+
+
 def default_splitters(num_buckets: int, key_min: int = 0,
                       key_max: int = _KEY_MAX) -> np.ndarray:
-    """Equal-width int32 range splitters of the SPMD path, computed in
-    float32 the way XLA's CPU backend lowers ``jnp.linspace(key_min,
-    key_max, nb + 1)[1:-1].astype(int32)`` with constant bounds:
-    ``start * (1 - t) + i * (stop * r)`` with ``r = f32(1) / f32(nb)`` and
-    ``t = i * r`` (XLA turns the division by the constant ``nb`` into a
-    multiplication by its float32 reciprocal, and folds ``stop * r``),
-    each operation rounded to float32, then truncated toward zero.
+    """Equal-width int32 range splitters, equal to the JAX package's
+    ``uniform_splitters(nb, key_min, key_max)``: ``jnp.linspace(key_min,
+    key_max, nb + 1)[1:-1].astype(int32)``, computed in float32 as XLA's
+    x86-64 CPU backend compiles it with the bounds as arguments, then
+    truncated toward zero.
 
-    On ``(0, INT32_MAX)``, the range both executors use, this equals the
-    JAX package's splitters for every bucket count 2..1024, whether
-    ``jnp.linspace`` runs inside a jitted program or eagerly. For other
-    ranges it equals the jitted form below 353 buckets; the eager form
-    (the JAX package's ``uniform_splitters(nb, key_min, key_max)`` called
-    outside ``jit``) is compiled with the bounds as arguments, where the
-    backend contracts some of these operations into fused multiply-adds
-    depending on ``nb``, and differs by up to one float32 ulp of
-    max(|key_min|, |key_max|) in some splitters (a known gap, pinned by
-    ``tests/test_torch_terasort.py``). The host executor's splitters are
+    Element ``i`` is ``start * (1 - i * r) + i * (stop * r)`` with ``r =
+    f32(1) / f32(nb)`` (XLA multiplies by the reciprocal of the constant
+    ``nb``). The backend rounds every operation to float32 except where it
+    contracts a multiply and an add into one fused multiply-add: the final
+    add always takes ``i * (stop * r)`` into an FMA; element 1 of a fully
+    unrolled loop (``nb <= 351``) has no ``i *`` left to fuse and takes
+    ``start * (1 - r)`` instead; and inside the vector loop of a longer
+    one, ``1 - i * r`` is an FMA too (the unrolled rest has it folded into
+    constants, each rounded). This equals the reference on every bucket
+    count 2..1024 on ``(0, INT32_MAX)``, ``(-1000, 1000)``, the whole
+    int32 range and ``(5, 2^20 + 3)`` (``tests/test_torch_terasort.py``).
+    On ``(0, INT32_MAX)``, the range both executors use, ``start`` is 0,
+    no FMA changes a bit, and the SPMD path's ``jnp.linspace`` inside
+    ``jit`` gives the same splitters. The host executor's splitters are
     float64 (:func:`host_splitters`)."""
     f32 = np.float32
     i = np.arange(num_buckets, dtype=f32)
     r = f32(1) / f32(num_buckets)
-    edges = f32(key_min) * (f32(1) - i * r) + i * (f32(key_max) * r)
+    stop_r = f32(key_max) * r
+    one_minus = f32(1) - i * r
+    if num_buckets > _UNROLLED_MAX:
+        m = num_buckets // 32 * 32
+        one_minus[:m] = _fma32(-i[:m], r, f32(1))
+    edges = _fma32(i, stop_r, f32(key_min) * one_minus)
+    if num_buckets <= _UNROLLED_MAX and num_buckets > 1:
+        edges[1] = _fma32(f32(key_min), one_minus[1], stop_r)
     return edges[1:].astype(np.int32)
 
 
@@ -312,6 +465,13 @@ class SPMDExecutor:
         self._hits = 0
         self._misses = 0
         self._evictions = 0
+        self._last_entry: Optional[_CacheEntry] = None
+        # chaos/resume + staged-trace machinery: per-hop/per-stage
+        # sub-pipelines (pinning their parent so id()-keyed lookups stay
+        # sound) and one sub-executor per grid, so repeated runs reuse
+        # their cache entries
+        self._subflows: Dict[Tuple, Tuple[Dataflow, Dataflow]] = {}
+        self._sub_execs: Dict[Tuple, "SPMDExecutor"] = {}
 
     @property
     def device(self) -> torch.device:
@@ -327,16 +487,49 @@ class SPMDExecutor:
 
     def run(self, pipeline: Dataflow, records: Any,
             valid: Optional[Any] = None,
-            trace: Optional[Any] = None) -> DataflowResult:
+            carry: Optional[Tuple[Any, Any]] = None,
+            chaos: Optional[Any] = None,
+            trace: Optional[Any] = None,
+            trace_stages: bool = False) -> DataflowResult:
         """Execute ``pipeline`` over rank-stacked ``records`` (each leaf
         ``(ranks, n, ...)``, numpy or tensors; moved to the ranks' device).
+
+        ``chaos``: a :class:`repro_torch.sphere.chaos.FaultPlan` or
+        :class:`~repro_torch.sphere.chaos.ChaosSchedule`. The pipeline then
+        runs *segmented* — one sub-pipeline per shuffle-hop phase, with a
+        :class:`~repro_torch.sphere.chaos.HopCheckpoint` sealed at every
+        boundary — so an injected ``lose_device`` is survived by
+        re-forming a smaller grid and resuming from the last checkpoint.
+        ``kind="none"`` runs the segmented path with no fault (it delivers
+        exactly the one-pass result).
+
+        ``carry``: optional ``(records, valid)`` cross-batch state of a
+        *streaming* run, each leaf ``(ranks, capacity, ...)``. It is
+        concatenated into the pipeline's **last reduce stage** input per
+        rank (carry never crosses ranks: the deterministic shuffle sends a
+        key to the same rank every batch), and the result's ``carry`` is
+        the reduce output compacted back to the same capacity (overflow
+        dropped and counted). The reduce must be schema-preserving; see
+        :mod:`repro_torch.sphere.streaming`.
 
         ``trace``: a :class:`repro_torch.obs.trace.Tracer`; the run records
         ``spmd.run`` / ``spmd.execute`` spans (execute fenced with
         ``torch.cuda.synchronize`` on the card) and publishes the JAX
         executor's counters to the metrics registry.
+
+        ``trace_stages``: with a tracer, run one sub-pipeline per stage so
+        every stage and every shuffle/sort hop gets its own span (a
+        profiling mode).
         """
         tr = trace if trace is not None else NULL_TRACER
+        if chaos is not None:
+            return self._run_segmented(pipeline, records, valid, carry,
+                                       chaos, tr)
+        if trace_stages and tr.enabled:
+            if carry is not None:
+                raise ValueError("trace_stages does not compose with "
+                                 "streaming carry state")
+            return self._run_staged(pipeline, records, valid, tr)
         dev = self.device
         records = tree_map(lambda a: torch.as_tensor(a).to(dev), records)
         world, n = _leading(records)
@@ -347,10 +540,20 @@ class SPMDExecutor:
             valid = torch.ones((world, n), dtype=torch.bool, device=dev)
         else:
             valid = torch.as_tensor(valid).to(dev).reshape(world, n)
+        ckey = None
+        if carry is not None:
+            c_rec = tree_map(lambda a: torch.as_tensor(a).to(dev), carry[0])
+            c_leaves, c_def = tree_flatten(c_rec)
+            c_valid = torch.as_tensor(carry[1]).to(dev).reshape(
+                _leading(c_rec))
+            carry = (c_rec, c_valid)
+            ckey = (c_def, tuple((tuple(l.shape), l.dtype) for l in c_leaves),
+                    tuple(c_valid.shape))
         leaves, treedef = tree_flatten(records)
         key = (id(pipeline), self.plan, self.axes, self.chunks, self.sort_algo,
                os.environ.get(autotune.FORCE_ENV), treedef,
-               tuple((tuple(l.shape), l.dtype) for l in leaves), str(dev))
+               tuple((tuple(l.shape), l.dtype) for l in leaves), str(dev),
+               ckey)
         with tr.span("spmd.run", pipeline=pipeline.describe(),
                      records=world * n) as root:
             entry = self._cache.get(key)
@@ -369,17 +572,18 @@ class SPMDExecutor:
                 REGISTRY.counter("spmd.cache.hits").inc()
                 self._cache.move_to_end(key)
                 root.set(cache="hit")
+            self._last_entry = entry
             a2a_before = self.ranks.collectives["all_to_all"]
             # the first run of a cell records its hop geometry
             with (tr.span("spmd.execute", hops=len(entry.hops)),
                   record_hops(entry.hops if miss else [])):
-                out = self._body(pipeline, records, valid, entry)
+                out = self._body(pipeline, records, valid, entry, carry)
                 if tr.enabled and dev.type == "cuda":
                     # fence: the span must cover device time, not dispatch
                     torch.cuda.synchronize(dev)
             if miss:
                 self._insert(key, entry)
-            out_records, out_valid, dropped, sentinel_hits = out
+            out_records, out_valid, dropped, sentinel_hits, out_carry = out
             if (self.debug_checks and entry.has_sort
                     and sentinel_hits is not None
                     and int(sentinel_hits) > 0):
@@ -396,7 +600,7 @@ class SPMDExecutor:
             a2a = self.ranks.collectives["all_to_all"] - a2a_before
             self._record_run(entry, world * n, dropped, a2a, tr, root)
         return DataflowResult(records=out_records, valid=out_valid,
-                              dropped=dropped, trace=trace)
+                              dropped=dropped, carry=out_carry, trace=trace)
 
     def _insert(self, key, entry: _CacheEntry) -> None:
         self._cache[key] = entry
@@ -429,9 +633,12 @@ class SPMDExecutor:
                        for h in entry.hops])
 
     # -- the stages, once over all ranks ---------------------------------------
-    def _body(self, df: Dataflow, records, valid, entry: _CacheEntry):
+    def _body(self, df: Dataflow, records, valid, entry: _CacheEntry,
+              carry=None):
         dropped = torch.zeros((), dtype=torch.int32, device=self.device)
         sentinel = None
+        carry_at = _last_reduce_index(df) if carry is not None else -1
+        new_carry = None
         for i, stage in enumerate(df.stages):
             if isinstance(stage, MapStage):
                 records = stage.fn(records)
@@ -439,11 +646,25 @@ class SPMDExecutor:
                     valid = torch.ones(_leading(records), dtype=torch.bool,
                                        device=self.device)
             elif isinstance(stage, ReduceStage):
+                if i == carry_at:
+                    # merge last batch's aggregate into this group; the
+                    # reduce output below becomes the next batch's carry
+                    leaves, treedef = tree_flatten(records)
+                    records = tree_unflatten(treedef, [
+                        torch.cat([a, c], dim=1) for a, c in zip(
+                            leaves, tree_flatten(carry[0])[0])])
+                    valid = torch.cat([valid, carry[1]], dim=1)
                 records, valid, rd = _split_reduce_out(stage.fn(records, valid))
                 valid = valid.reshape(_leading(records))
                 if rd is not None:
                     rd = torch.as_tensor(rd, device=self.device)
                     dropped += rd.to(torch.int32).sum()
+                if i == carry_at:
+                    cap = carry[1].shape[1]
+                    c_rec, c_valid, c_drop = _compact_carry(records, valid,
+                                                            cap)
+                    new_carry = (c_rec, c_valid)
+                    dropped += c_drop
             elif isinstance(stage, ShuffleStage):
                 ids = torch.as_tensor(stage.by(records)).reshape(valid.shape)
                 records, valid, d = self._exchange(
@@ -458,7 +679,145 @@ class SPMDExecutor:
                     sentinel = hits if sentinel is None else sentinel + hits
             else:
                 raise TypeError(f"unknown stage {stage!r}")
-        return records, valid, dropped, sentinel
+        return records, valid, dropped, sentinel, new_carry
+
+    # -- per-stage traced execution -------------------------------------------
+    def _stage_flow(self, pipeline: Dataflow, i: int) -> Dataflow:
+        key = (id(pipeline), "stage", i)
+        hit = self._subflows.get(key)
+        if hit is not None and hit[0] is pipeline:
+            return hit[1]
+        sub = Dataflow(stages=(pipeline.stages[i],), codec=pipeline.codec)
+        self._subflows[key] = (pipeline, sub)
+        return sub
+
+    def _run_staged(self, df: Dataflow, records: Any, valid: Any,
+                    tr) -> DataflowResult:
+        """One sub-pipeline per stage, so every stage — and every
+        shuffle/sort hop — is its own span with wire-byte and chunk
+        attributes. Delivers the same records as the one-pass run (each
+        stage is a one-stage sub-pipeline over the same rank layout)."""
+        total_dropped = 0
+        with tr.span("spmd.run.staged", pipeline=df.describe(),
+                     stages=len(df.stages)) as root:
+            for i, stage in enumerate(df.stages):
+                kind = _STAGE_KIND[type(stage)]
+                name = (f"hop[{i}]:{kind}" if kind in ("shuffle", "sort")
+                        else f"stage[{i}]:{kind}")
+                with tr.span(name) as sp:
+                    res = self.run(self._stage_flow(df, i), records,
+                                   valid=valid, trace=tr)
+                    records, valid = res.records, res.valid
+                    d = int(res.dropped)
+                    total_dropped += d
+                    attrs: Dict[str, Any] = {"dropped": d}
+                    entry = self._last_entry
+                    if entry is not None and entry.hops:
+                        attrs["wire_bytes_per_device"] = sum(
+                            h["wire_bytes_per_device"] for h in entry.hops)
+                        attrs["chunks"] = entry.hops[0]["chunks"]
+                    sp.set(**attrs)
+            root.set(dropped=total_dropped)
+        return DataflowResult(
+            records=records, valid=valid,
+            dropped=torch.tensor(total_dropped, dtype=torch.int32,
+                                 device=self.device), trace=tr)
+
+    # -- segmented execution + lost-rank recovery -----------------------------
+    def _sub_executor(self, ranks: Ranks) -> "SPMDExecutor":
+        key = (ranks.shape, ranks.axes, str(ranks.device))
+        sub = self._sub_execs.get(key)
+        if sub is None:
+            sub = SPMDExecutor(ranks, axes=self.axes, plan=None,
+                               chunks=self.chunks, cache_size=self.cache_size,
+                               debug_checks=self.debug_checks,
+                               sort_algo=self.sort_algo)
+            self._sub_execs[key] = sub
+        return sub
+
+    def _subflow(self, pipeline: Dataflow, pi: int, phase) -> Dataflow:
+        key = (id(pipeline), pi)
+        hit = self._subflows.get(key)
+        if hit is not None and hit[0] is pipeline:
+            return hit[1]
+        stages = tuple(phase.stages)
+        if phase.terminator is not None:
+            stages = stages + (phase.terminator,)
+        sub = Dataflow(stages=stages, codec=pipeline.codec)
+        self._subflows[key] = (pipeline, sub)
+        return sub
+
+    def _run_segmented(self, pipeline: Dataflow, records: Any, valid: Any,
+                       carry, chaos, tr=NULL_TRACER) -> DataflowResult:
+        """Run ``pipeline`` one shuffle-hop phase at a time, sealing a
+        :class:`~repro_torch.sphere.chaos.HopCheckpoint` at every boundary
+        (host rows, so a lost rank's memory does not matter); on an
+        injected rank loss, re-form the largest usable smaller grid
+        (``elastic.shrink_mesh``) on the same device and resume the
+        interrupted hop from the checkpoint (``elastic.remesh`` re-stacks
+        the rank-major rows — every old rank's rows land whole on one new
+        rank, so the delivered multiset is the fault-free run's)."""
+        from repro_torch.sphere.chaos import (HOST_KINDS, STREAM_KINDS,
+                                              HopCheckpoint, plan_kinds)
+        from repro_torch.train import elastic
+
+        for kind in plan_kinds(chaos):
+            if kind in HOST_KINDS:
+                raise ValueError(
+                    f"{kind!r} is a Sector-level fault; inject it via "
+                    f"HostExecutor.run(chaos=...)")
+            if kind in STREAM_KINDS:
+                raise ValueError(
+                    f"{kind!r} is a streaming fault; inject it via "
+                    f"StreamExecutor(chaos=...)")
+        if carry is not None:
+            raise ValueError("chaos injection does not compose with "
+                             "streaming carry state")
+        if self.plan is not None:
+            raise ValueError("chaos/resume re-forms the mesh on device loss "
+                             "and cannot honor an explicit ShufflePlan; "
+                             "construct the executor with axes=... instead")
+        phases = _phases(pipeline)
+        nb_constraint = _pinned_buckets(pipeline, self.axis_size,
+                                        "chaos/resume")
+
+        dev = self.device
+        records = tree_map(lambda a: torch.as_tensor(a).to(dev), records)
+        if valid is None:
+            valid = torch.ones(_leading(records), dtype=torch.bool,
+                               device=dev)
+        exec_ = self._sub_executor(self.ranks)
+        dropped = 0
+        recoveries = 0
+        for pi, phase in enumerate(phases):
+            # seal the hop: the checkpoint survives whatever dies next
+            ckpt = HopCheckpoint.snapshot(records, valid, pi, dropped)
+            lost = chaos.fire_spmd(pi, exec_.axis_size)
+            if lost is not None:
+                with tr.span(f"recover[{pi}]", lost_device=lost):
+                    new_ranks = elastic.shrink_mesh(exec_.ranks, self.axes,
+                                                    lost, nb_constraint)
+                    exec_ = self._sub_executor(new_ranks)
+                    del records, valid      # the lost grid's state
+                    records, valid = ckpt.restore(exec_.ranks, self.axes)
+                    dropped = ckpt.dropped
+                    recoveries += 1
+                    REGISTRY.counter("spmd.recoveries").inc()
+                shape = dict(zip(self.axes, exec_.ranks.shape))
+                chaos.events.append(f"resumed hop {pi} on mesh {shape}")
+            del ckpt
+            with tr.span(f"phase[{pi}]", devices=exec_.axis_size) as psp:
+                res = exec_.run(self._subflow(pipeline, pi, phase), records,
+                                valid=valid,
+                                trace=tr if tr.enabled else None)
+                records, valid = res.records, res.valid
+                d = int(res.dropped)
+                dropped += d
+                psp.set(dropped=d)
+        return DataflowResult(
+            records=records, valid=valid,
+            dropped=torch.tensor(dropped, dtype=torch.int32, device=dev),
+            recoveries=recoveries, trace=tr if tr.enabled else None)
 
     def _stage_plan(self, num_buckets: Optional[int], n_local: int,
                     capacity_factor: float,
@@ -604,6 +963,28 @@ _STAGE_KIND = {MapStage: "map", ShuffleStage: "shuffle",
                ReduceStage: "reduce", SortStage: "sort"}
 
 _scratch_counter = itertools.count()
+
+
+def _pinned_buckets(df: Dataflow, default: int, what: str) -> int:
+    """gcd of the explicit bucket counts of every shuffle and sort (a
+    sort's from its splitters when it names none): the bucket layout a
+    shrunken grid must divide. An auto count (the axis size) would change
+    when the grid shrinks and silently re-bucket the data, so it raises."""
+    nbs = []
+    for ph in _phases(df):
+        t = ph.terminator
+        if t is None:
+            continue
+        nb = t.num_buckets
+        if nb is None and isinstance(t, SortStage) and t.splitters is not None:
+            nb = int(np.asarray(t.splitters).shape[0]) + 1
+        if nb is None:
+            raise ValueError(
+                f"{what} needs an explicit num_buckets (or sort splitters) "
+                f"on every shuffle/sort stage — an auto bucket count would "
+                f"change when the mesh shrinks")
+        nbs.append(nb)
+    return math.gcd(*nbs) if nbs else default
 
 #: the positive quiet NaN every float sort key's NaN becomes before K2
 _CANONICAL_NAN_BITS = 0x7FC00000
@@ -769,11 +1150,15 @@ class HostExecutor:
         self.device = resolve_device(device)
 
     def run(self, pipeline: Dataflow, file_paths: Sequence[str],
+            chaos: Optional[Any] = None,
             trace: Optional[Any] = None) -> DataflowResult:
         """Execute ``pipeline`` over Sector files. ``pipeline.codec`` is
         required: it decodes the source records (record_bytes =
         ``codec.nbytes``).
 
+        ``chaos``: a :class:`repro_torch.sphere.chaos.FaultPlan` or
+        :class:`~repro_torch.sphere.chaos.ChaosSchedule` fired at each phase
+        boundary (``kill_slave`` / ``drop_bucket`` / ``rejoin_slave``).
         Recovery is always armed: segment reads that fail because every
         listed replica is gone trigger ``SectorClient.recover`` (master
         prunes stale locations, rediscovers survivors by §2.2 scan,
@@ -784,8 +1169,20 @@ class HostExecutor:
         recovery sub-spans from the engine) and ``hop[i]:buckets`` spans
         for bucket materialization. Per-phase wall time is ALWAYS
         accounted in ``result.phase_times``, tracer or not."""
+        from repro_torch.sphere.chaos import (SPMD_KINDS, STREAM_KINDS,
+                                              plan_kinds)
         from repro_torch.sphere.engine import SphereProcess
 
+        if chaos is not None:
+            for kind in plan_kinds(chaos):
+                if kind in SPMD_KINDS:
+                    raise ValueError(
+                        f"{kind!r} is a device-mesh fault; inject it via "
+                        f"SPMDExecutor.run(chaos=...)")
+                if kind in STREAM_KINDS:
+                    raise ValueError(
+                        f"{kind!r} is a streaming fault; inject it via "
+                        f"StreamExecutor(chaos=...)")
         if pipeline.codec is None:
             raise ValueError("HostExecutor needs Dataflow.source(codec=...) "
                              "to decode Sector records")
@@ -818,6 +1215,8 @@ class HostExecutor:
                              _STAGE_KIND[type(term)])
                 with tr.span(f"phase[{pi}]", paths=len(paths),
                              terminator=term_kind) as psp:
+                    if chaos is not None:
+                        chaos.fire_host(pi, self.master, paths, self.spes)
                     proc = SphereProcess(self.master, self.client.session_id,
                                          self.spes,
                                          max_retries=self.max_retries,

@@ -1,0 +1,98 @@
+"""Elastic scaling: re-stack state onto fewer ranks after a lost one.
+
+Port of ``repro/train/elastic.py`` for stacked ranks
+(:class:`repro_torch.comm.Ranks`). A "lost device" is a rank dropped from
+the grid, as the reference's virtual CPU devices are; the card keeps
+running the survivors. Because hop and stream checkpoints are
+layout-agnostic byte rows in rank-major order, restart is:
+
+  1. :func:`shrink_mesh` picks the largest usable smaller grid;
+  2. :func:`remesh` re-stacks the global rows onto it — what the
+     reference's ``device_put`` with ``P(axis)`` does: every old rank's
+     rows land whole on one new rank, because the new extent divides the
+     old one.
+
+``shardings_for`` has no meaning on stacked ranks; it waits for the
+trainer's port.
+"""
+
+from __future__ import annotations
+
+import math
+import numbers
+from typing import Any, Sequence, Union
+
+import torch
+
+from repro_torch.comm import Ranks
+from repro_torch.core.records import tree_map
+
+
+def remesh(tree: Any, ranks: Ranks) -> Any:
+    """Re-stack every leaf of global rank-major rows ``(N, ...)`` onto
+    ``ranks``: ``(N, ...) -> (world, N / world, ...)`` on its device."""
+    world = ranks.world
+
+    def restack(a):
+        t = torch.as_tensor(a)
+        n = t.shape[0]
+        if n % world:
+            raise ValueError(f"{n} rows do not split over {world} ranks")
+        return t.reshape((world, n // world) + tuple(t.shape[1:])).to(
+            ranks.device)
+
+    return tree_map(restack, tree)
+
+
+def shrink_mesh(ranks: Ranks, axes: Sequence[str],
+                lost_device: Union[int, Sequence[int]],
+                num_buckets: int) -> Ranks:
+    """Re-form the largest usable grid after losing rank(s) mid-pipeline.
+
+    ``lost_device`` is the global (row-major over ``axes``) index of the
+    dead rank — or a sequence of them. The shuffle axes shrink to the
+    largest extent that still
+
+    - divides ``num_buckets`` (bucket ownership stays contiguous),
+    - divides the old extent (every old rank's rows land *whole* on one
+      new rank when a checkpoint is re-stacked, so reduce groups and
+      bucket segments are never split), and
+    - fits on the surviving ranks.
+
+    A flat grid shrinks its single axis; a two-level ``(dc, node)`` grid
+    keeps its DCs and shrinks ``node``. Raises if no smaller extent
+    qualifies (e.g. a single-rank axis). The new grid is on the same
+    device."""
+    axes = tuple(axes)
+    if tuple(ranks.axes) != axes:
+        raise ValueError(f"mesh has axes {dict(zip(ranks.axes, ranks.shape))} "
+                         f"beyond the shuffle axes {axes}; cannot shrink")
+    shape = tuple(ranks.shape)
+    total = math.prod(shape)
+    if isinstance(lost_device, numbers.Integral):
+        lost = {int(lost_device)}
+    else:
+        lost = {int(d) for d in lost_device}
+    if not lost:
+        raise ValueError("shrink_mesh needs at least one lost device")
+    for d in lost:
+        if not 0 <= d < total:
+            raise ValueError(f"lost_device={d} out of range {total}")
+    survivors = total - len(lost)
+    if len(axes) == 1:
+        old = shape[0]
+        k = next((k for k in range(old - 1, 0, -1)
+                  if old % k == 0 and num_buckets % k == 0
+                  and k <= survivors), None)
+        new_shape = (k,) if k else ()
+    else:
+        dcs, nodes = shape
+        k = next((k for k in range(nodes - 1, 0, -1)
+                  if nodes % k == 0 and num_buckets % (dcs * k) == 0
+                  and dcs * k <= survivors), None)
+        new_shape = (dcs, k) if k else ()
+    if not k:
+        raise ValueError(
+            f"cannot shrink mesh {shape} below the lost device while keeping "
+            f"an extent dividing num_buckets={num_buckets}")
+    return Ranks(shape=new_shape, axes=axes, device=ranks.device)

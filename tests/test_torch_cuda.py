@@ -733,3 +733,96 @@ def test_host_sort_over_sector_on_the_card_equals_the_cpu_port(card,
         np.testing.assert_array_equal(out["cuda"][f], out["cpu"][f])
     order = np.argsort(keys, kind="stable")
     np.testing.assert_array_equal(out["cuda"]["key"], keys[order])
+
+
+# -- streaming, chaos and elastic re-ranking on the card -----------------------
+
+
+def test_compact_carry_and_restack_on_the_card_equal_the_cpu_port(card):
+    """The carry's stable compaction and a hop checkpoint's snapshot and
+    restore onto 4 and 2 ranks give the CPU port's tensors, bit for bit,
+    and the restored tensors live on the card."""
+    from repro_torch.sphere.chaos import HopCheckpoint
+    from repro_torch.sphere.dataflow import _compact_carry
+    rng = np.random.default_rng(8)
+    rec = {"key": torch.from_numpy(rng.integers(-5, 1 << 20, (8, 50_000))
+                                   .astype(np.int32)),
+           "value": torch.from_numpy(rng.random((8, 50_000, 3))
+                                     .astype(np.float32))}
+    valid = torch.from_numpy(rng.random((8, 50_000)) < 0.4)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        r = {k: v.to(dev) for k, v in rec.items()}
+        c_rec, c_valid, dropped = _compact_carry(r, valid.to(dev), 16_384)
+        ck = HopCheckpoint.snapshot(c_rec, c_valid, hop=3, dropped=0)
+        restacked = [ck.restore(Ranks(w, device=dev), ("data",))
+                     for w in (4, 2)]
+        for rr, vv in restacked:
+            assert vv.device.type == dev
+            assert all(t.device.type == dev for t in rr.values())
+        out[dev] = (c_rec, c_valid, int(dropped), ck.payload, restacked)
+    (cr, cv, cd, cp, cs), (gr, gv, gd, gp, gs) = out["cpu"], out["cuda"]
+    assert cd == gd > 0
+    assert torch.equal(cv, gv.cpu())
+    for k in cr:
+        assert torch.equal(cr[k], gr[k].cpu())
+    np.testing.assert_array_equal(cp, gp)
+    for (r1, v1), (r2, v2) in zip(cs, gs):
+        assert torch.equal(v1, v2.cpu())
+        for k in r1:
+            assert torch.equal(r1[k], r2[k].cpu())
+
+
+def test_small_storm_on_the_card_matches_the_cpu_port(card):
+    """The stream-chaos soak at the reference's size, on the card, the
+    reduce's sort pinned to K2: the CPU port's events log, snapshot and
+    counters, K1 and K2 once a delivered batch."""
+    from torch_stream_soak import port_soak
+    cpu = port_soak(True, device="cpu", algo="radix")
+    k1, k2 = partition.KERNEL.launches, radix_sort.KERNEL.launches
+    gpu = port_soak(True, device="cuda", algo="radix")
+    delivered = gpu["steps"]
+    assert partition.KERNEL.launches - k1 == delivered
+    # the carry's schema probe launches K2 once more, on one row a rank
+    assert radix_sort.KERNEL.launches - k2 == delivered + 1
+    assert gpu == cpu
+    assert gpu["recoveries"] == 2 and gpu["cache"]["misses"] == 2
+
+
+@pytest.mark.parametrize("kernel,rows,n,nd", [
+    ("partition", 4, (1 << 23), 4),            # resumed flat send pack
+    ("partition", 4, (1 << 24) + 4, 2),        # resumed flat regroup
+    ("partition", 4, (1 << 24) + 2, 2),        # resumed (2, 2) stage B
+    ("bitonic_sort", 8, (1 << 24) + 4, 0),     # resumed flat stage-2 sort
+    ("bitonic_sort", 8, (1 << 24) + 2, 0),     # resumed (2, 2) stage-2 sort
+    ("radix_sort", 4, (1 << 26) + 16, 0)])     # resumed wordcount reduce
+def test_kernels_at_the_resumed_4_rank_shapes(card, kernel, rows, n, nd):
+    """K1, K3 and K2 against their plain versions at the shapes a sort or
+    a wordcount resumed on 4 ranks gives them (2^25 records or 2^26
+    words)."""
+    g = _gen(card, n + rows)
+    if kernel == "partition":
+        dest = torch.randint(0, nd + 1, (rows, n), device=card,
+                             dtype=torch.int32, generator=g)
+        rank, counts = partition.partition_rank(dest, nd)
+        rrank, rcounts = ref.partition_rank_ref(dest, nd)
+        ok = dest < nd
+        assert torch.equal(counts, rcounts)
+        assert torch.equal(rank[ok], rrank[ok])
+        return
+    keys = torch.randint(0, 1 << 20, (rows, n), device=card,
+                         dtype=torch.int32, generator=g)
+    keys[:, n // 4:] = 0x7FFFFFFF
+    vals = torch.arange(n, dtype=torch.int32, device=card).expand(
+        rows, n).contiguous()
+    if kernel == "radix_sort":
+        gk, gv = radix_sort.sort_kv_segments_radix(keys, vals)
+        rk, rv = radix_sort.sort_kv_segments_radix_ref(keys, vals)
+        assert torch.equal(gk, rk) and torch.equal(gv, rv)
+        return
+    gk, gv = bitonic_sort.sort_kv_segments_bitonic(keys, vals)
+    rk, rv = ref.sort_kv_segments_ref(keys, vals)
+    assert torch.equal(gk, rk)
+    code = lambda k, v: torch.sort((k.to(torch.int64) << 32)
+                                   | v.to(torch.int64), dim=-1).values
+    assert torch.equal(code(gk, gv), code(rk, rv))

@@ -437,8 +437,11 @@ def test_host_envelopes_raise_before_any_work(tmp_path, monkeypatch):
     monkeypatch.setattr(radix_sort, "MAX_SEGMENT_LEN", 8)
     with pytest.raises(ValueError, match="exceeds"):
         t_dataflow.stable_argsort(torch.arange(9, dtype=torch.int32))
-    with pytest.raises(TypeError):
-        ex.run(sort_pipelines(FIELDS, num_buckets=NB)[1], paths, chaos=1)
+    from repro_torch.sphere.chaos import FaultPlan
+    with pytest.raises(ValueError, match="device-mesh fault"):
+        ex.run(sort_pipelines(FIELDS, num_buckets=NB)[1], paths,
+               chaos=FaultPlan(kind="lose_device"))
+    assert client.ls("/.dataflow") == []
 
 
 @pytest.mark.parametrize("fault", ["k2_envelope", "k1_launch"])

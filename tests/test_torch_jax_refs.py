@@ -326,19 +326,29 @@ def _run_references(d) -> None:
 _REFS = None
 
 
+def session_shared(tmp_path_factory, name: str, runner) -> "os.PathLike":
+    """The directory ``name`` of the session's common temp directory after
+    ``runner(directory)`` has filled it — at most once per session, under
+    a lock, whichever xdist worker asks first. ``runner`` must leave
+    ``out.npz`` there last (written under another name, then renamed)."""
+    base = tmp_path_factory.getbasetemp()
+    if os.environ.get("PYTEST_XDIST_WORKER"):
+        base = base.parent        # shared by the session's workers
+    d = base / name
+    d.mkdir(exist_ok=True)
+    with open(d / "lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not (d / "out.npz").exists():
+            runner(d)
+    return d
+
+
 def jax_references(tmp_path_factory) -> dict:
     """Every JAX reference of the shuffle and terasort tests, computed at
     most once per session (see the module docstring)."""
     global _REFS
     if _REFS is None:
-        base = tmp_path_factory.getbasetemp()
-        if os.environ.get("PYTEST_XDIST_WORKER"):
-            base = base.parent        # shared by the session's workers
-        d = base / "torch_jax_refs"
-        d.mkdir(exist_ok=True)
-        with open(d / "lock", "w") as lock:
-            fcntl.flock(lock, fcntl.LOCK_EX)
-            if not (d / "out.npz").exists():
-                _run_references(d)
+        d = session_shared(tmp_path_factory, "torch_jax_refs",
+                           _run_references)
         _REFS = dict(np.load(d / "out.npz"))
     return _REFS

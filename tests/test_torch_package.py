@@ -52,7 +52,8 @@ def test_port_file_list_covers_the_slice():
                  "core/retry.py", "sector/security.py", "sector/slave.py",
                  "sector/transport.py", "sector/master.py",
                  "sector/client.py", "sphere/scheduler.py", "sphere/spe.py",
-                 "sphere/engine.py", "launch/train.py"):
+                 "sphere/engine.py", "launch/train.py", "sphere/chaos.py",
+                 "sphere/streaming.py", "train/elastic.py"):
         assert want in names
     csrc = ROOT / "src" / "repro_torch" / "kernels" / "csrc"
     assert (csrc / "bucket_hist.cu").exists()

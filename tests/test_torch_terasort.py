@@ -166,33 +166,36 @@ def test_uniform_splitters_match_jax_in_float32():
     (-1000, 1000, 24), (-(1 << 31), (1 << 31) - 1, 5),
     (5, (1 << 20) + 3, 21)])
 def test_uniform_splitters_other_ranges_known_gap(lo, hi, differs_at):
-    """Known gap: off (0, INT32_MAX) the eager ``jnp.linspace`` is compiled
-    with the bounds as arguments and the backend contracts some of its
-    float32 operations into fused multiply-adds, depending on the bucket
-    count; the port follows the jitted, constant-bound lowering (equal to
-    it below 353 buckets). Every splitter stays within one float32 ulp of
-    max(|lo|, |hi|) (at least 1) of the JAX package's, and the difference
-    is pinned:
-    ``differs_at`` is a bucket count where it shows."""
+    """Off (0, INT32_MAX) the port equals the JAX package's eager
+    ``uniform_splitters(nb, lo, hi)`` exactly, on every bucket count
+    2..1024: the port models the fused multiply-adds XLA's CPU backend
+    contracts when it compiles ``jnp.linspace`` with the bounds as
+    arguments (the gap this test once pinned). ``differs_at`` is a bucket
+    count where the reference's other lowering, ``jnp.linspace`` jitted
+    with constant bounds, gives other splitters; the port follows the
+    eager function there too.
+
+    The reference's splitters are the eager ``jnp.linspace`` program of
+    ``uniform_splitters``, sliced and cast to int32 in numpy (exact for
+    these ranges, and checked against ``uniform_splitters`` itself at a
+    few counts): its slice and cast compile one more program each per
+    count."""
     import jax
     import jax.numpy as jnp
     from repro.core.sort import uniform_splitters as juniform
-    ulp = max(1, int(np.spacing(np.float32(max(abs(lo), abs(hi))))))
-    differ = []
-    for nb in (3, 5, 6, 21, 24, 48, 96, 360, 1000):
-        got = uniform_splitters(nb, lo, hi, device="cpu").numpy()
-        want = np.asarray(juniform(nb, lo, hi))
-        gap = np.abs(got.astype(np.int64) - want)
-        assert gap.max() <= ulp, nb
-        if gap.max():
-            differ.append(nb)
-    assert differs_at in differ, differ
-    for nb in (3, 24, 96, 200):
-        jitted = jax.jit(lambda: jnp.linspace(lo, hi, nb + 1)[1:-1].astype(
-            jnp.int32))()
+    for nb in range(2, 1025):
+        want = np.asarray(jnp.linspace(lo, hi, nb + 1))[1:-1].astype(np.int32)
+        np.testing.assert_array_equal(
+            uniform_splitters(nb, lo, hi, device="cpu").numpy(), want,
+            err_msg=f"nb={nb}")
+    for nb in (3, differs_at, 351, 352, 360, 1000, 1024):
         np.testing.assert_array_equal(
             uniform_splitters(nb, lo, hi, device="cpu").numpy(),
-            np.asarray(jitted), err_msg=f"nb={nb}")
+            np.asarray(juniform(nb, lo, hi)), err_msg=f"nb={nb}")
+    jitted = jax.jit(lambda: jnp.linspace(lo, hi, differs_at + 1)[1:-1]
+                     .astype(jnp.int32))()
+    assert not np.array_equal(np.asarray(jitted),
+                              np.asarray(juniform(differs_at, lo, hi)))
 
 
 def test_sampled_splitters_match_jax(jax_ref):
