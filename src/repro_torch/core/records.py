@@ -86,11 +86,15 @@ _TORCH_DTYPES: Dict[str, torch.dtype] = {
     "uint32": torch.uint32, "int64": torch.int64, "uint64": torch.uint64,
     "float16": torch.float16, "float32": torch.float32,
     "float64": torch.float64,
+    # numpy has no bfloat16: the name stands on its own (MoE records)
+    "bfloat16": torch.bfloat16,
 }
 _NUMPY_NAMES = {v: k for k, v in _TORCH_DTYPES.items()}
 
 
 def torch_dtype(name: str) -> torch.dtype:
+    if name in _TORCH_DTYPES:
+        return _TORCH_DTYPES[name]
     try:
         return _TORCH_DTYPES[str(np.dtype(name))]
     except KeyError:
@@ -118,15 +122,15 @@ def _to_bytes(x: torch.Tensor, lead: Tuple[int, ...], nbytes: int
 
 
 def _from_bytes(piece: torch.Tensor, lead: Tuple[int, ...],
-                dtype: np.dtype, shape: Tuple[int, ...]) -> torch.Tensor:
-    if dtype == np.bool_:
+                dtype: str, shape: Tuple[int, ...]) -> torch.Tensor:
+    tdt = torch_dtype(dtype)
+    if tdt == torch.bool:
         return piece.reshape(lead + shape) != 0
-    tdt = torch_dtype(dtype.name)
-    if dtype.itemsize == 1:
+    if tdt.itemsize == 1:
         return piece.view(tdt).reshape(lead + shape)
     if piece.numel() == 0:
         return torch.zeros(lead + shape, dtype=tdt, device=piece.device)
-    if not piece.is_contiguous() or piece.storage_offset() % dtype.itemsize:
+    if not piece.is_contiguous() or piece.storage_offset() % tdt.itemsize:
         piece = piece.clone(memory_format=torch.contiguous_format)
     return piece.view(tdt).reshape(lead + shape)
 
@@ -229,7 +233,7 @@ class RecordCodec:
         off = 0
         for i in self.layout:
             piece = packed[..., off:off + nbytes[i]]
-            leaves[i] = _from_bytes(piece, lead, np.dtype(self.dtypes[i]),
+            leaves[i] = _from_bytes(piece, lead, self.dtypes[i],
                                     self.shapes[i])
             off += nbytes[i]
         return tree_unflatten(self.treedef, leaves)
@@ -322,7 +326,7 @@ class WireFrame:
     # -- geometry -------------------------------------------------------------
     @property
     def payload_nbytes(self) -> int:
-        return int(np.dtype(self.payload_dtype).itemsize
+        return int(torch_dtype(self.payload_dtype).itemsize
                    * np.prod(self.payload_shape, dtype=np.int64))
 
     @property
@@ -396,11 +400,10 @@ class WireFrame:
         metas = {}
         for name in self.meta:
             metas[name] = _from_bytes(rows[..., off:off + 4], lead,
-                                      np.dtype(np.int32), ())
+                                      "int32", ())
             off += 4
         payload = _from_bytes(rows[..., off:off + self.payload_nbytes], lead,
-                              np.dtype(self.payload_dtype),
-                              self.payload_shape)
+                              self.payload_dtype, self.payload_shape)
         return payload, valid, metas
 
     # -- tile sealing (positional-validity mode) ------------------------------
@@ -423,8 +426,7 @@ class WireFrame:
         if self.explicit_valid:
             raise ValueError("open() is for positional-validity frames")
         hdr = wire[..., 0, :COUNT_NBYTES]
-        counts = _from_bytes(hdr, tuple(hdr.shape[:-1]), np.dtype(np.int32),
-                             ())
+        counts = _from_bytes(hdr, tuple(hdr.shape[:-1]), "int32", ())
         rows = wire[..., 1:, :]
         cap = rows.shape[-2]
         counts = counts.clamp(0, cap)

@@ -72,7 +72,9 @@ class ShuffleResult:
              invalid), or None unless ``wire_meta`` ships it.
     src_pos: (ranks, num_src, slots) int32 row at the source, or None
              unless ``wire_meta="full"``.
-    dropped: () int32 — records dropped over all ranks (capacity overflow).
+    dropped: () int32 — records dropped over the exchange's ranks
+             (capacity overflow); ``(ranks,)``, each rank its group's sum,
+             when the exchange runs along some axes of the grid only.
     """
 
     data: torch.Tensor
@@ -233,7 +235,7 @@ def sphere_shuffle(data: torch.Tensor, bucket_ids: torch.Tensor,
     return ShuffleResult(data=pay, valid=val,
                          bucket=_masked(metas, "bucket", val),
                          src_pos=_masked(metas, "src", val),
-                         dropped=ranks.psum(drop))
+                         dropped=ranks.psum(drop, axis))
 
 
 def hierarchical_shuffle(data: torch.Tensor, bucket_ids: torch.Tensor,
@@ -530,14 +532,14 @@ class ShufflePlan:
 
     # -- stacked-rank ops -----------------------------------------------------
     def check(self, ranks: Ranks) -> None:
-        """Raise unless ``ranks`` has this plan's axes at its sizes and no
-        other rank outside them."""
+        """Raise unless ``ranks`` has this plan's axes at its sizes. Ranks
+        along other axes run the plan side by side, as the devices of a
+        mesh axis the JAX plan does not name (the ``data`` rows of an
+        expert-parallel MoE); executors that need the plan to cover every
+        rank check that themselves."""
         for a, s in zip(self.axes, self.shape):
             if a not in ranks.axes or ranks.axis_size(a) != s:
                 raise ValueError(f"plan axis {a}={s} does not match {ranks!r}")
-        if self.num_devices != ranks.world:
-            raise ValueError(f"plan covers {self.num_devices} of "
-                             f"{ranks.world} ranks")
 
     def device_index(self, ranks: Ranks) -> torch.Tensor:
         """``(ranks,)`` int32 rank index in bucket-ownership order."""

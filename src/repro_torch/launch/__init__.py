@@ -1,1 +1,2 @@
-"""Launchers of the port (``make_sector`` so far; the trainer follows)."""
+"""Launchers of the port: the serving launcher (``serve``) and
+``make_sector`` (``train``; the trainer follows)."""

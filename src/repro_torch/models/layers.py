@@ -1,0 +1,185 @@
+"""Shared building blocks: norms, RoPE, MLPs, embeddings, init helpers.
+
+Port of ``repro/models/layers.py``. Matrix weights are stored in
+bfloat16, the dtype every product of the JAX package casts them to first
+(``.astype(COMPUTE_DTYPE)``), so storing them so changes no result and
+halves their memory; norms stay float32. Products run in bfloat16 with
+bfloat16 results, norms and softmax accumulation in float32, as there.
+
+Parameters live in :class:`Params` modules under the JAX package's names
+(``w_up``, ``w_down``, ...), so a weight carries across name for name;
+the apply functions take any mapping of those names to tensors.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Mapping, Optional
+
+import torch
+from torch import nn
+
+COMPUTE_DTYPE = torch.bfloat16
+
+
+class Params(nn.Module):
+    """A module whose parameters are read by name, ``p["w_up"]``, like
+    the JAX package's parameter dicts. Parameters hold no gradient: the
+    port runs inference only."""
+
+    def __getitem__(self, name: str) -> torch.Tensor:
+        return getattr(self, name)
+
+    def __contains__(self, name: str) -> bool:
+        return name in self._parameters or name in self._modules
+
+    def add(self, name: str, shape, dtype: torch.dtype, device) -> None:
+        """An uninitialised parameter (``init`` or a carrier fills it)."""
+        self.register_parameter(name, nn.Parameter(
+            torch.empty(shape, dtype=dtype, device=device),
+            requires_grad=False))
+
+
+@torch.no_grad()
+def dense_init(param: torch.Tensor, generator: Optional[torch.Generator],
+               scale: Optional[float] = None,
+               zero_from: Optional[int] = None) -> None:
+    """Fill ``param`` as the JAX package's initialisers draw it: float32
+    normals times ``scale`` (``dense_init``'s ``d_in ** -0.5`` by
+    default, ``d_in`` the second-to-last axis), rows ``zero_from:`` of
+    the first axis zeroed (padded experts, padded vocabulary), then cast
+    to the parameter's dtype. Only this one tensor exists in float32, on
+    the parameter's device."""
+    scale = scale if scale is not None else param.shape[-2] ** -0.5
+    w = torch.randn(param.shape, generator=generator, dtype=torch.float32,
+                    device=param.device)
+    w *= scale
+    if zero_from is not None:
+        w[zero_from:] = 0.0
+    param.copy_(w)
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor,
+             eps: float = 1e-5) -> torch.Tensor:
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    out = xf * torch.rsqrt(var + eps) * scale.float()
+    return out.to(COMPUTE_DTYPE)
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.silu`` as the JAX package computes it: ``x * (1 / (1 +
+    exp(-x)))``, every step rounded to ``x``'s dtype, as XLA rounds each
+    bfloat16 op (a fused ``F.silu`` rounds once, and differs in about a
+    third of bfloat16 results)."""
+    return x * torch.reciprocal(torch.exp(-x) + 1)
+
+
+def _rounded(v: float, dtype: torch.dtype) -> float:
+    """``v`` rounded to ``dtype``, as a Python float (a scalar operand,
+    so that no constant is copied to the card, which waits for it)."""
+    return torch.tensor(v, dtype=dtype).item()
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu`` (its default tanh form) op by op in ``x``'s dtype,
+    the constants rounded to it first, as the JAX package computes it."""
+    def c(v):
+        return _rounded(v, x.dtype)
+    inner = c(math.sqrt(2 / math.pi)) * (x + c(0.044715) * (x * x * x))
+    return x * (c(0.5) * (torch.tanh(inner) + c(1.0)))
+
+
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                        device=device) / head_dim
+    return 1.0 / torch.pow(float(theta), exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: (..., seq, heads, head_dim); positions: (..., seq)."""
+    hd = x.shape[-1]
+    freqs = rope_freqs(hd, theta, x.device)                  # (hd/2,)
+    angles = positions[..., :, None].float() * freqs         # (..., S, hd/2)
+    cos = torch.cos(angles)[..., :, None, :]
+    sin = torch.sin(angles)[..., :, None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# -- MLP -----------------------------------------------------------------------
+
+
+class MLP(Params):
+    """SwiGLU (``gated``) or GELU feed-forward: ``w_gate``, ``w_up``
+    ``(d_model, d_ff)``, ``w_down`` ``(d_ff, d_model)``; ``init_weights``
+    draws as ``mlp_init`` does."""
+
+    def __init__(self, d_model: int, d_ff: int, gated: bool = True,
+                 device=None):
+        super().__init__()
+        self.gated = gated
+        if gated:
+            self.add("w_gate", (d_model, d_ff), COMPUTE_DTYPE, device)
+        self.add("w_up", (d_model, d_ff), COMPUTE_DTYPE, device)
+        self.add("w_down", (d_ff, d_model), COMPUTE_DTYPE, device)
+
+    def init_weights(self, generator: Optional[torch.Generator]) -> None:
+        if self.gated:
+            dense_init(self.w_gate, generator)
+        dense_init(self.w_up, generator)
+        dense_init(self.w_down, generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return mlp_apply(self, x, self.gated)
+
+
+def mlp_apply(params: Mapping[str, torch.Tensor], x: torch.Tensor,
+              gated: bool = True) -> torch.Tensor:
+    x = x.to(COMPUTE_DTYPE)
+    up = x @ params["w_up"].to(COMPUTE_DTYPE)
+    if gated:
+        gate = x @ params["w_gate"].to(COMPUTE_DTYPE)
+        h = silu(gate) * up
+    else:
+        h = gelu(up)
+    return h @ params["w_down"].to(COMPUTE_DTYPE)
+
+
+# -- embeddings ------------------------------------------------------------------
+
+VOCAB_PAD = 128  # lane-aligned AND divisible by the model axis (16)
+
+
+def padded_vocab(vocab: int) -> int:
+    return (vocab + VOCAB_PAD - 1) // VOCAB_PAD * VOCAB_PAD
+
+
+def embed_lookup(emb: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    return emb.to(COMPUTE_DTYPE)[tokens.long()]
+
+
+def lm_logits(emb: torch.Tensor, x: torch.Tensor, cap: float = 0.0,
+              vocab: Optional[int] = None) -> torch.Tensor:
+    """Tied-embedding readout; float32 logits over the padded vocabulary,
+    padding columns at -1e30 so softmax and argmax never see them."""
+    logits = (x.to(COMPUTE_DTYPE) @ emb.to(COMPUTE_DTYPE).T).float()
+    if cap > 0.0:
+        logits = cap * torch.tanh(logits / cap)
+    if vocab is not None and vocab < emb.shape[0]:
+        logits[..., vocab:] = -1e30
+    return logits
+
+
+def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
+                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean cross-entropy over (optionally masked) positions; float32."""
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    nll = logz - gold
+    if mask is not None:
+        m = mask.float()
+        return torch.sum(nll * m) / torch.clamp(torch.sum(m), min=1.0)
+    return torch.mean(nll)

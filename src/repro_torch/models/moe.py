@@ -1,0 +1,322 @@
+"""Mixture-of-Experts with Sphere bucket-shuffle dispatch.
+
+Port of ``repro/models/moe.py``. The paper's bucket shuffle (§3.2) *is*
+expert dispatch: record = token, bucket = expert, capacity factor = the
+scheduler's segment-size clamp (§3.5.1), dropped-on-overflow = the same
+bounded-skew contract. The ``sphere`` implementation routes tokens
+through :class:`repro_torch.core.shuffle.ShufflePlan` over the expert
+ranks of a :class:`repro_torch.comm.Ranks` grid (the JAX package's
+``model`` mesh axis, or ``(dc, node)`` for wide-area expert parallelism);
+both its partition/packs, the send pack and the per-expert regroup, are
+:func:`repro_torch.kernels.ops.partition_pack`, so kernel K1 on the card.
+The ``dense`` implementation is the one-hot (Switch-style) capacity
+dispatch, used for small token counts (decode) and as the baseline.
+
+Experts are zero-padded to a multiple of 16 (qwen2-moe: 60 -> 64); the
+router never selects padding experts. The sphere dispatch sizes its
+buckets for the expert axis it runs on; where the two padded counts
+differ (most axis sizes for 60 experts) it raises, at the shapes where
+the JAX package fails.
+"""
+
+from __future__ import annotations
+
+from typing import Mapping, Optional, Sequence
+
+import torch
+
+from repro_torch.comm import Ranks
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.shuffle import ShufflePlan
+from repro_torch.kernels.ops import partition_pack
+from repro_torch.models.layers import (COMPUTE_DTYPE, Params, dense_init,
+                                       silu)
+
+
+def padded_experts(cfg: ModelConfig, tp: int = 16) -> int:
+    e = cfg.num_experts
+    return ((e + tp - 1) // tp) * tp
+
+
+class MoE(Params):
+    """``router`` ``(d, E)`` float32; routed experts ``w_gate``/``w_up``
+    ``(E_pad, d, f)`` and ``w_down`` ``(E_pad, f, d)``; with shared
+    experts ``ws_gate``/``ws_up`` ``(d, n_s * f_s)``, ``ws_down`` and
+    ``shared_gate`` ``(d, 1)`` float32."""
+
+    def __init__(self, cfg: ModelConfig, tp: int = 16, device=None):
+        super().__init__()
+        self.cfg = cfg
+        e_pad = padded_experts(cfg, tp)
+        d, f = cfg.d_model, cfg.expert_d_ff
+        self.add("router", (d, cfg.num_experts), torch.float32, device)
+        self.add("w_gate", (e_pad, d, f), COMPUTE_DTYPE, device)
+        self.add("w_up", (e_pad, d, f), COMPUTE_DTYPE, device)
+        self.add("w_down", (e_pad, f, d), COMPUTE_DTYPE, device)
+        if cfg.n_shared_experts:
+            fs = cfg.shared_d_ff * cfg.n_shared_experts
+            self.add("ws_gate", (d, fs), COMPUTE_DTYPE, device)
+            self.add("ws_up", (d, fs), COMPUTE_DTYPE, device)
+            self.add("ws_down", (fs, d), COMPUTE_DTYPE, device)
+            self.add("shared_gate", (d, 1), torch.float32, device)
+
+    def init_weights(self, generator: Optional[torch.Generator]) -> None:
+        """``moe_init``'s draws: padded experts of ``w_gate``/``w_up``
+        zeroed (``w_down``'s are not, as there)."""
+        cfg = self.cfg
+        d, f = cfg.d_model, cfg.expert_d_ff
+        dense_init(self.router, generator, scale=0.02)
+        dense_init(self.w_gate, generator, d ** -0.5, cfg.num_experts)
+        dense_init(self.w_up, generator, d ** -0.5, cfg.num_experts)
+        dense_init(self.w_down, generator, f ** -0.5)
+        if cfg.n_shared_experts:
+            dense_init(self.ws_gate, generator)
+            dense_init(self.ws_up, generator)
+            dense_init(self.ws_down, generator)
+            dense_init(self.shared_gate, generator, scale=0.02)
+
+    def forward(self, x, ranks: Optional[Ranks] = None,
+                dp_axes: Sequence[str] = ("data",), tp_axis: str = "model",
+                ep_axes: Optional[Sequence[str]] = None, chunks: int = 1):
+        return moe_apply(self, x, self.cfg, ranks, dp_axes, tp_axis,
+                         ep_axes, chunks)
+
+
+def _route(params, x_flat: torch.Tensor, cfg: ModelConfig):
+    """Router over ``x_flat`` ``(..., n, d)``: top-k expert ids and
+    renormalised probabilities (float32), and the load-balance aux loss
+    (Switch: E * sum_e f_e * P_e) over the ``n`` tokens, ``(...)``."""
+    logits = x_flat.float() @ params["router"].float()
+    probs = torch.softmax(logits, dim=-1)
+    top_p, top_i = torch.topk(probs, cfg.top_k, dim=-1)
+    top_p = top_p / torch.sum(top_p, dim=-1, keepdim=True)
+    me = torch.mean(probs, dim=-2)
+    # one-hot by comparison: F.one_hot checks its ids on the host, which
+    # waits for the card
+    experts = torch.arange(cfg.num_experts, device=top_i.device)
+    hits = (top_i[..., None] == experts).float().sum(dim=-2)
+    ce = torch.mean(hits, dim=-2) / cfg.top_k
+    aux = cfg.num_experts * torch.sum(me * ce, dim=-1)
+    return top_i.to(torch.int32), top_p.float(), aux
+
+
+def _expert_ffn(w_gate, w_up, w_down, xe: torch.Tensor) -> torch.Tensor:
+    """xe: (E, C, d) tokens grouped per expert; weights (E, d, f) and
+    (E, f, d). One batched product a weight."""
+    xe = xe.to(COMPUTE_DTYPE)
+    h = silu(torch.bmm(xe, w_gate.to(COMPUTE_DTYPE)))
+    h = h * torch.bmm(xe, w_up.to(COMPUTE_DTYPE))
+    return torch.bmm(h, w_down.to(COMPUTE_DTYPE))
+
+
+def _shared_ffn(params, x: torch.Tensor) -> torch.Tensor:
+    x = x.to(COMPUTE_DTYPE)
+    h = silu(x @ params["ws_gate"].to(COMPUTE_DTYPE))
+    h = h * (x @ params["ws_up"].to(COMPUTE_DTYPE))
+    out = h @ params["ws_down"].to(COMPUTE_DTYPE)
+    g = (x @ params["shared_gate"].to(COMPUTE_DTYPE)).float()
+    g = 1.0 / (1.0 + torch.exp(-g))                     # jax.nn.sigmoid
+    return out * g.to(COMPUTE_DTYPE)
+
+
+# -- sphere (bucket shuffle) dispatch ----------------------------------------------
+
+
+def _moe_sphere_local(params: Mapping[str, torch.Tensor], x_local,
+                      cfg: ModelConfig, plan: ShufflePlan, ranks: Ranks,
+                      dp: int):
+    """The JAX package's ``shard_map`` body on stacked ranks. ``x_local``
+    ``(R, b, s_loc, d)``: every rank's tokens, distinct per rank. Ranks
+    are ordered ``(dp, ep)`` row-major: ``dp`` groups (the data rows)
+    running the plan side by side over ``ep`` expert ranks each, which
+    hold the same experts from one group to the next."""
+    R, b, s_loc, d = x_local.shape
+    n = b * s_loc
+    x_flat = x_local.reshape(R, n, d)
+    top_i, top_p, aux = _route(params, x_flat, cfg)
+
+    k = cfg.top_k
+    ep = plan.num_devices
+    # records: token replicated k times, carrying its routing prob, in
+    # bfloat16 on the wire (the bits, not a value cast)
+    rec = torch.cat([torch.repeat_interleave(x_flat.to(COMPUTE_DTYPE), k,
+                                             dim=1),
+                     top_p.reshape(R, n * k, 1).to(COMPUTE_DTYPE)], dim=2)
+    buckets = top_i.reshape(R, n * k)
+    num_buckets = plan.num_buckets
+    res = plan.shuffle(ranks, rec, buckets)
+
+    # local regroup (stage C of the shuffle, on the device): received rows
+    # -> (E_loc, C2, d) per local expert, by the same partition/pack (K1)
+    e_loc = num_buckets // ep
+    me = plan.device_index(ranks)
+    flat = res.data.reshape(R, -1, d + 1)
+    fvalid = res.valid.reshape(R, -1)
+    fbucket = res.bucket.reshape(R, -1) - me[:, None] * e_loc
+    n_recv = flat.shape[1]
+    c2 = int(n_recv / e_loc * cfg.capacity_factor) + 1
+    dest = torch.where(fvalid, fbucket, e_loc)          # invalid -> overflow
+    (grouped,), in_rng, origin, _ = partition_pack([flat], dest, e_loc, c2)
+    xe, pe = grouped[..., :d], grouped[..., d]
+
+    # one batched product a weight: the data rows of one expert column
+    # fold into the capacity axis, (dp, ep, e_loc, C2, d) -> (ep * e_loc,
+    # dp * C2, d), so the weights are read as stored, never copied per rank
+    xe = xe.reshape(dp, ep * e_loc, c2, d).transpose(0, 1).reshape(
+        ep * e_loc, dp * c2, d)
+    ye = _expert_ffn(params["w_gate"], params["w_up"], params["w_down"], xe)
+    ye = ye.reshape(ep * e_loc, dp, c2, d).transpose(0, 1).reshape(
+        R, e_loc, c2, d)
+    ye = ye * pe[..., None].to(COMPUTE_DTYPE)           # weight by router prob
+    ye = ye * in_rng[..., None].to(COMPUTE_DTYPE)
+
+    # inverse regroup: back to the received-row layout; origin is the
+    # source row of each (expert, slot); empty slots go to one overflow
+    # row per rank that is cut off
+    rows = torch.where(in_rng, origin, n_recv).to(torch.int64)
+    rows = rows + torch.arange(R, device=rows.device)[:, None, None] * (
+        n_recv + 1)
+    back = torch.zeros((R * (n_recv + 1), d), dtype=COMPUTE_DTYPE,
+                       device=ye.device)
+    back[rows.reshape(-1)] = ye.reshape(-1, d)
+    processed = back.reshape(R, n_recv + 1, d)[:, :n_recv].reshape(
+        res.data.shape[:3] + (d,))
+
+    # combine back to the n*k record rows, then sum each token's k expert
+    # contributions
+    combined, _ = plan.combine(ranks, processed, res, n * k)
+    out = combined.reshape(R, n, k, d).sum(dim=2).reshape(R, b, s_loc, d)
+    # pmean over the plan's axes; shard_map's out_specs=P() then hands out
+    # data row 0's value (as it does the drop count)
+    aux = aux.reshape(dp, ep).mean(dim=1)[0]
+    dropped = res.dropped if res.dropped.dim() == 0 else res.dropped[0]
+    return out, aux, dropped
+
+
+def _grid_layout(ranks: Ranks, lead: Sequence[str], ep_axes: Sequence[str]):
+    """Check that the grid is ``lead + ep_axes``, in that order (the
+    layout whose row-major ranks the stacked views below assume)."""
+    want = tuple(lead) + tuple(ep_axes)
+    if tuple(ranks.axes) != want:
+        raise ValueError(f"the sphere MoE runs on a grid with axes {want} "
+                         f"in that order; got {ranks!r}")
+
+
+def moe_apply_sphere(params, x: torch.Tensor, cfg: ModelConfig,
+                     ranks: Ranks, dp_axes: Sequence[str],
+                     tp_axis: str = "model",
+                     ep_axes: Optional[Sequence[str]] = None,
+                     chunks: int = 1):
+    """x: (B, S, d) with S divisible by the expert axis size.
+
+    Flat: the batch shards over ``dp_axes``, the sequence and the experts
+    over ``tp_axis``. ``ep_axes=(dc_axis, node_axis)`` spreads the experts
+    over *both* axes — wide-area expert parallelism, tokens crossing the
+    DC boundary through the hierarchical two-level shuffle (batch over the
+    dc axis, sequence over the node axis). ``chunks=W`` pipelines the
+    dispatch shuffle in W rounds."""
+    b, s, d = x.shape
+    k = cfg.top_k
+    if ep_axes is not None:
+        ep_axes = tuple(ep_axes)
+        _grid_layout(ranks, (), ep_axes)
+        ep = ranks.axis_size(ep_axes)
+        rows, cols = (ranks.axis_size(a) for a in ep_axes)
+        dp = 1
+    else:
+        ep_axes = (tp_axis,)
+        _grid_layout(ranks, dp_axes, ep_axes)
+        ep = ranks.axis_size(tp_axis)
+        rows, cols = ranks.axis_size(tuple(dp_axes)), ep
+        dp = rows
+    if b % rows or s % cols:
+        raise ValueError(f"x of shape {tuple(x.shape)} does not shard over "
+                         f"the {rows} x {cols} grid")
+    n_local = (b // rows) * (s // cols)
+    e_pad = params["w_gate"].shape[0]
+    e_plan = padded_experts(cfg, ep)
+    if e_pad != e_plan:
+        # the JAX package fails here inside shard_map (the weights' expert
+        # shard and the plan's experts per rank differ)
+        raise ValueError(f"the expert weights hold {e_pad} experts, but "
+                         f"{ep} expert ranks pad {cfg.num_experts} experts "
+                         f"to {e_plan}")
+    plan = ShufflePlan.for_ranks(ranks, e_plan, n_local * k,
+                                 cfg.capacity_factor, ep_axes, chunks=chunks)
+    # x (B, S, d) -> per rank (R, b_loc, s_loc, d), ranks row-major over
+    # (batch rows, sequence columns)
+    x_local = x.reshape(rows, b // rows, cols, s // cols, d).transpose(
+        1, 2).reshape(rows * cols, b // rows, s // cols, d)
+    out, aux, dropped = _moe_sphere_local(params, x_local, cfg, plan, ranks,
+                                          dp)
+    out = out.reshape(rows, cols, b // rows, s // cols, d).transpose(
+        1, 2).reshape(b, s, d)
+    if cfg.n_shared_experts:
+        out = out + _shared_ffn(params, x)
+    return out, {"moe_aux": aux, "moe_dropped": dropped}
+
+
+# -- dense (one-hot) dispatch --------------------------------------------------------
+
+
+def moe_apply_dense(params, x: torch.Tensor, cfg: ModelConfig):
+    """Switch-style capacity dispatch, no ranks. The JAX package builds it
+    from one-hot einsums; here the same slots are indexed directly: each
+    (token, choice) takes position ``pos`` in its expert, counted in
+    token-major order, and is kept while ``pos < cap``."""
+    b, s, d = x.shape
+    n = b * s
+    x_flat = x.reshape(n, d)
+    top_i, top_p, aux = _route(params, x_flat, cfg)
+    e_pad = params["w_gate"].shape[0]
+    k = cfg.top_k
+    cap = max(int(n * k / cfg.num_experts * cfg.capacity_factor), 1)
+
+    ids = top_i.reshape(n * k).long()
+    oh = (ids[:, None] == torch.arange(e_pad, device=ids.device)).to(
+        torch.int32)                                         # (n*k, E)
+    pos = (torch.cumsum(oh, dim=0) - 1).gather(1, ids[:, None])[:, 0]
+    keep = pos < cap
+    slot = torch.where(keep, ids * cap + pos, e_pad * cap)   # overflow slot
+    xe = torch.zeros((e_pad * cap + 1, d), dtype=x.dtype, device=x.device)
+    xe[slot] = torch.repeat_interleave(x_flat, k, dim=0)
+    ye = _expert_ffn(params["w_gate"], params["w_up"], params["w_down"],
+                     xe[:-1].reshape(e_pad, cap, d))
+    ye = torch.cat([ye.reshape(e_pad * cap, d),
+                    ye.new_zeros((1, d))]).float()
+    w = top_p.reshape(n * k, 1) * keep[:, None].float()
+    out = (ye[slot] * w).reshape(n, k, d).sum(dim=1)
+    dropped = torch.sum(1.0 - keep.float())
+    out = out.reshape(b, s, d).to(COMPUTE_DTYPE)
+    if cfg.n_shared_experts:
+        out = out + _shared_ffn(params, x)
+    return out, {"moe_aux": aux, "moe_dropped": dropped}
+
+
+def moe_apply(params, x: torch.Tensor, cfg: ModelConfig,
+              ranks: Optional[Ranks] = None,
+              dp_axes: Sequence[str] = ("data",), tp_axis: str = "model",
+              ep_axes: Optional[Sequence[str]] = None, chunks: int = 1):
+    """The JAX package's gate: the sphere bucket shuffle when the sequence
+    shards over the expert axis, the dense dispatch otherwise. Like the
+    JAX gate, ``ep_axes`` and the grid are preferences: when the grid
+    lacks the axes or the batch or sequence do not divide them (every
+    decode step), this falls back to the flat or dense path silently.
+    Call :func:`moe_apply_sphere` directly for a hard error."""
+    if (ep_axes is not None and ranks is not None and len(ep_axes) == 2
+            and all(a in ranks.axes for a in ep_axes)):
+        dcs, nodes = (ranks.axis_size(a) for a in ep_axes)
+        if (cfg.moe_impl == "sphere" and x.shape[0] % dcs == 0
+                and x.shape[1] % nodes == 0 and dcs * nodes > 1):
+            return moe_apply_sphere(params, x, cfg, ranks, dp_axes, tp_axis,
+                                    ep_axes=ep_axes, chunks=chunks)
+    use_sphere = (
+        cfg.moe_impl == "sphere" and ranks is not None
+        and tp_axis in ranks.axes
+        and x.shape[1] % ranks.axis_size(tp_axis) == 0
+        and ranks.axis_size(tp_axis) > 1
+    )
+    if use_sphere:
+        return moe_apply_sphere(params, x, cfg, ranks, dp_axes, tp_axis,
+                                chunks=chunks)
+    return moe_apply_dense(params, x, cfg)

@@ -826,3 +826,132 @@ def test_kernels_at_the_resumed_4_rank_shapes(card, kernel, rows, n, nd):
     code = lambda k, v: torch.sort((k.to(torch.int64) << 32)
                                    | v.to(torch.int64), dim=-1).values
     assert torch.equal(code(gk, gv), code(rk, rv))
+
+
+# -- the decoder LM stack and the serving engine --------------------------------
+
+#: logits of the 2-layer smoke models, card against CPU: a bfloat16
+#: product accumulates in another order on the card, which moves a
+#: bfloat16 result by an ulp here and there; the logits are bfloat16
+#: values (0.0156 apart at 2-4), so about 3 ulps (tests/test_torch_models.py
+#: holds the port to the JAX package at the same 5e-2)
+CARD_LOGITS_TOL = 0.05
+
+
+def _smoke_grid_prefill(dev):
+    import dataclasses
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import build
+    from repro_torch.models.transformer import lm_forward
+    cfg = dataclasses.replace(get_smoke_config("qwen2_moe_a2_7b"),
+                              num_experts=16, capacity_factor=8.0)
+    model = build(cfg)
+    params = model.init(torch.Generator().manual_seed(0), "cpu").to(dev)
+    rk = Ranks(shape=(2, 4), axes=("data", "model"), device=dev)
+    toks = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab, (2, 32)).astype(np.int32)).to(dev)
+    caches = model.init_caches(2, 40, dev)
+    before = partition.KERNEL.launches
+    with torch.inference_mode():
+        logits, caches, aux = lm_forward(params, cfg, toks, caches=caches,
+                                         ranks=rk, last_only=True)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    return cfg, logits.cpu(), caches["pos"].cpu(), aux, (
+        partition.KERNEL.launches - before)
+
+
+def test_smoke_grid_prefill_on_the_card_equals_the_cpu(card):
+    """qwen2-moe smoke (16 experts, capacity factor 8) prefilled on the
+    ``(2, 4)`` grid: every MoE layer runs the sphere dispatch with K1 on
+    the card; logits within CARD_LOGITS_TOL of the CPU run, positions and
+    ``moe_dropped`` exact, K1 twice a MoE layer (send pack and
+    regroup)."""
+    cfg, lg, pos, aux, k1 = _smoke_grid_prefill(card)
+    _, lg_c, pos_c, aux_c, k1_c = _smoke_grid_prefill(torch.device("cpu"))
+    v = cfg.vocab
+    err = float((lg[..., :v] - lg_c[..., :v]).abs().max())
+    assert err <= CARD_LOGITS_TOL, err
+    assert torch.equal(pos, pos_c)
+    assert float(aux["moe_dropped"]) == float(aux_c["moe_dropped"]) == 0
+    assert k1 == 2 * cfg.num_layers and k1_c == 0
+
+
+class _Recording:
+    """Wraps an engine's ``_decode``: each step's last call is the decode
+    that emits the tokens, so its logits and the slots' requests give the
+    top-2 margin behind each emitted token."""
+
+    def __init__(self, eng):
+        self.eng, self.margins, self._last = eng, {}, None
+        inner = eng._decode
+
+        def decode(tokens, pos):
+            logits = inner(tokens, pos)
+            self._last = (logits[:, 0].float().cpu(), list(eng.active))
+            return logits
+        eng._decode = decode
+
+    def run(self):
+        while True:
+            self._last = None
+            self.eng.step()
+            if self._last is not None:
+                top2 = torch.topk(self._last[0], 2, dim=-1).values
+                for s, req in enumerate(self._last[1]):
+                    if req is not None:
+                        self.margins.setdefault(req.req_id, []).append(
+                            float(top2[s, 0] - top2[s, 1]))
+            if not self.eng._has_pending() and not any(self.eng.active):
+                return
+
+
+def test_smoke_engine_on_the_card_gives_the_cpu_greedy_tokens(card):
+    """tinyllama and qwen2-moe smoke, 6 requests through 2 slots: each
+    request's tokens equal the CPU engine's, compared up to the first
+    token whose CPU top-2 margin is under CARD_LOGITS_TOL (past a near
+    tie the two may rightly part); at least a quarter of the tokens are
+    compared."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import build
+    from repro_torch.serve import Request, ServeEngine
+    for arch in ("tinyllama_1_1b", "qwen2_moe_a2_7b"):
+        cfg = get_smoke_config(arch)
+        model = build(cfg)
+        params = model.init(torch.Generator().manual_seed(0), "cpu")
+        rng = np.random.default_rng(0)
+        prompts = [rng.integers(0, cfg.vocab, size=int(rng.integers(4, 12)))
+                   .astype(np.int32) for _ in range(6)]
+        runs = []
+        for dev in (torch.device("cpu"), card):
+            eng = ServeEngine(model, params.to(dev), batch_slots=2,
+                              max_len=32)
+            reqs = [Request(i, p, max_new_tokens=8)
+                    for i, p in enumerate(prompts)]
+            for r in reqs:
+                eng.submit(r)
+            rec = _Recording(eng)
+            rec.run()
+            runs.append((reqs, rec.margins))
+        (cpu_reqs, margins), (card_reqs, _) = runs
+        compared = 0
+        for a, b in zip(cpu_reqs, card_reqs):
+            for i, (ta, tb) in enumerate(zip(a.out_tokens, b.out_tokens)):
+                if margins[a.req_id][i] < CARD_LOGITS_TOL:
+                    break
+                assert ta == tb, (arch, a.req_id, i)
+                compared += 1
+        assert compared >= 6 * 8 // 4, (arch, compared)
+
+
+def test_model_init_without_a_card_raises(monkeypatch):
+    """``build(cfg).init()`` draws on the card by default; without one it
+    raises, never falling back to the CPU (runs with or without a card)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import build
+    model = build(get_smoke_config("tinyllama_1_1b"))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="is_available"):
+        model.init()
+    with pytest.raises(RuntimeError, match="is_available"):
+        model.init_caches(2, 8)

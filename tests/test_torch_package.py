@@ -53,7 +53,11 @@ def test_port_file_list_covers_the_slice():
                  "sector/transport.py", "sector/master.py",
                  "sector/client.py", "sphere/scheduler.py", "sphere/spe.py",
                  "sphere/engine.py", "launch/train.py", "sphere/chaos.py",
-                 "sphere/streaming.py", "train/elastic.py"):
+                 "sphere/streaming.py", "train/elastic.py",
+                 "configs/base.py", "configs/qwen2_moe_a2_7b.py",
+                 "models/layers.py", "models/attention.py", "models/moe.py",
+                 "models/transformer.py", "models/registry.py",
+                 "models/convert.py", "serve/engine.py", "launch/serve.py"):
         assert want in names
     csrc = ROOT / "src" / "repro_torch" / "kernels" / "csrc"
     assert (csrc / "bucket_hist.cu").exists()
