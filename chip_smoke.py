@@ -140,6 +140,31 @@ Phases, in order (any failure ends the script with a non-zero exit):
     margin exceeds 0.25, the token of a full ``lm_forward`` without
     caches over the same prefix. Phase 3 holds K1 at this phase's two
     shapes.
+13. ``serve-model-zoo``: the other five families at their published
+    configs (``configs/*.py``), random weights drawn on the card from
+    ``--seed``, one model at a time, each freed before the next:
+    minicpm3_4b (MLA), xlstm_125m (mLSTM + sLSTM), zamba2_1_2b (Mamba2 +
+    shared attention), whisper_small (enc-dec) and internvl2_1b (VLM).
+    (1) A prefill of 8 prompts of 1024 tokens into caches of 1040
+    (internvl2: 256 image embeddings, then 768 text tokens; whisper: 8 x
+    1500 frames, its native 30 s, and decoder prompts of 448 tokens,
+    Whisper's text context, into caches of 464), cold and warm, then 16
+    greedy decode steps; prints walls, prefill tokens/s, decode step p50
+    and peak memory. (2) Two more warm prefills give logits identical to
+    the bit; a full forward without caches over each prompt and its
+    decoded tokens (for whisper the teacher-forced ``decode_stack``) gives
+    the emitted token wherever its top-2 margin exceeds 0.25, or twice
+    the decode's own rounding spread where that is larger, and logits
+    within that same margin of the decode's: the spread is the largest
+    logit difference between the batch's decode and each prompt's decode
+    alone, fed the same tokens (the decode computes the full forward's
+    function exactly, ``tests/test_torch_zoo_models.py``; only the
+    products' shapes, so their rounding, differ, and a deep random stack
+    amplifies it). The largest logit difference and the spread are
+    printed. (3) ``ServeEngine`` with phase 12's
+    traffic (frames for whisper, drawn as the launcher draws them): all
+    16 requests complete, every token below the vocabulary. No kernel
+    lies on these paths: every model's run reads zero launches of each.
 
 Each path's launch counts are read from zero: every count is reset just
 before the path runs and read just after. The last lines are the
@@ -151,6 +176,7 @@ the JAX package.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import os
 import statistics
@@ -186,6 +212,11 @@ SERVE_REQUESTS, SERVE_SLOTS, SERVE_MAX_LEN, SERVE_NEW = 16, 4, 128, 12
 SPHERE_DENSE_TOL, DECODE_TOL = 0.3, 0.25
 #: the held checks' capacity factor: no token dropped (tests/test_spmd.py)
 CHECK_CF = 8.0
+#: phase 13: the other five families at their published configs; whisper's
+#: decoder prompts are its published text context
+ZOO_ARCHS = ("minicpm3_4b", "xlstm_125m", "zamba2_1_2b", "whisper_small",
+             "internvl2_1b")
+WHISPER_PROMPT_LEN = 448
 #: phase 10: its words, words a micro-batch (8 requests of 2^18), the
 #: carry's rows a rank, the 256 requests' tenants and weights, the steps
 STREAM_WORDS = 1 << 26
@@ -2303,14 +2334,16 @@ def top2_margin(torch, logits):
     return top[..., 0] - top[..., 1]
 
 
-def timed_serve(torch, model, params, prompts, vocab):
-    """The engine over ``prompts``: each step timed to a synchronize, and
-    for each emitted token the logits row behind it (the step's last
-    decode is the one that emits)."""
+def timed_serve(torch, model, params, prompts, vocab, frames=None):
+    """The engine over ``prompts`` (with ``frames`` for an enc-dec model):
+    each step timed to a synchronize, and for each emitted token the
+    logits row behind it (the step's last decode is the one that
+    emits)."""
     from repro_torch.serve import Request, ServeEngine
     eng = ServeEngine(model, params, batch_slots=SERVE_SLOTS,
                       max_len=SERVE_MAX_LEN)
-    reqs = [Request(i, p, max_new_tokens=SERVE_NEW)
+    reqs = [Request(i, p, max_new_tokens=SERVE_NEW,
+                    frames=None if frames is None else frames[i])
             for i, p in enumerate(prompts)]
     for r in reqs:
         eng.submit(r)
@@ -2602,6 +2635,252 @@ def serve_path(torch, dev, seed: int):
     return out
 
 
+# -- phase 13: the rest of the model zoo ------------------------------------------
+
+
+def zoo_inputs(torch, dev, gen, cfg, rng):
+    """The prefill batch of phase 13 (see the module docstring): tokens
+    from ``rng``, frames or image embeddings drawn on the card."""
+    import numpy as np
+    B = PREFILL_PROMPTS
+    if cfg.family == "audio":
+        text = WHISPER_PROMPT_LEN
+    else:
+        text = PREFILL_LEN - cfg.img_tokens
+    batch = {"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab, (B, text)).astype(np.int32)).to(dev)}
+    if cfg.family == "audio":
+        batch["frames"] = torch.randn((B, cfg.enc_seq, cfg.d_model),
+                                      generator=gen, device=dev).bfloat16()
+    if cfg.family == "vlm":
+        batch["img_embeds"] = torch.randn((B, cfg.img_tokens, cfg.d_model),
+                                          generator=gen,
+                                          device=dev).bfloat16()
+    return batch
+
+
+def zoo_reference(torch, params, cfg, batch, emitted, enc_out, n_rows):
+    """Logits of a full forward without caches over each prompt and its
+    emitted tokens, at the last ``n_rows`` positions (float32, the
+    vocabulary only)."""
+    from repro_torch.models import encdec, transformer
+    from repro_torch.models.layers import lm_logits, rms_norm
+    toks = torch.cat([batch["tokens"], emitted], dim=1)
+    if cfg.family == "audio":
+        logits, _ = encdec.decode_stack(params, cfg, toks, enc_out)
+        return logits[:, -n_rows:, :cfg.vocab].float()
+    x = transformer.embed_inputs(params, cfg, toks, batch.get("img_embeds"))
+    B, S = x.shape[:2]
+    q_pos = torch.arange(S, dtype=torch.int32, device=x.device).expand(B, S)
+    x, _, _ = transformer.forward(params, cfg, x, q_pos)
+    x = rms_norm(x[:, -n_rows:], params.final_ln, cfg.norm_eps)
+    return lm_logits(params.embed, x, cfg.logit_cap,
+                     cfg.vocab)[..., :cfg.vocab].float()
+
+
+def decode_spread(torch, model, params, cfg, batch, emitted, rows, enc_out,
+                  max_len: int, n_pos: int) -> float:
+    """The card's own rounding spread of the decode: each prompt prefilled
+    and decoded alone (batch 1: other product shapes, so other rounding),
+    fed the batch run's tokens; the largest logit difference from the
+    batch run's ``rows``."""
+    v = cfg.vocab
+    dev = batch["tokens"].device
+    spread = 0.0
+    for i in range(batch["tokens"].shape[0]):
+        caches = model.init_caches(1, max_len, dev)
+        lg, caches = model.prefill(
+            params, {k: x[i:i + 1] for k, x in batch.items()}, caches)
+        alone = [lg[:, -1, :v].float()]
+        for t in range(emitted.shape[1] - 1):
+            step = {"tokens": emitted[i:i + 1, t:t + 1],
+                    "pos": torch.full((1, 1), n_pos + t, dtype=torch.int32,
+                                      device=dev)}
+            if enc_out is not None:
+                step["enc_out"] = enc_out[i:i + 1]
+            lg, caches = model.decode_step(params, caches, step)
+            alone.append(lg[:, -1, :v].float())
+        del caches
+        spread = max(spread, float((torch.stack(alone, 1)[0]
+                                    - rows[i]).abs().max()))
+    return spread
+
+
+def zoo_model(torch, dev, arch: str, seed: int):
+    """One model of phase 13: build and draw it, prefill, decode, the held
+    checks, the engine; every kernel's launches read zero."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.models import build, encdec
+    from repro_torch.models.layers import padded_vocab
+
+    t_model = time.perf_counter()
+    cfg = get_config(arch)
+    model = build(cfg)
+    v = cfg.vocab
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    reset_launches()
+    # the engines' timing wrappers hold their models in reference cycles:
+    # collect the previous phase's model before measuring this one
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(gen, dev)
+    torch.cuda.synchronize()
+    out = {"phase": "serve_model_zoo", "arch": arch, "family": cfg.family,
+           "attn_type": cfg.attn_type, "layers": cfg.num_layers,
+           "d_model": cfg.d_model, "vocab": v,
+           "init_s": time.perf_counter() - t0,
+           "params": sum(p.numel() for p in params.parameters()),
+           "weight_bytes": sum(p.numel() * p.element_size()
+                               for p in params.parameters())}
+    rng = np.random.default_rng(seed)
+    batch = zoo_inputs(torch, dev, gen, cfg, rng)
+    text = batch["tokens"].shape[1]
+    n_pos = text + (cfg.img_tokens if cfg.family == "vlm" else 0)
+    max_len = n_pos + DECODE_STEPS
+
+    def prefill():
+        caches = model.init_caches(PREFILL_PROMPTS, max_len, dev)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        logits, caches = model.prefill(params, batch, caches)
+        torch.cuda.synchronize()
+        return logits[:, -1:], caches, (time.perf_counter() - t) * 1e3
+
+    # (1) prefill, cold and warm, then the decode
+    torch.cuda.reset_peak_memory_stats()
+    cold, caches, cold_ms = prefill()
+    del caches
+    logits, caches, warm_ms = prefill()
+    if logits.shape != (PREFILL_PROMPTS, 1, padded_vocab(v)) \
+            or not torch.isfinite(logits[..., :v]).all() \
+            or not (logits[..., v:] == -1e30).all():
+        raise AssertionError(f"{arch} prefill logits: shape "
+                             f"{tuple(logits.shape)}, not finite, or padded "
+                             f"columns not masked")
+    out.update({"prompts": PREFILL_PROMPTS, "prompt_tokens": text,
+                "positions": n_pos, "cache_len": max_len,
+                "prefill_cold_ms": cold_ms, "prefill_warm_ms": warm_ms,
+                "prefill_tokens_per_s":
+                    PREFILL_PROMPTS * n_pos / warm_ms * 1e3,
+                "prefill_peak_mem_bytes": torch.cuda.max_memory_allocated()})
+    if cfg.family == "audio":
+        out["frames"] = [PREFILL_PROMPTS, cfg.enc_seq]
+    enc_out = (encdec.encode(params, cfg, batch["frames"])
+               if cfg.family == "audio" else None)
+    nxt = logits[:, -1, :v].argmax(-1).to(torch.int32)
+    emitted, rows, step_ms = [nxt], [logits[:, -1, :v].float()], []
+    for t in range(DECODE_STEPS):
+        step = {"tokens": nxt[:, None],
+                "pos": torch.full((PREFILL_PROMPTS, 1), n_pos + t,
+                                  dtype=torch.int32, device=dev)}
+        if enc_out is not None:
+            step["enc_out"] = enc_out
+        t0 = time.perf_counter()
+        lg, caches = model.decode_step(params, caches, step)
+        nxt = lg[:, -1, :v].argmax(-1).to(torch.int32)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        if not torch.isfinite(lg[..., :v]).all():
+            raise AssertionError(f"{arch} decode step {t}: logits not "
+                                 f"finite")
+        emitted.append(nxt)
+        rows.append(lg[:, -1, :v].float())
+    del caches
+    out.update({"decode_steps": DECODE_STEPS,
+                "decode_batch": PREFILL_PROMPTS,
+                "decode_step_ms_p50": percentile(step_ms, 50),
+                "decode_step_ms_max": max(step_ms),
+                "decode_tokens_per_s": PREFILL_PROMPTS * DECODE_STEPS
+                                       / sum(step_ms) * 1e3})
+
+    # (2) held: the same prefill twice more, identical to the bit; the
+    # decode against a full forward over the same prefixes
+    for rep in range(2):
+        lg, caches, _ = prefill()
+        del caches
+        for what, other in (("the cold prefill", cold),
+                            ("the warm prefill", logits)):
+            if not torch.equal(lg, other):
+                raise AssertionError(
+                    f"{arch} prefill run {rep + 3} differs from {what}: max "
+                    f"|diff| {float((lg - other).abs().max())}")
+    del cold, lg
+    emitted = torch.stack(emitted, dim=1)              # (B, steps + 1)
+    rows = torch.stack(rows, dim=1)                    # (B, steps + 1, v)
+    ref = zoo_reference(torch, params, cfg, batch, emitted[:, :-1], enc_out,
+                        DECODE_STEPS + 1)
+    floor = decode_spread(torch, model, params, cfg, batch, emitted, rows,
+                          enc_out, max_len, n_pos)
+    tol = max(DECODE_TOL, 2 * floor)
+    if not float((rows - ref).abs().max()) <= tol:
+        raise AssertionError(f"{arch}: the decode's logits differ from a "
+                             f"full forward's by "
+                             f"{float((rows - ref).abs().max())} > {tol} "
+                             f"(spread {floor})")
+    margins = top2_margin(torch, ref)
+    same = ref.argmax(-1) == emitted.long()
+    clear = margins > tol
+    diff = (rows - ref).abs().amax(-1)                 # (B, steps + 1)
+    bad = (clear & ~same).nonzero().tolist()
+    out["held"] = {"repeats_bit_identical": 4,
+                   "prefill_vs_full_max_diff": float(diff[:, 0].max()),
+                   "positions": int(same.numel()),
+                   "held_positions": int(clear.sum()),
+                   "equal_positions": int(same.sum()),
+                   "max_logit_diff": float(diff.max()),
+                   "logit_diff_by_step": diff.amax(0).tolist(),
+                   "max_abs_logit": float(ref.abs().max()),
+                   "decode_spread": floor,
+                   "decode_tol": DECODE_TOL, "held_margin": tol,
+                   # (prompt, step, margin, logit diff) where a held token
+                   # differs
+                   "failed": [(b, t, float(margins[b, t]),
+                               float(diff[b, t])) for b, t in bad]}
+    del rows, ref, enc_out, batch
+
+    # (3) the engine: phase 12's traffic, frames as the launcher draws them
+    draw = np.random.default_rng(0)
+    prompts, frames = [], []
+    for _ in range(SERVE_REQUESTS):
+        prompts.append(draw.integers(0, v, size=draw.integers(4, 12)).astype(
+            np.int32))
+        if cfg.family == "audio":
+            frames.append(draw.standard_normal(
+                (cfg.enc_seq, cfg.d_model)).astype(np.float32))
+    _, _, out["serve"] = timed_serve(torch, model, params, prompts, v,
+                                     frames if frames else None)
+    out["launches"] = read_launches()
+    if any(out["launches"].values()):
+        raise AssertionError(f"{arch}: launched {out['launches']}; no "
+                             f"kernel lies on this path")
+    del params
+    out["phase_s"] = time.perf_counter() - t_model
+    return out
+
+
+def zoo_path(torch, dev, seed: int):
+    """Phase 13 (see the module docstring): one JSON line a model; a
+    model whose decode disagrees with its full forward fails the phase
+    after every model has run."""
+    runs = []
+    for arch in ZOO_ARCHS:
+        runs.append(zoo_model(torch, dev, arch, seed))
+        log(json.dumps(runs[-1]))
+    failed = {r["arch"]: (r["held"]["held_margin"], r["held"]["failed"])
+              for r in runs if r["held"]["failed"]}
+    if failed:
+        raise AssertionError(f"the decode's token differs from a full "
+                             f"forward's where its margin exceeds the held "
+                             f"margin: (held margin, [(prompt, step, margin, "
+                             f"logit diff)]) {failed}")
+    return runs
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n-log2", type=int, default=25,
@@ -2688,6 +2967,15 @@ def main(argv=None) -> int:
     with torch.inference_mode():
         served = serve_path(torch, dev, args.seed)
     log(json.dumps(served))
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        zoo = zoo_path(torch, dev, args.seed)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(json.dumps({"phase": "serve_model_zoo_total",
+                    "models": [r["arch"] for r in zoo],
+                    "launches": [r["launches"] for r in zoo],
+                    "phase_s": time.perf_counter() - t0}))
     phase11 = {r["run"]: r["launches"] for r in chaos["runs"]}
     host_faults = {r["run"]: r["launches"] for r in chaos["host"]}
 

@@ -2,9 +2,12 @@
 slot-based continuous-batching engine.
 
 Port of ``repro/launch/serve.py``, with ``--device`` (default ``cuda``);
-the random weights are drawn on that device from seed 0:
+the random weights are drawn on that device from seed 0. ``--arch`` takes
+every ``ARCH_ID``; an enc-dec model (``audio``) gets random frames with
+each prompt, as the JAX launcher draws them:
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2_moe_a2_7b
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper_small
   PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama_1_1b \\
       --smoke --device cpu --requests 8 --new-tokens 12
 """
@@ -48,8 +51,11 @@ def main(argv=None) -> None:
     t0 = time.time()
     for i in range(args.requests):
         prompt = rng.integers(0, cfg.vocab, size=rng.integers(4, 12))
+        frames = (rng.standard_normal((cfg.enc_seq, cfg.d_model))
+                  .astype(np.float32) if cfg.family == "audio" else None)
         engine.submit(Request(i, prompt.astype(np.int32),
-                              max_new_tokens=args.new_tokens))
+                              max_new_tokens=args.new_tokens,
+                              frames=frames))
     done = engine.run_to_completion()
     if dev.type == "cuda":
         torch.cuda.synchronize()

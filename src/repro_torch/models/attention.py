@@ -1,13 +1,18 @@
-"""Attention: GQA/MQA (full causal) and sliding-window (SWA), with the
-KV-cache decode path.
+"""Attention: GQA/MQA (full causal), sliding-window (SWA), MLA
+(multi-head latent attention) and cross-attention, with the KV-cache
+decode paths.
 
-Port of the GQA/SWA part of ``repro/models/attention.py`` (MLA waits, see
-``ROADMAP.md``). Cache contract, as there: ``{"k", "v": (B, T_cache, KV,
-hd), "pos": (B, T_cache) int32}``, ``pos`` the absolute position stored
-in each slot (-1 = empty); SWA keeps a **ring buffer** of ``T_cache =
-window`` slots. The port writes a cache **in place** and returns it.
-The JAX package's ``_seq_shard`` is a sharding constraint; on stacked
-ranks it has nothing to do and is not ported.
+Port of ``repro/models/attention.py``. Cache contracts, as there:
+
+- GQA: ``{"k", "v": (B, T_cache, KV, hd), "pos": (B, T_cache) int32}``,
+  ``pos`` the absolute position stored in each slot (-1 = empty); SWA
+  keeps a **ring buffer** of ``T_cache = window`` slots.
+- MLA: ``{"ckv": (B, T, kv_rank), "k_rope": (B, T, rope_dim), "pos":
+  (B, T)}``, the latent cache; ``T = max_len`` (no ring).
+
+The port writes a cache **in place** and returns it. The JAX package's
+``_seq_shard`` is a sharding constraint; on stacked ranks it has nothing
+to do and is not ported.
 
 Scores follow the JAX package's rounding: its einsums take bfloat16
 operands and accumulate and return float32 (``preferred_element_type``),
@@ -19,7 +24,7 @@ attention call is used: it rounds differently.
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -37,10 +42,6 @@ class Attention(Params):
 
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
-        if cfg.attn_type == "mla":
-            raise NotImplementedError(
-                "MLA attention (minicpm3) is not ported yet: ROADMAP.md "
-                "queue 1, item 3 (MLA)")
         self.cfg = cfg
         hd, d = cfg.hd, cfg.d_model
         self.add("wq", (d, cfg.n_heads * hd), COMPUTE_DTYPE, device)
@@ -62,6 +63,52 @@ class Attention(Params):
     def forward(self, x, q_pos, cache: Optional[Dict] = None,
                 causal: bool = True):
         return attn_apply(self, x, self.cfg, q_pos, cache, causal)
+
+
+class MLA(Params):
+    """Multi-head latent attention under ``_mla_init``'s names:
+    ``wq_down`` ``(d, q_rank)``, ``q_norm`` ``(q_rank,)``, ``wq_up``
+    ``(q_rank, H * (nope + rope))``, ``wkv_down`` ``(d, kv_rank +
+    rope)``, ``kv_norm`` ``(kv_rank,)``, ``wk_up`` ``(kv_rank, H *
+    nope)``, ``wv_up`` ``(kv_rank, H * v)``, ``wo`` ``(H * v, d)``; the
+    norms float32, the matrices bfloat16."""
+
+    MATRICES = ("wq_down", "wq_up", "wkv_down", "wk_up", "wv_up", "wo")
+
+    def __init__(self, cfg: ModelConfig, device=None):
+        super().__init__()
+        self.cfg = cfg
+        H, d = cfg.n_heads, cfg.d_model
+        qd = cfg.qk_nope_dim + cfg.qk_rope_dim
+        self.add("wq_down", (d, cfg.q_lora_rank), COMPUTE_DTYPE, device)
+        self.add("q_norm", (cfg.q_lora_rank,), torch.float32, device)
+        self.add("wq_up", (cfg.q_lora_rank, H * qd), COMPUTE_DTYPE, device)
+        self.add("wkv_down", (d, cfg.kv_lora_rank + cfg.qk_rope_dim),
+                 COMPUTE_DTYPE, device)
+        self.add("kv_norm", (cfg.kv_lora_rank,), torch.float32, device)
+        self.add("wk_up", (cfg.kv_lora_rank, H * cfg.qk_nope_dim),
+                 COMPUTE_DTYPE, device)
+        self.add("wv_up", (cfg.kv_lora_rank, H * cfg.v_head_dim),
+                 COMPUTE_DTYPE, device)
+        self.add("wo", (H * cfg.v_head_dim, d), COMPUTE_DTYPE, device)
+
+    @torch.no_grad()
+    def init_weights(self, generator: Optional[torch.Generator]) -> None:
+        for name in self.MATRICES:
+            dense_init(self[name], generator)
+        self.q_norm.fill_(1.0)
+        self.kv_norm.fill_(1.0)
+
+    def forward(self, x, q_pos, cache: Optional[Dict] = None,
+                absorb: bool = False):
+        return mla_apply(self, x, self.cfg, q_pos, cache, absorb)
+
+
+def attention_module(cfg: ModelConfig, device=None) -> Params:
+    """The attention a block of ``cfg`` holds: :class:`MLA` or
+    :class:`Attention` (``attn_init``'s dispatch)."""
+    return MLA(cfg, device) if cfg.attn_type == "mla" \
+        else Attention(cfg, device)
 
 
 def heads_shardable(cfg: ModelConfig) -> bool:
@@ -112,26 +159,39 @@ def _cache_update(cache: Dict, new_k, new_v, q_pos) -> Dict:
 
 
 def attn_apply(params, x, cfg: ModelConfig, q_pos,
-               cache: Optional[Dict] = None, causal: bool = True):
-    """Self-attention over x (B,S,d). ``cache=None``: keys and values
-    from x itself (prefill or a full forward). A cache: write the new
-    entries, then attend over the whole cache (decode, or prefill into a
-    cache). Returns (out, cache)."""
+               cache: Optional[Dict] = None, causal: bool = True,
+               cross_kv: Optional[Tuple] = None, rope: bool = True):
+    """Self- or cross-attention over x (B,S,d). ``cache=None``: keys and
+    values from x itself (prefill or a full forward). A cache: write the
+    new entries, then attend over the whole cache (decode, or prefill
+    into a cache). ``cross_kv=(k, v, kv_pos)``: attend over keys and
+    values precomputed from an encoder (only ``q_norm`` applies to q; no
+    rope, no cache write). Returns (out, cache)."""
     B, S, _ = x.shape
     hd = cfg.hd
     x = x.to(COMPUTE_DTYPE)
     q = (x @ params["wq"].to(COMPUTE_DTYPE)).reshape(B, S, cfg.n_heads, hd)
-    k = (x @ params["wk"].to(COMPUTE_DTYPE)).reshape(B, S, cfg.n_kv_heads, hd)
-    v = (x @ params["wv"].to(COMPUTE_DTYPE)).reshape(B, S, cfg.n_kv_heads, hd)
-    if cfg.qk_norm:
+    if cross_kv is None:
+        k = (x @ params["wk"].to(COMPUTE_DTYPE)).reshape(
+            B, S, cfg.n_kv_heads, hd)
+        v = (x @ params["wv"].to(COMPUTE_DTYPE)).reshape(
+            B, S, cfg.n_kv_heads, hd)
+        if cfg.qk_norm:
+            q = rms_norm(q, params["q_norm"], cfg.norm_eps)
+            k = rms_norm(k, params["k_norm"], cfg.norm_eps)
+        if rope:
+            q = apply_rope(q, q_pos, cfg.rope_theta)
+            k = apply_rope(k, q_pos, cfg.rope_theta)
+    elif cfg.qk_norm:
         q = rms_norm(q, params["q_norm"], cfg.norm_eps)
-        k = rms_norm(k, params["k_norm"], cfg.norm_eps)
-    q = apply_rope(q, q_pos, cfg.rope_theta)
-    k = apply_rope(k, q_pos, cfg.rope_theta)
 
     window = cfg.window if cfg.attn_type == "swa" else None
     scale = hd ** -0.5
-    if cache is None:
+    if cross_kv is not None:
+        ck, cv, ckv_pos = cross_kv
+        out = _sdpa(q, ck, cv, q_pos, ckv_pos, causal=False, window=None,
+                    scale=scale)
+    elif cache is None:
         out = _sdpa(q, k, v, q_pos, q_pos, causal=causal, window=window,
                     scale=scale)
     else:
@@ -151,4 +211,97 @@ def init_cache_gqa(cfg: ModelConfig, batch: int, max_len: int,
         "v": torch.zeros((batch, T, cfg.n_kv_heads, cfg.hd), dtype=dtype,
                          device=device),
         "pos": torch.full((batch, T), -1, dtype=torch.int32, device=device),
+    }
+
+
+# -- MLA -----------------------------------------------------------------------------
+
+
+def mla_apply(params, x, cfg: ModelConfig, q_pos,
+              cache: Optional[Dict] = None, absorb: bool = False):
+    """DeepSeek-V2-style multi-head latent attention (MiniCPM3).
+
+    The KV cache is the compressed latent (``ckv``, ``k_rope``), written
+    in place. ``absorb=False`` materializes per-head K/V from the latent
+    (the model path); ``absorb=True`` folds ``wk_up``/``wv_up`` into the
+    query and the output, every product from float32 operands, as the
+    JAX package computes it. Returns (out, cache)."""
+    B, S, _ = x.shape
+    H = cfg.n_heads
+    nope, rope_d, vh = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    r = cfg.kv_lora_rank
+    x = x.to(COMPUTE_DTYPE)
+
+    cq = rms_norm(x @ params["wq_down"].to(COMPUTE_DTYPE), params["q_norm"],
+                  cfg.norm_eps)
+    q = (cq @ params["wq_up"].to(COMPUTE_DTYPE)).reshape(B, S, H,
+                                                         nope + rope_d)
+    q_nope, q_rope = q[..., :nope], q[..., nope:]
+    q_rope = apply_rope(q_rope, q_pos, cfg.rope_theta)
+
+    ckv_full = x @ params["wkv_down"].to(COMPUTE_DTYPE)
+    ckv = rms_norm(ckv_full[..., :r], params["kv_norm"], cfg.norm_eps)
+    k_rope = ckv_full[..., r:].reshape(B, S, 1, rope_d)
+    k_rope = apply_rope(k_rope, q_pos, cfg.rope_theta)
+
+    if cache is not None:
+        T = cache["ckv"].shape[1]
+        slots = (q_pos % T).long()
+        b_idx = torch.arange(B, device=slots.device)[:, None].expand_as(slots)
+        cache["ckv"][b_idx, slots] = ckv.to(cache["ckv"].dtype)
+        cache["k_rope"][b_idx, slots] = k_rope[:, :, 0].to(
+            cache["k_rope"].dtype)
+        cache["pos"][b_idx, slots] = q_pos.to(torch.int32)
+        ckv_t = cache["ckv"].to(COMPUTE_DTYPE)
+        k_rope_t = cache["k_rope"][:, :, None].to(COMPUTE_DTYPE)
+        kv_pos = cache["pos"]
+    else:
+        ckv_t, k_rope_t, kv_pos = ckv, k_rope, q_pos
+
+    scale = (nope + rope_d) ** -0.5
+    # rope-part scores (one shared kv head): (B, 1, S, T)
+    s_rope = torch.einsum("bshr,btkr->bkst", q_rope.float(), k_rope_t.float())
+    mask = (kv_pos[:, None, :] >= 0) & (kv_pos[:, None, :] <= q_pos[:, :, None])
+
+    if absorb:
+        wk = params["wk_up"].float().reshape(r, H, nope)
+        q_lat = torch.einsum("bshn,rhn->bshr", q_nope.float(), wk)
+        ckv_f = ckv_t.float()
+        s_nope = torch.einsum("bshr,btr->bhst", q_lat, ckv_f)
+        scores = (s_nope + s_rope) * scale          # (B,H,S,T)
+        del s_nope
+        scores = scores.masked_fill(~mask[:, None], NEG_INF)
+        probs = torch.softmax(scores, dim=-1)
+        del scores
+        o_lat = torch.einsum("bhst,btr->bshr", probs, ckv_f)
+        wv = params["wv_up"].float().reshape(r, H, vh)
+        out = torch.einsum("bshr,rhv->bshv", o_lat, wv).to(COMPUTE_DTYPE)
+    else:
+        T = ckv_t.shape[1]
+        k_nope = (ckv_t @ params["wk_up"].to(COMPUTE_DTYPE)).reshape(
+            B, T, H, nope)
+        val = (ckv_t @ params["wv_up"].to(COMPUTE_DTYPE)).reshape(B, T, H, vh)
+        s_nope = torch.einsum("bshn,bthn->bhst", q_nope.float(),
+                              k_nope.float())
+        scores = (s_nope + s_rope) * scale
+        del s_nope
+        scores = scores.masked_fill(~mask[:, None], NEG_INF)
+        probs = torch.softmax(scores, dim=-1).to(COMPUTE_DTYPE)
+        del scores
+        out = torch.einsum("bhst,bthv->bshv", probs.float(),
+                           val.float()).to(COMPUTE_DTYPE)
+
+    out = out.reshape(B, S, H * vh) @ params["wo"].to(COMPUTE_DTYPE)
+    return out, cache
+
+
+def init_cache_mla(cfg: ModelConfig, batch: int, max_len: int,
+                   dtype=COMPUTE_DTYPE, device=None) -> Dict:
+    return {
+        "ckv": torch.zeros((batch, max_len, cfg.kv_lora_rank), dtype=dtype,
+                           device=device),
+        "k_rope": torch.zeros((batch, max_len, cfg.qk_rope_dim), dtype=dtype,
+                              device=device),
+        "pos": torch.full((batch, max_len), -1, dtype=torch.int32,
+                          device=device),
     }

@@ -2,13 +2,17 @@
 
 :func:`params_from_numpy` takes the JAX package's parameter pytree (as
 ``init`` returns it, each leaf turned into a numpy array, e.g. by
-``jax.tree.map(np.asarray, params)``) and returns the port's
-:class:`repro_torch.models.transformer.DecoderLM` holding the same
-weights under the same names. The homogeneous stacks' leading layer axis
-is unstacked into ``blocks.<i>``. Matrix weights are stored in bfloat16,
-the dtype every product casts them to first, so the port computes with
-exactly the values the JAX package uses; the router, the norms and
-``shared_gate`` stay float32.
+``jax.tree.map(np.asarray, params)``) and returns the port's model
+(:class:`repro_torch.models.transformer.DecoderLM`, or
+:class:`repro_torch.models.encdec.EncDec` for the ``audio`` family)
+holding the same weights under the same names. The stacked blocks'
+leading layer axis (``blocks``, ``enc_blocks``, ``dec_blocks``) is
+unstacked into ``<name>.<i>``; the heterogeneous stacks' lists are
+numbered the same way. Matrix weights are stored in bfloat16, the dtype
+every product casts them to first, so the port computes with exactly the
+values the JAX package uses; what the JAX package uses in float32 (the
+router, the norms, ``shared_gate``, the SSM decay and skip parameters,
+sLSTM's recurrent weights) stays float32.
 """
 
 from __future__ import annotations
@@ -20,7 +24,12 @@ import torch
 
 from repro_torch.comm import resolve_device
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models.encdec import EncDec
 from repro_torch.models.transformer import DecoderLM
+
+#: the JAX trees' block collections, stacked (one leading layer axis) or
+#: listed
+BLOCKS = ("blocks", "enc_blocks", "dec_blocks")
 
 
 def _leaves(tree: Any, prefix: str = "") -> Iterator[Tuple[str, Any]]:
@@ -36,31 +45,35 @@ def _leaves(tree: Any, prefix: str = "") -> Iterator[Tuple[str, Any]]:
 def flatten(tree: Dict) -> Dict[str, np.ndarray]:
     """The JAX package's pytree as ``{port parameter name: array}``:
     ``blocks.<i>.attn.wq`` for layer ``i`` of the stacked (or listed)
-    blocks."""
+    blocks, ``enc_blocks.<i>.mlp.w_up`` and so on."""
     out = {}
-    for name, v in _leaves({k: v for k, v in tree.items() if k != "blocks"}):
+    for name, v in _leaves({k: v for k, v in tree.items()
+                            if k not in BLOCKS}):
         out[name] = np.asarray(v)
-    blocks = tree["blocks"]
-    if isinstance(blocks, (list, tuple)):
-        for i, block in enumerate(blocks):
-            for name, v in _leaves(block):
-                out[f"blocks.{i}.{name}"] = np.asarray(v)
-    else:
-        for name, v in _leaves(blocks):
-            v = np.asarray(v)
-            for i in range(v.shape[0]):
-                out[f"blocks.{i}.{name}"] = v[i]
+    for key in BLOCKS:
+        if key not in tree:
+            continue
+        blocks = tree[key]
+        if isinstance(blocks, (list, tuple)):
+            for i, block in enumerate(blocks):
+                for name, v in _leaves(block):
+                    out[f"{key}.{i}.{name}"] = np.asarray(v)
+        else:
+            for name, v in _leaves(blocks):
+                v = np.asarray(v)
+                for i in range(v.shape[0]):
+                    out[f"{key}.{i}.{name}"] = v[i]
     return out
 
 
 @torch.no_grad()
-def params_from_numpy(tree: Dict, cfg: ModelConfig,
-                      device=None) -> DecoderLM:
+def params_from_numpy(tree: Dict, cfg: ModelConfig, device=None):
     """The port's model with the JAX package's weights (see the module
     docstring). Every parameter of the one must be a leaf of the other,
     at the same shape."""
     flat = flatten(tree)
-    params = DecoderLM(cfg, resolve_device(device))
+    model = EncDec if cfg.family == "audio" else DecoderLM
+    params = model(cfg, resolve_device(device))
     own = dict(params.named_parameters())
     if set(own) != set(flat):
         raise ValueError(f"parameter names differ: only in the port "

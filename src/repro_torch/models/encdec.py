@@ -1,0 +1,166 @@
+"""Whisper-style encoder-decoder (audio, stub frontend).
+
+Port of ``repro/models/encdec.py`` (``train_loss`` waits for the
+trainer; see ``ROADMAP.md``). Inputs are precomputed frame embeddings
+``(B, enc_seq, d_model)``; positions are sinusoidal on both sides, as
+there. Decoder blocks: causal self-attention (cached at decode) +
+cross-attention over the encoder output + MLP. The cross K/V are
+recomputed from ``enc_out`` in every call of :func:`decode_stack`, as the
+JAX package does. The decoder's self-attention caches are layer-stacked
+(``{"k", "v": (L, B, T, KV, hd), "pos": (L, B, T)}``), written in place.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+from torch import nn
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import attention as attn
+from repro_torch.models.layers import (COMPUTE_DTYPE, MLP, Params,
+                                       dense_init, embed_lookup, lm_logits,
+                                       mlp_apply, padded_vocab, rms_norm,
+                                       sinusoid_at, sinusoid_positions)
+
+
+class EncBlock(Params):
+    """``ln1``, ``attn``, ``ln2``, ``mlp``."""
+
+    def __init__(self, cfg: ModelConfig, device=None):
+        super().__init__()
+        self.add("ln1", (cfg.d_model,), torch.float32, device)
+        self.attn = attn.Attention(cfg, device)
+        self.add("ln2", (cfg.d_model,), torch.float32, device)
+        self.mlp = MLP(cfg.d_model, cfg.d_ff, cfg.mlp_gated, device)
+
+    @torch.no_grad()
+    def init_weights(self, generator: Optional[torch.Generator]) -> None:
+        self.ln1.fill_(1.0)
+        self.ln2.fill_(1.0)
+        self.attn.init_weights(generator)
+        self.mlp.init_weights(generator)
+
+
+class DecBlock(Params):
+    """``ln1``, ``self_attn``, ``ln_x``, ``cross_attn``, ``ln2``,
+    ``mlp``."""
+
+    def __init__(self, cfg: ModelConfig, device=None):
+        super().__init__()
+        self.add("ln1", (cfg.d_model,), torch.float32, device)
+        self.self_attn = attn.Attention(cfg, device)
+        self.add("ln_x", (cfg.d_model,), torch.float32, device)
+        self.cross_attn = attn.Attention(cfg, device)
+        self.add("ln2", (cfg.d_model,), torch.float32, device)
+        self.mlp = MLP(cfg.d_model, cfg.d_ff, cfg.mlp_gated, device)
+
+    @torch.no_grad()
+    def init_weights(self, generator: Optional[torch.Generator]) -> None:
+        for name in ("ln1", "ln_x", "ln2"):
+            self[name].fill_(1.0)
+        self.self_attn.init_weights(generator)
+        self.cross_attn.init_weights(generator)
+        self.mlp.init_weights(generator)
+
+
+class EncDec(Params):
+    """``embed`` ``(padded_vocab, d)`` (tied readout), ``enc_blocks``,
+    ``dec_blocks``, ``enc_ln`` and ``final_ln``, the JAX package's
+    names."""
+
+    def __init__(self, cfg: ModelConfig, device=None):
+        super().__init__()
+        self.cfg = cfg
+        self.add("embed", (padded_vocab(cfg.vocab), cfg.d_model),
+                 COMPUTE_DTYPE, device)
+        self.enc_blocks = nn.ModuleList(EncBlock(cfg, device)
+                                        for _ in range(cfg.enc_layers))
+        self.dec_blocks = nn.ModuleList(DecBlock(cfg, device)
+                                        for _ in range(cfg.num_layers))
+        self.add("enc_ln", (cfg.d_model,), torch.float32, device)
+        self.add("final_ln", (cfg.d_model,), torch.float32, device)
+
+    @torch.no_grad()
+    def init_weights(self, generator: Optional[torch.Generator]) -> None:
+        dense_init(self.embed, generator, self.cfg.d_model ** -0.5,
+                   self.cfg.vocab)
+        for block in (*self.enc_blocks, *self.dec_blocks):
+            block.init_weights(generator)
+        self.enc_ln.fill_(1.0)
+        self.final_ln.fill_(1.0)
+
+
+def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
+                device=None) -> EncDec:
+    params = EncDec(cfg, device)
+    params.init_weights(generator)
+    return params
+
+
+def _positions(b: int, t: int, device) -> torch.Tensor:
+    return torch.arange(t, dtype=torch.int32, device=device).expand(b, t)
+
+
+def encode(params: EncDec, cfg: ModelConfig, frames) -> torch.Tensor:
+    """frames: (B, T_enc, d) stub embeddings -> encoder hidden (B, T_enc,
+    d), bfloat16."""
+    B, T, _ = frames.shape
+    x = frames.to(COMPUTE_DTYPE) + sinusoid_positions(
+        T, cfg.d_model, frames.device).to(COMPUTE_DTYPE)
+    pos = _positions(B, T, frames.device)
+    for bp in params.enc_blocks:
+        a, _ = attn.attn_apply(bp.attn, rms_norm(x, bp.ln1, cfg.norm_eps),
+                               cfg, pos, causal=False, rope=False)
+        x = x + a
+        f = mlp_apply(bp.mlp, rms_norm(x, bp.ln2, cfg.norm_eps),
+                      cfg.mlp_gated)
+        x = x + f
+    return rms_norm(x, params.enc_ln, cfg.norm_eps)
+
+
+def _cross_kv(bp: DecBlock, cfg: ModelConfig, enc_out):
+    B, T, _ = enc_out.shape
+    hd = cfg.hd
+    k = (enc_out @ bp.cross_attn.wk.to(COMPUTE_DTYPE)).reshape(
+        B, T, cfg.n_kv_heads, hd)
+    v = (enc_out @ bp.cross_attn.wv.to(COMPUTE_DTYPE)).reshape(
+        B, T, cfg.n_kv_heads, hd)
+    return k, v, _positions(B, T, enc_out.device)
+
+
+def decode_stack(params: EncDec, cfg: ModelConfig, tokens, enc_out,
+                 q_pos=None, caches: Optional[Dict] = None):
+    """Decoder over tokens; ``enc_out`` precomputed. ``caches``: the
+    stacked self-attention caches (decode, written in place) or None
+    (teacher forcing). Returns (logits at every position, caches)."""
+    B, S = tokens.shape
+    x = embed_lookup(params.embed, tokens)
+    if q_pos is None:
+        q_pos = _positions(B, S, x.device)
+    x = x + sinusoid_at(q_pos, cfg.d_model).to(COMPUTE_DTYPE)
+    for i, bp in enumerate(params.dec_blocks):
+        c = ({k: v[i] for k, v in caches.items()} if caches is not None
+             else None)
+        a, _ = attn.attn_apply(bp.self_attn, rms_norm(x, bp.ln1, cfg.norm_eps),
+                               cfg, q_pos, cache=c, causal=True, rope=False)
+        x = x + a
+        xa, _ = attn.attn_apply(bp.cross_attn,
+                                rms_norm(x, bp.ln_x, cfg.norm_eps), cfg,
+                                q_pos, cross_kv=_cross_kv(bp, cfg, enc_out),
+                                rope=False)
+        x = x + xa
+        f = mlp_apply(bp.mlp, rms_norm(x, bp.ln2, cfg.norm_eps),
+                      cfg.mlp_gated)
+        x = x + f
+    x = rms_norm(x, params.final_ln, cfg.norm_eps)
+    logits = lm_logits(params.embed, x, cfg.logit_cap, cfg.vocab)
+    return logits, caches
+
+
+def init_caches(cfg: ModelConfig, batch: int, max_len: int,
+                device=None) -> Dict[str, torch.Tensor]:
+    one = attn.init_cache_gqa(cfg, batch, max_len, device=device)
+    return {k: v.unsqueeze(0).repeat((cfg.num_layers,) + (1,) * v.dim())
+            for k, v in one.items()}

@@ -75,7 +75,7 @@ def silu(x: torch.Tensor) -> torch.Tensor:
     return x * torch.reciprocal(torch.exp(-x) + 1)
 
 
-def _rounded(v: float, dtype: torch.dtype) -> float:
+def round_scalar(v: float, dtype: torch.dtype) -> float:
     """``v`` rounded to ``dtype``, as a Python float (a scalar operand,
     so that no constant is copied to the card, which waits for it)."""
     return torch.tensor(v, dtype=dtype).item()
@@ -85,7 +85,7 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     """``jax.nn.gelu`` (its default tanh form) op by op in ``x``'s dtype,
     the constants rounded to it first, as the JAX package computes it."""
     def c(v):
-        return _rounded(v, x.dtype)
+        return round_scalar(v, x.dtype)
     inner = c(math.sqrt(2 / math.pi)) * (x + c(0.044715) * (x * x * x))
     return x * (c(0.5) * (torch.tanh(inner) + c(1.0)))
 
@@ -107,6 +107,26 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def sinusoid_at(positions: torch.Tensor, d_model: int) -> torch.Tensor:
+    """Whisper-style sinusoids, float32 ``(..., d_model)``, at float32
+    ``positions`` of any shape: ``sin`` then ``cos`` of ``pos * exp(-i *
+    log(10000) / (d_model // 2 - 1))``, as the JAX package computes them
+    (``log(10000)`` rounded to float32 first)."""
+    dim = torch.arange(d_model // 2, dtype=torch.float32,
+                       device=positions.device)
+    step = round_scalar(math.log(10000.0), torch.float32) / (d_model // 2 - 1)
+    inv = torch.exp(-dim * round_scalar(step, torch.float32))
+    ang = positions.float()[..., None] * inv
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
+def sinusoid_positions(seq: int, d_model: int, device=None) -> torch.Tensor:
+    """Whisper-style sinusoidal embeddings (encoder), float32 ``(seq,
+    d_model)``."""
+    return sinusoid_at(torch.arange(seq, dtype=torch.float32, device=device),
+                       d_model)
 
 
 # -- MLP -----------------------------------------------------------------------

@@ -1,22 +1,29 @@
 """Arch registry: build(config) -> Model bundle.
 
-Port of ``repro/models/registry.py`` for the decoder-only ``dense`` and
-``moe`` families with GQA/SWA attention. The bundle exposes the serving
+Port of ``repro/models/registry.py``: every family of ``configs/``. The
+decoder-only LMs (``dense`` with GQA/SWA/MLA, ``moe``, ``ssm``,
+``hybrid``, ``vlm``) build a :class:`transformer.DecoderLM`; ``audio``
+builds an :class:`encdec.EncDec`. The bundle exposes the serving
 surface:
 
-  init(generator=None, device=None)                 -> params (DecoderLM)
+  init(generator=None, device=None)                 -> params
   prefill(params, batch, caches, ranks=None)        -> (logits, caches)
   decode_step(params, caches, batch, ranks=None)    -> (logits, caches)
   init_caches(batch, max_len, device=None)
+
+An LM's prefill batch holds ``tokens`` (and ``img_embeds`` for ``vlm``,
+put in front of the text) and returns the next-token logits; its decode
+batch ``tokens`` and ``pos``. The enc-dec prefill takes ``frames`` and
+``tokens`` and returns the logits at every position, as the JAX
+package's; its decode takes ``tokens``, ``pos`` and ``enc_out``.
 
 A :class:`repro_torch.comm.Ranks` grid takes the place of the JAX
 package's ``mesh`` (``dp_axes`` as there): with an expert axis of more
 than one rank, each MoE layer dispatches through the Sphere bucket
 shuffle over it. ``train_loss`` and the JAX sharding metadata
 (``input_specs``, ``batch_specs``, ``cache_specs``) wait for the trainer.
-Families not ported yet raise ``NotImplementedError`` naming their
-``ROADMAP.md`` item. Both serving calls run under
-``torch.inference_mode()``; caches are written in place.
+Both serving calls run under ``torch.inference_mode()``; caches are
+written in place.
 """
 
 from __future__ import annotations
@@ -28,16 +35,7 @@ import torch
 
 from repro_torch.comm import resolve_device
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import transformer
-
-#: the families and attention kinds still to port, with their ROADMAP item
-NOT_PORTED = {
-    "mla": "ROADMAP.md queue 1, item 3 (MLA attention)",
-    "ssm": "ROADMAP.md queue 1, item 4 (ssm.py)",
-    "hybrid": "ROADMAP.md queue 1, item 4 (ssm.py)",
-    "audio": "ROADMAP.md queue 1, item 5 (encdec.py and enc-dec serving)",
-    "vlm": "ROADMAP.md queue 1, item 6 (the VLM image path)",
-}
+from repro_torch.models import encdec, transformer
 
 
 def _device(device) -> torch.device:
@@ -58,11 +56,8 @@ class Model:
 
 
 def build(cfg: ModelConfig) -> Model:
-    for what in (cfg.family, cfg.attn_type):
-        if what in NOT_PORTED:
-            raise NotImplementedError(
-                f"{cfg.arch_id}: {what} is not ported yet "
-                f"({NOT_PORTED[what]})")
+    if cfg.family == "audio":
+        return _build_encdec(cfg)
     return _build_lm(cfg)
 
 
@@ -75,10 +70,12 @@ def _build_lm(cfg: ModelConfig) -> Model:
 
     @torch.inference_mode()
     def prefill(params, batch: Dict, caches, ranks=None, dp_axes=("data",)):
-        # only the next-token logits are materialised
+        # q_pos covers the image embeddings and the text; only the
+        # next-token logits are materialised
         logits, caches, _ = transformer.lm_forward(
             params, cfg, batch["tokens"], q_pos=None, caches=caches,
-            ranks=ranks, dp_axes=dp_axes, last_only=True)
+            ranks=ranks, dp_axes=dp_axes,
+            img_embeds=batch.get("img_embeds"), last_only=True)
         return logits, caches
 
     @torch.inference_mode()
@@ -91,5 +88,29 @@ def _build_lm(cfg: ModelConfig) -> Model:
 
     def init_caches(batch: int, max_len: int, device=None):
         return transformer.init_caches(cfg, batch, max_len, _device(device))
+
+    return Model(cfg, init, prefill, decode_step, init_caches)
+
+
+def _build_encdec(cfg: ModelConfig) -> Model:
+    def init(generator: Optional[torch.Generator] = None, device=None):
+        return encdec.init_params(cfg, generator, resolve_device(device))
+
+    @torch.inference_mode()
+    def prefill(params, batch: Dict, caches, ranks=None, dp_axes=("data",)):
+        enc_out = encdec.encode(params, cfg, batch["frames"])
+        return encdec.decode_stack(params, cfg, batch["tokens"], enc_out,
+                                   caches=caches)
+
+    @torch.inference_mode()
+    def decode_step(params, caches, batch: Dict, ranks=None,
+                    dp_axes=("data",)):
+        # the serving path carries the encoder output in the batch
+        return encdec.decode_stack(params, cfg, batch["tokens"],
+                                   batch["enc_out"], q_pos=batch["pos"],
+                                   caches=caches)
+
+    def init_caches(batch: int, max_len: int, device=None):
+        return encdec.init_caches(cfg, batch, max_len, _device(device))
 
     return Model(cfg, init, prefill, decode_step, init_caches)

@@ -1,0 +1,511 @@
+"""State-space and recurrent blocks: Mamba2 (SSD) for zamba2, mLSTM and
+sLSTM for xlstm.
+
+Port of ``repro/models/ssm.py``. Prefill paths are chunk-parallel
+(quadratic only within a chunk, linear across chunks); decode paths are
+O(1)-state recurrent steps. The JAX package's ``lax.scan`` over chunks
+(SSD, mLSTM) or time steps (sLSTM) is a Python loop here, each step on
+explicit tensors; the ops and their roundings follow the JAX functions
+one by one (bfloat16 where they cast to it, float32 elsewhere).
+
+Cache contracts, as there (the port writes a given cache in place and
+returns it):
+
+- mamba2: ``{"ssm": (B,H,P,N) fp32, "conv_x": (B,K-1,d_in),
+  "conv_bc": (B,K-1,2N)}``
+- mLSTM: ``{"C": (B,H,P,P) fp32, "n": (B,H,P), "m": (B,H), "conv":
+  (B,K-1,d_in)}``
+- sLSTM: ``{"c", "n", "h", "m": (B,H,P)}``
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.layers import (COMPUTE_DTYPE, Params, dense_init,
+                                       rms_norm, silu)
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus`` (``logaddexp(x, 0)``) op by op."""
+    return torch.clamp(x, min=0) + torch.log1p(torch.exp(-x.abs()))
+
+
+def log_sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.log_sigmoid``: ``-softplus(-x)``."""
+    return -softplus(-x)
+
+
+def _write(cache: Dict, new: Dict) -> Dict:
+    """Copy ``new``'s states into ``cache``'s tensors, in place."""
+    for k, v in new.items():
+        cache[k].copy_(v)
+    return cache
+
+
+# =============================== Mamba2 (SSD) ===================================
+
+
+def mamba2_dims(cfg: ModelConfig):
+    d_in = cfg.ssm_expand * cfg.d_model
+    head_p = 64
+    n_heads = max(d_in // head_p, 1)
+    head_p = d_in // n_heads
+    return d_in, n_heads, head_p
+
+
+class Mamba2(Params):
+    """``mamba2_init``'s split projections: ``in_zx`` ``(d, 2 d_in)`` [z |
+    x], ``in_bcdt`` ``(d, 2N + H)`` [B | C | dt], the depthwise convs
+    ``conv_x`` ``(K, d_in)`` and ``conv_bc`` ``(K, 2N)`` with their
+    biases, ``out_proj`` ``(d_in, d)`` (all bfloat16: the JAX package casts
+    them so before use); ``a_log``, ``d_skip``, ``dt_bias`` ``(H,)`` and
+    ``norm`` ``(d_in,)`` float32."""
+
+    def __init__(self, cfg: ModelConfig, device=None):
+        super().__init__()
+        self.cfg = cfg
+        d = cfg.d_model
+        d_in, H, _ = mamba2_dims(cfg)
+        N, K = cfg.ssm_state, cfg.conv_kernel
+        self.add("in_zx", (d, 2 * d_in), COMPUTE_DTYPE, device)
+        self.add("in_bcdt", (d, 2 * N + H), COMPUTE_DTYPE, device)
+        self.add("conv_x", (K, d_in), COMPUTE_DTYPE, device)
+        self.add("conv_x_b", (d_in,), COMPUTE_DTYPE, device)
+        self.add("conv_bc", (K, 2 * N), COMPUTE_DTYPE, device)
+        self.add("conv_bc_b", (2 * N,), COMPUTE_DTYPE, device)
+        self.add("a_log", (H,), torch.float32, device)
+        self.add("d_skip", (H,), torch.float32, device)
+        self.add("dt_bias", (H,), torch.float32, device)
+        self.add("norm", (d_in,), torch.float32, device)
+        self.add("out_proj", (d_in, d), COMPUTE_DTYPE, device)
+
+    @torch.no_grad()
+    def init_weights(self, generator: Optional[torch.Generator]) -> None:
+        H = self.a_log.shape[0]
+        dense_init(self.in_zx, generator)
+        dense_init(self.in_bcdt, generator)
+        dense_init(self.conv_x, generator, 0.1)
+        dense_init(self.conv_bc, generator, 0.1)
+        self.conv_x_b.zero_()
+        self.conv_bc_b.zero_()
+        self.a_log.copy_(torch.log(torch.linspace(1.0, 16.0, H)))
+        self.d_skip.fill_(1.0)
+        self.dt_bias.fill_(math.log(math.expm1(1e-2)))
+        self.norm.fill_(1.0)
+        dense_init(self.out_proj, generator)
+
+    def forward(self, x, cache: Optional[Dict] = None):
+        return mamba2_apply(self, x, self.cfg, cache)
+
+
+def _causal_conv(x, w, b, state=None):
+    """Depthwise causal conv. x: (B,L,C); w: (K,C). state: (B,K-1,C)
+    carry. Returns (silu(y), new_state). The K taps are summed in x's
+    dtype in the JAX package's order, ``0 + t0 + t1 + ...``, then the
+    bias."""
+    K = w.shape[0]
+    L = x.shape[1]
+    if state is None:
+        state = torch.zeros((x.shape[0], K - 1, x.shape[2]), dtype=x.dtype,
+                            device=x.device)
+    xp = torch.cat([state.to(x.dtype), x], dim=1)
+    y = xp[:, 0:L] * w[0]
+    for i in range(1, K):
+        y = y + xp[:, i:i + L] * w[i]
+    y = y + b
+    new_state = xp[:, -(K - 1):] if K > 1 else state
+    return silu(y), new_state
+
+
+def mamba2_apply(params, x, cfg: ModelConfig, cache: Optional[Dict] = None):
+    """x: (B, L, d). Returns (y (B,L,d), cache)."""
+    B, L, _ = x.shape
+    d_in, H, Pdim = mamba2_dims(cfg)
+    N = cfg.ssm_state
+    xc = x.to(COMPUTE_DTYPE)
+    zx = xc @ params["in_zx"].to(COMPUTE_DTYPE)
+    z, xi = zx[..., :d_in], zx[..., d_in:]
+    bcdt = xc @ params["in_bcdt"].to(COMPUTE_DTYPE)
+    bc, dt_raw = bcdt[..., :2 * N], bcdt[..., 2 * N:]
+    xi, new_conv_x = _causal_conv(
+        xi, params["conv_x"].to(COMPUTE_DTYPE),
+        params["conv_x_b"].to(COMPUTE_DTYPE),
+        cache["conv_x"] if cache is not None else None)
+    bc, new_conv_bc = _causal_conv(
+        bc, params["conv_bc"].to(COMPUTE_DTYPE),
+        params["conv_bc_b"].to(COMPUTE_DTYPE),
+        cache["conv_bc"] if cache is not None else None)
+    xs = xi.reshape(B, L, H, Pdim)
+    Bs = bc[..., :N]
+    Cs = bc[..., N:]
+    dt = softplus(dt_raw.float() + params["dt_bias"])         # (B,L,H)
+    A = -torch.exp(params["a_log"])                           # (H,) negative
+
+    if L == 1 and cache is not None:
+        y, new_ssm = _ssd_step(xs[:, 0], Bs[:, 0], Cs[:, 0], dt[:, 0], A,
+                               params["d_skip"], cache["ssm"])
+        y = y[:, None]
+    else:
+        y, new_ssm = _ssd_chunked(
+            xs, Bs, Cs, dt, A, params["d_skip"], cfg.chunk_size,
+            cache["ssm"] if cache is not None else None)
+    y = y.reshape(B, L, d_in)
+    y = rms_norm(y * silu(z.float()).to(COMPUTE_DTYPE), params["norm"],
+                 cfg.norm_eps)
+    out = y @ params["out_proj"].to(COMPUTE_DTYPE)
+    if cache is not None:
+        _write(cache, {"ssm": new_ssm, "conv_x": new_conv_x,
+                       "conv_bc": new_conv_bc})
+    return out, cache
+
+
+def _ssd_step(x, Bv, Cv, dt, A, d_skip, state):
+    """One decode step. x: (B,H,P); Bv/Cv: (B,N); dt: (B,H); state
+    (B,H,P,N). Returns (y, new state)."""
+    decay = torch.exp(dt * A)                                 # (B,H)
+    xf = x.float()
+    dx = dt[..., None] * xf                                   # (B,H,P)
+    upd = dx[..., None] * Bv[:, None, None, :].float()
+    state = state * decay[..., None, None] + upd
+    y = torch.einsum("bhpn,bn->bhp", state, Cv.float())
+    y = y + d_skip[None, :, None] * xf
+    return y.to(COMPUTE_DTYPE), state
+
+
+def _ssd_chunked(xs, Bs, Cs, dt, A, d_skip, Q: int, init_state=None):
+    """Chunked SSD (Mamba2). xs: (B,L,H,P); Bs/Cs: (B,L,N); dt: (B,L,H).
+    ``L`` is padded to a multiple of ``Q``; the loop over chunks carries
+    the state, each chunk reading the state *before* it. Returns (y
+    (B,L,H,P), final_state (B,H,P,N)). The (B,C,Q,Q,H) float32 decay is
+    built in one buffer (exp, mask and the two weights in place)."""
+    B, L, H, Pdim = xs.shape
+    N = Bs.shape[-1]
+    pad = (-L) % Q
+    if pad:
+        xs = torch.nn.functional.pad(xs, (0, 0, 0, 0, 0, pad))
+        Bs = torch.nn.functional.pad(Bs, (0, 0, 0, pad))
+        Cs = torch.nn.functional.pad(Cs, (0, 0, 0, pad))
+        dt = torch.nn.functional.pad(dt, (0, 0, 0, pad))
+    Lp = L + pad
+    C = Lp // Q
+    xs_c = xs.reshape(B, C, Q, H, Pdim).float()
+    Bs_c = Bs.reshape(B, C, Q, N).float()
+    Cs_c = Cs.reshape(B, C, Q, N).float()
+    dt_c = dt.reshape(B, C, Q, H).float()
+
+    a = dt_c * A                                              # (B,C,Q,H)
+    cum_a = torch.cumsum(a, dim=2)
+    # intra-chunk: decay[t,s] = exp(cum_a[t] - cum_a[s]) for t >= s
+    w = cum_a[:, :, :, None, :] - cum_a[:, :, None, :, :]     # (B,C,Q,Q,H)
+    w.exp_()
+    tri = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=xs.device))
+    w.masked_fill_(~tri[None, None, :, :, None], 0.0)
+    cb = torch.einsum("bctn,bcsn->bcts", Cs_c, Bs_c)          # (B,C,Q,Q)
+    w.mul_(cb[..., None]).mul_(dt_c[:, :, None, :, :])
+    del cb
+    y = torch.einsum("bctsh,bcshp->bcthp", w, xs_c)
+    del w
+
+    # per-chunk state contribution: sum_s exp(cumQ - cum_a[s]) dt_s B_s x_s
+    decay_out = torch.exp(cum_a[:, :, -1:, :] - cum_a)        # (B,C,Q,H)
+    sx = xs_c * (dt_c * decay_out)[..., None]                 # (B,C,Q,H,P)
+    s_local = torch.einsum("bcqhp,bcqn->bchpn", sx, Bs_c)     # (B,C,H,P,N)
+    del sx
+    chunk_decay = torch.exp(cum_a[:, :, -1, :])               # (B,C,H)
+
+    state = (torch.zeros((B, H, Pdim, N), dtype=torch.float32,
+                         device=xs.device)
+             if init_state is None else init_state.float())
+    prev_states = torch.empty_like(s_local)
+    for c in range(C):
+        prev_states[:, c] = state
+        state = state * chunk_decay[:, c, :, None, None] + s_local[:, c]
+
+    # inter-chunk: y_t += C_t . (exp(cum_a[t]) * S_prev)
+    c_decay = torch.exp(cum_a)                                # (B,C,Q,H)
+    y_inter = torch.einsum("bcqn,bchpn->bcqhp", Cs_c, prev_states) \
+        * c_decay[..., None]
+    y = y + y_inter + d_skip[None, None, None, :, None] * xs_c
+    y = y.reshape(B, Lp, H, Pdim)[:, :L]
+    return y.to(COMPUTE_DTYPE), state
+
+
+def mamba2_init_cache(cfg: ModelConfig, batch: int, device=None) -> Dict:
+    d_in, H, Pdim = mamba2_dims(cfg)
+    N = cfg.ssm_state
+    return {
+        "ssm": torch.zeros((batch, H, Pdim, N), dtype=torch.float32,
+                           device=device),
+        "conv_x": torch.zeros((batch, cfg.conv_kernel - 1, d_in),
+                              dtype=COMPUTE_DTYPE, device=device),
+        "conv_bc": torch.zeros((batch, cfg.conv_kernel - 1, 2 * N),
+                               dtype=COMPUTE_DTYPE, device=device),
+    }
+
+
+# ================================= mLSTM ========================================
+
+
+def mlstm_dims(cfg: ModelConfig):
+    d_in = cfg.ssm_expand * cfg.d_model
+    H = cfg.ssm_heads or cfg.n_heads
+    Pdim = d_in // H
+    return d_in, H, Pdim
+
+
+class MLSTM(Params):
+    """``mlstm_init``'s names: ``up_proj`` ``(d, 2 d_in)`` [z, x],
+    ``conv_w`` ``(K, d_in)``, ``conv_b``, ``wqkv`` ``(d_in, 3 d_in)``,
+    ``wif`` ``(d_in, 2H)``, ``down_proj`` ``(d_in, d)`` (bfloat16);
+    ``if_bias`` ``(2H,)`` and ``norm`` ``(d_in,)`` float32."""
+
+    def __init__(self, cfg: ModelConfig, device=None):
+        super().__init__()
+        self.cfg = cfg
+        d = cfg.d_model
+        d_in, H, _ = mlstm_dims(cfg)
+        self.add("up_proj", (d, 2 * d_in), COMPUTE_DTYPE, device)
+        self.add("conv_w", (cfg.conv_kernel, d_in), COMPUTE_DTYPE, device)
+        self.add("conv_b", (d_in,), COMPUTE_DTYPE, device)
+        self.add("wqkv", (d_in, 3 * d_in), COMPUTE_DTYPE, device)
+        self.add("wif", (d_in, 2 * H), COMPUTE_DTYPE, device)
+        self.add("if_bias", (2 * H,), torch.float32, device)
+        self.add("norm", (d_in,), torch.float32, device)
+        self.add("down_proj", (d_in, d), COMPUTE_DTYPE, device)
+
+    @torch.no_grad()
+    def init_weights(self, generator: Optional[torch.Generator]) -> None:
+        H = self.if_bias.shape[0] // 2
+        dense_init(self.up_proj, generator)
+        dense_init(self.conv_w, generator, 0.1)
+        self.conv_b.zero_()
+        dense_init(self.wqkv, generator)
+        dense_init(self.wif, generator, 0.02)
+        self.if_bias[:H] = 0.0
+        self.if_bias[H:] = 3.0
+        self.norm.fill_(1.0)
+        dense_init(self.down_proj, generator)
+
+    def forward(self, x, cache: Optional[Dict] = None):
+        return mlstm_apply(self, x, self.cfg, cache)
+
+
+def _mlstm_chunked(q, k, v, log_i, log_f, Q: int, init_state=None):
+    """Stabilized chunk-parallel mLSTM. q,k,v: (B,L,H,P); log_i/log_f:
+    (B,L,H). Quadratic only within chunks of length Q; the loop carries
+    the stabilized matrix state across chunks. Without ``init_state`` the
+    stabilizer starts at -1e30 (``mlstm_init_cache`` starts it at 0).
+    Padding gives ``log_i`` -1e30 and ``log_f`` 0. Returns (y (B,L,H,P)
+    bfloat16, state dict {C, n, m})."""
+    B, L, H, Pd = q.shape
+    pad = (-L) % Q
+    if pad:
+        F = torch.nn.functional
+        q = F.pad(q, (0, 0, 0, 0, 0, pad))
+        k = F.pad(k, (0, 0, 0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad))
+        log_i = F.pad(log_i, (0, 0, 0, pad), value=-1e30)
+        log_f = F.pad(log_f, (0, 0, 0, pad))
+    Lp = L + pad
+    C = Lp // Q
+    qc = (q.float() * (Pd ** -0.5)).reshape(B, C, Q, H, Pd)
+    kc = k.float().reshape(B, C, Q, H, Pd)
+    vc = v.float().reshape(B, C, Q, H, Pd)
+    lic = log_i.float().reshape(B, C, Q, H)
+    lfc = log_f.float().reshape(B, C, Q, H)
+
+    if init_state is None:
+        Cm = torch.zeros((B, H, Pd, Pd), dtype=torch.float32, device=q.device)
+        nv = torch.zeros((B, H, Pd), dtype=torch.float32, device=q.device)
+        m_prev = torch.full((B, H), -1e30, dtype=torch.float32,
+                            device=q.device)
+    else:
+        Cm, nv, m_prev = init_state["C"], init_state["n"], init_state["m"]
+
+    tri = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=q.device))
+    ys = []
+    for c in range(C):
+        qq, kk, vv = qc[:, c], kc[:, c], vc[:, c]
+        li, lf = lic[:, c], lfc[:, c]
+        b = torch.cumsum(lf, dim=1)                           # (B,Q,H)
+        g = li - b
+        localmax = torch.cummax(g, dim=1).values
+        m_t = torch.maximum(m_prev[:, None] + b, b + localmax)
+        inter_decay = torch.exp(b + m_prev[:, None] - m_t)    # (B,Q,H)
+        # intra weights: (B,Q,Q,H) for t >= s
+        dlog = b[:, :, None, :] - b[:, None, :, :] + li[:, None, :, :] \
+            - m_t[:, :, None, :]
+        w = torch.where(tri[None, :, :, None], torch.exp(dlog), 0.0)
+        s = torch.einsum("bthp,bshp->btsh", qq, kk)
+        sw = s * w
+        y_intra = torch.einsum("btsh,bshp->bthp", sw, vv)
+        # state layout: Cm[p, n] = sum_s v_p k_n
+        y_inter = torch.einsum("bthn,bhpn->bthp", qq, Cm) \
+            * inter_decay[..., None]
+        n_intra = torch.sum(sw, dim=2)
+        n_inter = torch.einsum("bthp,bhp->bth", qq, nv) * inter_decay
+        den = torch.maximum(torch.abs(n_intra + n_inter), torch.exp(-m_t))
+        ys.append(((y_intra + y_inter) / den[..., None]).to(COMPUTE_DTYPE))
+
+        # end-of-chunk state
+        m_end = m_t[:, -1]                                    # (B,H)
+        b_end = b[:, -1]
+        carry_decay = torch.exp(b_end + m_prev - m_end)
+        upd_w = torch.exp(b_end[:, None] - b + li - m_end[:, None])
+        Cm = Cm * carry_decay[..., None, None] + torch.einsum(
+            "bshp,bshn->bhpn", vv * upd_w[..., None], kk)
+        nv = nv * carry_decay[..., None] + torch.einsum(
+            "bsh,bshp->bhp", upd_w, kk)
+        m_prev = m_end
+    y = torch.stack(ys, dim=1).reshape(B, Lp, H, Pd)[:, :L]
+    return y, {"C": Cm, "n": nv, "m": m_prev}
+
+
+def _mlstm_step(q, k, v, log_i, log_f, cache):
+    """Recurrent step. q,k,v: (B,H,P); log_i/log_f: (B,H)."""
+    C, n, m = cache["C"], cache["n"], cache["m"]
+    m_new = torch.maximum(log_f + m, log_i)
+    f_eff = torch.exp(log_f + m - m_new)
+    i_eff = torch.exp(log_i - m_new)
+    kf = k.float()
+    vf = v.float()
+    C = C * f_eff[..., None, None] + i_eff[..., None, None] \
+        * (vf[..., :, None] * kf[..., None, :])               # (B,H,P,P)
+    n = n * f_eff[..., None] + i_eff[..., None] * kf
+    qf = q.float() * (q.shape[-1] ** -0.5)
+    num = torch.einsum("bhpq,bhq->bhp", C, qf)
+    den = torch.maximum(torch.abs(torch.einsum("bhp,bhp->bh", n, qf)),
+                        torch.exp(-m_new))
+    y = num / den[..., None]
+    return y.to(COMPUTE_DTYPE), {"C": C, "n": n, "m": m_new}
+
+
+def mlstm_apply(params, x, cfg: ModelConfig, cache: Optional[Dict] = None):
+    B, L, _ = x.shape
+    d_in, H, Pdim = mlstm_dims(cfg)
+    up = x.to(COMPUTE_DTYPE) @ params["up_proj"].to(COMPUTE_DTYPE)
+    z, xi = up[..., :d_in], up[..., d_in:]
+    xi, new_conv = _causal_conv(xi, params["conv_w"].to(COMPUTE_DTYPE),
+                                params["conv_b"].to(COMPUTE_DTYPE),
+                                cache["conv"] if cache is not None else None)
+    qkv = xi @ params["wqkv"].to(COMPUTE_DTYPE)
+    q, k, v = [t.reshape(B, L, H, Pdim) for t in torch.chunk(qkv, 3, dim=-1)]
+    gates = (xi @ params["wif"].to(COMPUTE_DTYPE)).float() + params["if_bias"]
+    log_i = torch.clamp(gates[..., :H], max=15.0)  # exponential input gate
+    log_f = log_sigmoid(gates[..., H:])
+
+    if L == 1 and cache is not None:
+        y, new_rec = _mlstm_step(q[:, 0], k[:, 0], v[:, 0], log_i[:, 0],
+                                 log_f[:, 0], cache)
+        y = y[:, None]
+    else:
+        y, new_rec = _mlstm_chunked(q, k, v, log_i, log_f, cfg.chunk_size,
+                                    cache)
+
+    y = y.reshape(B, L, d_in)
+    y = rms_norm(y * silu(z.float()).to(COMPUTE_DTYPE), params["norm"],
+                 cfg.norm_eps)
+    out = y @ params["down_proj"].to(COMPUTE_DTYPE)
+    if cache is not None:
+        _write(cache, dict(new_rec, conv=new_conv))
+    return out, cache
+
+
+def mlstm_init_cache(cfg: ModelConfig, batch: int, device=None) -> Dict:
+    d_in, H, Pdim = mlstm_dims(cfg)
+
+    def zeros(*shape, dtype=torch.float32):
+        return torch.zeros(shape, dtype=dtype, device=device)
+    return {"C": zeros(batch, H, Pdim, Pdim), "n": zeros(batch, H, Pdim),
+            "m": zeros(batch, H),
+            "conv": zeros(batch, cfg.conv_kernel - 1, d_in,
+                          dtype=COMPUTE_DTYPE)}
+
+
+# ================================= sLSTM ========================================
+
+
+def slstm_heads(cfg: ModelConfig):
+    H = cfg.ssm_heads or cfg.n_heads
+    return H, cfg.d_model // H
+
+
+class SLSTM(Params):
+    """``slstm_init``'s names: ``w_gates`` ``(d, 4d)`` [i, f, z, o] and
+    ``out_proj`` ``(d, d)`` bfloat16; the per-head recurrent weights
+    ``r_gates`` ``(H, P, 4P)``, ``gate_bias`` ``(4d,)`` and ``norm``
+    ``(d,)`` float32."""
+
+    def __init__(self, cfg: ModelConfig, device=None):
+        super().__init__()
+        self.cfg = cfg
+        d = cfg.d_model
+        H, Pd = slstm_heads(cfg)
+        self.add("w_gates", (d, 4 * d), COMPUTE_DTYPE, device)
+        self.add("r_gates", (H, Pd, 4 * Pd), torch.float32, device)
+        self.add("gate_bias", (4 * d,), torch.float32, device)
+        self.add("norm", (d,), torch.float32, device)
+        self.add("out_proj", (d, d), COMPUTE_DTYPE, device)
+
+    @torch.no_grad()
+    def init_weights(self, generator: Optional[torch.Generator]) -> None:
+        d = self.cfg.d_model
+        dense_init(self.w_gates, generator)
+        dense_init(self.r_gates, generator)            # scale P ** -0.5
+        self.gate_bias.zero_()
+        self.gate_bias[d:2 * d] = 3.0
+        self.norm.fill_(1.0)
+        dense_init(self.out_proj, generator)
+
+    def forward(self, x, cache: Optional[Dict] = None):
+        return slstm_apply(self, x, self.cfg, cache)
+
+
+def slstm_apply(params, x, cfg: ModelConfig, cache: Optional[Dict] = None):
+    """A loop over time (sLSTM is a true recurrence). x: (B,L,d)."""
+    B, L, d = x.shape
+    H, Pd = slstm_heads(cfg)
+    wx = (x.to(COMPUTE_DTYPE) @ params["w_gates"].to(COMPUTE_DTYPE)
+          ).float() + params["gate_bias"]                      # (B,L,4d)
+    wx = wx.reshape(B, L, 4, H, Pd)
+    st = cache if cache is not None else slstm_init_cache(cfg, B, x.device)
+    c, n, h, m = st["c"], st["n"], st["h"], st["m"]
+    r = params["r_gates"]                                      # (H,P,4P)
+    hs = torch.empty((B, L, H, Pd), dtype=torch.float32, device=x.device)
+    for t in range(L):
+        wxt = wx[:, t]
+        rh = torch.einsum("bhp,hpq->bhq", h, r).reshape(B, H, 4, Pd)
+        pre_i = wxt[:, 0] + rh[:, :, 0]
+        pre_f = wxt[:, 1] + rh[:, :, 1]
+        pre_z = wxt[:, 2] + rh[:, :, 2]
+        pre_o = wxt[:, 3] + rh[:, :, 3]
+        m_new = torch.maximum(pre_f + m, pre_i)
+        i_g = torch.exp(pre_i - m_new)
+        f_g = torch.exp(pre_f + m - m_new)
+        z_g = torch.tanh(pre_z)
+        o_g = torch.sigmoid(pre_o)
+        c = f_g * c + i_g * z_g
+        n = f_g * n + i_g
+        h = o_g * c / torch.clamp(n, min=1.0)
+        m = m_new
+        hs[:, t] = h
+    y = rms_norm(hs.reshape(B, L, d).to(COMPUTE_DTYPE), params["norm"],
+                 cfg.norm_eps)
+    out = y @ params["out_proj"].to(COMPUTE_DTYPE)
+    if cache is not None:
+        _write(cache, {"c": c, "n": n, "h": h, "m": m})
+    return out, cache
+
+
+def slstm_init_cache(cfg: ModelConfig, batch: int, device=None) -> Dict:
+    H, Pd = slstm_heads(cfg)
+
+    def full(v):
+        return torch.full((batch, H, Pd), v, dtype=torch.float32,
+                          device=device)
+    return {"c": full(0.0), "n": full(1.0), "h": full(0.0), "m": full(0.0)}

@@ -1,14 +1,21 @@
 """Decoder-only LM assembly: block patterns, the layer loop, caches.
 
-Port of the ``dense`` and ``moe`` patterns of
-``repro/models/transformer.py`` (the ``mamba``/``mlstm``/``slstm``/
-``shared_attn`` blocks, the VLM image path and ``train_loss`` wait; see
-``ROADMAP.md``). The JAX package scans homogeneous stacks over stacked
-parameters, with ``remat``; at inference neither has a meaning here, so
-:func:`forward` is a loop over :class:`Block` modules. The caches keep
-the JAX package's layer-stacked layout (``{"k", "v": (L, B, T, KV, hd),
-"pos": (L, B, T)}``), each layer reading and writing its own slice in
-place.
+Port of ``repro/models/transformer.py`` (``train_loss`` waits for the
+trainer; see ``ROADMAP.md``). A *block pattern* maps each layer to a
+kind: ``dense`` / ``moe`` (attention, GQA/SWA/MLA, + MLP or MoE),
+``mamba`` (Mamba2, zamba2), ``mlstm`` / ``slstm`` (xLSTM), and
+``shared_attn``, zamba2's weight-shared attention block, stored once and
+applied before every ``attn_every``-th layer. The ``vlm`` family puts
+projected image embeddings (``img_proj``) in front of the text.
+
+The JAX package scans homogeneous stacks over stacked parameters, with
+``remat``; at inference neither has a meaning here, so :func:`forward` is
+a loop over :class:`Block` modules. The caches keep the JAX package's
+layouts: a homogeneous stack's are layer-stacked (``{"k", "v": (L, B, T,
+KV, hd), "pos": (L, B, T)}``, or MLA's latents), each layer reading and
+writing its own slice in place; a heterogeneous stack's are a **list** of
+per-layer dicts, the shared block's caches (one per application point)
+appended in application order.
 """
 
 from __future__ import annotations
@@ -21,10 +28,14 @@ from torch import nn
 from repro_torch.comm import Ranks
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import ssm
 from repro_torch.models.layers import (COMPUTE_DTYPE, MLP, Params,
                                        dense_init, embed_lookup, lm_logits,
-                                       mlp_apply, padded_vocab, rms_norm)
+                                       mlp_apply, padded_vocab, rms_norm,
+                                       round_scalar)
 from repro_torch.models.moe import MoE, moe_apply
+
+ATTN_KINDS = ("dense", "moe", "shared_attn")
 
 
 def layer_pattern(cfg: ModelConfig) -> List[str]:
@@ -38,65 +49,122 @@ def layer_pattern(cfg: ModelConfig) -> List[str]:
     return ["dense"] * cfg.num_layers
 
 
+def _shared_attn_points(cfg: ModelConfig) -> List[int]:
+    if cfg.family != "hybrid" or not cfg.attn_every:
+        return []
+    return [i for i in range(cfg.num_layers)
+            if (i + 1) % cfg.attn_every == 0]
+
+
+def homogeneous(cfg: ModelConfig) -> bool:
+    """The JAX package scans the stack (stacked parameters and caches):
+    one ``dense`` or ``moe`` kind throughout, no shared block."""
+    pattern = layer_pattern(cfg)
+    return (cfg.scan_layers and len(set(pattern)) == 1
+            and pattern[0] in ("dense", "moe") and not _shared_attn_points(cfg))
+
+
 class Block(Params):
-    """Pre-norm attention + MLP (``dense``) or + MoE (``moe``): ``ln1``,
-    ``attn``, ``ln2``, ``mlp`` or ``moe``, the JAX package's names."""
+    """One layer under the JAX package's names: pre-norm attention + MLP
+    (``dense``, ``shared_attn``) or + MoE (``moe``): ``ln1``, ``attn``,
+    ``ln2``, ``mlp`` or ``moe``; ``ln1`` + ``mamba`` (``mamba``); ``ln1``
+    + ``cell`` (``mlstm``, ``slstm``)."""
 
     def __init__(self, cfg: ModelConfig, kind: str, device=None):
         super().__init__()
-        if kind not in ("dense", "moe"):
-            raise NotImplementedError(f"block kind {kind!r} is not ported")
         self.cfg = cfg
+        self.kind = kind
         self.add("ln1", (cfg.d_model,), torch.float32, device)
-        self.attn = attn.Attention(cfg, device)
-        self.add("ln2", (cfg.d_model,), torch.float32, device)
-        if kind == "moe":
-            self.moe = MoE(cfg, device=device)
+        if kind in ATTN_KINDS:
+            self.attn = attn.attention_module(cfg, device)
+            self.add("ln2", (cfg.d_model,), torch.float32, device)
+            if kind == "moe":
+                self.moe = MoE(cfg, device=device)
+            else:
+                self.mlp = MLP(cfg.d_model, cfg.d_ff, cfg.mlp_gated, device)
+        elif kind == "mamba":
+            self.mamba = ssm.Mamba2(cfg, device)
+        elif kind == "mlstm":
+            self.cell = ssm.MLSTM(cfg, device)
+        elif kind == "slstm":
+            self.cell = ssm.SLSTM(cfg, device)
         else:
-            self.mlp = MLP(cfg.d_model, cfg.d_ff, cfg.mlp_gated, device)
+            raise ValueError(kind)
 
     @torch.no_grad()
     def init_weights(self, generator: Optional[torch.Generator]) -> None:
         self.ln1.fill_(1.0)
-        self.ln2.fill_(1.0)
-        self.attn.init_weights(generator)
-        (self.moe if "moe" in self else self.mlp).init_weights(generator)
+        if self.kind in ATTN_KINDS:
+            self.ln2.fill_(1.0)
+            self.attn.init_weights(generator)
+            (self.moe if "moe" in self else self.mlp).init_weights(generator)
+        else:
+            (self.mamba if self.kind == "mamba" else self.cell).init_weights(
+                generator)
 
     def forward(self, x, q_pos, cache=None, ranks: Optional[Ranks] = None,
                 dp_axes: Sequence[str] = ("data",)):
-        return _attn_block(self, x, self.cfg, q_pos, cache, ranks, dp_axes)
+        return apply_block(self, x, self.cfg, self.kind, q_pos, cache, ranks,
+                           dp_axes)
 
 
 def _attn_block(params, x, cfg: ModelConfig, q_pos, cache, ranks, dp_axes):
-    """One block under ``cfg`` (the caller's: a capacity factor may differ
-    from the one the block was built with)."""
+    """One attention block under ``cfg`` (the caller's: a capacity factor
+    may differ from the one the block was built with)."""
     h = rms_norm(x, params["ln1"], cfg.norm_eps)
-    a, new_cache = attn.attn_apply(params["attn"], h, cfg, q_pos, cache)
-    x = x + a * cfg.residual_scale
+    if cfg.attn_type == "mla":
+        a, new_cache = attn.mla_apply(params["attn"], h, cfg, q_pos, cache)
+    else:
+        a, new_cache = attn.attn_apply(params["attn"], h, cfg, q_pos, cache)
+    # the JAX package multiplies by the scale rounded to bfloat16 (a
+    # weakly typed Python float takes the array's dtype)
+    scale = round_scalar(cfg.residual_scale, a.dtype)
+    x = x + a * scale
     h = rms_norm(x, params["ln2"], cfg.norm_eps)
     aux = {}
     if "moe" in params:
         f, aux = moe_apply(params["moe"], h, cfg, ranks, dp_axes)
     else:
         f = mlp_apply(params["mlp"], h, cfg.mlp_gated)
-    x = x + f * cfg.residual_scale
+    x = x + f * scale
     return x, new_cache, aux
 
 
+#: the recurrent kinds: (parameter name in the block, apply function)
+_RECURRENT = {"mamba": ("mamba", ssm.mamba2_apply),
+              "mlstm": ("cell", ssm.mlstm_apply),
+              "slstm": ("cell", ssm.slstm_apply)}
+
+
+def apply_block(params, x, cfg: ModelConfig, kind: str, q_pos, cache,
+                ranks=None, dp_axes: Sequence[str] = ("data",)):
+    """``_apply_block`` of the JAX package: (x, cache, aux)."""
+    if kind in ATTN_KINDS:
+        return _attn_block(params, x, cfg, q_pos, cache, ranks, dp_axes)
+    name, fn = _RECURRENT[kind]
+    h = rms_norm(x, params["ln1"], cfg.norm_eps)
+    y, new_cache = fn(params[name], h, cfg, cache)
+    return x + y, new_cache, {}
+
+
 class DecoderLM(Params):
-    """``embed`` ``(padded_vocab, d)`` (tied readout), ``final_ln``, and
-    ``blocks``, one :class:`Block` a layer."""
+    """``embed`` ``(padded_vocab, d)`` (tied readout), ``final_ln``,
+    ``blocks``, one :class:`Block` a layer; zamba2's ``shared_attn``
+    block once; the ``vlm`` family's ``img_proj`` ``(d, d)``."""
 
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
-        if cfg.family not in ("dense", "moe"):
-            raise NotImplementedError(f"family {cfg.family!r} is not ported")
         self.cfg = cfg
         self.add("embed", (padded_vocab(cfg.vocab), cfg.d_model),
                  COMPUTE_DTYPE, device)
         self.add("final_ln", (cfg.d_model,), torch.float32, device)
         self.blocks = nn.ModuleList(Block(cfg, kind, device)
                                     for kind in layer_pattern(cfg))
+        if _shared_attn_points(cfg):
+            self.shared_attn = Block(cfg, "shared_attn", device)
+        if cfg.family == "vlm":
+            self.add("img_proj", (cfg.d_model, cfg.d_model), COMPUTE_DTYPE,
+                     device)
 
     @torch.no_grad()
     def init_weights(self, generator: Optional[torch.Generator]) -> None:
@@ -108,6 +176,10 @@ class DecoderLM(Params):
         self.final_ln.fill_(1.0)
         for block in self.blocks:
             block.init_weights(generator)
+        if "shared_attn" in self:
+            self.shared_attn.init_weights(generator)
+        if "img_proj" in self:
+            dense_init(self.img_proj, generator)
 
 
 def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
@@ -118,45 +190,97 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
 
 
 def forward(params: DecoderLM, cfg: ModelConfig, x, q_pos,
-            caches: Optional[Dict] = None, ranks: Optional[Ranks] = None,
+            caches=None, ranks: Optional[Ranks] = None,
             dp_axes: Sequence[str] = ("data",)):
     """Run the block stack over embeddings x (B,S,d). Returns (hidden
-    (B,S,d), caches (written in place) or None, aux dict: the MoE's
-    ``moe_aux`` averaged and ``moe_dropped`` summed over the layers)."""
-    auxs = []
-    for i, block in enumerate(params.blocks):
-        c = ({k: v[i] for k, v in caches.items()} if caches is not None
-             else None)
-        x, _, aux = _attn_block(block, x, cfg, q_pos, c, ranks, dp_axes)
-        if aux:
-            auxs.append(aux)
+    (B,S,d), caches (written in place) or None, aux dict). A homogeneous
+    stack averages the MoE's ``moe_aux`` and sums ``moe_dropped`` over the
+    layers; a heterogeneous one sums every aux, and applies the shared
+    block before layer ``i`` wherever ``(i + 1) % attn_every == 0``, with
+    the cache of that application point."""
     aux_total: Dict[str, Any] = {}
-    if auxs:
-        aux_total["moe_aux"] = torch.stack(
-            [a["moe_aux"].float() for a in auxs]).mean()
-        aux_total["moe_dropped"] = torch.stack(
-            [torch.as_tensor(a["moe_dropped"]).float() for a in auxs]).sum()
+    if homogeneous(cfg):
+        auxs = []
+        for i, block in enumerate(params.blocks):
+            c = ({k: v[i] for k, v in caches.items()} if caches is not None
+                 else None)
+            x, _, aux = _attn_block(block, x, cfg, q_pos, c, ranks, dp_axes)
+            if aux:
+                auxs.append(aux)
+        if auxs:
+            aux_total["moe_aux"] = torch.stack(
+                [a["moe_aux"].float() for a in auxs]).mean()
+            aux_total["moe_dropped"] = torch.stack(
+                [torch.as_tensor(a["moe_dropped"]).float()
+                 for a in auxs]).sum()
+        return x, caches, aux_total
+
+    shared_pts = set(_shared_attn_points(cfg))
+    n_shared = 0
+    for i, block in enumerate(params.blocks):
+        if i in shared_pts:
+            c = (caches[cfg.num_layers + n_shared] if caches is not None
+                 else None)
+            n_shared += 1
+            x, _, _ = apply_block(params.shared_attn, x, cfg, "shared_attn",
+                                  q_pos, c, ranks, dp_axes)
+        c = caches[i] if caches is not None else None
+        x, _, aux = apply_block(block, x, cfg, block.kind, q_pos, c, ranks,
+                                dp_axes)
+        for k, v in aux.items():
+            aux_total[k] = aux_total.get(k, 0.0) + v
     return x, caches, aux_total
 
 
-def init_caches(cfg: ModelConfig, batch: int, max_len: int,
-                device=None) -> Dict[str, torch.Tensor]:
-    """The layer-stacked cache of a homogeneous stack."""
-    one = attn.init_cache_gqa(cfg, batch, max_len, device=device)
-    return {k: v.unsqueeze(0).repeat((cfg.num_layers,) + (1,) * v.dim())
-            for k, v in one.items()}
+def _layer_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
+                 device) -> Dict[str, torch.Tensor]:
+    if kind in ATTN_KINDS:
+        if cfg.attn_type == "mla":
+            return attn.init_cache_mla(cfg, batch, max_len, device=device)
+        return attn.init_cache_gqa(cfg, batch, max_len, device=device)
+    if kind == "mamba":
+        return ssm.mamba2_init_cache(cfg, batch, device)
+    if kind == "mlstm":
+        return ssm.mlstm_init_cache(cfg, batch, device)
+    if kind == "slstm":
+        return ssm.slstm_init_cache(cfg, batch, device)
+    raise ValueError(kind)
 
 
-def embed_inputs(params: DecoderLM, cfg: ModelConfig, tokens):
-    return embed_lookup(params.embed, tokens)
+def init_caches(cfg: ModelConfig, batch: int, max_len: int, device=None):
+    """The caches :func:`forward` reads: layer-stacked for a homogeneous
+    stack, else a list of per-layer dicts with one cache per shared-block
+    application point appended."""
+    pattern = layer_pattern(cfg)
+    if homogeneous(cfg):
+        one = _layer_cache(cfg, pattern[0], batch, max_len, device)
+        return {k: v.unsqueeze(0).repeat((cfg.num_layers,) + (1,) * v.dim())
+                for k, v in one.items()}
+    kinds = pattern + ["shared_attn"] * len(_shared_attn_points(cfg))
+    return [_layer_cache(cfg, k, batch, max_len, device) for k in kinds]
+
+
+def embed_inputs(params: DecoderLM, cfg: ModelConfig, tokens,
+                 img_embeds=None):
+    """Token embeddings; for the ``vlm`` family ``img_embeds @ img_proj``
+    in front of them."""
+    x = embed_lookup(params.embed, tokens)
+    if cfg.family == "vlm" and img_embeds is not None:
+        img = img_embeds.to(COMPUTE_DTYPE) @ params.img_proj.to(COMPUTE_DTYPE)
+        x = torch.cat([img, x], dim=1)
+    return x
 
 
 def lm_forward(params: DecoderLM, cfg: ModelConfig, tokens, q_pos=None,
                caches=None, ranks: Optional[Ranks] = None,
-               dp_axes: Sequence[str] = ("data",), last_only: bool = False):
-    B, S = tokens.shape
-    x = embed_inputs(params, cfg, tokens)
+               dp_axes: Sequence[str] = ("data",), img_embeds=None,
+               last_only: bool = False):
+    """Logits of the stack over ``tokens`` (and the image embeddings in
+    front of them); ``q_pos`` defaults to every embedded position."""
+    B = tokens.shape[0]
+    x = embed_inputs(params, cfg, tokens, img_embeds)
     if q_pos is None:
+        S = x.shape[1]
         q_pos = torch.arange(S, dtype=torch.int32,
                              device=x.device).expand(B, S)
     x, new_caches, aux = forward(params, cfg, x, q_pos, caches, ranks,

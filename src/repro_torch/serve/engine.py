@@ -1,12 +1,24 @@
 """Batched serving engine: slot-based continuous batching over the
 registry models' prefill/decode surface.
 
-Port of ``repro/serve/engine.py`` (enc-dec serving waits with
-``encdec.py``; see ``ROADMAP.md``). The engine mirrors the Sphere
+Port of ``repro/serve/engine.py``. The engine mirrors the Sphere
 client's role (paper §3.4): it orchestrates, the decode step is the SPE.
 Requests are segments; a fixed number of batch *slots* bounds the working
 set exactly like the scheduler's segment capacity clamp; finished slots
-are refilled from the queue each step (continuous batching).
+are refilled from the queue each step (continuous batching). An enc-dec
+model (``audio``) encodes a request's ``frames`` once, when its slot is
+refilled, into the slot's row of the engine's encoder memory, which every
+decode batch carries.
+
+The caches are the model's: a layer-stacked dict, or a list of per-layer
+dicts (heterogeneous stacks); a refilled slot's rows of every leaf are
+reset (positions to -1, everything else to 0). Prompts are fed token by
+token through the full-batch decode, as the JAX engine does, so every
+*other* slot takes a step at its next position with token 0: an
+attention cache has that entry overwritten by the slot's own next
+decode, but a recurrent state (Mamba2, mLSTM, sLSTM) keeps the phantom
+step. The port reproduces this, so its token streams equal the JAX
+engine's.
 
 The decode runs eagerly (no compiled step) under
 ``torch.inference_mode()``, on the device of the model's parameters; the
@@ -23,6 +35,7 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
+from repro_torch.models import encdec
 from repro_torch.models.registry import Model
 from repro_torch.obs.metrics import REGISTRY
 from repro_torch.obs.trace import NULL_TRACER
@@ -31,8 +44,11 @@ from repro_torch.obs.trace import NULL_TRACER
 @dataclasses.dataclass
 class Request:
     req_id: int
-    prompt: np.ndarray                 # (S,) int32 prompt tokens
+    prompt: np.ndarray                 # (S,) int32 decoder/prompt tokens
     max_new_tokens: int = 16
+    #: enc-dec models: (enc_seq, d_model) frame embeddings (stub frontend
+    #: output) to be encoded once at admission
+    frames: Optional[np.ndarray] = None
     out_tokens: List[int] = dataclasses.field(default_factory=list)
     done: bool = False
     #: multi-tenant admission (only read when the engine has a tenant
@@ -71,10 +87,6 @@ class ServeEngine:
         ``trace``: a :class:`repro_torch.obs.trace.Tracer`; each engine
         iteration becomes a ``serve.step[i]`` span annotated with active
         slots and tokens emitted."""
-        if model.cfg.family == "audio":
-            raise NotImplementedError(
-                "enc-dec serving is not ported yet (ROADMAP.md queue 1, "
-                "item 5)")
         self.model = model
         self.trace = trace if trace is not None else NULL_TRACER
         self.params = params
@@ -93,22 +105,34 @@ class ServeEngine:
         self.caches = model.init_caches(batch_slots, max_len,
                                         device=self.device)
         self._batch_axes = self._find_batch_axes()
+        self.enc_dec = model.cfg.family == "audio"
+        if self.enc_dec:
+            # per-slot encoder output (cross-attention memory)
+            self.enc_out = torch.zeros(
+                (batch_slots, model.cfg.enc_seq, model.cfg.d_model),
+                dtype=torch.bfloat16, device=self.device)
 
-    def _find_batch_axes(self) -> Dict[str, Optional[int]]:
+    def _find_batch_axes(self):
         """Per-cache-leaf batch axis, found structurally: the axis whose
         size changes between init_caches(slots) and init_caches(slots+1),
         both built on the ``meta`` device (shapes only). Size matching is
-        ambiguous (num_layers can equal batch_slots)."""
+        ambiguous (num_layers can equal batch_slots). The caches' layout:
+        ``{name: axis}`` for a dict, a list of those for a list."""
         a = self.model.init_caches(self.slots, self.max_len, device="meta")
         b = self.model.init_caches(self.slots + 1, self.max_len,
                                    device="meta")
-        axes = {}
-        for name in a:
-            diff = [i for i, (x, y) in enumerate(zip(a[name].shape,
-                                                     b[name].shape))
-                    if x != y]
-            axes[name] = diff[0] if diff else None
-        return axes
+
+        def axes(da, db):
+            out = {}
+            for name in da:
+                diff = [i for i, (x, y) in enumerate(zip(da[name].shape,
+                                                         db[name].shape))
+                        if x != y]
+                out[name] = diff[0] if diff else None
+            return out
+        if isinstance(a, dict):
+            return axes(a, b)
+        return [axes(da, db) for da, db in zip(a, b)]
 
     def submit(self, req: Request) -> None:
         if self.tenants is not None:
@@ -140,6 +164,8 @@ class ServeEngine:
     def _decode(self, tokens: np.ndarray, pos: np.ndarray) -> torch.Tensor:
         batch = {"tokens": self._to_device(tokens),
                  "pos": self._to_device(pos)}
+        if self.enc_dec:
+            batch["enc_out"] = self.enc_out
         logits, self.caches = self.model.decode_step(self.params, self.caches,
                                                      batch)
         return logits
@@ -149,8 +175,15 @@ class ServeEngine:
         for the slot. The final prompt token is fed by the first ``step()``
         call, whose logits produce the first generated token — feeding the
         whole prompt here would duplicate the last token. Other slots receive
-        a benign write at their next position, which the subsequent real
-        decode overwrites."""
+        a write at their next position, which the subsequent real decode
+        overwrites in an attention cache; a recurrent state keeps it (see
+        the module docstring). An enc-dec request's frames are encoded
+        into the slot's encoder memory first."""
+        if self.enc_dec:
+            frames = torch.from_numpy(np.asarray(req.frames, np.float32)).to(
+                self.device).to(torch.bfloat16)[None]
+            self.enc_out[slot] = encdec.encode(self.params, self.model.cfg,
+                                               frames)[0]
         for t, tok in enumerate(req.prompt[:-1]):
             tokens = np.zeros((self.slots, 1), np.int32)
             tokens[slot, 0] = int(tok)
@@ -230,13 +263,20 @@ class ServeEngine:
         return finished
 
     def _reset_slot_cache(self, slot: int) -> None:
-        for name, leaf in self.caches.items():
-            ax = self._batch_axes[name]
-            if ax is None:
-                continue
-            # the only int32 cache leaves are position maps; empty = -1
-            fill = -1 if leaf.dtype == torch.int32 else 0
-            leaf.select(ax, slot).fill_(fill)
+        """Every leaf's rows of ``slot``: int32 position maps to -1 (empty),
+        every other leaf to 0, as the JAX engine does: sLSTM's ``n`` too,
+        though ``slstm_init_cache`` starts it at 1."""
+        if isinstance(self.caches, dict):
+            pairs = [(self.caches, self._batch_axes)]
+        else:
+            pairs = list(zip(self.caches, self._batch_axes))
+        for cache, axes in pairs:
+            for name, leaf in cache.items():
+                ax = axes[name]
+                if ax is None:
+                    continue
+                fill = -1 if leaf.dtype == torch.int32 else 0
+                leaf.select(ax, slot).fill_(fill)
 
     def run_to_completion(self, max_steps: int = 10_000) -> ServeReport:
         """Step until queue and slots drain, or ``max_steps``. The report

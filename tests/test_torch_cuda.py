@@ -944,6 +944,130 @@ def test_smoke_engine_on_the_card_gives_the_cpu_greedy_tokens(card):
         assert compared >= 6 * 8 // 4, (arch, compared)
 
 
+#: the other five families (MLA, xLSTM, Mamba2 + shared attention,
+#: enc-dec, VLM)
+ZOO = ("minicpm3_4b", "xlstm_125m", "zamba2_1_2b", "whisper_small",
+       "internvl2_1b")
+#: decoding through caches against a full forward (tests/test_models.py)
+DECODE_TOL = 0.25
+
+
+def _zoo_batch(cfg, dev, b=2, s=10):
+    rng = np.random.default_rng(3)
+    batch = {"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab, (b, s)).astype(np.int32))}
+    if cfg.family == "audio":
+        batch["frames"] = torch.from_numpy(rng.standard_normal(
+            (b, cfg.enc_seq, cfg.d_model)).astype(np.float32)).bfloat16()
+    if cfg.family == "vlm":
+        batch["img_embeds"] = torch.from_numpy(rng.standard_normal(
+            (b, cfg.img_tokens, cfg.d_model)).astype(np.float32)).bfloat16()
+    return {k: v.to(dev) for k, v in batch.items()}
+
+
+def _zoo_run(model, params, cfg, dev, feed=None):
+    """Prefill of 10 tokens into caches of 24, then 8 decode steps fed
+    ``feed``'s tokens (the CPU run's) or the run's own greedy ones.
+    Returns (logits rows (B, 9, vocab) on the CPU, fed tokens, the last
+    positions of every cache)."""
+    from repro_torch.models import encdec
+    batch = _zoo_batch(cfg, dev)
+    n_pos = batch["tokens"].shape[1] + (cfg.img_tokens
+                                        if cfg.family == "vlm" else 0)
+    caches = model.init_caches(2, n_pos + 8, dev)
+    extra = {}
+    with torch.inference_mode():
+        lg, caches = model.prefill(params, batch, caches)
+        if cfg.family == "audio":
+            extra["enc_out"] = encdec.encode(params, cfg, batch["frames"])
+        rows, fed = [lg[:, -1, :cfg.vocab].float().cpu()], []
+        for t in range(8):
+            nxt = (feed[:, t] if feed is not None
+                   else rows[-1].argmax(-1).to(torch.int32))
+            fed.append(nxt)
+            lg, caches = model.decode_step(params, caches, dict({
+                "tokens": nxt[:, None].to(dev),
+                "pos": torch.full((2, 1), n_pos + t, dtype=torch.int32,
+                                  device=dev)}, **extra))
+            rows.append(lg[:, -1, :cfg.vocab].float().cpu())
+    leaves = [caches] if isinstance(caches, dict) else caches
+    pos = [c["pos"].cpu() for c in leaves if "pos" in c]
+    return torch.stack(rows, 1), torch.stack(fed, 1), pos, batch, extra
+
+
+@pytest.mark.parametrize("arch", ZOO)
+def test_zoo_smoke_model_on_the_card_equals_the_cpu(card, arch):
+    """Each of the five smoke models on the card, on the CPU port's
+    weights: the prefill and 8 decode steps (fed the CPU's greedy tokens)
+    within CARD_LOGITS_TOL of the CPU run, cache positions exact; and on
+    the card, decoding through the caches gives a full forward's tokens
+    wherever its top-2 margin exceeds DECODE_TOL."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import build, encdec, transformer
+    cfg = get_smoke_config(arch)
+    model = build(cfg)
+    params = model.init(torch.Generator().manual_seed(0), "cpu")
+    want, fed, pos_c, _, _ = _zoo_run(model, params, cfg,
+                                      torch.device("cpu"))
+    params = params.to(card)
+    got, _, pos, batch, extra = _zoo_run(model, params, cfg, card, feed=fed)
+    err = float((got - want).abs().max())
+    assert err <= CARD_LOGITS_TOL, (arch, err)
+    assert all(torch.equal(a, b) for a, b in zip(pos, pos_c))
+    toks = torch.cat([batch["tokens"], fed.to(card)], 1)
+    with torch.inference_mode():
+        if cfg.family == "audio":
+            full, _ = encdec.decode_stack(params, cfg, toks, extra["enc_out"])
+        else:
+            full, _, _ = transformer.lm_forward(
+                params, cfg, toks, img_embeds=batch.get("img_embeds"))
+    full = full[:, -9:, :cfg.vocab].float().cpu()
+    top2 = torch.topk(full, 2, dim=-1).values
+    clear = (top2[..., 0] - top2[..., 1]) > DECODE_TOL
+    assert bool((full.argmax(-1) == got.argmax(-1))[clear].all()), arch
+    assert float((full - got).abs().max()) < DECODE_TOL, arch
+
+
+@pytest.mark.parametrize("arch", ZOO)
+def test_zoo_smoke_engine_on_the_card_gives_the_cpu_greedy_tokens(card,
+                                                                   arch):
+    """6 requests through 2 slots (frames for whisper): each request's
+    tokens equal the CPU engine's up to the first token whose CPU top-2
+    margin is under CARD_LOGITS_TOL; at least a quarter compared."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import build
+    from repro_torch.serve import Request, ServeEngine
+    cfg = get_smoke_config(arch)
+    model = build(cfg)
+    params = model.init(torch.Generator().manual_seed(0), "cpu")
+    rng = np.random.default_rng(0)
+    traffic = []
+    for _ in range(6):
+        prompt = rng.integers(0, cfg.vocab, size=int(rng.integers(4, 12)))
+        frames = (rng.standard_normal((cfg.enc_seq, cfg.d_model)).astype(
+            np.float32) if cfg.family == "audio" else None)
+        traffic.append((prompt.astype(np.int32), frames))
+    runs = []
+    for dev in (torch.device("cpu"), card):
+        eng = ServeEngine(model, params.to(dev), batch_slots=2, max_len=32)
+        reqs = [Request(i, p, max_new_tokens=8, frames=f)
+                for i, (p, f) in enumerate(traffic)]
+        for r in reqs:
+            eng.submit(r)
+        rec = _Recording(eng)
+        rec.run()
+        runs.append((reqs, rec.margins))
+    (cpu_reqs, margins), (card_reqs, _) = runs
+    compared = 0
+    for a, b in zip(cpu_reqs, card_reqs):
+        for i, (ta, tb) in enumerate(zip(a.out_tokens, b.out_tokens)):
+            if margins[a.req_id][i] < CARD_LOGITS_TOL:
+                break
+            assert ta == tb, (arch, a.req_id, i)
+            compared += 1
+    assert compared >= 6 * 8 // 4, (arch, compared)
+
+
 def test_model_init_without_a_card_raises(monkeypatch):
     """``build(cfg).init()`` draws on the card by default; without one it
     raises, never falling back to the CPU (runs with or without a card)."""

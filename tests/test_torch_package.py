@@ -57,7 +57,8 @@ def test_port_file_list_covers_the_slice():
                  "configs/base.py", "configs/qwen2_moe_a2_7b.py",
                  "models/layers.py", "models/attention.py", "models/moe.py",
                  "models/transformer.py", "models/registry.py",
-                 "models/convert.py", "serve/engine.py", "launch/serve.py"):
+                 "models/convert.py", "serve/engine.py", "launch/serve.py",
+                 "models/ssm.py", "models/encdec.py"):
         assert want in names
     csrc = ROOT / "src" / "repro_torch" / "kernels" / "csrc"
     assert (csrc / "bucket_hist.cu").exists()

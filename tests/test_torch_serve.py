@@ -216,8 +216,19 @@ def test_counters_trace_and_batch_axes():
 
 
 def test_enc_dec_serving_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        build(get_smoke_config("whisper_small"))
+    """Named for when enc-dec serving was refused: the engine now serves
+    whisper smoke, each request's frames encoded into its slot's memory,
+    every token inside the vocabulary."""
+    cfg, model, params, eng = make_engine(slots=2, arch="whisper_small")
+    rng = np.random.default_rng(0)
+    for i, p in enumerate(_traffic(cfg.vocab, 3)):
+        eng.submit(Request(i, p, max_new_tokens=4, frames=rng.standard_normal(
+            (cfg.enc_seq, cfg.d_model)).astype(np.float32)))
+    done = eng.run_to_completion()
+    assert done.completed and len(done) == 3
+    assert all(0 <= t < cfg.vocab for r in done for t in r.out_tokens)
+    assert eng.enc_out.shape == (2, cfg.enc_seq, cfg.d_model)
+    assert eng.enc_out.any()
 
 
 def test_launcher_serves_on_the_cpu(capsys):
