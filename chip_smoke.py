@@ -165,6 +165,35 @@ Phases, in order (any failure ends the script with a non-zero exit):
     traffic (frames for whisper, drawn as the launcher draws them): all
     16 requests complete, every token below the vocabulary. No kernel
     lies on these paths: every model's run reads zero launches of each.
+14. ``train``: (1) ``train-tinyllama-1.1b``: TinyLlama-1.1B at its
+    published config through ``repro_torch.launch.train.train``, the
+    launcher's main path: a Sector deployment of 4 slaves with
+    replication 2 in a ``tempfile.mkdtemp()`` directory, the synthetic
+    corpus as 8 Sector slices, ``SectorDataPipeline`` batches of 8
+    sequences of 2048 tokens, AdamW at the launcher's settings (lr 3e-3,
+    warmup 20), 16 steps with an async checkpoint at step 8 and the final
+    blocking one (float32 parameters, ``m`` and ``v``: 12 bytes a
+    parameter). Checks every loss and gradient norm finite, the first
+    loss within 1.0 of ln(32000), zero kernel launches (the dense path
+    has none, as in the JAX package); then one more batch: the same step
+    twice from one state gives the same bits, and the final checkpoint
+    restored into a fresh state (every slice's MD5 verified, the state
+    equal to the saved one to the bit) gives the same step to the bit.
+    Prints step wall p50/p99, tokens/s, peak memory, checkpoint bytes,
+    save, upload and restore seconds, the async upload's overlap with
+    the steps, the Sector root's free disk and file system. (2)
+    ``train-qwen2-moe-grid-1x8``: Qwen1.5-MoE-A2.7B at its published
+    width with its depth cut to 2 layers (the one cut; 24 layers would
+    need about 230 GB of training state), 3 steps of 8 x 1024 tokens on
+    phase 12's ``(1, 8)`` grid: K1 4 times a MoE layer a step (the send
+    pack and the regroup, in the forward and in the remat recompute),
+    read from zero every step; the routed experts get no gradient (the
+    shuffle's byte framing is not differentiable, as in the JAX package)
+    and their update is the weight decay alone, ``w - lr * (wd * w)``, to
+    the bit; every other leaf a non-zero gradient. Then the dense
+    dispatch (no grid) gives every expert a gradient. Prints step wall,
+    tokens/s, peak memory and ``moe_dropped``. Phase 3 holds K1 at this
+    path's shapes (phase 12's).
 
 Each path's launch counts are read from zero: every count is reset just
 before the path runs and read just after. The last lines are the
@@ -225,6 +254,14 @@ STREAM_REQUEST = 1 << 18
 STREAM_CARRY = 1 << 18
 TENANTS = {"free": 1.0, "pro": 3.0, "enterprise": 4.0}
 STREAM_STEPS = 34
+#: phase 14: TinyLlama-1.1B trained through the launcher's functions (8
+#: sequences of its 2048-token context, an async save at step 8, the
+#: launcher's lr and warmup); Qwen1.5-MoE-A2.7B at its published width
+#: with its depth cut to 2 layers, 3 steps on phase 12's grid and prompts
+TRAIN_ARCH = "tinyllama_1_1b"
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_CKPT_EVERY = 16, 8, 2048, 8
+TRAIN_LR = 3e-3
+MOE_TRAIN_LAYERS, MOE_TRAIN_STEPS = 2, 3
 
 
 def log(*parts) -> None:
@@ -2881,6 +2918,505 @@ def zoo_path(torch, dev, seed: int):
     return runs
 
 
+# -- phase 14: training ------------------------------------------------------------
+
+
+def state_tensors(model, params, opt) -> dict:
+    """Every tensor of a train state by name: parameters, moments, step."""
+    from repro_torch.models.convert import named_leaves
+    out = {f"params.{n}": p for n, p in
+           named_leaves(params, model.cfg).items()}
+    for k in ("m", "v"):
+        out.update({f"{k}.{n}": t for n, t in opt[k].items()})
+    out["step"] = opt["step"]
+    return out
+
+
+def bit_digest(torch, tensors: dict) -> dict:
+    """Two int64 sums of each tensor's 32-bit words (plain and position
+    weighted): equal states give equal digests."""
+    out = {}
+    for name, t in tensors.items():
+        w = t.detach().reshape(-1).view(torch.int32).to(torch.int64)
+        idx = torch.arange(w.numel(), device=w.device) % 65521 + 1
+        out[name] = (int(w.sum()), int((w * idx).sum()))
+    return out
+
+
+def state_diff(torch, a: dict, b: dict) -> dict:
+    """Tensors that differ between two states, with their max |a - b|."""
+    out = {}
+    for name, t in a.items():
+        if not torch.equal(t, b[name]):
+            out[name] = float((t.float() - b[name].float()).abs().max())
+    return out
+
+
+def written_bytes() -> int:
+    """Bytes this process has passed to ``write`` (``wchar`` of
+    ``/proc/self/io``): what phase 14 adds to the machine's disk."""
+    with open("/proc/self/io") as f:
+        for line in f:
+            if line.startswith("wchar:"):
+                return int(line.split()[1])
+    return 0
+
+
+def sector_root(need: int, fallback_need: int):
+    """A directory for phase 14's Sector slaves: on ``/dev/shm`` (a RAM
+    file system: a checkpoint's writes do not count against the machine's
+    disk) when it holds ``need`` bytes, else when it holds
+    ``fallback_need``, else on the temporary directory's disk. Returns
+    (root, its free bytes, whether ``need`` fits)."""
+    import shutil
+    import tempfile
+    for base in ("/dev/shm", None):
+        if base is not None and not os.path.isdir(base):
+            continue
+        free = shutil.disk_usage(base or tempfile.gettempdir()).free
+        for want, full in ((need, True), (fallback_need, False)):
+            if free >= want or base is None:
+                return (tempfile.mkdtemp(prefix="chip_smoke_train_",
+                                         dir=base), free, free >= need)
+    raise AssertionError("unreachable")
+
+
+def host_memory() -> dict:
+    info = {}
+    with open("/proc/meminfo") as f:
+        for line in f:
+            k, v = line.split(":")
+            if k in ("MemTotal", "MemAvailable"):
+                info[k] = int(v.split()[0]) * 1024
+    return info
+
+
+class CkptClock:
+    """Times the checkpointer's saves (the synchronous host copy), uploads
+    (the thread's part, async or not) and waits (the loop blocked on a
+    pending upload), by wrapping the class's methods for one run."""
+
+    def __init__(self):
+        from repro_torch.train.checkpoint import SectorCheckpointer as C
+        self.cls = C
+        self.orig = {k: getattr(C, k) for k in ("save", "_upload", "wait")}
+        self.events = []
+
+        def timed(name):
+            fn = self.orig[name]
+
+            def run(ck, *a, **kw):
+                t0 = time.perf_counter()
+                try:
+                    return fn(ck, *a, **kw)
+                finally:
+                    self.events.append((name, a[0] if a and name != "wait"
+                                        else None, t0, time.perf_counter()))
+            return run
+        for k in self.orig:
+            setattr(C, k, timed(k))
+
+    def close(self) -> None:
+        for k, fn in self.orig.items():
+            setattr(self.cls, k, fn)
+
+    def report(self) -> dict:
+        """Seconds of each save (its host copy; a blocking save's upload
+        too) and upload, the loop's waits, and the async upload's
+        seconds beside the train steps (until the loop's wait) and
+        after them (blocked in that wait)."""
+        ev = {n: [(s, t0, t1) for m, s, t0, t1 in self.events if m == n]
+              for n in ("save", "_upload", "wait")}
+        out = {"save_s": {str(s): t1 - t0 for s, t0, t1 in ev["save"]},
+               "upload_s": {str(s): t1 - t0 for s, t0, t1 in ev["_upload"]},
+               "wait_s": sum(t1 - t0 for _, t0, t1 in ev["wait"])}
+        if len(ev["_upload"]) > 1:
+            _, u0, u1 = ev["_upload"][0]
+            w0 = min(t0 for _, t0, _ in ev["wait"] if t0 > u0)
+            out.update({"async_upload_s": u1 - u0,
+                        "async_overlap_s": min(u1, w0) - u0,
+                        "async_blocked_s": max(0.0, u1 - w0)})
+        return out
+
+
+def train_tinyllama(torch, dev, seed: int) -> dict:
+    """Phase 14 (1): the launcher's main path at TinyLlama's published
+    config (see the module docstring)."""
+    import copy
+    import hashlib
+    import math
+    import shutil
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models.transformer import DecoderLM
+    from repro_torch.train.trainer import (init_train_state,
+                                           load_state_tree, state_tree)
+
+    cfg = get_config(TRAIN_ARCH)
+    n_params = sum(p.numel() for p in DecoderLM(
+        cfg, torch.device("meta")).parameters())
+    # a saved state is 12 bytes a parameter (float32 params, m, v),
+    # stored twice (replication 2), mid-run and at the end
+    state = 12 * n_params
+    root, free, full = sector_root(4 * state + (4 << 30),
+                                   2 * state + (4 << 30))
+    mem = host_memory()
+    written0 = written_bytes()
+    out = {"phase": "train_tinyllama", "arch": cfg.arch_id,
+           "layers": cfg.num_layers, "d_model": cfg.d_model,
+           "vocab": cfg.vocab, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+           "steps": TRAIN_STEPS, "lr": TRAIN_LR,
+           "sector_root": root, "sector_root_free_bytes": free,
+           "sector_fs": filesystem_of(root),
+           "host_mem": mem}
+    ckpt_every = TRAIN_CKPT_EVERY
+    clock = CkptClock()
+    try:
+        # the host holds one saved state at a time, and a quarter more
+        # on restore
+        if free < 2 * state + (4 << 30) \
+                or mem["MemAvailable"] < 1.5 * state + (8 << 30):
+            raise RuntimeError(f"{root} has {free} bytes free and the host "
+                               f"{mem['MemAvailable']} available; one "
+                               f"checkpoint of {state} bytes does not fit")
+        if not full:
+            ckpt_every = TRAIN_STEPS + 1
+            out["cut"] = (f"no mid-run save: {free} bytes free under "
+                          f"{root}")
+        reset_launches()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        run = launch_train.train(
+            cfg, steps=TRAIN_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+            lr=TRAIN_LR, ckpt_every=ckpt_every, workdir=root, device=dev,
+            log=log)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches = read_launches()
+        ck_times = clock.report()
+        clock.close()
+        model, params, opt = run["model"], run["params"], run["opt"]
+        losses, metrics = run["losses"], run["metrics"]
+        ckpt, client = run["ckpt"], run["client"]
+        manifest = json.loads(client.download(
+            f"/ckpt/run0/step_{TRAIN_STEPS:08d}/MANIFEST.json"))
+        state_bytes = manifest["total_bytes"]
+        if any(v for v in launches.values()):
+            raise AssertionError(f"the dense model's training launched "
+                                 f"{launches}; its path runs no kernel")
+        if not all(math.isfinite(x) for x in losses) or not all(
+                math.isfinite(m["grad_norm"]) for m in metrics):
+            raise AssertionError(f"losses {losses} or grad norms "
+                                 f"{[m['grad_norm'] for m in metrics]} "
+                                 f"not finite")
+        if abs(losses[0] - math.log(cfg.vocab)) > 1.0:
+            raise AssertionError(f"first loss {losses[0]} is not within "
+                                 f"1.0 of ln({cfg.vocab})")
+        want_steps = sorted({TRAIN_STEPS} | (
+            {ckpt_every} if ckpt_every <= TRAIN_STEPS else set()))
+        if ckpt.list_steps() != want_steps:
+            raise AssertionError(f"checkpoints {ckpt.list_steps()} != "
+                                 f"{want_steps}")
+        step_ms = [s * 1e3 for s in run["step_s"]]
+        out.update({
+            "params": n_params, "launches": launches, "run_s": run_s,
+            "losses": losses, "grad_norms": [m["grad_norm"]
+                                             for m in metrics],
+            "step_ms": step_ms, "step_ms_p50": percentile(step_ms, 50),
+            "step_ms_p99": percentile(step_ms, 99),
+            "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ
+            / percentile(step_ms, 50) * 1e3,
+            "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+            "ckpt_bytes": state_bytes, "ckpt_steps": ckpt.list_steps(),
+            "ckpt_every": ckpt_every, **ck_times,
+            "sector_used_bytes": sum(s.used_bytes() for s in
+                                     run["master"].slaves.values()),
+            "process_written_bytes": written_bytes() - written0})
+
+        # one more batch; the state in memory before the extra step
+        batch = {k: torch.from_numpy(v).to(dev)
+                 for k, v in next(iter(run["pipe"])).items()}
+        step_fn = run["step_fn"]
+        pre = bit_digest(torch, state_tensors(model, params, opt))
+        # (a) the same step twice from one state
+        twin = copy.deepcopy(params)
+        twin_opt = {k: ({n: t.clone() for n, t in v.items()}
+                        if isinstance(v, dict) else v.clone())
+                    for k, v in opt.items()}
+        torch.cuda.reset_peak_memory_stats()
+        step_fn(twin, twin_opt, batch)
+        step_fn(params, opt, batch)
+        after = state_tensors(model, params, opt)
+        repeat = state_diff(torch, after,
+                            state_tensors(model, twin, twin_opt))
+        del twin, twin_opt
+        gc.collect()
+        torch.cuda.empty_cache()
+        # (b) the final checkpoint restored into a fresh state, every
+        # slice's MD5 verified, then the same step from it
+        fresh, fresh_opt = init_train_state(
+            model, torch.Generator(device=dev).manual_seed(seed + 1), dev)
+        md5_ok = []
+        for sm in manifest["slices"]:
+            md5_ok.append(hashlib.md5(client.download(sm["path"]))
+                          .hexdigest() == sm["md5"]
+                          == client.stat(sm["path"]).md5)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tree, step = ckpt.restore(state_tree(model, fresh, fresh_opt),
+                                  device=dev)
+        load_state_tree(model, fresh, fresh_opt, tree)
+        del tree
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        restored_equal = bit_digest(
+            torch, state_tensors(model, fresh, fresh_opt)) == pre
+        step_fn(fresh, fresh_opt, batch)
+        resumed = state_diff(torch, after,
+                             state_tensors(model, fresh, fresh_opt))
+        out.update({"restore_s": restore_s, "restored_step": step,
+                    "slices_md5_ok": md5_ok,
+                    "restored_equal_bitwise": restored_equal,
+                    "repeat_differs": repeat, "resume_differs": resumed,
+                    "extra_steps_peak_mem_bytes":
+                        torch.cuda.max_memory_allocated()})
+        if not all(md5_ok) or step != TRAIN_STEPS or not restored_equal:
+            raise AssertionError(f"restore: md5s {md5_ok}, step {step}, "
+                                 f"equal to the saved state "
+                                 f"{restored_equal}")
+        if repeat:
+            raise AssertionError(f"the same step twice from one state "
+                                 f"differs: {repeat}")
+        if resumed:
+            raise AssertionError(f"the step from the restored state "
+                                 f"differs from the step in memory: "
+                                 f"{resumed}")
+        del fresh, fresh_opt, run, params, opt, batch
+    finally:
+        clock.close()
+        shutil.rmtree(root, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def train_moe_grid(torch, dev, seed: int) -> dict:
+    """Phase 14 (2): Qwen1.5-MoE-A2.7B at its published width, 2 layers,
+    on ``(1, 8)``: K1 in every MoE layer, the routed experts' missing
+    gradients and decay-only updates; then one step of the dense
+    dispatch."""
+    import dataclasses
+    import math
+    import numpy as np
+    from repro_torch.comm import Ranks
+    from repro_torch.configs import get_config
+    from repro_torch.models import build
+    from repro_torch.models.convert import named_leaves
+    from repro_torch.train.optimizer import AdamWConfig, adamw_update
+    from repro_torch.train.trainer import (build_train_step,
+                                           init_train_state, loss_and_grads)
+
+    cfg = dataclasses.replace(get_config(SERVE_ARCH),
+                              num_layers=MOE_TRAIN_LAYERS)
+    model = build(cfg)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    params, opt = init_train_state(model, gen, dev)
+    leaves = named_leaves(params, cfg)
+    routed = [n for n in leaves if n.split(".")[-1] in
+              ("w_gate", "w_up", "w_down")]
+    # phase 12's prompts: uniform tokens spread the random router's
+    # choices over every expert (the corpus's Zipf tokens repeat, and
+    # leave some experts without a token)
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(0, cfg.vocab, (PREFILL_PROMPTS, PREFILL_LEN + 1))
+    toks = torch.from_numpy(toks.astype(np.int32)).to(dev)
+    batch = {"tokens": toks[:, :-1].contiguous(),
+             "labels": toks[:, 1:].contiguous()}
+    rk = Ranks(shape=SERVE_GRID, axes=("data", "model"), device=dev)
+    opt_cfg = AdamWConfig(lr=TRAIN_LR, warmup_steps=20,
+                          total_steps=MOE_TRAIN_STEPS)
+    step_fn = build_train_step(model, opt_cfg, rk)
+    out = {"phase": "train_qwen2_moe_grid", "arch": cfg.arch_id,
+           "layers": cfg.num_layers, "cut": "layers 24 -> 2",
+           "d_model": cfg.d_model, "experts": cfg.num_experts,
+           "top_k": cfg.top_k, "vocab": cfg.vocab,
+           "capacity_factor": cfg.capacity_factor,
+           "grid": list(SERVE_GRID), "batch": PREFILL_PROMPTS,
+           "seq": PREFILL_LEN,
+           "params": sum(p.numel() for p in params.parameters())}
+    tokens = PREFILL_PROMPTS * PREFILL_LEN
+    step_ms, launches, dropped, losses, decay_only = [], [], [], [], []
+    want_k1 = 4 * cfg.num_layers
+    for i in range(MOE_TRAIN_STEPS):
+        before = {n: leaves[n].detach().clone() for n in routed}
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        if i == 0:
+            # the train step's two halves, to read the gradients
+            loss, metrics, grads = loss_and_grads(model, params, batch, rk)
+            with_grad = [n for n in routed if grads[n] is not None
+                         and bool(grads[n].any())]
+            without = [n for n in leaves if n not in routed
+                       and (grads[n] is None or not bool(grads[n].any()))]
+            _, _, om = adamw_update(opt_cfg, leaves, grads, opt)
+            metrics = dict(metrics, **om, loss=loss)
+            del grads
+        else:
+            _, _, metrics = step_fn(params, opt, batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        launches.append(read_launches())
+        dropped.append(float(metrics["moe_dropped"]))
+        losses.append(float(metrics["loss"]))
+        # a zero gradient leaves m and v at zero, so AdamW's step is
+        # w - lr * (0 / (sqrt(0) + eps) + wd * w): the decay alone,
+        # w * (1 - lr * wd) in the optimizer's own rounding
+        lr, wd = metrics["lr"], opt_cfg.weight_decay
+        with torch.no_grad():
+            decay_only.append(all(torch.equal(
+                leaves[n], before[n] - lr * (wd * before[n]))
+                for n in routed))
+            factor_err = max(float((leaves[n] - before[n] * (1 - lr * wd))
+                                   .abs().max()) for n in routed)
+        del before
+    if with_grad or without:
+        raise AssertionError(f"routed experts with a gradient: {with_grad}; "
+                             f"other leaves without one: {without}")
+    if not all(decay_only):
+        raise AssertionError(f"the routed experts' update is not the "
+                             f"decay alone: {decay_only}")
+    for run in launches:
+        if run != {"partition": want_k1, "bitonic_sort": 0,
+                   "radix_sort": 0, "bucket_hist": 0}:
+            raise AssertionError(f"a grid train step launched {run}; K1 "
+                                 f"runs 4 times a MoE layer with remat "
+                                 f"({want_k1})")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"losses {losses}")
+    grid_peak = torch.cuda.max_memory_allocated()
+
+    # one step of the dense dispatch: every real expert gets a gradient
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    loss, metrics, grads = loss_and_grads(model, params, batch)
+    torch.cuda.synchronize()
+    dense_ms = (time.perf_counter() - t0) * 1e3
+    dense_launches = read_launches()
+    no_grad = [n for n in routed if grads[n] is None or not bool(
+        (grads[n][:cfg.num_experts].flatten(1).abs().amax(1) > 0).all())]
+    del grads
+    if no_grad or any(dense_launches.values()):
+        raise AssertionError(f"dense dispatch: experts without a gradient "
+                             f"in {no_grad}; launches {dense_launches}")
+    out.update({"step_ms": step_ms, "step_ms_p50": percentile(step_ms, 50),
+                "tokens_per_s": tokens / percentile(step_ms, 50) * 1e3,
+                "losses": losses, "moe_dropped": dropped,
+                "routed_choices": tokens * cfg.top_k * cfg.num_layers,
+                "launches": launches, "k1_launches":
+                    sum(r["partition"] for r in launches),
+                "decay_only_bitwise": decay_only,
+                "decay_vs_factor_max_abs": factor_err,
+                "peak_mem_bytes": grid_peak,
+                "dense_loss_and_grads_ms": dense_ms,
+                "dense_loss": float(loss),
+                "dense_moe_dropped": float(metrics["moe_dropped"]),
+                "dense_peak_mem_bytes": torch.cuda.max_memory_allocated()})
+    del params, opt, leaves, step_fn
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_profile(torch, dev, seed: int, out_dir: str) -> list:
+    """``--profile``: one train step of each phase-14 cell (random batch,
+    after two warm steps) split by CUDA events into the forward
+    (``train_loss``), the backward (``torch.autograd.grad``, the remat
+    recompute in it) and the AdamW update, then a warm and a profiled
+    step (:func:`profile_run`)."""
+    import dataclasses
+    import numpy as np
+    from repro_torch.comm import Ranks
+    from repro_torch.configs import get_config
+    from repro_torch.models import build
+    from repro_torch.models.convert import named_leaves
+    from repro_torch.train.optimizer import AdamWConfig, adamw_update
+    from repro_torch.train.trainer import init_train_state
+
+    rows = []
+    for cell in ("train-tinyllama-1.1b", "train-qwen2-moe-grid-1x8"):
+        if cell.startswith("train-tinyllama"):
+            cfg, ranks = get_config(TRAIN_ARCH), None
+            shape = (TRAIN_BATCH, TRAIN_SEQ)
+        else:
+            cfg = dataclasses.replace(get_config(SERVE_ARCH),
+                                      num_layers=MOE_TRAIN_LAYERS)
+            ranks = Ranks(shape=SERVE_GRID, axes=("data", "model"),
+                          device=dev)
+            shape = (PREFILL_PROMPTS, PREFILL_LEN)
+        model = build(cfg)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
+        params, opt = init_train_state(model, gen, dev)
+        leaves = named_leaves(params, cfg)
+        toks = torch.from_numpy(np.random.default_rng(seed).integers(
+            0, cfg.vocab, (shape[0], shape[1] + 1)).astype(np.int32)).to(dev)
+        batch = {"tokens": toks[:, :-1].contiguous(),
+                 "labels": toks[:, 1:].contiguous()}
+        opt_cfg = AdamWConfig(lr=TRAIN_LR, warmup_steps=20, total_steps=100)
+
+        def step():
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+            ev[0].record()
+            loss, _ = model.train_loss(params, batch, ranks)
+            ev[1].record()
+            grads = torch.autograd.grad(loss, list(leaves.values()),
+                                        allow_unused=True)
+            ev[2].record()
+            adamw_update(opt_cfg, leaves, dict(zip(leaves, grads)), opt)
+            ev[3].record()
+            ev[3].synchronize()
+            return [ev[i].elapsed_time(ev[i + 1]) for i in range(3)]
+
+        for _ in range(2):
+            step()
+        split = step()
+        torch.cuda.reset_peak_memory_stats()
+        prof = profile_run(torch, step, out_dir, cell)
+        rows.append({"phase": "train_profile", "cell": cell,
+                     "forward_ms": split[0], "backward_ms": split[1],
+                     "adamw_ms": split[2],
+                     "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+                     **prof})
+        log(json.dumps(rows[-1]))
+        del params, opt, leaves, step
+        gc.collect()
+        torch.cuda.empty_cache()
+    return rows
+
+
+def train_path(torch, dev, seed: int, profile_dir=None) -> dict:
+    """Phase 14 (see the module docstring)."""
+    t0 = time.perf_counter()
+    written = written_bytes()
+    dense = train_tinyllama(torch, dev, seed)
+    log(json.dumps(dense))
+    moe = train_moe_grid(torch, dev, seed)
+    log(json.dumps(moe))
+    out = {"phase": "train_total", "phase_s": time.perf_counter() - t0,
+           "written_before_bytes": written,
+           "written_bytes": written_bytes() - written,
+           "tinyllama": dense, "moe": moe}
+    if profile_dir:
+        out["profile"] = train_profile(torch, dev, seed, profile_dir)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n-log2", type=int, default=25,
@@ -2889,7 +3425,8 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", metavar="DIR", default=None,
                     help="also profile two warm reruns of the flat, the "
-                         "wide-area and the wordcount path and write their "
+                         "wide-area and the wordcount path and a train "
+                         "step of each phase-14 cell, and write their "
                          "traces to DIR")
     args = ap.parse_args(argv)
 
@@ -2976,6 +3513,9 @@ def main(argv=None) -> int:
                     "models": [r["arch"] for r in zoo],
                     "launches": [r["launches"] for r in zoo],
                     "phase_s": time.perf_counter() - t0}))
+    trained = train_path(torch, dev, args.seed, args.profile)
+    log(json.dumps({k: v for k, v in trained.items()
+                    if k not in ("tinyllama", "moe", "profile")}))
     phase11 = {r["run"]: r["launches"] for r in chaos["runs"]}
     host_faults = {r["run"]: r["launches"] for r in chaos["host"]}
 
@@ -2994,7 +3534,11 @@ def main(argv=None) -> int:
                          for k, v in host_faults.items()},
                       "Qwen1.5-MoE-A2.7B grid prefill on (1, 8), 24 MoE "
                       "layers: send pack + regroup":
-                          served["prefill_k1_launches"]},
+                          served["prefill_k1_launches"],
+                      f"Qwen1.5-MoE-A2.7B training on (1, 8), "
+                      f"{MOE_TRAIN_LAYERS} MoE layers, {MOE_TRAIN_STEPS} "
+                      f"steps with remat: send pack + regroup, forward and "
+                      f"recompute": trained["moe"]["k1_launches"]},
         "bitonic_sort": {"dataflow sort, flat": mp["launches"]["bitonic_sort"],
                          "dataflow sort, (dc, node)":
                              wide["launches"]["bitonic_sort"],

@@ -1,2 +1,2 @@
-"""Launchers of the port: the serving launcher (``serve``) and
-``make_sector`` (``train``; the trainer follows)."""
+"""Launchers of the port: serving (``serve``), training (``train``, with
+``make_sector``) and the rank grids they run on (``mesh``)."""

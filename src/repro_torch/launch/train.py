@@ -1,20 +1,45 @@
-"""Training driver of the port: for now only :func:`make_sector`.
+"""End-to-end training driver.
 
-Port of ``make_sector`` from ``repro/launch/train.py``, which brings up an
-in-process Sector deployment (security server, master, slaves,
-replication daemon). The tests and ``chip_smoke.py`` build their
-deployments with it; the rest of the driver (the Sphere-scheduled data
-pipeline, the train step, Sector-backed checkpoints) follows with the
-port of the trainer.
+Port of ``repro/launch/train.py``. Brings up the full stack: a Sector
+deployment (security server, master, slaves, replication daemon), a
+synthetic corpus stored as Sector slices, the Sphere-scheduled data
+pipeline, the train step, and Sector-backed checkpoints with async saves
+every ``--ckpt-every`` steps and a final blocking one. It prints the JAX
+launcher's lines. ``--device`` (default: the card) places the model; the
+weights are drawn there from seed 0. A ``--model`` axis of more than one
+rank dispatches every MoE layer through the Sphere bucket shuffle (K1 on
+the card).
+
+  PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train --arch tinyllama_1_1b \\
+      --steps 16 --batch 8 --seq 2048 --ckpt-every 8
 """
 
 from __future__ import annotations
 
+import argparse
 import os
+import tempfile
+import time
+from typing import Callable, Dict, Optional
 
+import numpy as np
+import torch
+
+from repro_torch.comm import resolve_device
+from repro_torch.configs import get_config, get_smoke_config, ARCH_IDS
+from repro_torch.configs.base import ModelConfig
+from repro_torch.data import (SectorDataPipeline, synthetic_tokens,
+                              upload_token_dataset)
+from repro_torch.launch.mesh import dp_axes_of, make_host_mesh
+from repro_torch.models import build
 from repro_torch.sector import (Master, NodeAddress, ReplicationDaemon,
                                 SectorClient, SecurityServer, SlaveNode,
                                 Topology)
+from repro_torch.train.checkpoint import SectorCheckpointer
+from repro_torch.train.optimizer import AdamWConfig
+from repro_torch.train.trainer import (build_train_step, init_train_state,
+                                       state_tree)
 
 
 def make_sector(root: str, num_slaves: int = 4, replication: int = 2):
@@ -30,3 +55,103 @@ def make_sector(root: str, num_slaves: int = 4, replication: int = 2):
     client = SectorClient(master, "trainer", "pw",
                           client_addr=NodeAddress(0, 0, 0))
     return master, client, ReplicationDaemon(master)
+
+
+def train(cfg: ModelConfig, *, steps: int = 100, batch: int = 8,
+          seq: int = 128, lr: float = 3e-3, ckpt_every: int = 50,
+          data: int = 1, model: int = 1, workdir: Optional[str] = None,
+          device=None, log: Callable[[str], None] = print) -> Dict:
+    """The launcher's run: Sector, the corpus as 8 Sector slices, the
+    pipeline, ``steps`` train steps, async checkpoints every
+    ``ckpt_every`` steps with ``daemon.tick()``, the final blocking save
+    (the last step is written once: the JAX launcher also saves it
+    asynchronously when ``ckpt_every`` divides ``steps``, then again).
+    Returns every piece of it (the model, the state, the Sector handles,
+    the checkpointer, the train step) with the losses, the optimizer's
+    metrics and each step's wall seconds (the step ends with reading its
+    loss, which waits for the device)."""
+    dev = resolve_device(device)
+    bundle = build(cfg)
+    root = workdir or tempfile.mkdtemp(prefix="sector_")
+    master, client, daemon = make_sector(root)
+
+    # corpus -> Sector slices
+    toks = synthetic_tokens(batch * (seq + 1) * (steps + 8), cfg.vocab)
+    upload_token_dataset(client, "/corpus/train", toks, num_slices=8)
+    daemon.run_until_stable()
+    pipe = SectorDataPipeline(master, client, "/corpus/train",
+                              batch=batch, seq_len=seq)
+
+    ranks = make_host_mesh(data, model, dev)
+    dp = dp_axes_of(ranks)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    params, opt = init_train_state(bundle, gen, dev)
+    opt_cfg = AdamWConfig(lr=lr, warmup_steps=20, total_steps=steps)
+    step_fn = build_train_step(bundle, opt_cfg, ranks, dp_axes=dp or ("data",))
+
+    ckpt = SectorCheckpointer(client, "/ckpt/run0", num_slices=4)
+    it = iter(pipe)
+    t0 = time.time()
+    step = 0
+    losses, metrics_log, step_s = [], [], []
+    while step < steps:
+        try:
+            b = next(it)
+        except StopIteration:
+            it = iter(pipe)
+            continue
+        t_step = time.perf_counter()
+        b = {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+        params, opt, metrics = step_fn(params, opt, b)
+        step += 1
+        losses.append(float(metrics["loss"]))
+        step_s.append(time.perf_counter() - t_step)
+        metrics_log.append({k: float(v) for k, v in metrics.items()})
+        if step % 10 == 0:
+            log(f"step {step:5d} loss {losses[-1]:.4f} "
+                f"lr {float(metrics['lr']):.2e} "
+                f"({(time.time() - t0) / step:.3f}s/step)")
+        if step % ckpt_every == 0 and step < steps:
+            ckpt.save(step, state_tree(bundle, params, opt), blocking=False)
+            daemon.tick()
+    ckpt.wait()
+    ckpt.save(steps, state_tree(bundle, params, opt))
+    daemon.run_until_stable()
+    return {"model": bundle, "params": params, "opt": opt,
+            "opt_cfg": opt_cfg, "step_fn": step_fn, "ranks": ranks,
+            "master": master, "client": client, "daemon": daemon,
+            "pipe": pipe, "ckpt": ckpt, "root": root, "losses": losses,
+            "metrics": metrics_log, "step_s": step_s}
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="tinyllama_1_1b", choices=list(ARCH_IDS))
+    ap.add_argument("--smoke", action="store_true",
+                    help="use the reduced config (CPU-friendly)")
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--lr", type=float, default=3e-3)
+    ap.add_argument("--ckpt-every", type=int, default=50)
+    ap.add_argument("--data", type=int, default=1, help="data mesh axis")
+    ap.add_argument("--model", type=int, default=1, help="model mesh axis")
+    ap.add_argument("--workdir", default=None)
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: the card)")
+    args = ap.parse_args(argv)
+
+    cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    run = train(cfg, steps=args.steps, batch=args.batch, seq=args.seq,
+                lr=args.lr, ckpt_every=args.ckpt_every, data=args.data,
+                model=args.model, workdir=args.workdir, device=args.device,
+                log=lambda line: print(line, flush=True))
+    losses = run["losses"]
+    print(f"final loss {np.mean(losses[-10:]):.4f} "
+          f"(first10 {np.mean(losses[:10]):.4f}); "
+          f"checkpoints: {run['ckpt'].list_steps()}")
+
+
+if __name__ == "__main__":
+    main()

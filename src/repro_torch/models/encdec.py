@@ -1,13 +1,15 @@
 """Whisper-style encoder-decoder (audio, stub frontend).
 
-Port of ``repro/models/encdec.py`` (``train_loss`` waits for the
-trainer; see ``ROADMAP.md``). Inputs are precomputed frame embeddings
+Port of ``repro/models/encdec.py``. Inputs are precomputed frame embeddings
 ``(B, enc_seq, d_model)``; positions are sinusoidal on both sides, as
 there. Decoder blocks: causal self-attention (cached at decode) +
 cross-attention over the encoder output + MLP. The cross K/V are
 recomputed from ``enc_out`` in every call of :func:`decode_stack`, as the
 JAX package does. The decoder's self-attention caches are layer-stacked
 (``{"k", "v": (L, B, T, KV, hd), "pos": (L, B, T)}``), written in place.
+With gradients on and ``cfg.remat``, every encoder and decoder layer is
+recomputed in the backward (the JAX package's ``jax.checkpoint`` of its
+scan bodies).
 """
 
 from __future__ import annotations
@@ -22,7 +24,9 @@ from repro_torch.models import attention as attn
 from repro_torch.models.layers import (COMPUTE_DTYPE, MLP, Params,
                                        dense_init, embed_lookup, lm_logits,
                                        mlp_apply, padded_vocab, rms_norm,
-                                       sinusoid_at, sinusoid_positions)
+                                       sinusoid_at, sinusoid_positions,
+                                       softmax_xent)
+from repro_torch.models.transformer import remat_call
 
 
 class EncBlock(Params):
@@ -92,13 +96,6 @@ class EncDec(Params):
         self.final_ln.fill_(1.0)
 
 
-def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
-                device=None) -> EncDec:
-    params = EncDec(cfg, device)
-    params.init_weights(generator)
-    return params
-
-
 def _positions(b: int, t: int, device) -> torch.Tensor:
     return torch.arange(t, dtype=torch.int32, device=device).expand(b, t)
 
@@ -111,13 +108,16 @@ def encode(params: EncDec, cfg: ModelConfig, frames) -> torch.Tensor:
         T, cfg.d_model, frames.device).to(COMPUTE_DTYPE)
     pos = _positions(B, T, frames.device)
     for bp in params.enc_blocks:
-        a, _ = attn.attn_apply(bp.attn, rms_norm(x, bp.ln1, cfg.norm_eps),
-                               cfg, pos, causal=False, rope=False)
-        x = x + a
-        f = mlp_apply(bp.mlp, rms_norm(x, bp.ln2, cfg.norm_eps),
-                      cfg.mlp_gated)
-        x = x + f
+        x = remat_call(cfg.remat, _enc_layer, bp, x, cfg, pos)
     return rms_norm(x, params.enc_ln, cfg.norm_eps)
+
+
+def _enc_layer(bp: EncBlock, x, cfg: ModelConfig, pos):
+    a, _ = attn.attn_apply(bp.attn, rms_norm(x, bp.ln1, cfg.norm_eps),
+                           cfg, pos, causal=False, rope=False)
+    x = x + a
+    f = mlp_apply(bp.mlp, rms_norm(x, bp.ln2, cfg.norm_eps), cfg.mlp_gated)
+    return x + f
 
 
 def _cross_kv(bp: DecBlock, cfg: ModelConfig, enc_out):
@@ -143,20 +143,31 @@ def decode_stack(params: EncDec, cfg: ModelConfig, tokens, enc_out,
     for i, bp in enumerate(params.dec_blocks):
         c = ({k: v[i] for k, v in caches.items()} if caches is not None
              else None)
-        a, _ = attn.attn_apply(bp.self_attn, rms_norm(x, bp.ln1, cfg.norm_eps),
-                               cfg, q_pos, cache=c, causal=True, rope=False)
-        x = x + a
-        xa, _ = attn.attn_apply(bp.cross_attn,
-                                rms_norm(x, bp.ln_x, cfg.norm_eps), cfg,
-                                q_pos, cross_kv=_cross_kv(bp, cfg, enc_out),
-                                rope=False)
-        x = x + xa
-        f = mlp_apply(bp.mlp, rms_norm(x, bp.ln2, cfg.norm_eps),
-                      cfg.mlp_gated)
-        x = x + f
+        x = remat_call(cfg.remat, _dec_layer, bp, x, cfg, q_pos, c, enc_out)
     x = rms_norm(x, params.final_ln, cfg.norm_eps)
     logits = lm_logits(params.embed, x, cfg.logit_cap, cfg.vocab)
     return logits, caches
+
+
+def _dec_layer(bp: DecBlock, x, cfg: ModelConfig, q_pos, cache, enc_out):
+    a, _ = attn.attn_apply(bp.self_attn, rms_norm(x, bp.ln1, cfg.norm_eps),
+                           cfg, q_pos, cache=cache, causal=True, rope=False)
+    x = x + a
+    xa, _ = attn.attn_apply(bp.cross_attn, rms_norm(x, bp.ln_x, cfg.norm_eps),
+                            cfg, q_pos, cross_kv=_cross_kv(bp, cfg, enc_out),
+                            rope=False)
+    x = x + xa
+    f = mlp_apply(bp.mlp, rms_norm(x, bp.ln2, cfg.norm_eps), cfg.mlp_gated)
+    return x + f
+
+
+def train_loss(params: EncDec, cfg: ModelConfig, batch: Dict):
+    """Teacher-forced cross-entropy of the decoder over ``frames`` and
+    ``tokens`` against ``labels``. Returns (loss, {"loss": loss})."""
+    enc_out = encode(params, cfg, batch["frames"])
+    logits, _ = decode_stack(params, cfg, batch["tokens"], enc_out)
+    loss = softmax_xent(logits, batch["labels"], batch.get("loss_mask"))
+    return loss, {"loss": loss}
 
 
 def init_caches(cfg: ModelConfig, batch: int, max_len: int,

@@ -1,10 +1,14 @@
 """Shared building blocks: norms, RoPE, MLPs, embeddings, init helpers.
 
-Port of ``repro/models/layers.py``. Matrix weights are stored in
-bfloat16, the dtype every product of the JAX package casts them to first
-(``.astype(COMPUTE_DTYPE)``), so storing them so changes no result and
-halves their memory; norms stay float32. Products run in bfloat16 with
-bfloat16 results, norms and softmax accumulation in float32, as there.
+Port of ``repro/models/layers.py``. For serving, matrix weights are
+stored in bfloat16, the dtype every product of the JAX package casts them
+to first (``.astype(COMPUTE_DTYPE)``), so storing them so changes no
+result and halves their memory; norms stay float32. For training
+(:meth:`Params.trainable`) every parameter is float32 and takes a
+gradient, as the JAX package's ``init`` draws them; the products cast
+them to bfloat16 all the same, so the forward gives the same bits either
+way. Products run in bfloat16 with bfloat16 results, norms and softmax
+accumulation in float32, as there.
 
 Parameters live in :class:`Params` modules under the JAX package's names
 (``w_up``, ``w_down``, ...), so a weight carries across name for name;
@@ -24,8 +28,8 @@ COMPUTE_DTYPE = torch.bfloat16
 
 class Params(nn.Module):
     """A module whose parameters are read by name, ``p["w_up"]``, like
-    the JAX package's parameter dicts. Parameters hold no gradient: the
-    port runs inference only."""
+    the JAX package's parameter dicts. Built for serving, its parameters
+    take no gradient; :meth:`trainable` gives the training form."""
 
     def __getitem__(self, name: str) -> torch.Tensor:
         return getattr(self, name)
@@ -38,6 +42,18 @@ class Params(nn.Module):
         self.register_parameter(name, nn.Parameter(
             torch.empty(shape, dtype=dtype, device=device),
             requires_grad=False))
+
+    def trainable(self) -> "Params":
+        """The training form, in place: every parameter float32 with
+        ``requires_grad`` (the values carried over exactly; draw or load
+        the weights after this call, so that nothing is rounded to
+        bfloat16 first)."""
+        for mod in self.modules():
+            for name, p in list(mod._parameters.items()):
+                if p is not None:
+                    mod._parameters[name] = nn.Parameter(
+                        p.detach().to(torch.float32), requires_grad=True)
+        return self
 
 
 @torch.no_grad()

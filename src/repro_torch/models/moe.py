@@ -263,7 +263,9 @@ def moe_apply_dense(params, x: torch.Tensor, cfg: ModelConfig):
     """Switch-style capacity dispatch, no ranks. The JAX package builds it
     from one-hot einsums; here the same slots are indexed directly: each
     (token, choice) takes position ``pos`` in its expert, counted in
-    token-major order, and is kept while ``pos < cap``."""
+    token-major order, and is kept while ``pos < cap``. The slots hold
+    float32, as the JAX package's einsums do, so that the backward sums a
+    token's k gradients in float32 before its one rounding to bfloat16."""
     b, s, d = x.shape
     n = b * s
     x_flat = x.reshape(n, d)
@@ -278,8 +280,9 @@ def moe_apply_dense(params, x: torch.Tensor, cfg: ModelConfig):
     pos = (torch.cumsum(oh, dim=0) - 1).gather(1, ids[:, None])[:, 0]
     keep = pos < cap
     slot = torch.where(keep, ids * cap + pos, e_pad * cap)   # overflow slot
-    xe = torch.zeros((e_pad * cap + 1, d), dtype=x.dtype, device=x.device)
-    xe[slot] = torch.repeat_interleave(x_flat, k, dim=0)
+    xe = torch.zeros((e_pad * cap + 1, d), dtype=torch.float32,
+                     device=x.device)
+    xe[slot] = torch.repeat_interleave(x_flat.float(), k, dim=0)
     ye = _expert_ffn(params["w_gate"], params["w_up"], params["w_down"],
                      xe[:-1].reshape(e_pad, cap, d))
     ye = torch.cat([ye.reshape(e_pad * cap, d),

@@ -177,12 +177,25 @@ def _ssd_step(x, Bv, Cv, dt, A, d_skip, state):
     return y.to(COMPUTE_DTYPE), state
 
 
+def _intra_decay(w, upper, cb, dt):
+    """``where(upper, 0, exp(w)) * cb * dt``, the chunk's decay weights.
+    Without gradients (serving) in ``w``'s own buffer, so that no second
+    (B,C,Q,Q,H) float32 buffer exists; with gradients out of place, since
+    autograd keeps ``exp``'s output for the backward. Both round every op
+    alike, so they give the same bits."""
+    if not torch.is_grad_enabled():
+        w.exp_()
+        w.masked_fill_(upper, 0.0)
+        return w.mul_(cb).mul_(dt)
+    return torch.exp(w).masked_fill(upper, 0.0) * cb * dt
+
+
 def _ssd_chunked(xs, Bs, Cs, dt, A, d_skip, Q: int, init_state=None):
     """Chunked SSD (Mamba2). xs: (B,L,H,P); Bs/Cs: (B,L,N); dt: (B,L,H).
     ``L`` is padded to a multiple of ``Q``; the loop over chunks carries
     the state, each chunk reading the state *before* it. Returns (y
     (B,L,H,P), final_state (B,H,P,N)). The (B,C,Q,Q,H) float32 decay is
-    built in one buffer (exp, mask and the two weights in place)."""
+    built by :func:`_intra_decay`."""
     B, L, H, Pdim = xs.shape
     N = Bs.shape[-1]
     pad = (-L) % Q
@@ -202,11 +215,10 @@ def _ssd_chunked(xs, Bs, Cs, dt, A, d_skip, Q: int, init_state=None):
     cum_a = torch.cumsum(a, dim=2)
     # intra-chunk: decay[t,s] = exp(cum_a[t] - cum_a[s]) for t >= s
     w = cum_a[:, :, :, None, :] - cum_a[:, :, None, :, :]     # (B,C,Q,Q,H)
-    w.exp_()
     tri = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=xs.device))
-    w.masked_fill_(~tri[None, None, :, :, None], 0.0)
     cb = torch.einsum("bctn,bcsn->bcts", Cs_c, Bs_c)          # (B,C,Q,Q)
-    w.mul_(cb[..., None]).mul_(dt_c[:, :, None, :, :])
+    w = _intra_decay(w, ~tri[None, None, :, :, None], cb[..., None],
+                     dt_c[:, :, None, :, :])
     del cb
     y = torch.einsum("bctsh,bcshp->bcthp", w, xs_c)
     del w

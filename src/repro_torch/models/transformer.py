@@ -1,16 +1,19 @@
 """Decoder-only LM assembly: block patterns, the layer loop, caches.
 
-Port of ``repro/models/transformer.py`` (``train_loss`` waits for the
-trainer; see ``ROADMAP.md``). A *block pattern* maps each layer to a
+Port of ``repro/models/transformer.py``. A *block pattern* maps each layer to a
 kind: ``dense`` / ``moe`` (attention, GQA/SWA/MLA, + MLP or MoE),
 ``mamba`` (Mamba2, zamba2), ``mlstm`` / ``slstm`` (xLSTM), and
 ``shared_attn``, zamba2's weight-shared attention block, stored once and
 applied before every ``attn_every``-th layer. The ``vlm`` family puts
 projected image embeddings (``img_proj``) in front of the text.
 
-The JAX package scans homogeneous stacks over stacked parameters, with
-``remat``; at inference neither has a meaning here, so :func:`forward` is
-a loop over :class:`Block` modules. The caches keep the JAX package's
+The JAX package scans homogeneous stacks over stacked parameters;
+:func:`forward` is a loop over :class:`Block` modules. With gradients on
+and ``cfg.remat`` (the JAX package's ``jax.checkpoint`` of every layer),
+each block runs under ``torch.utils.checkpoint`` and is recomputed in the
+backward (a MoE layer on a rank grid runs its shuffle and K1 again
+there); its aux values are outputs, so the recompute counts nothing
+twice. The caches keep the JAX package's
 layouts: a homogeneous stack's are layer-stacked (``{"k", "v": (L, B, T,
 KV, hd), "pos": (L, B, T)}``, or MLA's latents), each layer reading and
 writing its own slice in place; a heterogeneous stack's are a **list** of
@@ -20,10 +23,11 @@ appended in application order.
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional, Sequence
+from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.comm import Ranks
 from repro_torch.configs.base import ModelConfig
@@ -32,7 +36,7 @@ from repro_torch.models import ssm
 from repro_torch.models.layers import (COMPUTE_DTYPE, MLP, Params,
                                        dense_init, embed_lookup, lm_logits,
                                        mlp_apply, padded_vocab, rms_norm,
-                                       round_scalar)
+                                       round_scalar, softmax_xent)
 from repro_torch.models.moe import MoE, moe_apply
 
 ATTN_KINDS = ("dense", "moe", "shared_attn")
@@ -182,11 +186,13 @@ class DecoderLM(Params):
             dense_init(self.img_proj, generator)
 
 
-def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
-                device=None) -> DecoderLM:
-    params = DecoderLM(cfg, device)
-    params.init_weights(generator)
-    return params
+def remat_call(remat: bool, fn: Callable, *args):
+    """``fn(*args)``, under ``torch.utils.checkpoint`` (non-reentrant)
+    when ``remat`` is set and gradients are on: its activations are
+    recomputed in the backward instead of kept."""
+    if remat and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
 
 
 def forward(params: DecoderLM, cfg: ModelConfig, x, q_pos,
@@ -204,7 +210,8 @@ def forward(params: DecoderLM, cfg: ModelConfig, x, q_pos,
         for i, block in enumerate(params.blocks):
             c = ({k: v[i] for k, v in caches.items()} if caches is not None
                  else None)
-            x, _, aux = _attn_block(block, x, cfg, q_pos, c, ranks, dp_axes)
+            x, _, aux = remat_call(cfg.remat, _attn_block, block, x, cfg,
+                                   q_pos, c, ranks, dp_axes)
             if aux:
                 auxs.append(aux)
         if auxs:
@@ -222,11 +229,12 @@ def forward(params: DecoderLM, cfg: ModelConfig, x, q_pos,
             c = (caches[cfg.num_layers + n_shared] if caches is not None
                  else None)
             n_shared += 1
-            x, _, _ = apply_block(params.shared_attn, x, cfg, "shared_attn",
-                                  q_pos, c, ranks, dp_axes)
+            x, _, _ = remat_call(cfg.remat, apply_block, params.shared_attn,
+                                 x, cfg, "shared_attn", q_pos, c, ranks,
+                                 dp_axes)
         c = caches[i] if caches is not None else None
-        x, _, aux = apply_block(block, x, cfg, block.kind, q_pos, c, ranks,
-                                dp_axes)
+        x, _, aux = remat_call(cfg.remat, apply_block, block, x, cfg,
+                               block.kind, q_pos, c, ranks, dp_axes)
         for k, v in aux.items():
             aux_total[k] = aux_total.get(k, 0.0) + v
     return x, caches, aux_total
@@ -290,3 +298,21 @@ def lm_forward(params: DecoderLM, cfg: ModelConfig, tokens, q_pos=None,
     x = rms_norm(x, params.final_ln, cfg.norm_eps)
     logits = lm_logits(params.embed, x, cfg.logit_cap, cfg.vocab)
     return logits, new_caches, aux
+
+
+def train_loss(params: DecoderLM, cfg: ModelConfig, batch: Dict,
+               ranks: Optional[Ranks] = None,
+               dp_axes: Sequence[str] = ("data",), aux_weight: float = 0.01):
+    """Mean next-token cross-entropy over ``batch["labels"]`` (masked by
+    ``loss_mask`` if given; the ``vlm`` family on its text positions
+    only), plus ``aux_weight`` times the MoE load-balance loss. Returns
+    (loss, metrics: the aux values and the loss)."""
+    img = batch.get("img_embeds")
+    logits, _, aux = lm_forward(params, cfg, batch["tokens"], ranks=ranks,
+                                dp_axes=dp_axes, img_embeds=img)
+    if cfg.family == "vlm" and img is not None:
+        logits = logits[:, img.shape[1]:]           # loss on text positions
+    loss = softmax_xent(logits, batch["labels"], batch.get("loss_mask"))
+    if "moe_aux" in aux:
+        loss = loss + aux_weight * aux["moe_aux"]
+    return loss, dict(aux, loss=loss)

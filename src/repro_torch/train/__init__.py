@@ -1,3 +1,3 @@
-"""Training substrate of the port: for now only elastic re-ranking
-(:mod:`repro_torch.train.elastic`); the optimizer, the trainer and
-Sector-backed checkpoints follow with the port of ``models/``."""
+"""Training substrate of the port: AdamW (``optimizer``), the train step
+(``trainer``), Sector-backed checkpoints (``checkpoint``) and elastic
+re-ranking (``elastic``)."""

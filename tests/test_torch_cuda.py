@@ -1079,3 +1079,109 @@ def test_model_init_without_a_card_raises(monkeypatch):
         model.init()
     with pytest.raises(RuntimeError, match="is_available"):
         model.init_caches(2, 8)
+
+
+# -- training (phase 14's paths at smoke size) ---------------------------------
+
+
+def _train_state(dev, arch="tinyllama_1_1b", **replace):
+    """A smoke model's training form drawn on the CPU from seed 0 and put
+    on ``dev`` (the same weights on both), its AdamW state, the model."""
+    import dataclasses
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import build
+    from repro_torch.models.convert import named_leaves
+    from repro_torch.train.optimizer import init_opt_state
+    cfg = dataclasses.replace(get_smoke_config(arch), **replace)
+    model = build(cfg)
+    params = model.init(torch.Generator().manual_seed(0), "cpu",
+                        dtype=torch.float32).to(dev)
+    return model, params, init_opt_state(named_leaves(params, cfg))
+
+
+def _train_batch(vocab, shape=(4, 32), seed=1):
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(0, vocab, (shape[0], shape[1] + 1)).astype(np.int32)
+    return {"tokens": torch.from_numpy(toks[:, :-1].copy()),
+            "labels": torch.from_numpy(toks[:, 1:].copy())}
+
+
+def test_smoke_train_step_on_the_card_equals_the_cpu(card):
+    """One train step of smoke TinyLlama on the card and on the CPU from
+    the same state and batch: the loss within CARD_LOGITS_TOL, every
+    parameter within 2 lr (AdamW's first step moves a weight by
+    ``lr * sign(g)``; a gradient that rounds to the other sign moves it by
+    2 lr) and 99% of them equal to 1e-6."""
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.trainer import build_train_step
+    opt_cfg = AdamWConfig(lr=1e-3, warmup_steps=0, total_steps=10)
+    out = []
+    for dev in (card, torch.device("cpu")):
+        model, params, opt = _train_state(dev)
+        step = build_train_step(model, opt_cfg)
+        batch = {k: v.to(dev) for k, v in
+                 _train_batch(model.cfg.vocab).items()}
+        _, opt, metrics = step(params, opt, batch)
+        out.append((float(metrics["loss"]),
+                    {n: p.detach().cpu() for n, p in
+                     params.named_parameters()}))
+    (loss_card, p_card), (loss_cpu, p_cpu) = out
+    assert abs(loss_card - loss_cpu) <= CARD_LOGITS_TOL
+    diffs = torch.cat([(p_card[n] - p_cpu[n]).abs().flatten()
+                       for n in p_cpu])
+    assert float(diffs.max()) <= 2 * opt_cfg.lr * 1.0001
+    assert float((diffs <= 1e-6).float().mean()) >= 0.99
+
+
+def test_grid_train_step_on_the_card_runs_k1_four_times_a_layer(card):
+    """qwen2-moe smoke (16 experts) on the card's ``(2, 4)`` grid: the
+    remat recompute runs each MoE layer's send pack and regroup again, so
+    K1 launches 4 times a layer; the routed experts get no gradient; the
+    loss within CARD_LOGITS_TOL of the CPU run."""
+    from repro_torch.train.trainer import loss_and_grads
+    out = []
+    for dev in (card, torch.device("cpu")):
+        model, params, _ = _train_state(dev, "qwen2_moe_a2_7b",
+                                        num_experts=16)
+        rk = Ranks(shape=(2, 4), axes=("data", "model"), device=dev)
+        batch = {k: v.to(dev) for k, v in
+                 _train_batch(model.cfg.vocab, (4, 16)).items()}
+        before = partition.KERNEL.launches
+        loss, _, grads = loss_and_grads(model, params, batch, rk)
+        out.append((float(loss), partition.KERNEL.launches - before,
+                    grads))
+    (loss_card, k1, grads), (loss_cpu, k1_cpu, _) = out
+    assert k1 == 4 * model.cfg.num_layers and k1_cpu == 0
+    assert abs(loss_card - loss_cpu) <= CARD_LOGITS_TOL
+    for name, g in grads.items():
+        routed = name.split(".")[-1] in ("w_gate", "w_up", "w_down")
+        assert (g is None) == routed, name
+
+
+def test_checkpoint_roundtrip_from_the_card(card, tmp_path):
+    """A train state on the card saved to Sector and restored onto the
+    card: equal to the bit; its slices are the same bytes as the same
+    state's saved from the CPU."""
+    from repro_torch.launch.train import make_sector
+    from repro_torch.models.convert import flatten
+    from repro_torch.train.checkpoint import SectorCheckpointer
+    from repro_torch.train.trainer import state_tree
+    _, client, _ = make_sector(str(tmp_path))
+    md5s = []
+    for dev, prefix in ((card, "/ck/card"), (torch.device("cpu"), "/ck/cpu")):
+        model, params, opt = _train_state(dev)
+        tree = state_tree(model, params, opt)
+        ck = SectorCheckpointer(client, prefix, num_slices=3)
+        ck.save(4, tree, blocking=dev.type == "cpu")
+        ck.wait()
+        md5s.append([fm.md5 for fm in sorted(client.ls(prefix + "/"),
+                                             key=lambda fm: fm.path)
+                     if "slice" in fm.path])
+        if dev.type == "cuda":
+            back, step = ck.restore(tree, device=dev)
+            assert step == 4
+            for a, b in zip(flatten(tree["params"]).values(),
+                            flatten(back["params"]).values()):
+                assert b.device.type == "cuda" and torch.equal(a, b)
+            assert torch.equal(back["opt"]["step"], opt["step"])
+    assert md5s[0] == md5s[1] and len(md5s[0]) == 3

@@ -58,7 +58,10 @@ def test_port_file_list_covers_the_slice():
                  "models/layers.py", "models/attention.py", "models/moe.py",
                  "models/transformer.py", "models/registry.py",
                  "models/convert.py", "serve/engine.py", "launch/serve.py",
-                 "models/ssm.py", "models/encdec.py"):
+                 "models/ssm.py", "models/encdec.py", "train/optimizer.py",
+                 "train/trainer.py", "train/checkpoint.py",
+                 "data/synthetic.py", "data/pipeline.py", "data/__init__.py",
+                 "launch/mesh.py"):
         assert want in names
     csrc = ROOT / "src" / "repro_torch" / "kernels" / "csrc"
     assert (csrc / "bucket_hist.cu").exists()
