@@ -194,6 +194,28 @@ Phases, in order (any failure ends the script with a non-zero exit):
     dispatch (no grid) gives every expert a gradient. Prints step wall,
     tokens/s, peak memory and ``moe_dropped``. Phase 3 holds K1 at this
     path's shapes (phase 12's).
+15. ``ranks``: phases 5, 6, 7 and one MoE layer of phase 12's model as 8
+    processes on the card (``repro_torch.comm.spawn_ranks``, one
+    ``ProcessRanks`` each, ``backend="gloo"`` over CUDA tensors: NCCL
+    takes one card a rank). Phase 5 wrote its records, phase 7 its words
+    and phase 5 its sorted keys once to ``/dev/shm`` as ``.npy``; each
+    process reads its rows. First the stacked backend reruns the four
+    paths on those inputs (cold counts, warm wall). Then the processes
+    run: the flat and the ``(dc, node)`` sort of the 2^25 records (K1,
+    K3), the wordcount (K1, K2) and one Qwen1.5-MoE-A2.7B layer at its
+    published width (60 experts padded to 64, top-4, capacity factor
+    1.25) on 8 x 1024 tokens over ``(1, 8)``, each process holding the 8
+    experts its spec gives it (K1 twice). Checks: the sorted keys equal
+    phase 5's, every record delivered once beside its value; the word
+    counts equal ``np.bincount``; each process's K1/K3/K2 launches and
+    collective counts equal the stacked run's; the MoE routing, the
+    per-expert counts and the drops exact, ``moe_aux`` within 1e-6
+    relative, the output within one bfloat16 ulp of its largest value.
+    A one-rank NCCL group runs the collectives against ``Ranks(1)``.
+    Prints each path's cold and warm wall against the stacked one's,
+    each collective's host seconds and the bytes each process hands to
+    gloo per hop, and each process's peak memory. A process that raises
+    or outlasts its limit fails the phase.
 
 Each path's launch counts are read from zero: every count is reset just
 before the path runs and read just after. The last lines are the
@@ -205,9 +227,11 @@ the JAX package.
 from __future__ import annotations
 
 import argparse
+import atexit
 import gc
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -262,6 +286,15 @@ TRAIN_ARCH = "tinyllama_1_1b"
 TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_CKPT_EVERY = 16, 8, 2048, 8
 TRAIN_LR = 3e-3
 MOE_TRAIN_LAYERS, MOE_TRAIN_STEPS = 2, 3
+#: phase 15: the 8 processes' time limit, and the MoE layer's bound
+#: against the stacked one: one bfloat16 ulp of the output's largest value
+RANKS_TIMEOUT_S = 600
+MOE_RANKS_TOL = 2.0 ** -7
+#: phase 15's paths in the kernel table
+RANKED_PATHS = (("flat", "dataflow sort, flat"),
+                ("grid", "dataflow sort, (dc, node)"),
+                ("wordcount", "wordcount"),
+                ("moe", "one Qwen1.5-MoE-A2.7B layer on (1, 8)"))
 
 
 def log(*parts) -> None:
@@ -3417,6 +3450,460 @@ def train_path(torch, dev, seed: int, profile_dir=None) -> dict:
     return out
 
 
+# -- phase 15: the paths as 8 processes, one rank each, through gloo ------------
+
+
+def ranks_dir() -> str:
+    """Phase 15's directory of ``.npy`` inputs and outputs: on
+    ``/dev/shm`` (a RAM file system) when there is one."""
+    import tempfile
+    base = "/dev/shm" if os.path.isdir("/dev/shm") else None
+    return tempfile.mkdtemp(prefix="chip_smoke_ranks_", dir=base)
+
+
+def save_npy(directory: str, name: str, t) -> None:
+    """``t`` (a tensor or numpy array) as ``directory/name.npy``, once."""
+    import numpy as np
+    a = t.cpu().numpy() if hasattr(t, "cpu") else np.asarray(t)
+    np.save(os.path.join(directory, name + ".npy"), a)
+
+
+def load_tensor(torch, directory: str, name: str, dev):
+    """``directory/name.npy`` on ``dev``."""
+    import numpy as np
+    return torch.from_numpy(np.array(load_npy(directory, name))).to(dev)
+
+
+def load_npy(directory: str, name: str):
+    """A read-only memmap of ``directory/name.npy`` (``np.array`` it for a
+    writable copy)."""
+    import numpy as np
+    return np.load(os.path.join(directory, name + ".npy"), mmap_mode="r")
+
+
+def comm_summary(log) -> dict:
+    """A rank's collective log (``ProcessRanks.log``) by op: calls, host
+    seconds and bytes, and each call as a hop."""
+    out = {}
+    for e in log:
+        s = out.setdefault(e["op"], {"calls": 0, "seconds": 0.0, "bytes": 0,
+                                     "hops": []})
+        s["calls"] += 1
+        s["seconds"] += e["seconds"]
+        s["bytes"] += e["bytes"]
+        s["hops"].append({"axes": e["axes"], "bytes": e["bytes"],
+                          "seconds": e["seconds"]})
+    return out
+
+
+def timed_rank_run(torch, ranks, run):
+    """``run()`` once from a barrier to this rank's synchronised end, its
+    kernel launches and collectives counted from zero and its collectives
+    logged; then once more, the warm wall, with no log. Returns (result of
+    the first run, stats)."""
+    import torch.distributed as dist
+    ranks.collectives.clear()
+    reset_launches()
+    ranks.log = []
+    dist.barrier()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = run()
+    torch.cuda.synchronize()
+    cold = time.perf_counter() - t0
+    stats = {"cold_ms": cold * 1e3, "launches": read_launches(),
+             "collectives": dict(ranks.collectives),
+             "comm": comm_summary(ranks.log)}
+    ranks.log = None
+    return res, stats
+
+
+def warm_rank_ms(torch, run) -> float:
+    import torch.distributed as dist
+    dist.barrier()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = run()
+    torch.cuda.synchronize()
+    del res
+    return (time.perf_counter() - t0) * 1e3
+
+
+def rank_sort(torch, ranks, keys, value, directory: str, tag: str) -> dict:
+    """Phase 5's (or, on the ``(dc, node)`` grid, phase 6's) sort in one
+    process: its valid rows written to ``directory`` for the parent."""
+    from repro_torch.sphere.dataflow import Dataflow, SPMDExecutor
+    df = Dataflow.source().sort(key=lambda r: r["key"], num_buckets=WORLD,
+                                capacity_factor=2.0)
+    ex = SPMDExecutor(ranks, sort_algo="bitonic")
+    recs = {"key": ranks.stack(keys), "value": ranks.stack(value)}
+    res, stats = timed_rank_run(torch, ranks, lambda: ex.run(df, recs))
+    valid = res.valid[0]
+    save_npy(directory, f"{tag}_key_{ranks.rank}", res.records["key"][0][valid])
+    save_npy(directory, f"{tag}_value_{ranks.rank}",
+             res.records["value"][0][valid])
+    stats["dropped"] = int(res.dropped)
+    del res, valid
+    stats["warm_ms"] = warm_rank_ms(torch, lambda: ex.run(df, recs))
+    return stats
+
+
+def rank_wordcount(torch, ranks, words) -> dict:
+    """Phase 7's wordcount in one process; its (word, count) rows."""
+    from repro_torch.core.mapreduce import default_hash
+    from repro_torch.sphere.dataflow import Dataflow, SPMDExecutor
+    df = (Dataflow.source().map(wordcount_emit)
+          .shuffle(by=lambda r: default_hash(r["key"], WORLD),
+                   num_buckets=WORLD)
+          .reduce(wordcount_count))
+    ex = SPMDExecutor(ranks)
+    recs = {"word": ranks.stack(words.reshape(WORLD, -1))}
+    res, stats = timed_rank_run(torch, ranks, lambda: ex.run(df, recs))
+    valid = res.valid[0]
+    stats["keys"] = res.records["key"][0][valid].cpu().numpy()
+    stats["counts"] = res.records["value"][0][valid].cpu().numpy()
+    stats["dropped"] = int(res.dropped)
+    del res, valid
+    stats["warm_ms"] = warm_rank_ms(torch, lambda: ex.run(df, recs))
+    return stats
+
+
+def moe_layer_inputs(torch, dev, seed: int):
+    """One MoE layer of phase 12's model at its published config: its
+    weights drawn from ``seed`` on ``dev``, and 8 x 1024 tokens."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    cfg = get_config(SERVE_ARCH)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    layer = moe.MoE(cfg, device=dev)
+    layer.init_weights(gen)
+    x = torch.randn((PREFILL_PROMPTS, PREFILL_LEN, cfg.d_model),
+                    generator=gen, device=dev).to(torch.bfloat16)
+    return cfg, layer, x
+
+
+def rank_moe(torch, ranks, seed: int) -> dict:
+    """One Qwen1.5-MoE-A2.7B layer on ``(1, 8)`` in one process: the
+    process keeps its 8 experts, cut by their spec, and returns its block
+    of the output, its routing and per-expert counts."""
+    from repro_torch.models import moe
+    cfg, layer, x = moe_layer_inputs(torch, ranks.device, seed)
+    full = dict(layer.named_parameters())
+    params = moe.local_params(full, layer.specs, ranks)
+    params = {k: v.clone() for k, v in params.items()}  # own the shard only
+    del layer, full
+    torch.cuda.empty_cache()
+
+    def run():
+        with torch.no_grad():
+            return moe.moe_apply_sphere(params, x, cfg, ranks, ("data",))
+    (out, metrics), stats = timed_rank_run(torch, ranks, run)
+    block = moe.token_block(x, *ranks.shape, ranks.rank)
+    with torch.no_grad():
+        top_i, _, _ = moe._route(params, block.reshape(-1, cfg.d_model), cfg)
+    stats.update({
+        "out": out.cpu(), "aux": float(metrics["moe_aux"]),
+        "dropped": int(metrics["moe_dropped"]), "top_i": top_i.cpu(),
+        "experts_held": int(params["w_gate"].shape[0]),
+        "expert_bytes": sum(params[k].numel() * params[k].element_size()
+                            for k in ("w_gate", "w_up", "w_down"))})
+    del out
+    stats["warm_ms"] = warm_rank_ms(torch, run)
+    return stats
+
+
+def rank_paths(ranks, directory: str, seed: int) -> dict:
+    """Phase 15 in one of the 8 processes (``ranks``: its ``(8,)`` grid;
+    the ``(dc, node)`` and ``(data, model)`` grids are built over the same
+    process group)."""
+    import torch
+    from repro_torch.comm import ProcessRanks
+    dev = ranks.device
+    torch.cuda.reset_peak_memory_stats(dev)
+    out = {"rank": ranks.rank, "device": str(dev)}
+    keys, value = load_npy(directory, "keys"), load_npy(directory, "value")
+    out["flat"] = rank_sort(torch, ranks, keys, value, directory, "flat")
+    grid = ProcessRanks(GRID, ("dc", "node"), device=dev)
+    out["grid"] = rank_sort(torch, grid, keys, value, directory, "grid")
+    torch.cuda.empty_cache()
+    out["wordcount"] = rank_wordcount(torch, ranks,
+                                      load_npy(directory, "words"))
+    torch.cuda.empty_cache()
+    moe_grid = ProcessRanks(SERVE_GRID, ("data", "model"), device=dev)
+    out["moe"] = rank_moe(torch, moe_grid, seed)
+    out["peak_mem_bytes"] = torch.cuda.max_memory_allocated(dev)
+    return out
+
+
+def stacked_warm(torch, ex, df, records):
+    """Cold run (launches and collectives from zero), then the warm wall,
+    on stacked ranks."""
+    ex.ranks.collectives.clear()
+    res, run = run_path(torch, ex, df, records)
+    run["collectives"] = dict(ex.ranks.collectives)
+    del res
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = ex.run(df, records)
+    torch.cuda.synchronize()
+    run["warm_wall_ms"] = (time.perf_counter() - t0) * 1e3
+    del res
+    return run
+
+
+def stacked_references(torch, dev, directory: str, seed: int) -> dict:
+    """The stacked backend's runs of phase 15's four paths on the same
+    inputs, read back from ``directory``: cold counts and warm walls, and
+    the MoE layer's output, routing, aux and drops."""
+    from repro_torch.comm import Ranks
+    from repro_torch.core.mapreduce import default_hash
+    from repro_torch.models import moe
+    from repro_torch.sphere.dataflow import Dataflow, SPMDExecutor
+    out = {}
+    keys = load_tensor(torch, directory, "keys", dev)
+    value = load_tensor(torch, directory, "value", dev)
+    df = Dataflow.source().sort(key=lambda r: r["key"], num_buckets=WORLD,
+                                capacity_factor=2.0)
+    for tag, ranks in (("flat", Ranks(WORLD)),
+                       ("grid", Ranks(shape=GRID, axes=("dc", "node")))):
+        out[tag] = stacked_warm(torch, SPMDExecutor(ranks,
+                                                    sort_algo="bitonic"),
+                                df, {"key": keys, "value": value})
+        torch.cuda.empty_cache()
+    del keys, value
+    words = load_tensor(torch, directory, "words", dev).reshape(WORLD, -1)
+    wc = (Dataflow.source().map(wordcount_emit)
+          .shuffle(by=lambda r: default_hash(r["key"], WORLD),
+                   num_buckets=WORLD)
+          .reduce(wordcount_count))
+    out["wordcount"] = stacked_warm(torch, SPMDExecutor(Ranks(WORLD)), wc,
+                                    {"word": words})
+    del words
+    torch.cuda.empty_cache()
+    cfg, layer, x = moe_layer_inputs(torch, dev, seed)
+    params = dict(layer.named_parameters())
+    grid = Ranks(shape=SERVE_GRID, axes=("data", "model"))
+
+    def run():
+        with torch.no_grad():
+            return moe.moe_apply_sphere(params, x, cfg, grid, ("data",))
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    o, m = run()
+    torch.cuda.synchronize()
+    cold = (time.perf_counter() - t0) * 1e3
+    launches = read_launches()
+    collectives = dict(grid.collectives)
+    with torch.no_grad():
+        top_i, _, _ = moe._route(params, x.reshape(-1, cfg.d_model), cfg)
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    out["moe"] = {"wall_ms": cold, "warm_wall_ms":
+                  (time.perf_counter() - t0) * 1e3, "launches": launches,
+                  "collectives": collectives, "out": o.cpu(),
+                  "aux": float(m["moe_aux"]), "dropped": int(m["moe_dropped"]),
+                  "top_i": top_i.cpu(), "e_pad": params["w_gate"].shape[0],
+                  "capacity_factor": cfg.capacity_factor}
+    del layer, params, x, o
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_rank_sort(torch, dev, directory: str, tag: str, want_keys,
+                    what: str) -> None:
+    """The processes' valid rows, in rank order: the keys of phase 5 in
+    order, and every input record once, its value beside its key."""
+    import types
+    import numpy as np
+    k = torch.from_numpy(np.concatenate(
+        [load_npy(directory, f"{tag}_key_{r}") for r in range(WORLD)])).to(dev)
+    v = torch.from_numpy(np.concatenate(
+        [load_npy(directory, f"{tag}_value_{r}") for r in range(WORLD)])).to(dev)
+    if not torch.equal(k, want_keys):
+        raise AssertionError(f"{what}: sorted keys differ from phase 5's")
+    keys = load_tensor(torch, directory, "keys", dev)
+    value = load_tensor(torch, directory, "value", dev)
+    res = types.SimpleNamespace(
+        records={"key": k[None], "value": v[None]},
+        valid=torch.ones((1, k.numel()), dtype=torch.bool, device=dev),
+        dropped=torch.zeros((), dtype=torch.int32))
+    check_sorted_permutation(torch, res, keys, value, what)
+
+
+def per_rank_equal(results, path: str, field: str, want, what: str):
+    got = [r[path][field] for r in results]
+    if any(g != want for g in got):
+        raise AssertionError(f"{what}: {field} per process {got}, stacked "
+                             f"{want}")
+
+
+def nccl_world_one(torch) -> dict:
+    """The collectives over a one-rank NCCL group in this process, against
+    ``Ranks(1)`` on the card: the NCCL code path, launched once."""
+    import datetime
+    import torch.distributed as dist
+    from repro_torch.comm import ProcessRanks, Ranks, free_port
+    dist.init_process_group(
+        "nccl", init_method=f"tcp://127.0.0.1:{free_port()}", rank=0,
+        world_size=1, timeout=datetime.timedelta(seconds=120))
+    try:
+        pr = ProcessRanks((1,), ("data",), backend="nccl")
+        st = Ranks(1)
+        x = torch.arange(12, dtype=torch.float32, device="cuda").reshape(
+            1, 1, 12)
+        for name, fn in (("all_to_all", lambda r: r.all_to_all(x)),
+                         ("psum", lambda r: r.psum(x)),
+                         ("all_gather", lambda r: r.all_gather(x)),
+                         ("axis_index", lambda r: r.axis_index())):
+            if not torch.equal(fn(pr), fn(st)):
+                raise AssertionError(f"nccl {name} differs from Ranks(1)")
+        if dict(pr.collectives) != dict(st.collectives):
+            raise AssertionError("nccl collective counts differ")
+        return {"backend": pr.backend, "device": str(pr.device),
+                "collectives": dict(pr.collectives)}
+    finally:
+        dist.destroy_process_group()
+
+
+def ranks_path(torch, dev, directory: str, seed: int, flat_sorted) -> dict:
+    """Phase 15 (see the module docstring): the stacked runs first, then
+    the 8 processes, then the checks."""
+    import numpy as np
+    from repro_torch.comm import spawn_ranks
+
+    t_phase = time.perf_counter()
+    ref = stacked_references(torch, dev, directory, seed)
+    t0 = time.perf_counter()
+    results = spawn_ranks(rank_paths, (WORLD,), ("data",), backend="gloo",
+                          timeout_s=RANKS_TIMEOUT_S, args=(directory, seed))
+    spawn_s = time.perf_counter() - t0
+    out = {"phase": "ranks", "processes": WORLD, "backend": "gloo",
+           "transport": "gloo over CUDA tensors, staged through host "
+                        "memory inside gloo (8 processes share one card; "
+                        "NCCL takes one card a rank)",
+           "device": nvidia_smi_line(), "spawn_s": spawn_s,
+           "peak_mem_bytes_by_process":
+               [r["peak_mem_bytes"] for r in results], "paths": {}}
+    for tag, what in (("flat", "flat sort, 8 processes"),
+                      ("grid", "(dc, node) sort, 8 processes")):
+        check_rank_sort(torch, dev, directory, tag, flat_sorted, what)
+        for field in ("launches", "collectives"):
+            per_rank_equal(results, tag, field, ref[tag][field], what)
+        if any(r[tag]["dropped"] for r in results):
+            raise AssertionError(f"{what} dropped records")
+    torch.cuda.empty_cache()
+    words = load_npy(directory, "words")
+    check_word_counts(np.asarray(words),
+                      np.concatenate([r["wordcount"]["keys"]
+                                      for r in results]),
+                      np.concatenate([r["wordcount"]["counts"]
+                                      for r in results]),
+                      "wordcount, 8 processes")
+    for field in ("launches", "collectives"):
+        per_rank_equal(results, "wordcount", field, ref["wordcount"][field],
+                       "wordcount, 8 processes")
+    m = ref["moe"]
+    moe_out = check_rank_moe(torch, results, m)
+    for tag, r in (("flat", ref["flat"]), ("grid", ref["grid"]),
+                   ("wordcount", ref["wordcount"]), ("moe", m)):
+        warm = [x[tag]["warm_ms"] for x in results]
+        comm = [x[tag]["comm"] for x in results]
+        out["paths"][tag] = {
+            "stacked_cold_ms": r["wall_ms"],
+            "stacked_warm_ms": r["warm_wall_ms"],
+            "process_cold_ms_max": max(x[tag]["cold_ms"] for x in results),
+            "process_warm_ms_max": max(warm),
+            "process_warm_ms_by_process": warm,
+            "launches_per_process": results[0][tag]["launches"],
+            "collectives_per_process": results[0][tag]["collectives"],
+            "comm_seconds_max_by_op": {
+                op: max(c[op]["seconds"] for c in comm) for op in comm[0]},
+            "gloo_bytes_per_process_by_hop": {
+                op: [h["bytes"] for h in comm[0][op]["hops"]]
+                for op in comm[0]},
+            "hop_seconds_max": {
+                op: [max(c[op]["hops"][i]["seconds"] for c in comm)
+                     for i in range(len(comm[0][op]["hops"]))]
+                for op in comm[0]}}
+    out["paths"]["moe"].update(moe_out)
+    out["nccl_world_1"] = nccl_world_one(torch)
+    out["launches"] = {tag: {k: sum(r[tag]["launches"][k] for r in results)
+                             for k in results[0][tag]["launches"]}
+                       for tag in ("flat", "grid", "wordcount", "moe")}
+    for tag, names in (("flat", ("partition", "bitonic_sort")),
+                       ("grid", ("partition", "bitonic_sort")),
+                       ("wordcount", ("partition", "radix_sort")),
+                       ("moe", ("partition",))):
+        for name in names:
+            if any(r[tag]["launches"][name] == 0 for r in results):
+                raise AssertionError(f"{tag}: a process did not launch "
+                                     f"{name}")
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
+def check_rank_moe(torch, results, m) -> dict:
+    """Each process's block against the stacked layer: routing, per-expert
+    counts and drops exact, ``moe_aux`` within 1e-6 relative, the output
+    within ``MOE_RANKS_TOL`` of the stacked output's largest value (one
+    bfloat16 ulp there: 8 experts a batched product instead of 64 may
+    take another cuBLAS algorithm)."""
+    from repro_torch.comm import grid_coords
+    want = m["out"]
+    b, s, d = want.shape
+    k = m["top_i"].shape[-1]
+    top = m["top_i"].reshape(b, s, k)
+    cols = SERVE_GRID[1]
+    scale = want.float().abs().max().item()
+    err = 0.0
+    per_expert = torch.zeros(m["e_pad"], dtype=torch.int64)
+    for rank, r in enumerate(results):
+        x = r["moe"]
+        _, c = grid_coords(SERVE_GRID, rank)
+        sl = (slice(None), slice(c * (s // cols), (c + 1) * (s // cols)))
+        if not torch.equal(x["top_i"], top[sl].reshape(-1, k)):
+            bad = int((x["top_i"] != top[sl].reshape(-1, k)).any(-1).sum())
+            raise AssertionError(f"MoE rank {rank}: {bad} tokens routed "
+                                 f"otherwise than on stacked ranks")
+        if x["dropped"] != m["dropped"]:
+            raise AssertionError(f"MoE rank {rank}: dropped {x['dropped']} "
+                                 f"!= {m['dropped']}")
+        if abs(x["aux"] - m["aux"]) > 1e-6 * abs(m["aux"]):
+            raise AssertionError(f"MoE rank {rank}: moe_aux {x['aux']} != "
+                                 f"{m['aux']}")
+        e = (x["out"].float() - want[sl].float()).abs().max().item()
+        err = max(err, e)
+        if e > MOE_RANKS_TOL * scale:
+            raise AssertionError(f"MoE rank {rank}: |process - stacked| = "
+                                 f"{e} > {MOE_RANKS_TOL} x {scale}")
+        if x["experts_held"] != m["e_pad"] // cols:
+            raise AssertionError(f"MoE rank {rank} holds "
+                                 f"{x['experts_held']} experts")
+        per_expert += torch.bincount(x["top_i"].reshape(-1).long(),
+                                     minlength=m["e_pad"])
+        want_counts = dict(m["collectives"])
+        want_counts["psum"] = want_counts.get("psum", 0) + 1
+        if x["collectives"] != want_counts:
+            raise AssertionError(f"MoE rank {rank}: collectives "
+                                 f"{x['collectives']} != {want_counts}")
+        if x["launches"]["partition"] != 2:
+            raise AssertionError(f"MoE rank {rank}: K1 launched "
+                                 f"{x['launches']['partition']} times")
+    full = torch.bincount(m["top_i"].reshape(-1).long(),
+                          minlength=m["e_pad"])
+    if not torch.equal(per_expert, full):
+        raise AssertionError("MoE per-expert counts differ")
+    return {"max_abs_err": err, "out_max_abs": scale,
+            "tolerance": MOE_RANKS_TOL * scale, "dropped": m["dropped"],
+            "aux": m["aux"], "capacity_factor": m["capacity_factor"],
+            "experts_per_process": results[0]["moe"]["experts_held"],
+            "expert_bytes_per_process": results[0]["moe"]["expert_bytes"],
+            "tokens": [b, s], "per_expert_tokens_max": int(full.max())}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n-log2", type=int, default=25,
@@ -3470,6 +3957,11 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
 
     keys, value = make_records(torch, dev, gen, sh.n)
+    # phase 15's inputs, written once (its processes read their rows)
+    rdir = ranks_dir()
+    atexit.register(shutil.rmtree, rdir, True)
+    save_npy(rdir, "keys", keys)
+    save_npy(rdir, "value", value)
     k4 = entry_point_k4(torch, dev, keys)
     log(json.dumps(k4))
     mp, flat_sorted = main_path(torch, keys, value, args.profile)
@@ -3478,9 +3970,11 @@ def main(argv=None) -> int:
     log(json.dumps(wide))
     host_codec, host_slices = host_input(torch, keys, value)
     host_flat = flat_sorted.cpu()
+    save_npy(rdir, "flat_sorted", host_flat)
     del keys, value, flat_sorted
     torch.cuda.empty_cache()
     words, gen_s = draw_words(args.seed, sh.words)
+    save_npy(rdir, "words", words)
     wc = wordcount_path(torch, dev, words, gen_s, sh, args.profile)
     log(json.dumps(wc))
     shim, radix_launches = shim_runs(torch, dev, gen, args.n_log2)
@@ -3516,6 +4010,16 @@ def main(argv=None) -> int:
     trained = train_path(torch, dev, args.seed, args.profile)
     log(json.dumps({k: v for k, v in trained.items()
                     if k not in ("tinyllama", "moe", "profile")}))
+    gc.collect()
+    torch.cuda.empty_cache()
+    flat_sorted = load_tensor(torch, rdir, "flat_sorted", dev)
+    ranked = ranks_path(torch, dev, rdir, args.seed, flat_sorted)
+    del flat_sorted
+    shutil.rmtree(rdir, ignore_errors=True)
+    for tag, p in ranked.pop("paths").items():
+        log(json.dumps({"phase": f"ranks_{tag}", **p}))
+    log(json.dumps(ranked))
+    torch.cuda.empty_cache()
     phase11 = {r["run"]: r["launches"] for r in chaos["runs"]}
     host_faults = {r["run"]: r["launches"] for r in chaos["host"]}
 
@@ -3538,13 +4042,18 @@ def main(argv=None) -> int:
                       f"Qwen1.5-MoE-A2.7B training on (1, 8), "
                       f"{MOE_TRAIN_LAYERS} MoE layers, {MOE_TRAIN_STEPS} "
                       f"steps with remat: send pack + regroup, forward and "
-                      f"recompute": trained["moe"]["k1_launches"]},
+                      f"recompute": trained["moe"]["k1_launches"],
+                      **{f"8 processes: {what}": ranked["launches"][tag][
+                          "partition"] for tag, what in RANKED_PATHS}},
         "bitonic_sort": {"dataflow sort, flat": mp["launches"]["bitonic_sort"],
                          "dataflow sort, (dc, node)":
                              wide["launches"]["bitonic_sort"],
                          **{f"batch chaos: {k}": v["bitonic_sort"]
                             for k, v in phase11.items()
-                            if v["bitonic_sort"]}},
+                            if v["bitonic_sort"]},
+                         **{f"8 processes: {what}": ranked["launches"][tag][
+                             "bitonic_sort"] for tag, what in RANKED_PATHS
+                            if tag in ("flat", "grid")}},
         "radix_sort": {"wordcount reduce_by_key_sum(algo='radix')":
                            wc["launches"]["radix_sort"],
                        "terasort sort_algo='radix'": radix_launches,
@@ -3555,7 +4064,9 @@ def main(argv=None) -> int:
                        **{f"batch chaos: {k}": v["radix_sort"]
                           for k, v in phase11.items() if v["radix_sort"]},
                        **{f"host sort, {k}, stage-2 sort": v["radix_sort"]
-                          for k, v in host_faults.items()}},
+                          for k, v in host_faults.items()},
+                       "8 processes: wordcount": ranked["launches"][
+                           "wordcount"]["radix_sort"]},
         "bucket_hist": {"kernels.ops.bucket_histogram (entry point; on no "
                         "dataflow path, as in the JAX package)":
                             k4["launches"]["bucket_hist"]},

@@ -23,8 +23,22 @@ JAX collective (inside ``shard_map``)       stacked form
 ``axis_index``                              the rank's coordinate(s)
 ==========================================  =================================
 
-This is what lets one H100 run the 8-device paths. A ``torch.distributed``
-(NCCL) backend across several cards is later work.
+This is what lets one H100 run the 8-device paths.
+
+:class:`ProcessRanks` is the ``torch.distributed`` backend: one rank per
+process, the same API with a leading axis of 1 (``rows``: the rows a
+process holds, ``world`` for :class:`Ranks`, 1 here). Each collective
+runs over a process group of the axes it names: ``all_to_all_single``,
+``all_reduce`` and ``all_gather_into_tensor``. :func:`spawn_ranks` starts
+the processes (``spawn``), :meth:`ProcessRanks.from_env` joins a
+``torchrun`` launch. Its transport is the one the caller names: ``gloo``
+(the CPU, or CUDA tensors staged through host memory inside gloo, several
+ranks on one card) or ``nccl`` (one card a rank; fewer cards than ranks
+raises).
+
+:func:`shard_slices` cuts the block of a global array that a rank holds
+under a sharding spec (a tuple with one entry per dimension: ``None``, an
+axis name or a tuple of names, the entries of a JAX ``PartitionSpec``).
 
 Entry points run on ``cuda`` unless the caller asks for ``"cpu"``; asking
 for ``cuda`` without a card raises — there is no quiet CPU fallback.
@@ -33,14 +47,26 @@ for ``cuda`` without a card raises — there is no quiet CPU fallback.
 from __future__ import annotations
 
 import collections
+import datetime
+import itertools
 import math
-from typing import Optional, Sequence, Tuple, Union
+import os
+import shutil
+import socket
+import tempfile
+import time
+import traceback
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
+import torch.distributed as dist
 
 DeviceLike = Union[str, torch.device, None]
 #: an axis name, a tuple of names, or None for every axis.
 AxisLike = Union[str, Sequence[str], None]
+#: a sharding spec: one entry per dimension, each None (replicated), an
+#: axis name or a tuple of names (the entries of a ``PartitionSpec``)
+Spec = Tuple[Union[None, str, Tuple[str, ...]], ...]
 
 
 def resolve_device(device: DeviceLike = None) -> torch.device:
@@ -86,6 +112,8 @@ class Ranks:
         self.shape: Tuple[int, ...] = shape
         self.axes: Tuple[str, ...] = axes
         self.world = math.prod(shape)
+        #: rows of the leading rank axis this object holds
+        self.rows = self.world
         self.device = resolve_device(device)
         self.collectives: "collections.Counter[str]" = collections.Counter()
 
@@ -95,7 +123,7 @@ class Ranks:
         return (f"Ranks(shape={self.shape}, axes={self.axes}, "
                 f"device={str(self.device)!r})")
 
-    # -- axes -------------------------------------------------------------------
+    # -- axes -----------------------------------------------------------------
     def axis_names(self, axis: AxisLike = None) -> Tuple[str, ...]:
         """``axis`` as a tuple of this grid's axis names (None: all)."""
         if axis is None:
@@ -126,11 +154,11 @@ class Ranks:
         return idx.reshape(-1)
 
     def _check(self, x: torch.Tensor) -> None:
-        if x.shape[0] != self.world:
+        if x.shape[0] != self.rows:
             raise ValueError(f"stacked tensor leads with {x.shape[0]} ranks, "
-                             f"expected {self.world}")
+                             f"expected {self.rows}")
 
-    # -- collectives ------------------------------------------------------------
+    # -- collectives ----------------------------------------------------------
     def all_to_all(self, x: torch.Tensor, axis: Optional[str] = None
                    ) -> torch.Tensor:
         """Tiled ``all_to_all`` along one axis (None: over every rank as one
@@ -185,3 +213,345 @@ class Ranks:
         t = t.to(self.device)
         self._check(t)
         return t
+
+
+# -- sharding specs -----------------------------------------------------------
+
+
+def _spec_names(entry) -> Tuple[str, ...]:
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def grid_coords(shape: Sequence[int], rank: int) -> Tuple[int, ...]:
+    """Flat ``rank``'s coordinate on a grid of ``shape`` (row-major)."""
+    coords = []
+    for size in reversed(tuple(shape)):
+        coords.append(rank % size)
+        rank //= size
+    return tuple(reversed(coords))
+
+
+def shard_slices(global_shape: Sequence[int], spec: Spec,
+                 shape: Sequence[int], axes: Sequence[str],
+                 rank: int) -> Tuple[slice, ...]:
+    """The block of a ``global_shape`` array that flat ``rank`` of the
+    grid ``(shape, axes)`` holds under ``spec``, as ``NamedSharding``
+    places it: a dimension whose entry names axes splits into as many
+    equal blocks as those axes have ranks, and the rank takes the block of
+    its row-major index over them (in the entry's order); ``None`` and
+    missing trailing entries keep the whole dimension."""
+    shape, axes = tuple(shape), tuple(axes)
+    if len(spec) > len(global_shape):
+        raise ValueError(f"spec {spec} has more entries than the "
+                         f"{len(global_shape)} dimensions")
+    coords = grid_coords(shape, rank)
+    out = []
+    for dim, n in enumerate(global_shape):
+        entry = spec[dim] if dim < len(spec) else None
+        if entry is None:
+            out.append(slice(None))
+            continue
+        parts, idx = 1, 0
+        for a in _spec_names(entry):
+            if a not in axes:
+                raise ValueError(f"spec {spec} names axis {a!r}; the grid "
+                                 f"has {axes}")
+            k = axes.index(a)
+            parts *= shape[k]
+            idx = idx * shape[k] + coords[k]
+        if n % parts:
+            raise ValueError(f"dimension {dim} of {n} does not split into "
+                             f"{parts} blocks (spec {spec})")
+        block = n // parts
+        out.append(slice(idx * block, (idx + 1) * block))
+    return tuple(out)
+
+
+# -- the torch.distributed backend --------------------------------------------
+
+
+def _check_cards(backend: str, world: int) -> None:
+    """NCCL puts one rank on each card: fewer cards than ranks raises
+    (gloo is the transport that shares a card, and the caller names it)."""
+    if backend == "nccl" and torch.cuda.device_count() < world:
+        raise ValueError(
+            f"backend='nccl' needs one card a rank: {world} ranks, "
+            f"{torch.cuda.device_count()} cards (NCCL refuses two ranks on "
+            f"one card; name backend='gloo' to share one)")
+
+
+#: ``all_gather_into_tensor`` under its newer name where torch has it
+_all_gather_single = getattr(dist, "all_gather_single", None) or getattr(
+    dist, "all_gather_into_tensor", None)
+
+
+class ProcessRanks(Ranks):
+    """One rank of a grid of processes: :class:`Ranks`' API over
+    ``torch.distributed``, every tensor holding this process's row only
+    (a leading axis of ``rows`` = 1).
+
+    Built after ``init_process_group`` (:func:`spawn_ranks`,
+    :meth:`from_env`), the same way on every rank: it creates one process
+    group per coordinate of the other axes for every proper subset of the
+    axes, in one order, so that every collective runs over the group of
+    the axes it names (the whole grid: the default group). Ranks are
+    row-major on the grid, and a group's ranks ascend along its axes.
+    ``device`` defaults to ``cuda:{rank % cards}``; ``"cpu"`` asks for the
+    CPU. ``collectives`` counts each call as :class:`Ranks` does.
+
+    ``log``: set it to a list and each collective appends ``{"op", "axes",
+    "bytes", "seconds"}``: the bytes this rank hands to the transport and
+    the call's host time, the card synchronised before and after it (a
+    measurement mode: the synchronisations cost what they cost).
+    """
+
+    def __init__(self, shape: Sequence[int], axes: Optional[Sequence[str]]
+                 = None, *, backend: Optional[str] = None,
+                 device: DeviceLike = None):
+        if not dist.is_initialized():
+            raise RuntimeError("ProcessRanks needs an initialised process "
+                               "group (spawn_ranks or ProcessRanks.from_env)")
+        have = dist.get_backend()
+        if backend is not None and backend != have:
+            raise ValueError(f"backend={backend!r}, but the process group "
+                             f"runs {have!r}")
+        world, rank = dist.get_world_size(), dist.get_rank()
+        _check_cards(have, world)
+        dev = torch.device("cuda" if device is None else device)
+        if (dev.type == "cuda" and dev.index is None
+                and torch.cuda.is_available()):
+            dev = torch.device("cuda", rank % torch.cuda.device_count())
+        super().__init__(device=dev, shape=shape, axes=axes)
+        if self.world != world:
+            raise ValueError(f"a grid of {self.world} ranks in a process "
+                             f"group of {world}")
+        if have == "nccl" and self.device.type != "cuda":
+            raise ValueError("backend='nccl' runs on CUDA tensors only")
+        self.rows = 1
+        self.rank = rank
+        self.backend = have
+        self.coords = grid_coords(self.shape, rank)
+        self.log: Optional[List[Dict[str, Any]]] = None
+        self._groups: Dict[Tuple[str, ...], Any] = {}
+        for r in range(1, len(self.axes)):
+            for names in itertools.combinations(self.axes, r):
+                rest = [k for k, a in enumerate(self.axes) if a not in names]
+                for fixed in itertools.product(
+                        *(range(self.shape[k]) for k in rest)):
+                    members = [q for q in range(world)
+                               if all(grid_coords(self.shape, q)[k] == c
+                                      for k, c in zip(rest, fixed))]
+                    group = dist.new_group(members)
+                    if rank in members:
+                        self._groups[names] = group
+
+    @classmethod
+    def from_env(cls, shape: Optional[Sequence[int]] = None,
+                 axes: Optional[Sequence[str]] = None, *,
+                 backend: str = "gloo", device: DeviceLike = None,
+                 timeout_s: float = 600.0) -> "ProcessRanks":
+        """Join a ``torchrun`` launch: ``RANK``, ``WORLD_SIZE``,
+        ``MASTER_ADDR`` and ``MASTER_PORT`` from the environment; ``shape``
+        defaults to one ``"data"`` axis over the world."""
+        world = int(os.environ["WORLD_SIZE"])
+        _check_cards(backend, world)
+        if not dist.is_initialized():
+            dist.init_process_group(
+                backend, init_method="env://", rank=int(os.environ["RANK"]),
+                world_size=world,
+                timeout=datetime.timedelta(seconds=timeout_s))
+        return cls((world,) if shape is None else shape, axes,
+                   backend=backend, device=device)
+
+    def __repr__(self) -> str:
+        return (f"ProcessRanks(shape={self.shape}, axes={self.axes}, "
+                f"rank={self.rank}, backend={self.backend!r}, "
+                f"device={str(self.device)!r})")
+
+    def _group(self, names: Tuple[str, ...]):
+        """The process group of ``names`` (None: the default group)."""
+        key = tuple(a for a in self.axes if a in names)
+        return None if len(key) == len(self.axes) else self._groups[key]
+
+    def _call(self, op: str, names: Tuple[str, ...], fn, *tensors) -> None:
+        """``fn(*tensors, group=...)``, logged when :attr:`log` is a list."""
+        group = self._group(names)
+        if self.log is None:
+            fn(*tensors, group=group)
+            return
+        cuda = self.device.type == "cuda"
+        if cuda:
+            torch.cuda.synchronize(self.device)
+        t0 = time.perf_counter()
+        fn(*tensors, group=group)
+        if cuda:
+            torch.cuda.synchronize(self.device)
+        self.log.append({"op": op, "axes": list(names),
+                         "bytes": tensors[-1].numel()
+                         * tensors[-1].element_size(),
+                         "seconds": time.perf_counter() - t0})
+
+    def axis_index(self, axis: AxisLike = None) -> torch.Tensor:
+        idx = 0
+        for a in self.axis_names(axis):
+            k = self.axes.index(a)
+            idx = idx * self.shape[k] + self.coords[k]
+        return torch.tensor([idx], dtype=torch.int32, device=self.device)
+
+    def all_to_all(self, x: torch.Tensor, axis: Optional[str] = None
+                   ) -> torch.Tensor:
+        self._check(x)
+        names = self.axes if axis is None else self.axis_names(axis)
+        if axis is not None and len(names) != 1:
+            raise ValueError(f"all_to_all runs along one axis, got {axis}")
+        size = self.axis_size(names)
+        if x.shape[1] != size:
+            raise ValueError(f"all_to_all along {axis or self.axes} needs "
+                             f"{size} destination tiles, got {x.shape[1]}")
+        self.collectives["all_to_all"] += 1
+        send = x[0].contiguous()
+        recv = torch.empty_like(send)
+        self._call("all_to_all", names, dist.all_to_all_single, recv, send)
+        return recv.unsqueeze(0)
+
+    def psum(self, x: torch.Tensor, axis: AxisLike = None) -> torch.Tensor:
+        self._check(x)
+        self.collectives["psum"] += 1
+        names = self.axis_names(axis)
+        # in the dtype of the stacked backend's sum (torch.sum widens
+        # integers and bool to int64), so both give the same tensors
+        total = x[0].to(torch.sum(x[:0], dim=0).dtype,
+                        memory_format=torch.contiguous_format, copy=True)
+        self._call("psum", names, dist.all_reduce, total)
+        if set(names) == set(self.axes):
+            return total
+        return total.unsqueeze(0)
+
+    def all_gather(self, x: torch.Tensor) -> torch.Tensor:
+        self._check(x)
+        self.collectives["all_gather"] += 1
+        part = x[0].contiguous()
+        out = part.new_empty((self.world * part.shape[0],)
+                             + tuple(part.shape[1:]))
+        self._call("all_gather", self.axes, _all_gather_single, out, part)
+        return out
+
+    def stack(self, x, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+        """This rank's row of ``x``, the global rank-stacked array (a
+        tensor, a numpy array or a memmap: only the row is read), on the
+        rank's device."""
+        if x.shape[0] != self.world:
+            raise ValueError(f"stacked input leads with {x.shape[0]} ranks, "
+                             f"expected {self.world}")
+        row = x[self.rank:self.rank + 1]
+        if not isinstance(row, torch.Tensor):
+            import numpy as np
+            row = torch.from_numpy(np.array(row))     # a copy: memmaps
+        if dtype is not None:
+            row = row.to(dtype)
+        return row.to(self.device)
+
+    def local_shard(self, t: torch.Tensor, spec: Spec) -> torch.Tensor:
+        """The block of the global ``t`` this rank holds under ``spec``
+        (:func:`shard_slices`), a view."""
+        return t[shard_slices(t.shape, spec, self.shape, self.axes,
+                              self.rank)]
+
+
+def free_port() -> int:
+    """A free TCP port on 127.0.0.1 for a process group's rendezvous."""
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _rank_main(rank: int, world: int, port: int, shape, axes, backend: str,
+               device, timeout_s: float, fn: Callable, args: tuple,
+               out_dir: str) -> None:
+    """One spawned rank: join the group, run ``fn``, write its result (or
+    the traceback) under ``out_dir``."""
+    from repro_torch.kernels import build
+    os.environ[build.PREBUILT_ENV] = "1"
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    try:
+        dist.init_process_group(
+            backend, init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+            world_size=world, timeout=datetime.timedelta(seconds=timeout_s))
+        ranks = ProcessRanks(shape, axes, backend=backend, device=device)
+        if ranks.device.type == "cuda":
+            torch.cuda.set_device(ranks.device)
+        result = fn(ranks, *args)
+        path = os.path.join(out_dir, f"rank{rank}.pt")
+        torch.save(result, path + ".tmp", pickle_protocol=4)
+        os.replace(path + ".tmp", path)
+        dist.destroy_process_group()
+    except Exception:
+        with open(os.path.join(out_dir, f"rank{rank}.err"), "w") as f:
+            f.write(traceback.format_exc())
+        # no interpreter teardown: a broken process group can block it
+        os._exit(1)
+
+
+def spawn_ranks(fn: Callable, shape: Sequence[int],
+                axes: Optional[Sequence[str]] = None, *,
+                backend: str = "gloo", device: DeviceLike = None,
+                timeout_s: float = 300.0, args: tuple = ()) -> List[Any]:
+    """Run ``fn(ranks, *args)`` in one process per rank of the grid
+    ``(shape, axes)``, each holding a :class:`ProcessRanks`, and return
+    each rank's result in rank order (passed back through files; CUDA
+    tensors come back on the CPU).
+
+    ``fn`` must be picklable (a module-level function): the processes are
+    started with ``spawn``, as CUDA cannot be forked. The kernels are
+    built here first when the ranks run on the card; the ranks never run
+    ``nvcc``. If a rank raises, or the ranks outlast ``timeout_s``, every
+    rank is killed and this raises. ``device`` as for
+    :class:`ProcessRanks`: the card unless ``"cpu"`` is asked for.
+    """
+    shape = tuple(int(s) for s in shape)
+    world = math.prod(shape)
+    _check_cards(backend, world)
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        from repro_torch.kernels import build
+        build.build_all(build.KERNEL_NAMES)
+    ctx = torch.multiprocessing.get_context("spawn")
+    out_dir = tempfile.mkdtemp(prefix="spawn-ranks-")
+    port = free_port()
+    procs = [ctx.Process(target=_rank_main,
+                         args=(r, world, port, shape, axes, backend, device,
+                               timeout_s, fn, tuple(args), out_dir))
+             for r in range(world)]
+    try:
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + timeout_s
+        while True:
+            failed = [r for r, p in enumerate(procs)
+                      if p.exitcode not in (None, 0)]
+            if failed:
+                errs = []
+                for r in failed:
+                    path = os.path.join(out_dir, f"rank{r}.err")
+                    text = (open(path).read() if os.path.exists(path)
+                            else f"exit code {procs[r].exitcode}")
+                    errs.append(f"rank {r}:\n{text}")
+                raise RuntimeError("spawned ranks failed:\n"
+                                   + "\n".join(errs))
+            if all(p.exitcode == 0 for p in procs):
+                break
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"{world} ranks outlasted timeout_s="
+                                   f"{timeout_s}")
+            time.sleep(0.02)
+        return [torch.load(os.path.join(out_dir, f"rank{r}.pt"),
+                           map_location="cpu", weights_only=False)
+                for r in range(world)]
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+        for p in procs:
+            if p.pid is not None:
+                p.join()
+        shutil.rmtree(out_dir, ignore_errors=True)

@@ -185,7 +185,7 @@ def _masked(metas: Dict[str, torch.Tensor], name: str,
 def _arange_rows(ranks: Ranks, n: int, device) -> torch.Tensor:
     """``(ranks, n)`` int32 local row index of every record."""
     return torch.arange(n, dtype=torch.int32,
-                        device=device).expand(ranks.world, -1)
+                        device=device).expand(ranks.rows, -1)
 
 
 def sphere_shuffle(data: torch.Tensor, bucket_ids: torch.Tensor,

@@ -18,7 +18,11 @@ and sorts it — D× the bytes of the direct bucket shuffle.
 
 Inputs and outputs are rank-stacked: keys ``(ranks, n_local)``; results
 ``(ranks, slots)`` (:mod:`repro_torch.interop` converts to and from the
-JAX package's global layout).
+JAX package's global layout). Under
+:class:`repro_torch.comm.ProcessRanks` ``terasort`` takes and returns the
+process's own row, ``(1, n_local)`` and ``(1, slots)``;
+``hadoop_style_sort`` takes the global stacked arrays and keeps that row
+(``ranks.stack``).
 """
 
 from __future__ import annotations
@@ -135,8 +139,8 @@ def hadoop_style_sort(keys, payload, ranks: Optional[Ranks] = None,
     dev = ranks.device
     keys = ranks.stack(keys, torch.int32)
     payload = ranks.stack(payload)
-    world, n_local = keys.shape
-    spl = _as_splitters(splitters, world, dev)
+    n_local = keys.shape[1]
+    spl = _as_splitters(splitters, ranks.world, dev)
     all_k = ranks.all_gather(keys)                     # (N,) on every rank
     all_p = ranks.all_gather(payload)
     bucket = torch.searchsorted(spl, all_k, right=True, out_int32=True)
@@ -144,7 +148,7 @@ def hadoop_style_sort(keys, payload, ranks: Optional[Ranks] = None,
     cap = n_local * 2
     skey = torch.where(mine, all_k[None, :], KEY_MAX)
     pos = torch.arange(all_k.shape[0], dtype=torch.int32,
-                       device=dev).expand(world, -1).contiguous()
+                       device=dev).expand(ranks.rows, -1).contiguous()
     sk, order = kops.sort_kv_segments(skey, pos, algo=algo)
     order = order[:, :cap].to(torch.int64)
     sk = sk[:, :cap]

@@ -82,7 +82,8 @@ class SphereStream:
     def shard(self, ranks: Ranks) -> "SphereStream":
         """Split the global records over ``ranks`` (contiguous blocks, rank
         r holding rows ``[r * n, (r + 1) * n)``, as ``P(axis)`` shards) and
-        move them to the ranks' device."""
+        move the ranks' rows to their device (all of them stacked, a
+        process's own under :class:`repro_torch.comm.ProcessRanks`)."""
         if self.ranks is not None:
             raise ValueError("stream is already sharded")
 
@@ -93,7 +94,7 @@ class SphereStream:
                 raise ValueError(f"{t.shape[0]} records do not shard over "
                                  f"{ranks.world} ranks")
             t = t.reshape((ranks.world, -1) + tuple(t.shape[1:]))
-            return t.contiguous().to(ranks.device)
+            return ranks.stack(t.contiguous())
 
         return SphereStream(
             data=tree_map(split, self.data),

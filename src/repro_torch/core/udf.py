@@ -87,7 +87,7 @@ def sphere_map(udf: Callable,
     out = per_rank(udf, *(s.data for s in stream_list))
     valid = None
     if template.valid is not None:
-        seg = template.num_records // ranks.world
+        seg = template.num_records // ranks.rows
         leaves = tree_flatten(out)[0]
         if leaves and all(l.dim() > 1 and l.shape[1] == seg for l in leaves):
             valid = template.valid

@@ -15,6 +15,11 @@ Each C entry point takes device pointers and the CUDA stream as
 ``c_void_p``, launches on that stream, never synchronises, and returns
 ``cudaGetLastError()``; :meth:`Kernel.launch` raises when it is not 0.
 Nothing here runs at import time.
+
+A process that runs with ``REPRO_KERNELS_PREBUILT=1`` in its environment
+(every rank :func:`repro_torch.comm.spawn_ranks` starts) never runs
+``nvcc``: it loads the libraries its parent built and raises when one is
+missing, so that ranks never race one another on ``build/kernels/``.
 """
 
 from __future__ import annotations
@@ -39,6 +44,11 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lock = threading.Lock()
+
+#: every kernel source under ``csrc/``, K1, K3, K2, K4
+KERNEL_NAMES = ("partition", "bitonic_sort", "radix_sort", "bucket_hist")
+#: set to 1: load the parent's libraries, never build (see the docstring)
+PREBUILT_ENV = "REPRO_KERNELS_PREBUILT"
 
 
 def nvcc_path() -> str:
@@ -92,6 +102,12 @@ def build_all(names: Sequence[str]) -> Dict[str, BuildResult]:
     running = []
     t0 = time.perf_counter()
     with _lock:
+        missing = [n for n in names if not library_path(n).exists()]
+        if missing and os.environ.get(PREBUILT_ENV) == "1":
+            raise RuntimeError(
+                f"kernels {missing} are not built, and this process may not "
+                f"build them ({PREBUILT_ENV}=1): build them before starting "
+                f"the ranks")
         for name in names:
             if library_path(name).exists():
                 results[name] = BuildResult(name, 0.0, "")

@@ -44,13 +44,25 @@ class Attention(Params):
         super().__init__()
         self.cfg = cfg
         hd, d = cfg.hd, cfg.d_model
-        self.add("wq", (d, cfg.n_heads * hd), COMPUTE_DTYPE, device)
-        self.add("wk", (d, cfg.n_kv_heads * hd), COMPUTE_DTYPE, device)
-        self.add("wv", (d, cfg.n_kv_heads * hd), COMPUTE_DTYPE, device)
-        self.add("wo", (cfg.n_heads * hd, d), COMPUTE_DTYPE, device)
+        # the JAX package's rules: heads over "model" when they divide
+        # its size (kv heads replicated when there is one), else every
+        # projection replicated
+        if cfg.n_heads % cfg.tp_size == 0:
+            qs = wos = "model"
+            kvs = None if cfg.n_kv_heads == 1 else "model"
+        else:
+            qs = kvs = wos = None
+        self.add("wq", (d, cfg.n_heads * hd), COMPUTE_DTYPE, device,
+                 spec=(None, qs))
+        self.add("wk", (d, cfg.n_kv_heads * hd), COMPUTE_DTYPE, device,
+                 spec=(None, kvs))
+        self.add("wv", (d, cfg.n_kv_heads * hd), COMPUTE_DTYPE, device,
+                 spec=(None, kvs))
+        self.add("wo", (cfg.n_heads * hd, d), COMPUTE_DTYPE, device,
+                 spec=(wos, None))
         if cfg.qk_norm:
-            self.add("q_norm", (hd,), torch.float32, device)
-            self.add("k_norm", (hd,), torch.float32, device)
+            self.add("q_norm", (hd,), torch.float32, device, spec=(None,))
+            self.add("k_norm", (hd,), torch.float32, device, spec=(None,))
 
     @torch.no_grad()
     def init_weights(self, generator: Optional[torch.Generator]) -> None:
@@ -80,17 +92,22 @@ class MLA(Params):
         self.cfg = cfg
         H, d = cfg.n_heads, cfg.d_model
         qd = cfg.qk_nope_dim + cfg.qk_rope_dim
-        self.add("wq_down", (d, cfg.q_lora_rank), COMPUTE_DTYPE, device)
-        self.add("q_norm", (cfg.q_lora_rank,), torch.float32, device)
-        self.add("wq_up", (cfg.q_lora_rank, H * qd), COMPUTE_DTYPE, device)
+        self.add("wq_down", (d, cfg.q_lora_rank), COMPUTE_DTYPE, device,
+                 spec=(None, None))
+        self.add("q_norm", (cfg.q_lora_rank,), torch.float32, device,
+                 spec=(None,))
+        self.add("wq_up", (cfg.q_lora_rank, H * qd), COMPUTE_DTYPE, device,
+                 spec=(None, "model"))
         self.add("wkv_down", (d, cfg.kv_lora_rank + cfg.qk_rope_dim),
-                 COMPUTE_DTYPE, device)
-        self.add("kv_norm", (cfg.kv_lora_rank,), torch.float32, device)
+                 COMPUTE_DTYPE, device, spec=(None, None))
+        self.add("kv_norm", (cfg.kv_lora_rank,), torch.float32, device,
+                 spec=(None,))
         self.add("wk_up", (cfg.kv_lora_rank, H * cfg.qk_nope_dim),
-                 COMPUTE_DTYPE, device)
+                 COMPUTE_DTYPE, device, spec=(None, "model"))
         self.add("wv_up", (cfg.kv_lora_rank, H * cfg.v_head_dim),
-                 COMPUTE_DTYPE, device)
-        self.add("wo", (H * cfg.v_head_dim, d), COMPUTE_DTYPE, device)
+                 COMPUTE_DTYPE, device, spec=(None, "model"))
+        self.add("wo", (H * cfg.v_head_dim, d), COMPUTE_DTYPE, device,
+                 spec=("model", None))
 
     @torch.no_grad()
     def init_weights(self, generator: Optional[torch.Generator]) -> None:

@@ -20,7 +20,10 @@ state the same way.
 
 :func:`unflatten` is :func:`flatten`'s inverse: a ``{port name: tensor}``
 mapping laid out as the JAX package's tree, the layers of a stacked
-collection held as one :class:`Stacked` leaf. :func:`flatten`,
+collection held as one :class:`Stacked` leaf. :func:`spec_tree` lays the
+port's per-layer sharding specs out the same way, a stacked leaf's spec
+led by ``None`` for its layer axis, as the JAX package's ``init``
+returns them. :func:`flatten`,
 :func:`jax_order` and :func:`named_leaves` list leaves in the JAX
 package's tree order (``jax.tree.leaves``: dict keys sorted, lists in
 order), a stacked leaf's layers one after another.
@@ -136,6 +139,24 @@ def unflatten(flat: Mapping[str, Any], cfg: ModelConfig) -> Dict:
         _set(tree, list(path), Stacked(by_layer[i]
                                        for i in range(len(by_layer))))
     return tree
+
+
+def spec_tree(specs: Mapping[str, Tuple], cfg: ModelConfig) -> Dict:
+    """``{port name: spec}`` (:func:`repro_torch.models.layers.param_specs`)
+    laid out as the JAX package's spec tree: the spec of a stacked leaf is
+    its layers' one spec, led by ``None``."""
+    def fix(node):
+        if isinstance(node, list):
+            return [fix(v) for v in node]
+        if isinstance(node, Stacked):
+            if len(set(node)) != 1:
+                raise ValueError(f"the layers of a stacked leaf have specs "
+                                 f"{sorted(set(node), key=str)}")
+            return (None,) + node[0]
+        if isinstance(node, dict):
+            return {k: fix(v) for k, v in node.items()}
+        return node
+    return fix(unflatten(specs, cfg))
 
 
 def jax_order(names, cfg: ModelConfig) -> List[str]:

@@ -34,9 +34,9 @@ class EncBlock(Params):
 
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
-        self.add("ln1", (cfg.d_model,), torch.float32, device)
+        self.add("ln1", (cfg.d_model,), torch.float32, device, spec=(None,))
         self.attn = attn.Attention(cfg, device)
-        self.add("ln2", (cfg.d_model,), torch.float32, device)
+        self.add("ln2", (cfg.d_model,), torch.float32, device, spec=(None,))
         self.mlp = MLP(cfg.d_model, cfg.d_ff, cfg.mlp_gated, device)
 
     @torch.no_grad()
@@ -53,11 +53,11 @@ class DecBlock(Params):
 
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
-        self.add("ln1", (cfg.d_model,), torch.float32, device)
+        self.add("ln1", (cfg.d_model,), torch.float32, device, spec=(None,))
         self.self_attn = attn.Attention(cfg, device)
-        self.add("ln_x", (cfg.d_model,), torch.float32, device)
+        self.add("ln_x", (cfg.d_model,), torch.float32, device, spec=(None,))
         self.cross_attn = attn.Attention(cfg, device)
-        self.add("ln2", (cfg.d_model,), torch.float32, device)
+        self.add("ln2", (cfg.d_model,), torch.float32, device, spec=(None,))
         self.mlp = MLP(cfg.d_model, cfg.d_ff, cfg.mlp_gated, device)
 
     @torch.no_grad()
@@ -78,13 +78,14 @@ class EncDec(Params):
         super().__init__()
         self.cfg = cfg
         self.add("embed", (padded_vocab(cfg.vocab), cfg.d_model),
-                 COMPUTE_DTYPE, device)
+                 COMPUTE_DTYPE, device, spec=("model", None))
         self.enc_blocks = nn.ModuleList(EncBlock(cfg, device)
                                         for _ in range(cfg.enc_layers))
         self.dec_blocks = nn.ModuleList(DecBlock(cfg, device)
                                         for _ in range(cfg.num_layers))
-        self.add("enc_ln", (cfg.d_model,), torch.float32, device)
-        self.add("final_ln", (cfg.d_model,), torch.float32, device)
+        self.add("enc_ln", (cfg.d_model,), torch.float32, device, spec=(None,))
+        self.add("final_ln", (cfg.d_model,), torch.float32, device,
+                 spec=(None,))
 
     @torch.no_grad()
     def init_weights(self, generator: Optional[torch.Generator]) -> None:

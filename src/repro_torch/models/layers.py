@@ -12,16 +12,21 @@ accumulation in float32, as there.
 
 Parameters live in :class:`Params` modules under the JAX package's names
 (``w_up``, ``w_down``, ...), so a weight carries across name for name;
-the apply functions take any mapping of those names to tensors.
+the apply functions take any mapping of those names to tensors. Each is
+declared with its sharding spec, the JAX package's ``PartitionSpec`` as
+a plain tuple (:data:`repro_torch.comm.Spec`): :func:`param_specs` lists
+them.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Mapping, Optional
+from typing import Dict, Mapping, Optional
 
 import torch
 from torch import nn
+
+from repro_torch.comm import Spec
 
 COMPUTE_DTYPE = torch.bfloat16
 
@@ -31,17 +36,28 @@ class Params(nn.Module):
     the JAX package's parameter dicts. Built for serving, its parameters
     take no gradient; :meth:`trainable` gives the training form."""
 
+    def __init__(self):
+        super().__init__()
+        #: each own parameter's sharding spec, by name
+        self.specs: Dict[str, Spec] = {}
+
     def __getitem__(self, name: str) -> torch.Tensor:
         return getattr(self, name)
 
     def __contains__(self, name: str) -> bool:
         return name in self._parameters or name in self._modules
 
-    def add(self, name: str, shape, dtype: torch.dtype, device) -> None:
-        """An uninitialised parameter (``init`` or a carrier fills it)."""
+    def add(self, name: str, shape, dtype: torch.dtype, device, *,
+            spec: Spec) -> None:
+        """An uninitialised parameter (``init`` or a carrier fills it) and
+        its sharding spec, one entry per dimension as the JAX package's
+        ``init`` declares it."""
+        if len(spec) != len(shape):
+            raise ValueError(f"{name}: spec {spec} for shape {shape}")
         self.register_parameter(name, nn.Parameter(
             torch.empty(shape, dtype=dtype, device=device),
             requires_grad=False))
+        self.specs[name] = tuple(spec)
 
     def trainable(self) -> "Params":
         """The training form, in place: every parameter float32 with
@@ -54,6 +70,14 @@ class Params(nn.Module):
                     mod._parameters[name] = nn.Parameter(
                         p.detach().to(torch.float32), requires_grad=True)
         return self
+
+
+def param_specs(params: Params) -> Dict[str, Spec]:
+    """``{parameter name: spec}`` of a model, in ``named_parameters``
+    order."""
+    return {f"{prefix}.{name}" if prefix else name: mod.specs[name]
+            for prefix, mod in params.named_modules()
+            for name in mod._parameters}
 
 
 @torch.no_grad()
@@ -158,9 +182,12 @@ class MLP(Params):
         super().__init__()
         self.gated = gated
         if gated:
-            self.add("w_gate", (d_model, d_ff), COMPUTE_DTYPE, device)
-        self.add("w_up", (d_model, d_ff), COMPUTE_DTYPE, device)
-        self.add("w_down", (d_ff, d_model), COMPUTE_DTYPE, device)
+            self.add("w_gate", (d_model, d_ff), COMPUTE_DTYPE, device,
+                     spec=(None, "model"))
+        self.add("w_up", (d_model, d_ff), COMPUTE_DTYPE, device,
+                 spec=(None, "model"))
+        self.add("w_down", (d_ff, d_model), COMPUTE_DTYPE, device,
+                 spec=("model", None))
 
     def init_weights(self, generator: Optional[torch.Generator]) -> None:
         if self.gated:

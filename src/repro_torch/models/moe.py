@@ -17,6 +17,12 @@ router never selects padding experts. The sphere dispatch sizes its
 buckets for the expert axis it runs on; where the two padded counts
 differ (most axis sizes for 60 experts) it raises, at the shapes where
 the JAX package fails.
+
+On :class:`repro_torch.comm.ProcessRanks` each process runs the JAX
+package's ``shard_map`` body for its own block of tokens, with the
+expert weights it holds: rows ``me * e_loc : (me + 1) * e_loc`` of
+``w_gate``, ``w_up`` and ``w_down``, the shard that their spec
+``("model", None, None)`` gives it (:func:`local_params`).
 """
 
 from __future__ import annotations
@@ -25,7 +31,7 @@ from typing import Mapping, Optional, Sequence
 
 import torch
 
-from repro_torch.comm import Ranks
+from repro_torch.comm import Ranks, Spec
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.shuffle import ShufflePlan
 from repro_torch.kernels.ops import partition_pack
@@ -49,16 +55,24 @@ class MoE(Params):
         self.cfg = cfg
         e_pad = padded_experts(cfg, tp)
         d, f = cfg.d_model, cfg.expert_d_ff
-        self.add("router", (d, cfg.num_experts), torch.float32, device)
-        self.add("w_gate", (e_pad, d, f), COMPUTE_DTYPE, device)
-        self.add("w_up", (e_pad, d, f), COMPUTE_DTYPE, device)
-        self.add("w_down", (e_pad, f, d), COMPUTE_DTYPE, device)
+        self.add("router", (d, cfg.num_experts), torch.float32, device,
+                 spec=(None, None))
+        self.add("w_gate", (e_pad, d, f), COMPUTE_DTYPE, device,
+                 spec=("model", None, None))
+        self.add("w_up", (e_pad, d, f), COMPUTE_DTYPE, device,
+                 spec=("model", None, None))
+        self.add("w_down", (e_pad, f, d), COMPUTE_DTYPE, device,
+                 spec=("model", None, None))
         if cfg.n_shared_experts:
             fs = cfg.shared_d_ff * cfg.n_shared_experts
-            self.add("ws_gate", (d, fs), COMPUTE_DTYPE, device)
-            self.add("ws_up", (d, fs), COMPUTE_DTYPE, device)
-            self.add("ws_down", (fs, d), COMPUTE_DTYPE, device)
-            self.add("shared_gate", (d, 1), torch.float32, device)
+            self.add("ws_gate", (d, fs), COMPUTE_DTYPE, device,
+                     spec=(None, "model"))
+            self.add("ws_up", (d, fs), COMPUTE_DTYPE, device,
+                     spec=(None, "model"))
+            self.add("ws_down", (fs, d), COMPUTE_DTYPE, device,
+                     spec=("model", None))
+            self.add("shared_gate", (d, 1), torch.float32, device,
+                     spec=(None, None))
 
     def init_weights(self, generator: Optional[torch.Generator]) -> None:
         """``moe_init``'s draws: padded experts of ``w_gate``/``w_up``
@@ -129,8 +143,10 @@ def _moe_sphere_local(params: Mapping[str, torch.Tensor], x_local,
     ``(R, b, s_loc, d)``: every rank's tokens, distinct per rank. Ranks
     are ordered ``(dp, ep)`` row-major: ``dp`` groups (the data rows)
     running the plan side by side over ``ep`` expert ranks each, which
-    hold the same experts from one group to the next."""
+    hold the same experts from one group to the next. On process ranks
+    ``R`` is 1 and ``params`` hold the process's own experts."""
     R, b, s_loc, d = x_local.shape
+    local = R != ranks.world          # one process's row of the grid
     n = b * s_loc
     x_flat = x_local.reshape(R, n, d)
     top_i, top_p, aux = _route(params, x_flat, cfg)
@@ -161,11 +177,13 @@ def _moe_sphere_local(params: Mapping[str, torch.Tensor], x_local,
 
     # one batched product a weight: the data rows of one expert column
     # fold into the capacity axis, (dp, ep, e_loc, C2, d) -> (ep * e_loc,
-    # dp * C2, d), so the weights are read as stored, never copied per rank
-    xe = xe.reshape(dp, ep * e_loc, c2, d).transpose(0, 1).reshape(
-        ep * e_loc, dp * c2, d)
+    # dp * C2, d), so the weights are read as stored, never copied per
+    # rank; a process holds one row of one column, (1, 1)
+    rows, cols = (1, 1) if local else (dp, ep)
+    xe = xe.reshape(rows, cols * e_loc, c2, d).transpose(0, 1).reshape(
+        cols * e_loc, rows * c2, d)
     ye = _expert_ffn(params["w_gate"], params["w_up"], params["w_down"], xe)
-    ye = ye.reshape(ep * e_loc, dp, c2, d).transpose(0, 1).reshape(
+    ye = ye.reshape(cols * e_loc, rows, c2, d).transpose(0, 1).reshape(
         R, e_loc, c2, d)
     ye = ye * pe[..., None].to(COMPUTE_DTYPE)           # weight by router prob
     ye = ye * in_rng[..., None].to(COMPUTE_DTYPE)
@@ -187,8 +205,12 @@ def _moe_sphere_local(params: Mapping[str, torch.Tensor], x_local,
     combined, _ = plan.combine(ranks, processed, res, n * k)
     out = combined.reshape(R, n, k, d).sum(dim=2).reshape(R, b, s_loc, d)
     # pmean over the plan's axes; shard_map's out_specs=P() then hands out
-    # data row 0's value (as it does the drop count)
-    aux = aux.reshape(dp, ep).mean(dim=1)[0]
+    # data row 0's value (as it does the drop count). A process keeps its
+    # own data row's: the same for one data row
+    if local:
+        aux = ranks.psum(aux, plan.axes)[0] / ep
+    else:
+        aux = aux.reshape(dp, ep).mean(dim=1)[0]
     dropped = res.dropped if res.dropped.dim() == 0 else res.dropped[0]
     return out, aux, dropped
 
@@ -214,7 +236,16 @@ def moe_apply_sphere(params, x: torch.Tensor, cfg: ModelConfig,
     over *both* axes — wide-area expert parallelism, tokens crossing the
     DC boundary through the hierarchical two-level shuffle (batch over the
     dc axis, sequence over the node axis). ``chunks=W`` pipelines the
-    dispatch shuffle in W rounds."""
+    dispatch shuffle in W rounds.
+
+    On :class:`repro_torch.comm.ProcessRanks`, ``x`` is the global input
+    all the same (as ``shard_map`` takes it), ``params`` hold the
+    process's expert shard (:func:`local_params`), and the output is the
+    process's block of the global output, ``(B / rows, S / cols, d)``,
+    the block the input spec gives it. ``moe_aux`` and ``moe_dropped`` are
+    the process's data row's (data row 0's on stacked ranks); the mean of
+    ``moe_aux`` over the expert ranks is one ``psum`` more than stacked
+    ranks count."""
     b, s, d = x.shape
     k = cfg.top_k
     if ep_axes is not None:
@@ -233,7 +264,8 @@ def moe_apply_sphere(params, x: torch.Tensor, cfg: ModelConfig,
         raise ValueError(f"x of shape {tuple(x.shape)} does not shard over "
                          f"the {rows} x {cols} grid")
     n_local = (b // rows) * (s // cols)
-    e_pad = params["w_gate"].shape[0]
+    local = ranks.rows != ranks.world
+    e_pad = params["w_gate"].shape[0] * (ep if local else 1)
     e_plan = padded_experts(cfg, ep)
     if e_pad != e_plan:
         # the JAX package fails here inside shard_map (the weights' expert
@@ -243,17 +275,49 @@ def moe_apply_sphere(params, x: torch.Tensor, cfg: ModelConfig,
                          f"to {e_plan}")
     plan = ShufflePlan.for_ranks(ranks, e_plan, n_local * k,
                                  cfg.capacity_factor, ep_axes, chunks=chunks)
-    # x (B, S, d) -> per rank (R, b_loc, s_loc, d), ranks row-major over
-    # (batch rows, sequence columns)
-    x_local = x.reshape(rows, b // rows, cols, s // cols, d).transpose(
-        1, 2).reshape(rows * cols, b // rows, s // cols, d)
-    out, aux, dropped = _moe_sphere_local(params, x_local, cfg, plan, ranks,
-                                          dp)
-    out = out.reshape(rows, cols, b // rows, s // cols, d).transpose(
-        1, 2).reshape(b, s, d)
+    if local:
+        x = token_block(x, rows, cols, ranks.rank)
+        out, aux, dropped = _moe_sphere_local(params, x[None], cfg, plan,
+                                              ranks, dp)
+        out = out[0]
+    else:
+        # x (B, S, d) -> per rank (R, b_loc, s_loc, d), ranks row-major
+        # over (batch rows, sequence columns)
+        x_local = x.reshape(rows, b // rows, cols, s // cols, d).transpose(
+            1, 2).reshape(rows * cols, b // rows, s // cols, d)
+        out, aux, dropped = _moe_sphere_local(params, x_local, cfg, plan,
+                                              ranks, dp)
+        out = out.reshape(rows, cols, b // rows, s // cols, d).transpose(
+            1, 2).reshape(b, s, d)
     if cfg.n_shared_experts:
         out = out + _shared_ffn(params, x)
     return out, {"moe_aux": aux, "moe_dropped": dropped}
+
+
+def token_block(x: torch.Tensor, rows: int, cols: int,
+                rank: int) -> torch.Tensor:
+    """The tokens of the global ``(B, S, ...)`` ``x`` that flat ``rank``
+    of a ``rows x cols`` layout holds, ranks row-major: row ``rank //
+    cols`` of ``rows`` batch blocks, column ``rank % cols`` of ``cols``
+    sequence blocks (the block of ``P(batch_axes, sequence_axes)``)."""
+    r, c = divmod(rank, cols)
+    b, s = x.shape[:2]
+    return x[r * (b // rows):(r + 1) * (b // rows),
+             c * (s // cols):(c + 1) * (s // cols)]
+
+
+def local_params(params, specs: Mapping[str, Spec], ranks) -> dict:
+    """The parameters a process passes to :func:`moe_apply_sphere`: the
+    routed experts ``w_gate``, ``w_up`` and ``w_down`` cut to the block
+    their spec in ``specs`` gives this process
+    (:meth:`repro_torch.comm.ProcessRanks.local_shard`, a view), every
+    other parameter whole, as the JAX package's ``shard_map`` takes the
+    router (``in_specs`` ``P(None, None)``) and runs the shared experts
+    outside it. ``specs``: :meth:`MoE.specs`, or ``(("dc", "node"), None,
+    None)`` for the routed experts of the wide-area dispatch."""
+    return {name: (ranks.local_shard(params[name], specs[name])
+                   if name in ("w_gate", "w_up", "w_down") else params[name])
+            for name in specs}
 
 
 # -- dense (one-hot) dispatch --------------------------------------------------------

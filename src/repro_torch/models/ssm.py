@@ -72,17 +72,22 @@ class Mamba2(Params):
         d = cfg.d_model
         d_in, H, _ = mamba2_dims(cfg)
         N, K = cfg.ssm_state, cfg.conv_kernel
-        self.add("in_zx", (d, 2 * d_in), COMPUTE_DTYPE, device)
-        self.add("in_bcdt", (d, 2 * N + H), COMPUTE_DTYPE, device)
-        self.add("conv_x", (K, d_in), COMPUTE_DTYPE, device)
-        self.add("conv_x_b", (d_in,), COMPUTE_DTYPE, device)
-        self.add("conv_bc", (K, 2 * N), COMPUTE_DTYPE, device)
-        self.add("conv_bc_b", (2 * N,), COMPUTE_DTYPE, device)
-        self.add("a_log", (H,), torch.float32, device)
-        self.add("d_skip", (H,), torch.float32, device)
-        self.add("dt_bias", (H,), torch.float32, device)
-        self.add("norm", (d_in,), torch.float32, device)
-        self.add("out_proj", (d_in, d), COMPUTE_DTYPE, device)
+        self.add("in_zx", (d, 2 * d_in), COMPUTE_DTYPE, device,
+                 spec=(None, "model"))
+        self.add("in_bcdt", (d, 2 * N + H), COMPUTE_DTYPE, device,
+                 spec=(None, None))
+        self.add("conv_x", (K, d_in), COMPUTE_DTYPE, device,
+                 spec=(None, "model"))
+        self.add("conv_x_b", (d_in,), COMPUTE_DTYPE, device, spec=("model",))
+        self.add("conv_bc", (K, 2 * N), COMPUTE_DTYPE, device,
+                 spec=(None, None))
+        self.add("conv_bc_b", (2 * N,), COMPUTE_DTYPE, device, spec=(None,))
+        self.add("a_log", (H,), torch.float32, device, spec=(None,))
+        self.add("d_skip", (H,), torch.float32, device, spec=(None,))
+        self.add("dt_bias", (H,), torch.float32, device, spec=(None,))
+        self.add("norm", (d_in,), torch.float32, device, spec=("model",))
+        self.add("out_proj", (d_in, d), COMPUTE_DTYPE, device,
+                 spec=("model", None))
 
     @torch.no_grad()
     def init_weights(self, generator: Optional[torch.Generator]) -> None:
@@ -281,14 +286,19 @@ class MLSTM(Params):
         self.cfg = cfg
         d = cfg.d_model
         d_in, H, _ = mlstm_dims(cfg)
-        self.add("up_proj", (d, 2 * d_in), COMPUTE_DTYPE, device)
-        self.add("conv_w", (cfg.conv_kernel, d_in), COMPUTE_DTYPE, device)
-        self.add("conv_b", (d_in,), COMPUTE_DTYPE, device)
-        self.add("wqkv", (d_in, 3 * d_in), COMPUTE_DTYPE, device)
-        self.add("wif", (d_in, 2 * H), COMPUTE_DTYPE, device)
-        self.add("if_bias", (2 * H,), torch.float32, device)
-        self.add("norm", (d_in,), torch.float32, device)
-        self.add("down_proj", (d_in, d), COMPUTE_DTYPE, device)
+        self.add("up_proj", (d, 2 * d_in), COMPUTE_DTYPE, device,
+                 spec=(None, "model"))
+        self.add("conv_w", (cfg.conv_kernel, d_in), COMPUTE_DTYPE, device,
+                 spec=(None, "model"))
+        self.add("conv_b", (d_in,), COMPUTE_DTYPE, device, spec=("model",))
+        self.add("wqkv", (d_in, 3 * d_in), COMPUTE_DTYPE, device,
+                 spec=("model", None))
+        self.add("wif", (d_in, 2 * H), COMPUTE_DTYPE, device,
+                 spec=("model", None))
+        self.add("if_bias", (2 * H,), torch.float32, device, spec=(None,))
+        self.add("norm", (d_in,), torch.float32, device, spec=("model",))
+        self.add("down_proj", (d_in, d), COMPUTE_DTYPE, device,
+                 spec=("model", None))
 
     @torch.no_grad()
     def init_weights(self, generator: Optional[torch.Generator]) -> None:
@@ -458,11 +468,14 @@ class SLSTM(Params):
         self.cfg = cfg
         d = cfg.d_model
         H, Pd = slstm_heads(cfg)
-        self.add("w_gates", (d, 4 * d), COMPUTE_DTYPE, device)
-        self.add("r_gates", (H, Pd, 4 * Pd), torch.float32, device)
-        self.add("gate_bias", (4 * d,), torch.float32, device)
-        self.add("norm", (d,), torch.float32, device)
-        self.add("out_proj", (d, d), COMPUTE_DTYPE, device)
+        self.add("w_gates", (d, 4 * d), COMPUTE_DTYPE, device,
+                 spec=(None, "model"))
+        self.add("r_gates", (H, Pd, 4 * Pd), torch.float32, device,
+                 spec=(None, None, None))
+        self.add("gate_bias", (4 * d,), torch.float32, device, spec=(None,))
+        self.add("norm", (d,), torch.float32, device, spec=(None,))
+        self.add("out_proj", (d, d), COMPUTE_DTYPE, device,
+                 spec=(None, "model"))
 
     @torch.no_grad()
     def init_weights(self, generator: Optional[torch.Generator]) -> None:

@@ -78,10 +78,11 @@ class Block(Params):
         super().__init__()
         self.cfg = cfg
         self.kind = kind
-        self.add("ln1", (cfg.d_model,), torch.float32, device)
+        self.add("ln1", (cfg.d_model,), torch.float32, device, spec=(None,))
         if kind in ATTN_KINDS:
             self.attn = attn.attention_module(cfg, device)
-            self.add("ln2", (cfg.d_model,), torch.float32, device)
+            self.add("ln2", (cfg.d_model,), torch.float32, device,
+                     spec=(None,))
             if kind == "moe":
                 self.moe = MoE(cfg, device=device)
             else:
@@ -160,15 +161,16 @@ class DecoderLM(Params):
         super().__init__()
         self.cfg = cfg
         self.add("embed", (padded_vocab(cfg.vocab), cfg.d_model),
-                 COMPUTE_DTYPE, device)
-        self.add("final_ln", (cfg.d_model,), torch.float32, device)
+                 COMPUTE_DTYPE, device, spec=("model", None))
+        self.add("final_ln", (cfg.d_model,), torch.float32, device,
+                 spec=(None,))
         self.blocks = nn.ModuleList(Block(cfg, kind, device)
                                     for kind in layer_pattern(cfg))
         if _shared_attn_points(cfg):
             self.shared_attn = Block(cfg, "shared_attn", device)
         if cfg.family == "vlm":
             self.add("img_proj", (cfg.d_model, cfg.d_model), COMPUTE_DTYPE,
-                     device)
+                     device, spec=(None, None))
 
     @torch.no_grad()
     def init_weights(self, generator: Optional[torch.Generator]) -> None:

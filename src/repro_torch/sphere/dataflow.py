@@ -533,9 +533,9 @@ class SPMDExecutor:
         dev = self.device
         records = tree_map(lambda a: torch.as_tensor(a).to(dev), records)
         world, n = _leading(records)
-        if world != self.ranks.world:
-            raise ValueError(f"records lead with {world} ranks, executor has "
-                             f"{self.ranks.world}")
+        if world != self.ranks.rows:
+            raise ValueError(f"records lead with {world} ranks, executor "
+                             f"holds {self.ranks.rows}")
         if valid is None:
             valid = torch.ones((world, n), dtype=torch.bool, device=dev)
         else:
@@ -850,8 +850,8 @@ class SPMDExecutor:
         res = plan.shuffle(self.ranks, packed, ids.to(torch.int32),
                            valid=valid, wire_meta="min")
         del packed
-        flat = res.data.reshape(self.ranks.world, -1, codec.nbytes)
-        return (codec.unpack(flat), res.valid.reshape(self.ranks.world, -1),
+        flat = res.data.reshape(self.ranks.rows, -1, codec.nbytes)
+        return (codec.unpack(flat), res.valid.reshape(self.ranks.rows, -1),
                 res.dropped)
 
     def _splitters(self, stage: SortStage, nb: int) -> torch.Tensor:
@@ -876,7 +876,7 @@ class SPMDExecutor:
         counted when the resolved sort is the unstable bitonic network,
         else None.
         """
-        world = self.ranks.world
+        world = self.ranks.rows
         nb = (self.plan.num_buckets if self.plan is not None
               else stage.num_buckets or self.axis_size)
         spl = self._splitters(stage, nb)

@@ -694,19 +694,19 @@ class StreamExecutor:
         rows = [tree_flatten(t.payload)[0] for t in tickets]
         treedef = tree_flatten(tickets[0].payload)[1]
         n = sum(t.cost for t in tickets)
-        world = self.inner.ranks.world
+        ranks = self.inner.ranks
+        world = ranks.world
         per = self.micro_batch // world
-        dev = self.inner.device
         leaves = []
         for parts in zip(*rows):
             tail = parts[0].shape[1:]
             buf = np.zeros((self.micro_batch,) + tail, parts[0].dtype)
             np.concatenate(parts, axis=0, out=buf[:n])
-            leaves.append(torch.from_numpy(buf).reshape(
-                (world, per) + tuple(tail)).to(dev))
+            leaves.append(ranks.stack(torch.from_numpy(buf).reshape(
+                (world, per) + tuple(tail))))
         valid = np.zeros((self.micro_batch,), bool)
         valid[:n] = True
-        valid = torch.from_numpy(valid).reshape(world, per).to(dev)
+        valid = ranks.stack(torch.from_numpy(valid).reshape(world, per))
         return tree_unflatten(treedef, leaves), valid, n
 
     def _init_carry(self, batch, valid) -> Tuple[Any, Any]:
@@ -746,13 +746,13 @@ class StreamExecutor:
                 "streaming carry requires a schema-preserving reduce (its "
                 "output is fed back into its input next batch); got input "
                 f"schema {in_schema} vs output {out_schema}")
-        world = self.inner.ranks.world
-        per = self._carry_cap_total // world
+        rows = self.inner.ranks.rows
+        per = self._carry_cap_total // self.inner.ranks.world
         dev = self.inner.device
-        leaves = [torch.zeros((world, per) + tuple(shape), dtype=dtype,
+        leaves = [torch.zeros((rows, per) + tuple(shape), dtype=dtype,
                               device=dev) for shape, dtype in out_schema]
         return (tree_unflatten(t_out, leaves),
-                torch.zeros((world, per), dtype=torch.bool, device=dev))
+                torch.zeros((rows, per), dtype=torch.bool, device=dev))
 
     def carry_state(self) -> Optional[Any]:
         """Dense numpy view of the current cross-batch aggregate (the valid

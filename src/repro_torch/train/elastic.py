@@ -12,8 +12,9 @@ layout-agnostic byte rows in rank-major order, restart is:
      rows land whole on one new rank, because the new extent divides the
      old one.
 
-``shardings_for`` has no meaning on stacked ranks; it waits for the
-trainer's port.
+:func:`shardings_for` keeps the reference's axis filter on sharding specs:
+a spec restored onto a grid that lacks some of its axes (``pod`` after a
+pod is lost) drops them.
 """
 
 from __future__ import annotations
@@ -24,13 +25,46 @@ from typing import Any, Sequence, Union
 
 import torch
 
-from repro_torch.comm import Ranks
+from repro_torch.comm import Ranks, Spec
 from repro_torch.core.records import tree_map
+
+
+def shardings_for(axes: Sequence[str], specs: Any) -> Any:
+    """``specs`` (a spec, or a dict or list tree of them) filtered to the
+    grid axes ``axes``: an axis the grid lacks becomes ``None``, and a
+    tuple entry keeps the axes it has (the name if one is left, ``None``
+    if none is), as the
+    JAX package's ``shardings_for`` fixes each ``PartitionSpec`` before
+    it places it."""
+    have = set(axes)
+
+    def fix(spec: Spec) -> Spec:
+        out = []
+        for e in spec:
+            if e is None:
+                out.append(None)
+            elif isinstance(e, (tuple, list)):
+                kept = tuple(a for a in e if a in have)
+                # one name left is the name, as PartitionSpec holds it
+                out.append(kept if len(kept) > 1 else
+                           kept[0] if kept else None)
+            else:
+                out.append(e if e in have else None)
+        return tuple(out)
+
+    def walk(node):
+        if isinstance(node, dict):
+            return {k: walk(v) for k, v in node.items()}
+        if isinstance(node, list):
+            return [walk(v) for v in node]
+        return fix(node)
+    return walk(specs)
 
 
 def remesh(tree: Any, ranks: Ranks) -> Any:
     """Re-stack every leaf of global rank-major rows ``(N, ...)`` onto
-    ``ranks``: ``(N, ...) -> (world, N / world, ...)`` on its device."""
+    ``ranks``: ``(N, ...) -> (world, N / world, ...)`` on its device (a
+    process's own row under :class:`repro_torch.comm.ProcessRanks`)."""
     world = ranks.world
 
     def restack(a):
@@ -38,8 +72,8 @@ def remesh(tree: Any, ranks: Ranks) -> Any:
         n = t.shape[0]
         if n % world:
             raise ValueError(f"{n} rows do not split over {world} ranks")
-        return t.reshape((world, n // world) + tuple(t.shape[1:])).to(
-            ranks.device)
+        return ranks.stack(t.reshape((world, n // world)
+                                     + tuple(t.shape[1:])))
 
     return tree_map(restack, tree)
 

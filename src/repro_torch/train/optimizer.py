@@ -14,17 +14,20 @@ parameter took no part in the loss, or only through a non-differentiable
 op such as the bucket shuffle's byte framing) takes a zero gradient, as
 JAX differentiates it: its moments and its weight decay still step.
 Parameters, moments and the optional float32 ``master`` copy are updated
-in place. ``zero1_specs`` (sharding the moments over the data axis) waits
-for the ``torch.distributed`` backend.
+in place. :func:`zero1_specs` derives the moments' sharding specs (ZeRO-1,
+over the data axis) from the parameters'; the sharded step itself is
+later work.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, Mapping, Optional
+from typing import Dict, Mapping, Optional, Sequence, Tuple
 
 import torch
+
+from repro_torch.comm import Spec
 
 
 @dataclasses.dataclass(frozen=True)
@@ -119,3 +122,36 @@ def adamw_update(cfg: AdamWConfig, params: Mapping[str, torch.Tensor],
             base.copy_(new)
     opt_state["step"].copy_(step)
     return params, opt_state, {"grad_norm": gnorm, "lr": lr}
+
+
+def zero1_specs(param_specs: Mapping[str, Spec],
+                shapes: Mapping[str, Sequence[int]],
+                data_axes: Tuple[str, ...] = ("data",),
+                mesh_shape: Optional[Mapping[str, int]] = None
+                ) -> Dict[str, Spec]:
+    """ZeRO-1: each moment's spec from its parameter's, the largest
+    replicated dimension that the data axes divide sharded over them (the
+    last such dimension on a tie), as the JAX package derives them. A
+    spec that changes is padded with ``None`` to the parameter's rank;
+    one that does not is returned as given. ``shapes``: each parameter's
+    shape, by the same names."""
+    dsize = 1
+    for a in data_axes:
+        dsize *= (mesh_shape or {}).get(a, 1)
+
+    def one(spec: Spec, shape) -> Spec:
+        shape = tuple(shape)
+        if dsize <= 1 or not shape:
+            return spec
+        entries = list(spec) + [None] * (len(shape) - len(spec))
+        cands = [(shape[i], i) for i, e in enumerate(entries)
+                 if e is None and shape[i] % dsize == 0]
+        if not cands:
+            return spec
+        _, idx = max(cands)
+        entries[idx] = tuple(data_axes) if len(data_axes) > 1 \
+            else data_axes[0]
+        return tuple(entries)
+
+    return {name: one(spec, shapes[name])
+            for name, spec in param_specs.items()}

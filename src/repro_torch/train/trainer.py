@@ -7,20 +7,21 @@ and moments in place under ``torch.no_grad()``. Gradients come from
 ``torch.autograd.grad`` over the model's parameters in the JAX package's
 leaf order; a parameter the loss does not reach gets ``None``, which the
 optimizer takes as a zero gradient (as JAX differentiates it).
-``make_state_shardings`` and ``jit_train_step``'s shardings wait for the
-``torch.distributed`` backend.
+:func:`make_state_shardings` gives the state's sharding specs as data;
+``jit_train_step``'s sharded step waits for training over process ranks.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Sequence, Tuple
+from typing import Any, Dict, Mapping, Optional, Sequence, Tuple
 
 import torch
 
-from repro_torch.comm import Ranks
+from repro_torch.comm import Ranks, Spec
 from repro_torch.models.convert import flatten, named_leaves, unflatten
-from repro_torch.models.registry import Model
+from repro_torch.models.registry import Model, meta_params
 from repro_torch.train.optimizer import (AdamWConfig, adamw_update,
+                                         zero1_specs,
                                          init_opt_state)
 
 
@@ -111,3 +112,28 @@ def load_state_tree(model: Model, params, opt_state: Dict,
                 opt_state[key][name].copy_(v)
         else:
             opt_state[key].copy_(value)
+
+
+def make_state_shardings(model: Model, mesh_shape: Mapping[str, int],
+                         param_specs: Optional[Mapping[str, Spec]] = None,
+                         zero1: bool = True, master: bool = False):
+    """The JAX package's state shardings as specs: ``(param_specs,
+    {"m": specs, "v": specs, "step": (), "master": specs})``, by port
+    name in the JAX package's leaf order. ``mesh_shape``: ``{axis:
+    size}`` of the grid (``make_production_mesh(...).sizes``). With
+    ``zero1`` and a ``data`` axis the moments (and the float32 master
+    copy, with ``master``) are sharded by :func:`zero1_specs`; else they
+    take the parameters' specs. Shapes come from the model on the
+    ``meta`` device: nothing is allocated."""
+    p_specs = dict(model.param_specs() if param_specs is None
+                   else param_specs)
+    if zero1 and "data" in mesh_shape:
+        shapes = {name: tuple(p.shape) for name, p in
+                  meta_params(model.cfg).named_parameters()}
+        m_specs = zero1_specs(p_specs, shapes, ("data",), dict(mesh_shape))
+    else:
+        m_specs = p_specs
+    opt = {"m": m_specs, "v": m_specs, "step": ()}
+    if master:
+        opt["master"] = m_specs
+    return p_specs, opt

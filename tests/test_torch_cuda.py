@@ -1185,3 +1185,107 @@ def test_checkpoint_roundtrip_from_the_card(card, tmp_path):
                 assert b.device.type == "cuda" and torch.equal(a, b)
             assert torch.equal(back["opt"]["step"], opt["step"])
     assert md5s[0] == md5s[1] and len(md5s[0]) == 3
+
+
+# -- ProcessRanks on the card: two gloo processes on one card, one NCCL rank --
+
+
+def _card_ranks_paths(ranks, keys, payload, value):
+    """Collectives, a flat Terasort and the ``(dc, node)``-free record sort
+    on the card, with K1/K3 launches counted from zero for each sort."""
+    import torch_dist_paths as paths
+    out = {"coll": paths.collectives(ranks)}
+    for name, run in (("terasort", lambda: paths.flat_terasort(
+            ranks, keys, payload)), ("records", lambda: paths.record_sort(
+                ranks, keys[:value.shape[0]], value))):
+        ranks.collectives.clear()
+        before = {k.name: k.launches for k in (partition.KERNEL,
+                                                 bitonic_sort.KERNEL)}
+        out[name] = run()
+        out[name]["launches"] = {
+            k.name: k.launches - before[k.name]
+            for k in (partition.KERNEL, bitonic_sort.KERNEL)}
+        out[name]["device"] = str(ranks.device)
+    return out
+
+
+@pytest.fixture(scope="module")
+def card_ranks():
+    """Two gloo processes on ``cuda:0`` (one spawn) and the stacked
+    ``Ranks(2)`` on the card, on the same seeded inputs."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is False)")
+    from repro_torch.comm import spawn_ranks
+    rng = np.random.default_rng(11)
+    keys = rng.integers(0, 2**31 - 2, size=1 << 16).astype(np.int32)
+    payload = np.arange(keys.size, dtype=np.int32)
+    value = rng.integers(0, 256, size=(1 << 13, 96)).astype(np.uint8)
+    procs = spawn_ranks(_card_ranks_paths, (2,), backend="gloo",
+                        device="cuda", timeout_s=300,
+                        args=(keys, payload, value))
+    stacked = _card_ranks_paths(Ranks(2, device="cuda"), keys, payload, value)
+    return procs, stacked
+
+
+@pytest.mark.parametrize("op", ["all_to_all", "psum", "psum_f32",
+                                "all_gather", "axis_index",
+                                "all_to_all_data", "psum_data",
+                                "axis_index_data"])
+def test_process_ranks_collectives_on_the_card(card_ranks, op):
+    procs, stacked = card_ranks
+    want = stacked["coll"][op]
+    got = [p["coll"][op] for p in procs]
+    if op in ("psum", "psum_f32", "all_gather", "psum_data"):
+        for g in got:
+            torch.testing.assert_close(g, want, rtol=1e-6 if op.endswith(
+                "f32") else 0, atol=0)
+    else:
+        got = torch.cat(got)
+        assert got.dtype == want.dtype
+        assert torch.equal(got, want)
+    assert all(p["coll"]["counts"] == stacked["coll"]["counts"]
+               for p in procs)
+
+
+@pytest.mark.parametrize("path", ["terasort", "records"])
+def test_process_ranks_sort_on_the_card(card_ranks, path):
+    """Both processes ran on ``cuda:0``, launched K1 and K3 as often as
+    the stacked run, and their rows equal the stacked rows (keys in order,
+    each payload beside its key)."""
+    procs, stacked = card_ranks
+    want = stacked[path]
+    kf, pf = ("keys", "payload") if path == "terasort" else ("key", "value")
+    for p in procs:
+        assert p[path]["device"] == "cuda:0"
+        assert p[path]["launches"] == want["launches"]
+        assert all(v > 0 for v in want["launches"].values())
+        assert p[path]["counts"] == want["counts"]
+        assert int(p[path]["dropped"]) == 0
+    for f in (kf, "valid"):
+        assert torch.equal(torch.cat([p[path][f] for p in procs]), want[f])
+    valid = want["valid"]
+    got_p = torch.cat([p[path][pf] for p in procs])[valid]
+    key = want[kf][valid]
+
+    def multiset(k, v):
+        return sorted(zip(k.tolist(), map(bytes, v.reshape(v.shape[0], -1)
+                                          .numpy())))
+    assert multiset(key, got_p) == multiset(key, want[pf][valid])
+
+
+def _nccl_collectives(ranks):
+    import torch_dist_paths as paths
+    return paths.collectives(ranks)
+
+
+def test_process_ranks_nccl_world_one_on_the_card(card):
+    from repro_torch.comm import spawn_ranks
+    (got,) = spawn_ranks(_nccl_collectives, (1,), backend="nccl",
+                         device="cuda", timeout_s=180)
+    import torch_dist_paths as paths
+    want = paths.collectives(Ranks(1, device="cuda"))
+    for k, v in want.items():
+        if k == "counts":
+            assert got[k] == v
+        else:
+            torch.testing.assert_close(got[k], v, rtol=1e-6, atol=0)
