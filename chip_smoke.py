@@ -216,6 +216,36 @@ Phases, in order (any failure ends the script with a non-zero exit):
     each collective's host seconds and the bytes each process hands to
     gloo per hop, and each process's peak memory. A process that raises
     or outlasts its limit fails the phase.
+16. ``train_ranks``: TinyLlama-1.1B at its published config (22 layers,
+    d 2048, 32 heads, 4 KV heads, d_ff 5632, vocab 32000, remat) trained
+    3 steps as 8 processes on ``(data, model) = (2, 4)`` (``backend="gloo"``
+    over CUDA tensors, chosen by name: NCCL takes one card a rank), on
+    phase 14's first 3 batches (8 x 2048 tokens) at the launcher's lr and
+    warmup. First the one-process step on the card: its initial float32
+    weights (phase 14's, seed 0) written to ``/dev/shm``, the first
+    batch's gradient of a few leaves, 3 steps, the parameters after
+    them; its memory freed. Then each process cuts its shards of the
+    parameters (by their specs) and of the moments (ZeRO-1) from the
+    saved weights (``init_train_state(..., ranks=)``) and runs
+    ``jit_train_step``: heads sharded over ``model``, the batch over
+    ``data``. Checks: every process's losses, norms and lrs the same
+    bits; the first loss within 2e-3 and the later ones within 5e-3,
+    ``grad_norm`` within 5e-3 relative of the one process's; the first
+    step's gradient blocks within 3% of each leaf's largest value (the
+    embedding's within 25%); the two wider bounds are full width's,
+    stated with their measurement and cause at
+    ``TRAIN_ATOL_LOSS_STEPPED``, and the one process's own floor (its
+    gradient over two halves of the batch, its steps over two micro
+    batches) is printed beside them; the parameters after 3 steps,
+    gathered on process 0, inside the trainer tests' rule (every one
+    within ``2 * sum(lr)``, 99% within 0.05 and half within 0.005 of
+    it); each process's
+    parameter and moment bytes equal to the specs' arithmetic; the
+    collectives of every step equal to the count from the layer count
+    (``train_ranks_collectives``), none an ``all_gather`` over
+    ``model``. Prints the warm step wall against the one process's, the
+    last step's gloo bytes and seconds by op and axis, the peak memory a
+    process. A process that raises or outlasts its limit fails the phase.
 
 Each path's launch counts are read from zero: every count is reset just
 before the path runs and read just after. The last lines are the
@@ -290,6 +320,31 @@ MOE_TRAIN_LAYERS, MOE_TRAIN_STEPS = 2, 3
 #: against the stacked one: one bfloat16 ulp of the output's largest value
 RANKS_TIMEOUT_S = 600
 MOE_RANKS_TOL = 2.0 ** -7
+#: phase 16: TinyLlama-1.1B at its published config trained as 8 processes
+#: on the (data, model) grid, against the one-process step on phase 14's
+#: first batches; the CPU tests' bounds (tests/test_torch_train_dist.py)
+TRAIN_RANKS_GRID = (2, 4)
+TRAIN_RANKS_STEPS = 3
+TRAIN_ATOL_LOSS, TRAIN_RTOL_GNORM = 2e-3, 5e-3
+TRAIN_RTOL_GRAD, TRAIN_ATOL_GRAD = 0.03, 1e-3
+#: the two bounds full width needs wider than the CPU tests' (measured on
+#: an NVIDIA H100 80GB HBM3 at 700 W): the loss after a step (2.6e-3 at
+#: step 2, and 4.8e-3 between the one process's steps over the whole
+#: batch and over two micro batches: AdamW's first update moves a
+#: weight by lr * sign(g), so each gradient whose rounding flips its sign
+#: moves it by 2 lr, over 1.03e9 weights, and the launcher's lr makes the
+#: loss climb, 10.86 -> 11.87, with a norm of 116 at step 2), and the
+#: embedding's gradient (11.2% of its largest value, and 11.1% between
+#: the one process's gradient and the mean of its two halves': the one
+#: process sums a token's rows in bfloat16, ``emb.to(bfloat16)[tokens]``'s
+#: scatter-add, over up to ~1560 repeats of a Zipf token; the processes
+#: sum a quarter of the vocabulary over half the rows each)
+TRAIN_ATOL_LOSS_STEPPED = 5e-3
+TRAIN_RTOL_GRAD_EMBED = 0.25
+#: leaves whose first-step gradient blocks are held to the one process's
+TRAIN_GRAD_LEAVES = ("embed", "final_ln", "blocks.0.ln1", "blocks.0.attn.wq",
+                     "blocks.0.attn.wk", "blocks.11.attn.wo",
+                     "blocks.21.mlp.w_gate", "blocks.21.mlp.w_down")
 #: phase 15's paths in the kernel table
 RANKED_PATHS = (("flat", "dataflow sort, flat"),
                 ("grid", "dataflow sort, (dc, node)"),
@@ -3845,6 +3900,388 @@ def ranks_path(torch, dev, directory: str, seed: int, flat_sorted) -> dict:
     return out
 
 
+# -- phase 16: TinyLlama-1.1B trained as 8 processes on (2, 4) ----------------
+
+
+def train_ranks_collectives(num_layers: int, num_leaves: int) -> dict:
+    """The collectives of one step of the dense decoder on ``(2, 4)`` with
+    its heads sharded (TinyLlama: 32 heads and 4 KV heads over 4 model
+    ranks). Over ``model``: the embedding's ``reduce_from``; a layer's
+    attention and MLP row-parallel sums; the cross-entropy's ``pmax`` and
+    one ``psum``; in the backward the remat recompute of each layer's
+    attention sum (the MLP's is the block's last use, which
+    ``torch.utils.checkpoint`` does not recompute) and the gradient sums
+    of the attention's, the MLP's and the logits' ``copy_to``. Over
+    ``data``: one ``reduce_scatter`` and one ``all_gather`` a leaf (ZeRO-1
+    shards every leaf) and the loss's ``psum``; over both, the norm's
+    ``psum``. No leaf of the attention is replicated, so no ``psum`` of
+    partial gradients."""
+    L = num_layers
+    return {"psum": 1 + 2 * L + 1 + L + 2 * L + 1 + 2, "pmax": 1,
+            "reduce_scatter": num_leaves, "all_gather": num_leaves}
+
+
+def train_ranks_batches(torch, cfg):
+    """Phase 14's first ``TRAIN_RANKS_STEPS`` batches: the launcher's
+    corpus in Sector slices, served by a fresh ``SectorDataPipeline`` (the
+    launcher's seed), as int32 tensors."""
+    import tempfile
+    from repro_torch.data import (SectorDataPipeline, synthetic_tokens,
+                                  upload_token_dataset)
+    from repro_torch.launch.train import make_sector
+    root = tempfile.mkdtemp(prefix="chip_smoke_train_ranks_",
+                            dir="/dev/shm" if os.path.isdir("/dev/shm")
+                            else None)
+    try:
+        master, client, daemon = make_sector(root)
+        toks = synthetic_tokens(TRAIN_BATCH * (TRAIN_SEQ + 1)
+                                * (TRAIN_STEPS + 8), cfg.vocab)
+        upload_token_dataset(client, "/corpus/train", toks, num_slices=8)
+        daemon.run_until_stable()
+        it = iter(SectorDataPipeline(master, client, "/corpus/train",
+                                     batch=TRAIN_BATCH, seq_len=TRAIN_SEQ))
+        return [{k: torch.from_numpy(v) for k, v in next(it).items()}
+                for _ in range(TRAIN_RANKS_STEPS)]
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def train_ranks_reference(torch, dev, cfg, batches, opt_cfg,
+                          directory: str) -> dict:
+    """The one-process step on the card: the initial float32 weights
+    (phase 14's, drawn from seed 0) written to ``directory`` as
+    ``init.<leaf>.npy``, the first batch's gradient of
+    ``TRAIN_GRAD_LEAVES``, then ``TRAIN_RANKS_STEPS`` steps (losses,
+    norms, lrs, walls, peak memory) and the parameters after them as
+    ``final.<leaf>.npy``. Then the one process's own rounding floor (not a
+    check): the first gradient as the mean of its two halves', and the
+    same steps with each batch as two micro batches (each step's loss
+    taken on the whole batch first), against the above. The card's
+    memory is freed before returning."""
+    from repro_torch.models import build
+    from repro_torch.models.convert import named_leaves
+    from repro_torch.train.trainer import (build_train_step,
+                                           init_train_state, loss_and_grads)
+    model = build(cfg)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    params, opt = init_train_state(model, gen, dev)
+    leaves = named_leaves(params, cfg)
+    for name, p in leaves.items():
+        save_npy(directory, f"init.{name}", p.detach())
+    on_dev = [{k: v.to(dev) for k, v in b.items()} for b in batches]
+    _, _, g = loss_and_grads(model, params, on_dev[0])
+    grads = {n: g[n].cpu() for n in TRAIN_GRAD_LEAVES}
+    # the floor of the same gradient: the mean of its two halves' (four
+    # sequences each, the data ranks' rows)
+    half = {n: torch.zeros_like(t) for n, t in grads.items()}
+    for rows in (slice(0, TRAIN_BATCH // 2), slice(TRAIN_BATCH // 2, None)):
+        _, _, g = loss_and_grads(model, params,
+                                 {k: v[rows] for k, v in on_dev[0].items()})
+        for n in half:
+            half[n] += g[n].cpu() / 2
+    grad_floor = {n: float((half[n] - grads[n]).abs().max()
+                           / grads[n].abs().max()) for n in grads}
+    del g, half
+    step = build_train_step(model, opt_cfg)
+    torch.cuda.reset_peak_memory_stats()
+    out = {"losses": [], "grad_norms": [], "lrs": [], "step_ms": []}
+    for b in on_dev:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, _, m = step(params, opt, b)
+        torch.cuda.synchronize()
+        out["step_ms"].append((time.perf_counter() - t0) * 1e3)
+        for k, key in (("losses", "loss"), ("grad_norms", "grad_norm"),
+                       ("lrs", "lr")):
+            out[k].append(float(m[key]))
+    out["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+    for name, p in leaves.items():
+        save_npy(directory, f"final.{name}", p.detach())
+    out["grads"] = grads
+    out["n_params"] = sum(p.numel() for p in leaves.values())
+    # the rounding floor, not a check: the same steps in the one process
+    # with each batch as two micro batches of 4 sequences (the gradient's
+    # sums grouped as two data ranks group them), against the steps above
+    del opt
+    gen.manual_seed(0)
+    twin, twin_opt = init_train_state(model, gen, dev)
+    step2 = build_train_step(model, opt_cfg, accum_steps=2)
+    norms, losses = [], []
+    for b in on_dev:
+        with torch.no_grad():
+            losses.append(float(model.train_loss(twin, b)[0]))
+        _, _, m = step2(twin, twin_opt, b)
+        norms.append(float(m["grad_norm"]))
+    twins = named_leaves(twin, cfg)
+    out["accum2_floor"] = {
+        "losses": losses, "grad_norms": norms,
+        "loss_max_abs_diff": max(abs(a - b) for a, b in
+                                 zip(losses, out["losses"])),
+        "grad_norm_max_rel_diff": max(abs(a - b) / abs(b) for a, b in
+                                      zip(norms, out["grad_norms"])),
+        "grad_max_err_over_leaf_max": grad_floor,
+        "params": rule_counts(((twins[n], p) for n, p in leaves.items()),
+                              sum(out["lrs"]))}
+    del model, params, leaves, step, on_dev, twin, twin_opt, twins, step2
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def rule_counts(pairs, sum_lr: float) -> dict:
+    """The trainer tests' rule (tests/test_torch_train.py) over ``(got,
+    want)`` parameter pairs, by counts: "99% within 0.05 * sum(lr)" is
+    "at most 1% beyond it", "half within 0.005 * sum(lr)" at most half
+    beyond."""
+    n = beyond_5 = beyond_05 = 0
+    top = 0.0
+    for got, want in pairs:
+        d = (got.detach() - want.detach()).abs()
+        n += d.numel()
+        top = max(top, float(d.max()))
+        beyond_5 += int((d > 0.05 * sum_lr).sum())
+        beyond_05 += int((d > 0.005 * sum_lr).sum())
+    return {"elements": n, "max_over_sum_lr": top / sum_lr,
+            "share_beyond_0.05_sum_lr": beyond_5 / n,
+            "share_beyond_0.005_sum_lr": beyond_05 / n}
+
+
+def comm_by_op_axis(log) -> dict:
+    """A step's collective log summed by ``op`` over ``axes``: calls,
+    bytes handed to gloo and host seconds."""
+    out = {}
+    for e in log:
+        s = out.setdefault(f"{e['op']} over {','.join(e['axes'])}",
+                           {"calls": 0, "bytes": 0, "seconds": 0.0})
+        s["calls"] += 1
+        s["bytes"] += e["bytes"]
+        s["seconds"] += e["seconds"]
+    return out
+
+
+def rank_train(ranks, directory: str, batches, opt_cfg, sum_lr: float
+               ) -> dict:
+    """Phase 16 in one of the 8 processes: this process's shards cut from
+    the initial weights in ``directory``, ``TRAIN_RANKS_STEPS`` sharded
+    steps (the last with its collectives logged), its state's bytes, the
+    first step's gradient blocks of ``TRAIN_GRAD_LEAVES``; process 0
+    gathers the parameters after the steps and holds them to the one
+    process's, leaf by leaf on the card."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.models import build
+    from repro_torch.models.convert import named_leaves
+    from repro_torch.models.registry import meta_params
+    from repro_torch.train.trainer import (gather_leaves, init_train_state,
+                                           jit_train_step)
+    dev = ranks.device
+    cfg = get_config(TRAIN_ARCH)
+    model = build(cfg)
+    shapes = {n: tuple(p.shape)
+              for n, p in meta_params(cfg).named_parameters()}
+    t0 = time.perf_counter()
+    source = {n: load_npy(directory, f"init.{n}") for n in shapes}
+    params, opt = init_train_state(model, ranks=ranks, source=source)
+    load_s = time.perf_counter() - t0
+    step_fn, (p_specs, opt_specs, _) = jit_train_step(model, opt_cfg, ranks)
+    out = {"rank": ranks.rank, "device": str(dev), "load_s": load_s,
+           "losses": [], "grad_norms": [], "lrs": [], "step_ms": [],
+           "counts": []}
+    kept = {}
+
+    def keep(grads, specs):
+        kept.update({n: (grads[n].cpu(), specs[n])
+                     for n in TRAIN_GRAD_LEAVES})
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    last = TRAIN_RANKS_STEPS - 1
+    for i, b in enumerate(batches):
+        ranks.collectives.clear()
+        ranks.log = [] if i == last else None
+        dist.barrier()
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        _, _, m = step_fn(params, opt, b, on_grads=keep if i == 0 else None)
+        torch.cuda.synchronize(dev)
+        out["step_ms"].append((time.perf_counter() - t0) * 1e3)
+        out["counts"].append(dict(ranks.collectives))
+        for k, key in (("losses", "loss"), ("grad_norms", "grad_norm"),
+                       ("lrs", "lr")):
+            out[k].append(float(m[key]))
+    out["comm_last_step"] = comm_by_op_axis(ranks.log)
+    out["model_all_gathers"] = sum(e["op"] == "all_gather"
+                                   and "model" in e["axes"]
+                                   for e in ranks.log)
+    ranks.log = None
+    out["peak_mem_bytes"] = torch.cuda.max_memory_allocated(dev)
+    leaves = named_leaves(params, cfg)
+    out["param_bytes"] = sum(p.numel() * 4 for p in leaves.values())
+    out["moment_bytes"] = {k: sum(t.numel() * 4 for t in opt[k].values())
+                           for k in ("m", "v")}
+    out["grads"] = kept
+    del opt
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    full = gather_leaves(ranks, leaves, p_specs, shapes)
+    out["gather_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    if full is not None:
+        out["params_vs_one_process"] = rule_counts(
+            ((got.to(dev), torch.from_numpy(np.array(load_npy(
+                directory, f"final.{name}"))).to(dev))
+             for name, got in full.items()), sum_lr)
+    out["compare_s"] = time.perf_counter() - t0
+    return out
+
+
+def train_ranks_path(torch, dev) -> dict:
+    """Phase 16 (see the module docstring): the one-process reference,
+    the 8 processes, the checks."""
+    import math
+    from repro_torch.comm import shard_slices, spawn_ranks, spec_axes
+    from repro_torch.configs import get_config
+    from repro_torch.models import build
+    from repro_torch.models.registry import meta_params
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.trainer import make_state_shardings
+
+    t_phase = time.perf_counter()
+    cfg = get_config(TRAIN_ARCH)
+    opt_cfg = AdamWConfig(lr=TRAIN_LR, warmup_steps=20,
+                          total_steps=TRAIN_STEPS)     # the launcher's
+    batches = train_ranks_batches(torch, cfg)
+    directory = ranks_dir()
+    try:
+        t0 = time.perf_counter()
+        ref = train_ranks_reference(torch, dev, cfg, batches, opt_cfg,
+                                    directory)
+        reference_s = time.perf_counter() - t0
+        sum_lr = sum(ref["lrs"])
+        t0 = time.perf_counter()
+        results = spawn_ranks(rank_train, TRAIN_RANKS_GRID,
+                              ("data", "model"), backend="gloo",
+                              device=dev.type, timeout_s=RANKS_TIMEOUT_S,
+                              args=(directory, batches, opt_cfg, sum_lr))
+        spawn_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+    grid = dict(zip(("data", "model"), TRAIN_RANKS_GRID))
+    r0 = results[0]
+    out = {"phase": "train_ranks", "arch": cfg.arch_id,
+           "layers": cfg.num_layers, "d_model": cfg.d_model,
+           "heads": cfg.n_heads, "kv_heads": cfg.n_kv_heads,
+           "d_ff": cfg.d_ff, "vocab": cfg.vocab, "remat": cfg.remat,
+           "grid": grid, "processes": len(results), "backend": "gloo",
+           "transport": "gloo over CUDA tensors, chosen by name: 8 "
+                        "processes share one card, and NCCL takes one card "
+                        "a rank",
+           "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "steps": TRAIN_RANKS_STEPS,
+           "lr": TRAIN_LR, "device": nvidia_smi_line(),
+           "reference_s": reference_s, "spawn_s": spawn_s,
+           "one_process": {k: ref[k] for k in ("losses", "grad_norms",
+                                               "lrs", "step_ms",
+                                               "peak_mem_bytes",
+                                               "accum2_floor")},
+           "processes_losses": r0["losses"],
+           "processes_grad_norms": r0["grad_norms"],
+           "step_ms_by_process": [r["step_ms"] for r in results],
+           "load_s_max": max(r["load_s"] for r in results),
+           "gather_s": r0["gather_s"], "compare_s": r0["compare_s"],
+           "peak_mem_bytes_by_process": [r["peak_mem_bytes"]
+                                         for r in results],
+           "params_vs_one_process": r0["params_vs_one_process"],
+           "comm_last_step_rank0": r0["comm_last_step"]}
+    # the warm step: the second, the last unlogged one
+    warm = max(r["step_ms"][1] for r in results)
+    out.update({"warm_step_ms_grid": warm,
+                "warm_step_ms_one_process": ref["step_ms"][1],
+                "grid_over_one_process": warm / ref["step_ms"][1],
+                "tokens_per_s_grid": TRAIN_BATCH * TRAIN_SEQ / warm * 1e3})
+    # every check runs and the phase line is printed before a failure ends
+    # the run
+    failures = []
+    # (1) the loss, the norm and the lr
+    for r in results:
+        for k in ("losses", "grad_norms", "lrs"):
+            if r[k] != r0[k]:
+                failures.append(f"process {r['rank']}'s {k} {r[k]} differ "
+                                f"from process 0's {r0[k]}")
+    if r0["lrs"] != ref["lrs"]:
+        failures.append(f"lrs {r0['lrs']} != {ref['lrs']}")
+    # the first step's loss from the same weights: the CPU tests' bound;
+    # after a step, full width's (TRAIN_ATOL_LOSS_STEPPED)
+    dl = [abs(a - b) for a, b in zip(r0["losses"], ref["losses"])]
+    dg = max(abs(a - b) / abs(b) for a, b in zip(r0["grad_norms"],
+                                                 ref["grad_norms"]))
+    out.update({"loss_abs_diff": dl, "grad_norm_max_rel_diff": dg})
+    if dl[0] > TRAIN_ATOL_LOSS or max(dl) > TRAIN_ATOL_LOSS_STEPPED \
+            or dg > TRAIN_RTOL_GNORM:
+        failures.append(f"losses {r0['losses']} vs {ref['losses']}, grad "
+                        f"norms {r0['grad_norms']} vs {ref['grad_norms']}: "
+                        f"beyond {TRAIN_ATOL_LOSS} (first step), "
+                        f"{TRAIN_ATOL_LOSS_STEPPED} (later) / "
+                        f"{TRAIN_RTOL_GNORM}")
+    # (2) the first step's gradient blocks
+    grad_err = {}
+    for n in TRAIN_GRAD_LEAVES:
+        want = ref["grads"][n]
+        worst = 0.0
+        for rank, r in enumerate(results):
+            got, spec = r["grads"][n]
+            sl = shard_slices(want.shape, spec, TRAIN_RANKS_GRID,
+                              ("data", "model"), rank)
+            worst = max(worst, float((got - want[sl]).abs().max()))
+        grad_err[n] = worst / float(want.abs().max())
+        rtol = TRAIN_RTOL_GRAD_EMBED if n == "embed" else TRAIN_RTOL_GRAD
+        if worst > rtol * float(want.abs().max()) + TRAIN_ATOL_GRAD:
+            failures.append(f"{n}: first-step gradient differs by {worst} "
+                            f"from the one process's")
+    out["grad_max_err_over_leaf_max"] = grad_err
+    # (3) the parameters after the steps, gathered: the trainer tests' rule
+    pv = r0["params_vs_one_process"]
+    if pv["max_over_sum_lr"] > 2 or pv["share_beyond_0.05_sum_lr"] > 0.01 \
+            or pv["share_beyond_0.005_sum_lr"] > 0.5:
+        failures.append(f"parameters after {TRAIN_RANKS_STEPS} steps "
+                        f"against the one process's: {pv}")
+    # (4) the state's bytes: the specs' arithmetic
+    meta = meta_params(cfg)
+    shapes = {n: tuple(p.shape) for n, p in meta.named_parameters()}
+    p_specs, opt_specs = make_state_shardings(build(cfg), grid)
+
+    def block_bytes(specs):
+        return sum(4 * math.prod(shapes[n]) // math.prod(
+            grid[a] for a in spec_axes(specs[n])) for n in shapes)
+    want_p, want_m = block_bytes(p_specs), block_bytes(opt_specs["m"])
+    out.update({"param_bytes_per_process": want_p,
+                "moment_bytes_per_process": want_m,
+                "one_process_state_bytes": 12 * ref["n_params"]})
+    for r in results:
+        if r["param_bytes"] != want_p or r["moment_bytes"] != {
+                "m": want_m, "v": want_m}:
+            failures.append(f"process {r['rank']}: {r['param_bytes']} "
+                            f"parameter and {r['moment_bytes']} moment "
+                            f"bytes, the specs give {want_p} and {want_m} "
+                            f"each")
+    # (5) the collectives: the count from the layer count, no gather of a
+    # weight over model
+    want_c = train_ranks_collectives(cfg.num_layers, len(shapes))
+    out["collectives_per_step"] = want_c
+    for r in results:
+        if any(c != want_c for c in r["counts"]) or r["model_all_gathers"]:
+            failures.append(f"process {r['rank']}: collectives "
+                            f"{r['counts']} (all_gathers over model: "
+                            f"{r['model_all_gathers']}), predicted {want_c} "
+                            f"a step and none over model")
+    out["phase_s"] = time.perf_counter() - t_phase
+    if failures:
+        log(json.dumps(out))
+        raise AssertionError("phase 16: " + "; ".join(failures))
+    return out
+
+
 def check_rank_moe(torch, results, m) -> dict:
     """Each process's block against the stacked layer: routing, per-expert
     counts and drops exact, ``moe_aux`` within 1e-6 relative, the output
@@ -4019,7 +4456,10 @@ def main(argv=None) -> int:
     for tag, p in ranked.pop("paths").items():
         log(json.dumps({"phase": f"ranks_{tag}", **p}))
     log(json.dumps(ranked))
+    gc.collect()
     torch.cuda.empty_cache()
+    train_ranks = train_ranks_path(torch, dev)
+    log(json.dumps(train_ranks))
     phase11 = {r["run"]: r["launches"] for r in chaos["runs"]}
     host_faults = {r["run"]: r["launches"] for r in chaos["host"]}
 

@@ -18,8 +18,12 @@ JAX collective (inside ``shard_map``)       stacked form
 ``all_to_all(split=0, concat=0, tiled)``    view ``(*shape, D, ...)``, swap
                                             the exchanged axis with ``D``
 ``psum``                                    sum over the ranks of the axes
+``pmax``                                    max over the ranks of the axes
+``psum_scatter(tiled)``                     ``reduce_scatter``: the sum,
+                                            each rank keeping its block
 ``all_gather(tiled)``                       reshape ``(R, n, ...)`` ->
-                                            ``(R * n, ...)``
+                                            ``(R * n, ...)``; along some
+                                            axes, each group's tiles
 ``axis_index``                              the rank's coordinate(s)
 ==========================================  =================================
 
@@ -29,7 +33,8 @@ This is what lets one H100 run the 8-device paths.
 process, the same API with a leading axis of 1 (``rows``: the rows a
 process holds, ``world`` for :class:`Ranks`, 1 here). Each collective
 runs over a process group of the axes it names: ``all_to_all_single``,
-``all_reduce`` and ``all_gather_into_tensor``. :func:`spawn_ranks` starts
+``all_reduce`` (sum and max), ``reduce_scatter_tensor`` and
+``all_gather_into_tensor``. :func:`spawn_ranks` starts
 the processes (``spawn``), :meth:`ProcessRanks.from_env` joins a
 ``torchrun`` launch. Its transport is the one the caller names: ``gloo``
 (the CPU, or CUDA tensors staged through host memory inside gloo, several
@@ -39,6 +44,13 @@ raises).
 :func:`shard_slices` cuts the block of a global array that a rank holds
 under a sharding spec (a tuple with one entry per dimension: ``None``, an
 axis name or a tuple of names, the entries of a JAX ``PartitionSpec``).
+
+Tensor parallelism over process ranks: :func:`model_parallel` is the one
+test every layer makes before it takes a sharded path (a process, one
+row, on a grid whose ``model`` axis has more than one rank; the stacked
+backend never), and :func:`copy_to`, :func:`reduce_from` and
+:func:`gather_from` are the differentiable collectives the layers use,
+counted and logged like the others.
 
 Entry points run on ``cuda`` unless the caller asks for ``"cpu"``; asking
 for ``cuda`` without a card raises — there is no quiet CPU fallback.
@@ -196,13 +208,68 @@ class Ranks:
         total = grid.sum(dim=dims, keepdim=True)
         return total.expand_as(grid).reshape(x.shape).contiguous()
 
-    def all_gather(self, x: torch.Tensor) -> torch.Tensor:
-        """Tiled gather over every rank: ``(R, n, ...)`` -> ``(R * n,
-        ...)``, the array every rank would hold (kept once, not
-        replicated)."""
+    def pmax(self, x: torch.Tensor, axis: AxisLike = None) -> torch.Tensor:
+        """The largest value over the ranks of ``axis``, laid out as
+        :meth:`psum` lays out its sum."""
+        self._check(x)
+        self.collectives["pmax"] += 1
+        names = self.axis_names(axis)
+        if set(names) == set(self.axes):
+            return x.amax(dim=0)
+        dims = tuple(self.axes.index(a) for a in names)
+        grid = x.reshape(self.shape + tuple(x.shape[1:]))
+        top = grid.amax(dim=dims, keepdim=True)
+        return top.expand_as(grid).reshape(x.shape).contiguous()
+
+    def _group_rows(self, x: torch.Tensor, names: Tuple[str, ...]
+                    ) -> torch.Tensor:
+        """``(R, ...)`` -> ``(R, size, ...)``: each rank's group's rows
+        along ``names`` (the ranks that share its coordinates on every
+        other axis), in the group's order, row-major over ``names``."""
+        k = [self.axes.index(a) for a in names]
+        members = []
+        for r in range(self.world):
+            c = list(grid_coords(self.shape, r))
+            row = []
+            for idx in itertools.product(*(range(self.shape[i]) for i in k)):
+                for i, v in zip(k, idx):
+                    c[i] = v
+                row.append(_flat_rank(self.shape, c))
+            members.append(row)
+        return x[torch.tensor(members, device=x.device)]
+
+    def reduce_scatter(self, x: torch.Tensor, axis: AxisLike
+                       ) -> torch.Tensor:
+        """The sum over the ranks of ``axis``, cut along dimension 1 into
+        as many blocks as the axis has ranks: ``(R, n, ...)`` -> ``(R, n /
+        size, ...)``, each rank holding the block of its index along the
+        axis (:meth:`axis_index`)."""
+        self._check(x)
+        names = self.axis_names(axis)
+        size = self.axis_size(names)
+        if x.shape[1] % size:
+            raise ValueError(f"reduce_scatter over {names}: {x.shape[1]} "
+                             f"rows do not split into {size} blocks")
+        self.collectives["reduce_scatter"] += 1
+        total = self._group_rows(x, names).sum(dim=1)
+        n = x.shape[1] // size
+        idx = self.axis_index(names).long()
+        blocks = total.reshape((self.world, size, n) + tuple(x.shape[2:]))
+        return blocks[torch.arange(self.world, device=x.device), idx]
+
+    def all_gather(self, x: torch.Tensor, axis: AxisLike = None
+                   ) -> torch.Tensor:
+        """Tiled gather: over every rank (``axis`` None), ``(R, n, ...)``
+        -> ``(R * n, ...)``, the array every rank would hold (kept once,
+        not replicated); over some axes, ``(R, n, ...)`` -> ``(R, size *
+        n, ...)``, each rank holding its group's tiles in group order."""
         self._check(x)
         self.collectives["all_gather"] += 1
-        return x.reshape((-1,) + tuple(x.shape[2:]))
+        names = self.axis_names(axis)
+        if set(names) == set(self.axes):
+            return x.reshape((-1,) + tuple(x.shape[2:]))
+        rows = self._group_rows(x, names)
+        return rows.reshape((self.world, -1) + tuple(x.shape[2:]))
 
     def stack(self, x, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
         """Move ``x`` (numpy or tensor, already rank-stacked) onto the
@@ -229,6 +296,13 @@ def grid_coords(shape: Sequence[int], rank: int) -> Tuple[int, ...]:
         coords.append(rank % size)
         rank //= size
     return tuple(reversed(coords))
+
+
+def _flat_rank(shape: Sequence[int], coords: Sequence[int]) -> int:
+    rank = 0
+    for size, c in zip(shape, coords):
+        rank = rank * size + c
+    return rank
 
 
 def shard_slices(global_shape: Sequence[int], spec: Spec,
@@ -280,9 +354,16 @@ def _check_cards(backend: str, world: int) -> None:
             f"one card; name backend='gloo' to share one)")
 
 
-#: ``all_gather_into_tensor`` under its newer name where torch has it
+#: ``all_gather_into_tensor`` and ``reduce_scatter_tensor`` under their
+#: newer names where torch has them
 _all_gather_single = getattr(dist, "all_gather_single", None) or getattr(
     dist, "all_gather_into_tensor", None)
+_reduce_scatter_single = getattr(dist, "reduce_scatter_single", None) or \
+    getattr(dist, "reduce_scatter_tensor", None)
+
+
+def _all_reduce_max(t: torch.Tensor, group=None) -> None:
+    dist.all_reduce(t, op=dist.ReduceOp.MAX, group=group)
 
 
 class ProcessRanks(Ranks):
@@ -392,11 +473,8 @@ class ProcessRanks(Ranks):
                          "seconds": time.perf_counter() - t0})
 
     def axis_index(self, axis: AxisLike = None) -> torch.Tensor:
-        idx = 0
-        for a in self.axis_names(axis):
-            k = self.axes.index(a)
-            idx = idx * self.shape[k] + self.coords[k]
-        return torch.tensor([idx], dtype=torch.int32, device=self.device)
+        return torch.tensor([axis_position(self, axis)], dtype=torch.int32,
+                            device=self.device)
 
     def all_to_all(self, x: torch.Tensor, axis: Optional[str] = None
                    ) -> torch.Tensor:
@@ -427,14 +505,60 @@ class ProcessRanks(Ranks):
             return total
         return total.unsqueeze(0)
 
-    def all_gather(self, x: torch.Tensor) -> torch.Tensor:
+    def pmax(self, x: torch.Tensor, axis: AxisLike = None) -> torch.Tensor:
+        self._check(x)
+        self.collectives["pmax"] += 1
+        names = self.axis_names(axis)
+        top = x[0].clone(memory_format=torch.contiguous_format)
+        self._call("pmax", names, _all_reduce_max, top)
+        if set(names) == set(self.axes):
+            return top
+        return top.unsqueeze(0)
+
+    def reduce_scatter(self, x: torch.Tensor, axis: AxisLike
+                       ) -> torch.Tensor:
+        self._check(x)
+        names = self.axis_names(axis)
+        size = self.axis_size(names)
+        if x.shape[1] % size:
+            raise ValueError(f"reduce_scatter over {names}: {x.shape[1]} "
+                             f"rows do not split into {size} blocks")
+        self.collectives["reduce_scatter"] += 1
+        send = x[0].contiguous()
+        recv = send.new_empty((send.shape[0] // size,)
+                              + tuple(send.shape[1:]))
+        self._call("reduce_scatter", names, _reduce_scatter_single, recv,
+                   send)
+        return recv.unsqueeze(0)
+
+    def all_gather(self, x: torch.Tensor, axis: AxisLike = None
+                   ) -> torch.Tensor:
         self._check(x)
         self.collectives["all_gather"] += 1
+        names = self.axis_names(axis)
+        size = self.axis_size(names)
         part = x[0].contiguous()
-        out = part.new_empty((self.world * part.shape[0],)
+        out = part.new_empty((size * part.shape[0],)
                              + tuple(part.shape[1:]))
-        self._call("all_gather", self.axes, _all_gather_single, out, part)
-        return out
+        self._call("all_gather", names, _all_gather_single, out, part)
+        if set(names) == set(self.axes):
+            return out
+        return out.unsqueeze(0)
+
+    def gather_to_first(self, x: torch.Tensor
+                        ) -> Optional[List[torch.Tensor]]:
+        """Every process's ``x`` (no rank axis, one shape on all), in rank
+        order, on process 0; None on the others. A check's tool (a rank
+        grid's shards assembled on one process), counted and logged as
+        ``gather``; the tensors travel through host memory."""
+        self.collectives["gather"] += 1
+        part = x.detach().cpu().contiguous()
+        parts = ([torch.empty_like(part) for _ in range(self.world)]
+                 if self.rank == 0 else None)
+        self._call("gather", self.axes,
+                   lambda t, group: dist.gather(t, parts, dst=0,
+                                                group=group), part)
+        return parts
 
     def stack(self, x, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
         """This rank's row of ``x``, the global rank-stacked array (a
@@ -456,6 +580,113 @@ class ProcessRanks(Ranks):
         (:func:`shard_slices`), a view."""
         return t[shard_slices(t.shape, spec, self.shape, self.axes,
                               self.rank)]
+
+
+# -- tensor parallelism over process ranks -----------------------------------
+
+
+def model_parallel(ranks: Optional[Ranks]) -> bool:
+    """Whether a process holds shards of the weights: one row a process
+    (:class:`ProcessRanks`) on a grid whose ``model`` axis has more than
+    one rank. Every layer asks this before it takes a sharded path; the
+    stacked :class:`Ranks` never hold shards and run as they always did."""
+    return (ranks is not None and ranks.rows == 1 and ranks.world > 1
+            and "model" in ranks.axes and ranks.axis_size("model") > 1)
+
+
+def spec_axes(spec: Spec) -> Tuple[str, ...]:
+    """Every axis name a spec's entries hold, in order."""
+    return tuple(a for e in spec if e is not None for a in _spec_names(e))
+
+
+def axis_position(ranks: "ProcessRanks", axis: AxisLike) -> int:
+    """This process's index along ``axis`` (row-major over several), as
+    a Python int: :meth:`Ranks.axis_index` without the device."""
+    idx = 0
+    for a in ranks.axis_names(axis):
+        k = ranks.axes.index(a)
+        idx = idx * ranks.shape[k] + ranks.coords[k]
+    return idx
+
+
+def _local_psum(ranks: "ProcessRanks", x: torch.Tensor,
+                axis: AxisLike) -> torch.Tensor:
+    """``psum`` of a process's tensor (no rank axis) in float32, rounded
+    once to ``x``'s dtype."""
+    total = ranks.psum(x.float().unsqueeze(0), axis)
+    return total.reshape(x.shape).to(x.dtype)
+
+
+class _CopyTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, ranks, axis):
+        ctx.ranks, ctx.axis = ranks, axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _local_psum(ctx.ranks, g, ctx.axis), None, None
+
+
+class _ReduceFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, ranks, axis):
+        return _local_psum(ranks, x, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _GatherFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, ranks, axis, dim):
+        ctx.n, ctx.dim = x.shape[dim], dim
+        ctx.start = axis_position(ranks, axis) * x.shape[dim]
+        part = x.movedim(dim, 0).contiguous()
+        full = ranks.all_gather(part.unsqueeze(0), axis)
+        full = full.reshape((-1,) + tuple(part.shape[1:]))
+        return full.movedim(0, dim).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(ctx.dim, ctx.start, ctx.n), None, None, None
+
+
+def _one_row(ranks: Ranks) -> None:
+    if ranks.rows != 1:
+        raise ValueError(f"{ranks!r} stacks {ranks.rows} rows; the "
+                         f"differentiable collectives take one process's")
+
+
+def copy_to(ranks: "ProcessRanks", x: torch.Tensor,
+            axis: AxisLike) -> torch.Tensor:
+    """Identity forward; the backward sums the gradient over ``axis``
+    (one ``psum``, in float32, rounded once to the gradient's dtype).
+    Where a replicated activation enters a column-parallel product: each
+    rank's gradient of it is its own columns' share."""
+    _one_row(ranks)
+    return _CopyTo.apply(x, ranks, axis)
+
+
+def reduce_from(ranks: "ProcessRanks", x: torch.Tensor,
+                axis: AxisLike) -> torch.Tensor:
+    """``psum`` over ``axis`` forward, in float32 and rounded once to
+    ``x``'s dtype (bfloat16 partial products summed so come closest to
+    the one-process product); identity backward. After a row-parallel
+    product, and wherever ranks add up parts of one replicated value."""
+    _one_row(ranks)
+    return _ReduceFrom.apply(x, ranks, axis)
+
+
+def gather_from(ranks: "ProcessRanks", x: torch.Tensor, axis: AxisLike,
+                dim: int) -> torch.Tensor:
+    """``all_gather`` along ``dim`` over ``axis`` forward (no arithmetic:
+    the blocks in ``x``'s dtype, in the axis's order); the backward keeps
+    this rank's block of the gradient. After sequence-parallel
+    attention."""
+    _one_row(ranks)
+    return _GatherFrom.apply(x, ranks, axis, dim % x.dim())
 
 
 def free_port() -> int:

@@ -10,9 +10,19 @@ Port of ``repro/models/attention.py``. Cache contracts, as there:
 - MLA: ``{"ckv": (B, T, kv_rank), "k_rope": (B, T, rope_dim), "pos":
   (B, T)}``, the latent cache; ``T = max_len`` (no ring).
 
-The port writes a cache **in place** and returns it. The JAX package's
-``_seq_shard`` is a sharding constraint; on stacked ranks it has nothing
-to do and is not ported.
+The port writes a cache **in place** and returns it.
+
+Over process ranks that hold shards
+(:func:`repro_torch.comm.model_parallel`), :func:`attn_apply` takes the
+branch its weights' specs give it (:func:`tp_layout`, the JAX package's
+rules at ``tp_size``): the heads sharded (``wk``/``wv`` too, or
+replicated when there is one KV head), ``wo`` row-parallel with
+``reduce_from``; or, where the heads do not divide ``tp_size``, every
+weight replicated and the JAX package's ``_seq_shard``: each rank
+attends from its block of query rows to every key, and ``gather_from``
+joins the rows. A KV head split over ranks (``1 < KV < model``) raises.
+On stacked ranks ``_seq_shard`` is a sharding constraint with nothing to
+do.
 
 Scores follow the JAX package's rounding: its einsums take bfloat16
 operands and accumulate and return float32 (``preferred_element_type``),
@@ -28,9 +38,12 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.comm import axis_position, gather_from, model_parallel
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import (COMPUTE_DTYPE, Params, apply_rope,
-                                       dense_init, rms_norm)
+                                       dense_init, enter_parallel,
+                                       parallel_product, rms_norm,
+                                       row_parallel, sharded_dim)
 
 NEG_INF = -1e30
 
@@ -175,15 +188,99 @@ def _cache_update(cache: Dict, new_k, new_v, q_pos) -> Dict:
     return cache
 
 
+def tp_layout(cfg: ModelConfig, params: Params, model: int) -> str:
+    """The model-parallel branch of an attention whose weights carry
+    ``params.specs``, on a ``model`` axis of ``model`` ranks:
+    ``"heads"`` (a rank holds ``H / model`` query heads and the ``KV /
+    model`` KV heads they use, or every KV head when ``wk``/``wv`` are
+    replicated, ``KV == 1``) or ``"sequence"`` (every weight replicated:
+    ``_seq_shard``). Raises where a head would split over ranks: the
+    split-dim KV columns of ``1 < KV < model`` (TinyLlama at ``model`` =
+    16), or query heads that ``model`` does not divide."""
+    q, kv = sharded_dim(params, "wq"), sharded_dim(params, "wk")
+    if q is None:
+        if kv is not None or sharded_dim(params, "wo") is not None:
+            raise ValueError(f"{cfg.arch_id}: attention specs {params.specs}"
+                             f" shard some weights but not the queries")
+        return "sequence"
+    if q != 1 or sharded_dim(params, "wo") != 0 or kv not in (None, 1):
+        raise ValueError(f"{cfg.arch_id}: attention specs {params.specs} "
+                         f"are not column/row-parallel by head")
+    if cfg.n_heads % model:
+        raise ValueError(f"{cfg.arch_id}: {cfg.n_heads} query heads do not "
+                         f"split over {model} model ranks")
+    if kv is not None and cfg.n_kv_heads % model:
+        raise ValueError(
+            f"{cfg.arch_id}: split-dim KV columns ({cfg.n_kv_heads} KV heads "
+            f"over {model} model ranks, 1 < KV < model) split a head's "
+            f"dimensions over ranks, which needs a partial score "
+            f"contraction over a sub-group of the model axis: not ported")
+    return "heads"
+
+
+def _attn_model_parallel(params, x, cfg: ModelConfig, q_pos, ranks,
+                         causal: bool):
+    """Self-attention over the replicated ``x`` (B, S, d) on a process
+    holding its shards (see the module docstring); the output is
+    replicated."""
+    B, S, _ = x.shape
+    hd, m = cfg.hd, ranks.axis_size("model")
+    layout = tp_layout(cfg, params, m)
+    window = cfg.window if cfg.attn_type == "swa" else None
+    h = enter_parallel(ranks, x)
+
+    def proj(inp, name, heads):
+        y = parallel_product(inp, params[name])
+        return y.reshape(inp.shape[0], inp.shape[1], heads, hd)
+
+    if layout == "heads":
+        hq, pq = h, q_pos
+        heads = cfg.n_heads // m
+        kv_heads = (cfg.n_kv_heads if sharded_dim(params, "wk") is None
+                    else cfg.n_kv_heads // m)
+    else:
+        if S % m:
+            raise ValueError(f"sequence-parallel attention: {S} positions "
+                             f"do not split over {m} model ranks")
+        rows = slice(axis_position(ranks, "model") * (S // m),
+                     (axis_position(ranks, "model") + 1) * (S // m))
+        hq, pq = h[:, rows], q_pos[:, rows]
+        heads, kv_heads = cfg.n_heads, cfg.n_kv_heads
+    q = proj(hq, "wq", heads)
+    k, v = proj(h, "wk", kv_heads), proj(h, "wv", kv_heads)
+    if cfg.qk_norm:
+        q = rms_norm(q, params["q_norm"], cfg.norm_eps)
+        k = rms_norm(k, params["k_norm"], cfg.norm_eps)
+    q = apply_rope(q, pq, cfg.rope_theta)
+    k = apply_rope(k, q_pos, cfg.rope_theta)
+    out = _sdpa(q, k, v, pq, q_pos, causal=causal, window=window,
+                scale=hd ** -0.5)
+    out = out.reshape(B, hq.shape[1], heads * hd)
+    if layout == "heads":
+        return row_parallel(ranks, out, params["wo"])
+    return gather_from(ranks, out @ params["wo"].to(COMPUTE_DTYPE), "model",
+                       1)
+
+
 def attn_apply(params, x, cfg: ModelConfig, q_pos,
                cache: Optional[Dict] = None, causal: bool = True,
-               cross_kv: Optional[Tuple] = None, rope: bool = True):
+               cross_kv: Optional[Tuple] = None, rope: bool = True,
+               ranks=None):
     """Self- or cross-attention over x (B,S,d). ``cache=None``: keys and
     values from x itself (prefill or a full forward). A cache: write the
     new entries, then attend over the whole cache (decode, or prefill
     into a cache). ``cross_kv=(k, v, kv_pos)``: attend over keys and
     values precomputed from an encoder (only ``q_norm`` applies to q; no
-    rope, no cache write). Returns (out, cache)."""
+    rope, no cache write). ``ranks`` holding shards
+    (:func:`repro_torch.comm.model_parallel`): the model-parallel
+    self-attention of a full forward. Returns (out, cache)."""
+    if model_parallel(ranks):
+        if cache is not None or cross_kv is not None or not rope:
+            raise ValueError("model-parallel attention runs the full "
+                             "forward of a decoder: no cache, no cross "
+                             "attention, rope on")
+        return _attn_model_parallel(params, x, cfg, q_pos, ranks,
+                                    causal), None
     B, S, _ = x.shape
     hd = cfg.hd
     x = x.to(COMPUTE_DTYPE)

@@ -26,7 +26,8 @@ from typing import Dict, Mapping, Optional
 import torch
 from torch import nn
 
-from repro_torch.comm import Spec
+from repro_torch.comm import (Spec, axis_position, copy_to, model_parallel,
+                              reduce_from, spec_axes)
 
 COMPUTE_DTYPE = torch.bfloat16
 
@@ -199,15 +200,72 @@ class MLP(Params):
         return mlp_apply(self, x, self.gated)
 
 
+def sharded_dim(params: Params, name: str) -> Optional[int]:
+    """The dimension of ``name`` whose spec entry names the ``model``
+    axis (None: replicated along it), read from the spec the leaf was
+    added with."""
+    for dim, entry in enumerate(params.specs[name]):
+        if entry is not None and "model" in spec_axes((entry,)):
+            return dim
+    return None
+
+
+# The model-parallel products (where the process holds shards,
+# :func:`repro_torch.comm.model_parallel`) take their bfloat16 operands
+# in float32: each product is exact and the sums run in float32, as a
+# bfloat16 product accumulates, so that a sum over ranks adds float32
+# parts and rounds once to bfloat16, and so do the gradients.
+
+
+def enter_parallel(ranks, x: torch.Tensor) -> torch.Tensor:
+    """The replicated ``x`` as the float32 input of column-parallel
+    products: through ``copy_to``, whose backward sums the products'
+    float32 gradients of ``x`` over ``model``, rounded to bfloat16
+    once."""
+    return copy_to(ranks, x.to(COMPUTE_DTYPE).float(), "model")
+
+
+def parallel_product(xf: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``xf @ w``, ``xf`` from :func:`enter_parallel`, rounded once to
+    bfloat16 as a bfloat16 product is."""
+    return (xf @ w.to(COMPUTE_DTYPE).float()).to(COMPUTE_DTYPE)
+
+
+def row_parallel(ranks, h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``h @ w`` with ``w`` split by rows over the model axis: this rank's
+    partial product of the bfloat16 operands in float32 (each product
+    exact, the sum in float32, as a bfloat16 product accumulates), summed
+    over ``model`` in float32 by ``reduce_from`` and rounded once to
+    bfloat16: the one-process product up to the order of its float32
+    additions."""
+    part = h.to(COMPUTE_DTYPE).float() @ w.to(COMPUTE_DTYPE).float()
+    return reduce_from(ranks, part, "model").to(COMPUTE_DTYPE)
+
+
 def mlp_apply(params: Mapping[str, torch.Tensor], x: torch.Tensor,
-              gated: bool = True) -> torch.Tensor:
+              gated: bool = True, ranks=None) -> torch.Tensor:
+    """The MLP over ``x`` (..., d). Where the process holds shards
+    (:func:`repro_torch.comm.model_parallel`), its specs make ``w_gate``
+    and ``w_up`` column-parallel and ``w_down`` row-parallel: the
+    replicated input enters through :func:`enter_parallel` and the
+    partial products leave through :func:`row_parallel`."""
     x = x.to(COMPUTE_DTYPE)
-    up = x @ params["w_up"].to(COMPUTE_DTYPE)
-    if gated:
-        gate = x @ params["w_gate"].to(COMPUTE_DTYPE)
-        h = silu(gate) * up
+    tp = model_parallel(ranks)
+    if tp:
+        want = {"w_up": 1, "w_down": 0, **({"w_gate": 1} if gated else {})}
+        got = {n: sharded_dim(params, n) for n in want}
+        if got != want:
+            raise ValueError(f"a model-parallel MLP needs the model axis "
+                             f"on dimensions {want}; its specs give {got}")
+        xf = enter_parallel(ranks, x)
+        up = parallel_product(xf, params["w_up"])
+        gate = parallel_product(xf, params["w_gate"]) if gated else None
     else:
-        h = gelu(up)
+        up = x @ params["w_up"].to(COMPUTE_DTYPE)
+        gate = x @ params["w_gate"].to(COMPUTE_DTYPE) if gated else None
+    h = silu(gate) * up if gated else gelu(up)
+    if tp:
+        return row_parallel(ranks, h, params["w_down"])
     return h @ params["w_down"].to(COMPUTE_DTYPE)
 
 
@@ -220,28 +278,79 @@ def padded_vocab(vocab: int) -> int:
     return (vocab + VOCAB_PAD - 1) // VOCAB_PAD * VOCAB_PAD
 
 
-def embed_lookup(emb: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
-    return emb.to(COMPUTE_DTYPE)[tokens.long()]
+# Where the process holds shards (:func:`repro_torch.comm.model_parallel`)
+# the tied embedding is vocab-parallel: ``embed``'s spec puts the model
+# axis on its rows, so a rank holds the ``rows`` ids from ``rank * rows``.
+
+
+def _vocab_block(ranks, rows: int, ids: torch.Tensor):
+    """Each id's row in this rank's vocabulary block, and whether it is
+    there (ids outside it point at row 0)."""
+    local = ids.long() - axis_position(ranks, "model") * rows
+    inside = (local >= 0) & (local < rows)
+    return torch.where(inside, local, 0), inside
+
+
+def embed_lookup(emb: torch.Tensor, tokens: torch.Tensor,
+                 ranks=None) -> torch.Tensor:
+    """The embeddings of ``tokens``. Vocab-parallel: a token outside this
+    rank's block gives zeros, and ``reduce_from`` adds the one rank's row
+    that holds it (exactly)."""
+    if not model_parallel(ranks):
+        return emb.to(COMPUTE_DTYPE)[tokens.long()]
+    local, inside = _vocab_block(ranks, emb.shape[0], tokens)
+    x = emb.to(COMPUTE_DTYPE)[local].masked_fill(~inside[..., None], 0.0)
+    return reduce_from(ranks, x, "model")
 
 
 def lm_logits(emb: torch.Tensor, x: torch.Tensor, cap: float = 0.0,
-              vocab: Optional[int] = None) -> torch.Tensor:
+              vocab: Optional[int] = None, ranks=None) -> torch.Tensor:
     """Tied-embedding readout; float32 logits over the padded vocabulary,
-    padding columns at -1e30 so softmax and argmax never see them."""
-    logits = (x.to(COMPUTE_DTYPE) @ emb.to(COMPUTE_DTYPE).T).float()
+    padding columns at -1e30 so softmax and argmax never see them.
+    Vocab-parallel: this rank's block of columns, the padding set on the
+    rank that holds it (the replicated ``x`` enters through
+    :func:`enter_parallel`)."""
+    start = 0
+    if model_parallel(ranks):
+        start = axis_position(ranks, "model") * emb.shape[0]
+        logits = parallel_product(enter_parallel(ranks, x), emb.T).float()
+    else:
+        logits = (x.to(COMPUTE_DTYPE) @ emb.to(COMPUTE_DTYPE).T).float()
     if cap > 0.0:
         logits = cap * torch.tanh(logits / cap)
-    if vocab is not None and vocab < emb.shape[0]:
-        logits[..., vocab:] = -1e30
+    if vocab is not None and vocab < start + emb.shape[0]:
+        logits[..., max(vocab - start, 0):] = -1e30
     return logits
 
 
+def _xent_parallel(logits: torch.Tensor, labels: torch.Tensor, ranks):
+    """Vocab-parallel ``logsumexp - gold`` over this rank's columns: the
+    global max over the model axis (``pmax``, no gradient), then one
+    ``reduce_from`` of the sum of exponentials and of the gold logit,
+    which only the rank holding the label adds. The (batch, seq, vocab)
+    logits are never gathered."""
+    top = logits.detach().amax(dim=-1)
+    top = ranks.pmax(top.unsqueeze(0), "model").reshape(top.shape)
+    sumexp = torch.exp(logits - top[..., None]).sum(dim=-1)
+    local, inside = _vocab_block(ranks, logits.shape[-1], labels)
+    gold = torch.gather(logits, -1, local[..., None])[..., 0]
+    both = reduce_from(ranks, torch.stack(
+        [sumexp, gold.masked_fill(~inside, 0.0)]), "model")
+    return top + torch.log(both[0]) - both[1]
+
+
 def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
-                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Mean cross-entropy over (optionally masked) positions; float32."""
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
-    nll = logz - gold
+                 mask: Optional[torch.Tensor] = None,
+                 ranks=None) -> torch.Tensor:
+    """Mean cross-entropy over (optionally masked) positions; float32.
+    Vocab-parallel where the process holds shards: ``logits`` are this
+    rank's columns (:func:`lm_logits`)."""
+    if model_parallel(ranks):
+        nll = _xent_parallel(logits, labels, ranks)
+    else:
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+        nll = logz - gold
     if mask is not None:
         m = mask.float()
         return torch.sum(nll * m) / torch.clamp(torch.sum(m), min=1.0)

@@ -29,14 +29,15 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.comm import Ranks
+from repro_torch.comm import Ranks, model_parallel
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import ssm
 from repro_torch.models.layers import (COMPUTE_DTYPE, MLP, Params,
                                        dense_init, embed_lookup, lm_logits,
                                        mlp_apply, padded_vocab, rms_norm,
-                                       round_scalar, softmax_xent)
+                                       round_scalar, sharded_dim,
+                                       softmax_xent)
 from repro_torch.models.moe import MoE, moe_apply
 
 ATTN_KINDS = ("dense", "moe", "shared_attn")
@@ -115,12 +116,21 @@ class Block(Params):
 
 def _attn_block(params, x, cfg: ModelConfig, q_pos, cache, ranks, dp_axes):
     """One attention block under ``cfg`` (the caller's: a capacity factor
-    may differ from the one the block was built with)."""
+    may differ from the one the block was built with). Where the process
+    holds shards (:func:`repro_torch.comm.model_parallel`) the attention
+    and the MLP are model-parallel and the norms and the residual see
+    their replicated outputs."""
+    tp = model_parallel(ranks)
+    if tp and (cfg.attn_type == "mla" or "moe" in params):
+        raise ValueError(f"{cfg.arch_id}: model-parallel blocks over "
+                         f"process ranks cover GQA/SWA attention and the "
+                         f"dense MLP; MLA and MoE are not ported")
     h = rms_norm(x, params["ln1"], cfg.norm_eps)
     if cfg.attn_type == "mla":
         a, new_cache = attn.mla_apply(params["attn"], h, cfg, q_pos, cache)
     else:
-        a, new_cache = attn.attn_apply(params["attn"], h, cfg, q_pos, cache)
+        a, new_cache = attn.attn_apply(params["attn"], h, cfg, q_pos, cache,
+                                       ranks=ranks if tp else None)
     # the JAX package multiplies by the scale rounded to bfloat16 (a
     # weakly typed Python float takes the array's dtype)
     scale = round_scalar(cfg.residual_scale, a.dtype)
@@ -130,7 +140,7 @@ def _attn_block(params, x, cfg: ModelConfig, q_pos, cache, ranks, dp_axes):
     if "moe" in params:
         f, aux = moe_apply(params["moe"], h, cfg, ranks, dp_axes)
     else:
-        f = mlp_apply(params["mlp"], h, cfg.mlp_gated)
+        f = mlp_apply(params["mlp"], h, cfg.mlp_gated, ranks)
     x = x + f * scale
     return x, new_cache, aux
 
@@ -271,10 +281,13 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int, device=None):
 
 
 def embed_inputs(params: DecoderLM, cfg: ModelConfig, tokens,
-                 img_embeds=None):
-    """Token embeddings; for the ``vlm`` family ``img_embeds @ img_proj``
-    in front of them."""
-    x = embed_lookup(params.embed, tokens)
+                 img_embeds=None, ranks: Optional[Ranks] = None):
+    """Token embeddings (vocab-parallel where the process holds shards);
+    for the ``vlm`` family ``img_embeds @ img_proj`` in front of them."""
+    if model_parallel(ranks) and sharded_dim(params, "embed") != 0:
+        raise ValueError(f"a vocab-parallel embedding needs the model axis "
+                         f"on its rows: spec {params.specs['embed']}")
+    x = embed_lookup(params.embed, tokens, ranks)
     if cfg.family == "vlm" and img_embeds is not None:
         img = img_embeds.to(COMPUTE_DTYPE) @ params.img_proj.to(COMPUTE_DTYPE)
         x = torch.cat([img, x], dim=1)
@@ -288,7 +301,7 @@ def lm_forward(params: DecoderLM, cfg: ModelConfig, tokens, q_pos=None,
     """Logits of the stack over ``tokens`` (and the image embeddings in
     front of them); ``q_pos`` defaults to every embedded position."""
     B = tokens.shape[0]
-    x = embed_inputs(params, cfg, tokens, img_embeds)
+    x = embed_inputs(params, cfg, tokens, img_embeds, ranks)
     if q_pos is None:
         S = x.shape[1]
         q_pos = torch.arange(S, dtype=torch.int32,
@@ -298,7 +311,7 @@ def lm_forward(params: DecoderLM, cfg: ModelConfig, tokens, q_pos=None,
     if last_only:          # serving prefill: only the next-token logits
         x = x[:, -1:]
     x = rms_norm(x, params.final_ln, cfg.norm_eps)
-    logits = lm_logits(params.embed, x, cfg.logit_cap, cfg.vocab)
+    logits = lm_logits(params.embed, x, cfg.logit_cap, cfg.vocab, ranks)
     return logits, new_caches, aux
 
 
@@ -314,7 +327,8 @@ def train_loss(params: DecoderLM, cfg: ModelConfig, batch: Dict,
                                 dp_axes=dp_axes, img_embeds=img)
     if cfg.family == "vlm" and img is not None:
         logits = logits[:, img.shape[1]:]           # loss on text positions
-    loss = softmax_xent(logits, batch["labels"], batch.get("loss_mask"))
+    loss = softmax_xent(logits, batch["labels"], batch.get("loss_mask"),
+                        ranks)
     if "moe_aux" in aux:
         loss = loss + aux_weight * aux["moe_aux"]
     return loss, dict(aux, loss=loss)

@@ -15,8 +15,9 @@ op such as the bucket shuffle's byte framing) takes a zero gradient, as
 JAX differentiates it: its moments and its weight decay still step.
 Parameters, moments and the optional float32 ``master`` copy are updated
 in place. :func:`zero1_specs` derives the moments' sharding specs (ZeRO-1,
-over the data axis) from the parameters'; the sharded step itself is
-later work.
+over the data axis) from the parameters'; the sharded step
+(:func:`repro_torch.train.trainer.jit_train_step`) updates a process's
+moment shards and the matching slices of its parameters.
 """
 
 from __future__ import annotations
@@ -92,12 +93,16 @@ def _scalar(v: float, like: torch.Tensor) -> torch.Tensor:
 @torch.no_grad()
 def adamw_update(cfg: AdamWConfig, params: Mapping[str, torch.Tensor],
                  grads: Mapping[str, Optional[torch.Tensor]],
-                 opt_state: Dict):
+                 opt_state: Dict, gnorm: Optional[torch.Tensor] = None):
     """One AdamW step with global-norm clipping, in place. Returns
     ``(params, opt_state, metrics)`` with ``metrics`` the float32
-    ``grad_norm`` (before clipping) and ``lr`` tensors."""
+    ``grad_norm`` (before clipping) and ``lr`` tensors. ``gnorm``: the
+    norm of the whole gradient where ``grads`` hold shards of it (the
+    sharded step's, :func:`repro_torch.train.trainer.jit_train_step`);
+    by default :func:`global_norm` of ``grads``."""
     step = opt_state["step"] + 1
-    gnorm = global_norm(grads.get(n) for n in params)
+    if gnorm is None:
+        gnorm = global_norm(grads.get(n) for n in params)
     scale = torch.clamp(_scalar(cfg.grad_clip, gnorm) / (gnorm + 1e-9),
                         max=1.0)
     lr = lr_schedule(cfg, step)

@@ -1,5 +1,6 @@
 """Trainer: the train step (gradient accumulation, AdamW, metrics) for any
-registry model, on one device or a stacked rank grid.
+registry model, on one device or a stacked rank grid, and the sharded
+step of the dense decoder over process ranks.
 
 Port of ``repro/train/trainer.py``. The JAX package jits the step and
 donates its buffers; here the step runs eagerly and updates parameters
@@ -7,22 +8,58 @@ and moments in place under ``torch.no_grad()``. Gradients come from
 ``torch.autograd.grad`` over the model's parameters in the JAX package's
 leaf order; a parameter the loss does not reach gets ``None``, which the
 optimizer takes as a zero gradient (as JAX differentiates it).
-:func:`make_state_shardings` gives the state's sharding specs as data;
-``jit_train_step``'s sharded step waits for training over process ranks.
+:func:`make_state_shardings` gives the state's sharding specs as data.
+
+Over process ranks (:class:`repro_torch.comm.ProcessRanks`)
+:func:`init_train_state` gives each process exactly its shards of the
+parameters (cut by their specs) and of the moments (cut by their ZeRO-1
+specs), and :func:`jit_train_step` runs the step the JAX package jits
+over a mesh, with every collective explicit: the batch over the data
+axes, the dense decoder model-parallel over ``model`` (the layers'
+``copy_to``/``reduce_from``/``gather_from``), the gradients reduced
+over the data axes (a ``reduce_scatter`` to the moment shard where
+ZeRO-1 shards a leaf, else a ``psum``), AdamW on the moment shard and
+the matching slice of the parameter, and the slices all-gathered back.
+
+**Replicated leaves' gradients.** A leaf whose spec names no ``model``
+axis is replicated along it. Read outside a model-parallel region (the
+norms, on replicated activations) every rank's gradient is already the
+whole one. Read inside one (the attention's replicated weights: every
+weight of the ``_seq_shard`` branch, ``wk``/``wv`` where one KV head is
+replicated, ``q_norm``/``k_norm``), each rank's gradient is its own
+heads' or query rows' part of it. The rule: the gradients of the
+attention's leaves whose spec names no ``model`` axis are summed over
+``model`` once, after the backward (one ``psum`` of them all); then
+every ``model`` rank holds each replicated leaf's whole gradient, equal
+to the one-process gradient.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping, Optional, Sequence, Tuple
+import dataclasses
+from typing import Any, Callable, Dict, Mapping, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
+from torch import nn
 
-from repro_torch.comm import Ranks, Spec
+from repro_torch.comm import (Ranks, Spec, axis_position, model_parallel,
+                              shard_slices, spec_axes)
+from repro_torch.models.attention import tp_layout
 from repro_torch.models.convert import flatten, named_leaves, unflatten
 from repro_torch.models.registry import Model, meta_params
 from repro_torch.train.optimizer import (AdamWConfig, adamw_update,
                                          zero1_specs,
                                          init_opt_state)
+
+
+@dataclasses.dataclass
+class TrainState:
+    """The JAX package's ``TrainState``: parameters, optimizer state and
+    the step count."""
+    params: Any
+    opt: Any
+    step: int = 0
 
 
 def loss_and_grads(model: Model, params, batch: Dict,
@@ -80,11 +117,276 @@ def build_train_step(model: Model, opt_cfg: AdamWConfig,
 
 
 def init_train_state(model: Model, generator: Optional[torch.Generator] = None,
-                     device=None, master: bool = False) -> Tuple[Any, Dict]:
+                     device=None, master: bool = False, *,
+                     ranks: Optional[Ranks] = None,
+                     param_specs: Optional[Mapping[str, Spec]] = None,
+                     zero1: bool = True,
+                     source: Optional[Mapping[str, Any]] = None
+                     ) -> Tuple[Any, Dict]:
     """The training form of the model's parameters (float32, drawn on
-    ``device`` from ``generator``) and AdamW's zero state."""
-    params = model.init(generator, device, dtype=torch.float32)
-    return params, init_opt_state(named_leaves(params, model.cfg), master)
+    ``device`` from ``generator``) and AdamW's zero state.
+
+    With process ``ranks`` (one row a process), this process's shards
+    only, on the ranks' device: each parameter the block its spec gives
+    this process of the one-process init (bit for bit), each moment the
+    block of its ZeRO-1 spec (:func:`make_state_shardings`). The full
+    weights come from ``source``, the JAX package's tree or a flat
+    ``{port name: array}`` (numpy arrays or memmaps, of which only the
+    block is read, or tensors), else are drawn whole from ``generator``
+    on its device and cut."""
+    if ranks is None or ranks.rows == ranks.world:
+        params = model.init(generator, device, dtype=torch.float32)
+        return params, init_opt_state(named_leaves(params, model.cfg), master)
+    if master:
+        raise ValueError("the float32 master copy over process ranks is "
+                         "not ported")
+    cfg = model.cfg
+    p_specs, opt_specs = make_state_shardings(model, _sizes(ranks),
+                                              param_specs, zero1)
+    if source is None:
+        if generator is None:
+            raise ValueError("process ranks draw the weights from a seeded "
+                             "generator or cut them from a source")
+        source = named_leaves(model.init(generator, generator.device,
+                                         dtype=torch.float32), cfg)
+    full = flatten(source)
+    params = meta_params(cfg)
+    shapes = {n: tuple(p.shape) for n, p in params.named_parameters()}
+    for prefix, mod in params.named_modules():
+        for name in list(mod._parameters):
+            leaf = f"{prefix}.{name}" if prefix else name
+            block = ranks.local_shard(full[leaf], p_specs[leaf])
+            t = (block.detach().to(torch.float32, copy=True)
+                 if isinstance(block, torch.Tensor) else
+                 torch.from_numpy(np.array(block, np.float32)))
+            mod._parameters[name] = nn.Parameter(t.to(ranks.device),
+                                                 requires_grad=True)
+    zeros = {n: torch.zeros(_local_shape(shapes[n], opt_specs["m"][n], ranks),
+                            dtype=torch.float32, device=ranks.device)
+             for n in p_specs}
+    opt = {"m": zeros, "v": {n: torch.zeros_like(z) for n, z in zeros.items()},
+           "step": torch.zeros((), dtype=torch.int32, device=ranks.device)}
+    return params, opt
+
+
+# -- the sharded step over process ranks --------------------------------------
+
+
+def _sizes(ranks: Ranks) -> Dict[str, int]:
+    return dict(zip(ranks.axes, ranks.shape))
+
+
+def _local_shape(shape, spec: Spec, ranks: Ranks) -> Tuple[int, ...]:
+    """The shape of this process's block of a ``shape`` leaf."""
+    blocks = shard_slices(shape, spec, ranks.shape, ranks.axes, ranks.rank)
+    return tuple(len(range(n)[sl]) for n, sl in zip(shape, blocks))
+
+
+def partial_over_model(name: str, spec: Spec) -> bool:
+    """The rule of the module docstring: an attention leaf whose spec
+    names no ``model`` axis takes a part of its gradient on each model
+    rank."""
+    return ".attn." in f".{name}" and "model" not in spec_axes(spec)
+
+
+def _rank_batch(batch: Mapping[str, Any], b_specs: Mapping[str, Spec],
+                ranks: Ranks, accum_steps: int, i: int) -> Dict:
+    """This process's rows of micro batch ``i`` of the global ``batch``
+    (the micro batches are the global batch's consecutive blocks, as
+    :func:`build_train_step` cuts them), on its device."""
+    out = {}
+    for k, v in batch.items():
+        if v.shape[0] % accum_steps:
+            raise ValueError(f"{k}: {v.shape[0]} rows do not split into "
+                             f"{accum_steps} micro batches")
+        n = v.shape[0] // accum_steps
+        block = v[i * n:(i + 1) * n]
+        block = ranks.local_shard(block, b_specs[k])
+        t = (block if isinstance(block, torch.Tensor)
+             else torch.from_numpy(np.ascontiguousarray(block)))
+        out[k] = t.to(ranks.device)
+    return out
+
+
+def _rank_zero_on(ranks: Ranks, spec: Spec) -> bool:
+    """Whether this process is the first of those holding the same block
+    under ``spec`` (index 0 on every axis the spec does not name)."""
+    named = spec_axes(spec)
+    return all(c == 0 for a, c in zip(ranks.axes, ranks.coords)
+               if a not in named)
+
+
+def jit_train_step(model: Model, opt_cfg: AdamWConfig, ranks: Ranks,
+                   param_specs: Optional[Mapping[str, Spec]] = None,
+                   batch_specs: Optional[Mapping[str, Spec]] = None,
+                   dp_axes: Sequence[str] = ("data",), accum_steps: int = 1,
+                   zero1: bool = True):
+    """The JAX package's ``jit_train_step``: ``(step_fn, (param specs,
+    optimizer state specs, batch specs))``.
+
+    On stacked :class:`repro_torch.comm.Ranks` the state is global and
+    ``step_fn`` is :func:`build_train_step`'s. On process ranks it is the
+    sharded step of the module docstring over the state
+    :func:`init_train_state` gives the process: ``step_fn(params,
+    opt_state, batch, *, on_grads=None) -> (params, opt_state,
+    metrics)``, in place, ``batch`` the global batch (each process takes
+    its rows by ``batch_specs``, default the data axes on the batch
+    dimension). The loss is the global batch's mean (the last micro
+    batch's with ``accum_steps``), ``grad_norm`` the norm of the whole
+    gradient, each distinct shard counted once. ``on_grads(grads,
+    specs)``, if given, sees the reduced gradients before the update:
+    each leaf's block under its spec in ``specs`` (the moment's under
+    ZeRO-1).
+
+    The dense decoder family (GQA and SWA) only; a KV head split over
+    model ranks raises here (:func:`repro_torch.models.attention.
+    tp_layout`)."""
+    cfg = model.cfg
+    dp = tuple(dp_axes)
+    p_specs, opt_specs = make_state_shardings(model, _sizes(ranks),
+                                              param_specs, zero1)
+    if batch_specs is None:
+        entry = dp if len(dp) > 1 else dp[0]
+        batch_specs = {"tokens": (entry, None), "labels": (entry, None)}
+    b_specs = dict(batch_specs)
+    specs = (p_specs, opt_specs, b_specs)
+    if ranks.rows == ranks.world:
+        return build_train_step(model, opt_cfg, ranks, dp, accum_steps), specs
+    if cfg.family != "dense" or cfg.attn_type == "mla":
+        raise ValueError(f"{cfg.arch_id}: training over process ranks "
+                         f"covers the dense GQA/SWA decoder; the {cfg.family}"
+                         f" family ({cfg.attn_type}) is not ported")
+    meta = meta_params(cfg)
+    tp = model_parallel(ranks)
+    if tp:
+        for block in meta.blocks:
+            tp_layout(cfg, block.attn, ranks.axis_size("model"))
+    shapes = {n: tuple(p.shape) for n, p in meta.named_parameters()}
+    local = {n: _local_shape(shapes[n], sp, ranks)
+             for n, sp in p_specs.items()}
+    partial = [n for n, sp in p_specs.items()
+               if tp and partial_over_model(n, sp)]
+    dsize = ranks.axis_size(dp)
+    # ZeRO-1: the dimension a moment's spec shards over data axes where the
+    # parameter's does not, and those axes
+    zero: Dict[str, Tuple[int, Tuple[str, ...]]] = {}
+    for n, sp in p_specs.items():
+        msp = opt_specs["m"][n]
+        for d, (pe, me) in enumerate(zip(sp + (None,) * len(msp), msp)):
+            if pe is None and me is not None and dsize > 1:
+                zero[n] = (d, spec_axes((me,)))
+    held = {n: opt_specs["m"][n] if n in zero else p_specs[n]
+            for n in p_specs}
+
+    def reduce_over_data(n: str, g: torch.Tensor) -> torch.Tensor:
+        if dsize == 1:
+            return g
+        if n not in zero:
+            return ranks.psum(g.unsqueeze(0), dp).reshape(g.shape) / dsize
+        d, axes = zero[n]
+        rest = tuple(a for a in dp if a not in axes)
+        if rest:
+            g = ranks.psum(g.unsqueeze(0), rest).reshape(g.shape)
+        t = ranks.reduce_scatter(g.movedim(d, 0).contiguous().unsqueeze(0),
+                                 axes)[0]
+        return t.movedim(0, d) / dsize
+
+    def step_fn(params, opt_state, batch, *,
+                on_grads: Optional[Callable] = None):
+        leaves = named_leaves(params, cfg)
+        for n, p in leaves.items():
+            if tuple(p.shape) != local[n]:
+                raise ValueError(f"{n}: {tuple(p.shape)} is not this "
+                                 f"process's shard {local[n]} (spec "
+                                 f"{p_specs[n]}): init_train_state(..., "
+                                 f"ranks=) gives the shards")
+        if "loss_mask" in batch:
+            raise ValueError("a masked loss over process ranks is not "
+                             "ported (its mean needs the global count)")
+        grads: Dict[str, torch.Tensor] = {}
+        for i in range(accum_steps):
+            micro = _rank_batch(batch, b_specs, ranks, accum_steps, i)
+            loss, metrics, g = loss_and_grads(model, params, micro, ranks,
+                                              dp)
+            for n, p in leaves.items():
+                gi = (g[n].float() if g[n] is not None else
+                      torch.zeros(p.shape, dtype=torch.float32,
+                                  device=p.device))
+                if accum_steps == 1:
+                    grads[n] = gi
+                else:
+                    grads[n] = grads.get(n, torch.zeros_like(gi)) + \
+                        gi / accum_steps
+            del g
+        if accum_steps > 1:
+            metrics = {}
+        # the replicated leaves read inside model-parallel regions
+        if partial:
+            flat = torch.cat([grads[n].reshape(-1) for n in partial])
+            flat = ranks.psum(flat.unsqueeze(0), "model").reshape(-1)
+            for n, part in zip(partial, flat.split(
+                    [grads[n].numel() for n in partial])):
+                grads[n] = part.reshape(grads[n].shape)
+        grads = {n: reduce_over_data(n, g) for n, g in grads.items()}
+        # each distinct shard's square sum once, added in leaf order
+        zero_t = torch.zeros((), dtype=torch.float32, device=ranks.device)
+        sq = torch.stack([torch.sum(torch.square(g))
+                          if _rank_zero_on(ranks, held[n]) else zero_t
+                          for n, g in grads.items()])
+        total = 0
+        for v in ranks.psum(sq.unsqueeze(0)).reshape(-1):
+            total = total + v
+        gnorm = torch.sqrt(torch.as_tensor(total, dtype=torch.float32))
+        # the loss (and any metric) is the global batch's mean
+        names = ["loss"] + [k for k in metrics if k != "loss"]
+        vals = torch.stack([(loss if k == "loss" else metrics[k]).float()
+                            .reshape(()) for k in names])
+        if dsize > 1:
+            vals = ranks.psum(vals.unsqueeze(0), dp).reshape(-1) / dsize
+        reduced = dict(zip(names, vals.unbind()))
+        if on_grads is not None:
+            on_grads(grads, held)
+        slices = {}
+        for n, p in leaves.items():
+            t = p.detach()
+            if n in zero:
+                d, axes = zero[n]
+                blk = t.shape[d] // ranks.axis_size(axes)
+                t = t.narrow(d, axis_position(ranks, axes) * blk, blk)
+            slices[n] = t
+        _, _, opt_metrics = adamw_update(opt_cfg, slices, grads, opt_state,
+                                         gnorm=gnorm)
+        for n, (d, axes) in zero.items():
+            t = slices[n].movedim(d, 0).contiguous()
+            full = ranks.all_gather(t.unsqueeze(0), axes)
+            full = full.reshape((-1,) + tuple(t.shape[1:]))
+            leaves[n].detach().copy_(full.movedim(0, d))
+        return params, opt_state, dict(reduced, **opt_metrics,
+                                       loss=reduced["loss"])
+
+    return step_fn, specs
+
+
+def gather_leaves(ranks, tensors: Mapping[str, torch.Tensor],
+                  specs: Mapping[str, Spec],
+                  shapes: Mapping[str, Sequence[int]]
+                  ) -> Optional[Dict[str, torch.Tensor]]:
+    """A rank grid's shards assembled into the whole leaves on process 0
+    (CPU tensors; None on the others): ``tensors`` are this process's
+    blocks under ``specs`` of leaves of ``shapes`` (the parameters, the
+    moments or the gradients), by name. For checks: one ``gather`` a
+    leaf, outside the step."""
+    out = {} if ranks.rank == 0 else None
+    for n, t in tensors.items():
+        parts = ranks.gather_to_first(t)
+        if parts is None:
+            continue
+        full = torch.empty(tuple(shapes[n]), dtype=parts[0].dtype)
+        for r, part in enumerate(parts):
+            full[shard_slices(shapes[n], specs[n], ranks.shape, ranks.axes,
+                              r)] = part
+        out[n] = full
+    return out
 
 
 def state_tree(model: Model, params, opt_state: Dict) -> Dict:

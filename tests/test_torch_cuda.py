@@ -1289,3 +1289,58 @@ def test_process_ranks_nccl_world_one_on_the_card(card):
             assert got[k] == v
         else:
             torch.testing.assert_close(got[k], v, rtol=1e-6, atol=0)
+
+
+# -- training over process ranks on the card -----------------------------------
+
+
+def _card_train_step(ranks, cfg, batch, opt_cfg):
+    import torch_train_dist_paths as paths
+    gen = torch.Generator(device=ranks.device)
+    gen.manual_seed(0)
+    out = paths.train_run(ranks, cfg, gen, [batch], opt_cfg)
+    out["device"] = str(ranks.device)
+    return out
+
+
+@pytest.mark.parametrize("grid", [(1, 2), (2, 1)], ids=["model2", "data2"])
+def test_process_ranks_train_step_on_the_card(card, grid):
+    """Two gloo processes on ``cuda:0`` run one step of smoke TinyLlama
+    with ``tp_size=2`` (heads sharded on ``(1, 2)``, the batch split on
+    ``(2, 1)``) from weights drawn on the card, held to the one-process
+    step on the card by ``tests/test_torch_train_dist.py``'s bounds: the
+    loss within 2e-3, ``grad_norm`` within 5e-3 relative, the parameters
+    by ``tests/test_torch_train.py``'s rule."""
+    import dataclasses
+    from repro_torch.comm import spawn_ranks
+    from repro_torch.configs.base import get_smoke_config
+    from repro_torch.data import synthetic_tokens
+    from repro_torch.models import build
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.trainer import build_train_step, init_train_state
+    cfg = dataclasses.replace(get_smoke_config("tinyllama_1_1b"), tp_size=2)
+    block = synthetic_tokens(8 * 33, cfg.vocab).reshape(8, 33)
+    batch = {"tokens": torch.from_numpy(block[:, :-1].copy()),
+             "labels": torch.from_numpy(block[:, 1:].copy())}
+    opt = AdamWConfig(lr=3e-3, warmup_steps=5, total_steps=60)
+    res = spawn_ranks(_card_train_step, grid, ("data", "model"),
+                      backend="gloo", device="cuda", timeout_s=300,
+                      args=(cfg, batch, opt))
+    model = build(cfg)
+    gen = _gen(card, 0)
+    params, state = init_train_state(model, gen, card)
+    _, _, m = build_train_step(model, opt)(
+        params, state, {k: v.to(card) for k, v in batch.items()})
+    lr = float(m["lr"])
+    for r in res:
+        assert r["device"] == "cuda:0"
+        assert abs(r["losses"][0] - float(m["loss"])) <= 2e-3
+        assert abs(r["grad_norms"][0] - float(m["grad_norm"])) <= \
+            5e-3 * float(m["grad_norm"])
+        assert r["lrs"][0] == lr
+    got = res[0]["params"]
+    diffs = torch.cat([(got[n] - p.detach().cpu()).abs().reshape(-1)
+                       for n, p in params.named_parameters()])
+    assert float(diffs.max()) <= 2 * lr
+    assert float(torch.quantile(diffs, 0.99)) <= 0.05 * lr
+    assert float(diffs.median()) <= 0.005 * lr
