@@ -216,8 +216,9 @@ Phases, in order (any failure ends the script with a non-zero exit):
     each collective's host seconds and the bytes each process hands to
     gloo per hop, and each process's peak memory. A process that raises
     or outlasts its limit fails the phase.
-16. ``train_ranks``: TinyLlama-1.1B at its published config (22 layers,
-    d 2048, 32 heads, 4 KV heads, d_ff 5632, vocab 32000, remat) trained
+16. ``train_ranks``: TinyLlama-1.1B at its published width (d 2048, 32
+    heads, 4 KV heads, d_ff 5632, vocab 32000, remat), its depth cut 22
+    -> 11 layers to leave phase 17 room in the time limit, trained
     3 steps as 8 processes on ``(data, model) = (2, 4)`` (``backend="gloo"``
     over CUDA tensors, chosen by name: NCCL takes one card a rank), on
     phase 14's first 3 batches (8 x 2048 tokens) at the launcher's lr and
@@ -236,16 +237,50 @@ Phases, in order (any failure ends the script with a non-zero exit):
     stated with their measurement and cause at
     ``TRAIN_ATOL_LOSS_STEPPED``, and the one process's own floor (its
     gradient over two halves of the batch, its steps over two micro
-    batches) is printed beside them; the parameters after 3 steps,
-    gathered on process 0, inside the trainer tests' rule (every one
-    within ``2 * sum(lr)``, 99% within 0.05 and half within 0.005 of
-    it); each process's
-    parameter and moment bytes equal to the specs' arithmetic; the
-    collectives of every step equal to the count from the layer count
-    (``train_ranks_collectives``), none an ``all_gather`` over
+    batches) is printed beside them; the parameters after 3 steps inside
+    the trainer tests' rule (every one within ``2 * sum(lr)``, 99% within
+    0.05 and half within 0.005 of it), each distinct block held by the
+    first process that holds it against the reference's block; each
+    process's parameter and moment bytes equal to the specs' arithmetic;
+    the collectives of every step equal to the count from the layer
+    count (``train_collectives``), none an ``all_gather`` over
     ``model``. Prints the warm step wall against the one process's, the
     last step's gloo bytes and seconds by op and axis, the peak memory a
     process. A process that raises or outlasts its limit fails the phase.
+17. ``train_ranks_families``: two paths, each as 8 gloo processes on
+    ``cuda:0`` checked as phase 16 is. (1)
+    ``train-qwen2-moe-a2.7b-1x8-8proc-1xH100``: phase 14's MoE cell
+    (Qwen1.5-MoE-A2.7B at its published width, 2 layers, its weights
+    from the seed, its batch of 8 x 1024 uniform tokens three times, its
+    optimizer) on ``(data, model) = (1, 8)``, against phase 14's stacked
+    ``(1, 8)`` step rerun here: the 64 padded experts 8 a process, the
+    shared experts and 2 attention heads a process column- and
+    row-parallel, each process dispatching its 128 positions of every
+    sequence through the sphere shuffle (K1 in the send pack and the
+    regroup, 4 times a MoE layer a step with the remat recompute, counted
+    in every process) and gathering the outputs over ``model``. Checks
+    besides phase 16's: the first step's ``moe_aux`` and ``moe_dropped``
+    the stacked step's (a few near-tie tokens may route elsewhere: 0.1%
+    of the routed choices), the routed experts' gradient zero and their
+    blocks after 3 steps equal to the stacked step's decay-only update
+    to the bit, the router's first-step gradient held like every other
+    leaf's. (2) ``train-minicpm3-4b-2x4-8proc-1xH100``: MiniCPM3-4B at
+    its published width (MLA, 40 heads, q rank 768, kv rank 256), depth
+    cut 62 -> 8, on ``(2, 4)``, 10 heads a model rank, phase 16's corpus
+    batches (8 x 2048 tokens) and optimizer, against the one-process
+    step. Both models are far more sensitive to rounding at full width
+    than the smoke configs, so the bounds are fixed numbers stated with
+    their measurement (``MOE_RANKS_BOUNDS``, ``MLA_RANKS_BOUNDS``), and
+    each but the CPU tests' own is shown able to fail: the reference also
+    reads two planted faults, the gradient of the first half of the
+    batch's rows halved (a partial gradient whose sum over two ranks is
+    missing) and, for the MoE's repeated batch, the steps without their
+    update, and the phase fails where a fault reads within its bound.
+    MLA is held at its first step only (loss, norm, the last layer's
+    gradients): past it the full-width model is chaotic, and its later
+    losses, norms and parameters are printed, not compared. Prints each
+    path's warm step against its reference, gloo bytes and seconds by op
+    and axis, the peak memory a process and K1's launches.
 
 Each path's launch counts are read from zero: every count is reset just
 before the path runs and read just after. The last lines are the
@@ -320,10 +355,12 @@ MOE_TRAIN_LAYERS, MOE_TRAIN_STEPS = 2, 3
 #: against the stacked one: one bfloat16 ulp of the output's largest value
 RANKS_TIMEOUT_S = 600
 MOE_RANKS_TOL = 2.0 ** -7
-#: phase 16: TinyLlama-1.1B at its published config trained as 8 processes
+#: phase 16: TinyLlama-1.1B at its published width, depth cut 22 -> 11
+#: (phase 17's room in the script's time limit), trained as 8 processes
 #: on the (data, model) grid, against the one-process step on phase 14's
 #: first batches; the CPU tests' bounds (tests/test_torch_train_dist.py)
 TRAIN_RANKS_GRID = (2, 4)
+TRAIN_RANKS_LAYERS = 11
 TRAIN_RANKS_STEPS = 3
 TRAIN_ATOL_LOSS, TRAIN_RTOL_GNORM = 2e-3, 5e-3
 TRAIN_RTOL_GRAD, TRAIN_ATOL_GRAD = 0.03, 1e-3
@@ -341,10 +378,71 @@ TRAIN_RTOL_GRAD, TRAIN_ATOL_GRAD = 0.03, 1e-3
 #: sum a quarter of the vocabulary over half the rows each)
 TRAIN_ATOL_LOSS_STEPPED = 5e-3
 TRAIN_RTOL_GRAD_EMBED = 0.25
+TRAIN_RANKS_BOUNDS = {
+    "loss_first": TRAIN_ATOL_LOSS, "grad_norm_rel_first": TRAIN_RTOL_GNORM,
+    "loss": TRAIN_ATOL_LOSS_STEPPED, "grad_norm_rel": TRAIN_RTOL_GNORM,
+    "grad_rtol": TRAIN_RTOL_GRAD, "grad_atol": TRAIN_ATOL_GRAD,
+    "grad_rtol_leaf": {"embed": TRAIN_RTOL_GRAD_EMBED},
+    "params": {"max_over_sum_lr": 2.0, "share_beyond_0.05_sum_lr": 0.01,
+               "share_beyond_0.005_sum_lr": 0.5}}
 #: leaves whose first-step gradient blocks are held to the one process's
 TRAIN_GRAD_LEAVES = ("embed", "final_ln", "blocks.0.ln1", "blocks.0.attn.wq",
-                     "blocks.0.attn.wk", "blocks.11.attn.wo",
-                     "blocks.21.mlp.w_gate", "blocks.21.mlp.w_down")
+                     "blocks.0.attn.wk", "blocks.5.attn.wo",
+                     "blocks.10.mlp.w_gate", "blocks.10.mlp.w_down")
+#: phase 17: phase 14's MoE cell (Qwen1.5-MoE-A2.7B, 2 layers, (1, 8)) and
+#: MiniCPM3-4B at its published width, depth cut 62 -> 8, on (2, 4), each
+#: trained as 8 processes; the leaves whose first-step gradient blocks
+#: are held to the reference's (the routed experts': zero)
+MOE_RANKS_GRAD_LEAVES = ("embed", "final_ln", "blocks.0.attn.wq",
+                         "blocks.1.attn.wo", "blocks.0.ln2",
+                         "blocks.0.moe.router", "blocks.1.moe.router",
+                         "blocks.0.moe.ws_gate", "blocks.1.moe.ws_down",
+                         "blocks.1.moe.shared_gate", "blocks.0.moe.w_gate",
+                         "blocks.1.moe.w_down")
+MLA_TRAIN_ARCH, MLA_TRAIN_LAYERS = "minicpm3_4b", 8
+#: phase 17's bounds for the MoE path against the stacked step (measured
+#: on an NVIDIA H100 80GB HBM3 at 700 W; beside each, in brackets, how far
+#: the stacked step moved when rerun with the models' products in
+#: float32, a sample of what rounding alone does at this width): the
+#: CPU tests' bounds for the first step's loss and norm (2.2e-4 and
+#: 4.0e-4 measured); the later losses 6.9e-3 and 1.2e-2 (1.4e-3, 1.7e-2),
+#: norms 0.79% and 0.08% (0.39%, 0.31%); the first step's gradients up to
+#: 8.4% of a leaf's largest value (8.6%), the embedding's 20.4% (15.7%),
+#: with no absolute term (the CPU tests' 1e-3 exceeds the routers' whole
+#: gradient); after 3 steps 1.2% of the parameters beyond 0.05 * sum(lr)
+#: (2.1%); ``moe_aux`` 1e-4 relative and 2 of 65536 routed choices
+#: dropped otherwise (near-tie tokens routed elsewhere).
+MOE_RANKS_BOUNDS = {
+    "loss_first": TRAIN_ATOL_LOSS, "grad_norm_rel_first": TRAIN_RTOL_GNORM,
+    "loss": 0.05, "grad_norm_rel": 0.02,
+    "grad_rtol": 0.15, "grad_rtol_leaf": {"embed": 0.3},
+    "params": {"max_over_sum_lr": 2.0, "share_beyond_0.05_sum_lr": 0.05,
+               "share_beyond_0.005_sum_lr": 0.5},
+    "moe_aux_rel": 1e-3, "moe_dropped_share": 1e-3}
+#: the MLA path's bounds against the one-process step: its first step
+#: only. Rerun with float32 products, the one process moved its first
+#: step's loss by 1.2e-3 and its norm by 0.9%, the last layer's
+#: ``wo``'s and ``w_down``'s gradients by 5.0% and 7.1% of their largest
+#: values, but layer 0's by 65-85% and layer 3's ``wk_up``'s by 67%: each
+#: layer's attention backward amplifies rounding, so only the last
+#: layer's leaves and ``final_ln`` are held, with no absolute term. The
+#: processes: ``final_ln`` and the last layer's norms, ``wkv_down``,
+#: ``wv_up``, ``wo`` and ``w_down`` 1.0-7.9% of their largest values,
+#: its query path (``wq_down``, ``q_norm``, ``wq_up``) and ``wk_up``,
+#: which reach the loss through the softmax's backward, 15-27%. After
+#: one update the step-3 loss moved by 0.20 and 79% of the parameters by
+#: more than 0.05 * sum(lr): no later step is compared.
+MLA_QK_LEAVES = ("blocks.7.attn.wq_down", "blocks.7.attn.q_norm",
+                 "blocks.7.attn.wq_up", "blocks.7.attn.wk_up")
+MLA_RANKS_BOUNDS = {
+    "loss_first": TRAIN_ATOL_LOSS, "grad_norm_rel_first": TRAIN_RTOL_GNORM,
+    "grad_rtol": 0.1, "grad_rtol_leaf": dict.fromkeys(MLA_QK_LEAVES, 0.4)}
+MLA_RANKS_GRAD_LEAVES = ("final_ln", "blocks.7.ln1",
+                         "blocks.7.attn.wq_down", "blocks.7.attn.q_norm",
+                         "blocks.7.attn.wkv_down", "blocks.7.attn.kv_norm",
+                         "blocks.7.attn.wq_up", "blocks.7.attn.wk_up",
+                         "blocks.7.attn.wv_up", "blocks.7.attn.wo",
+                         "blocks.7.mlp.w_down")
 #: phase 15's paths in the kernel table
 RANKED_PATHS = (("flat", "dataflow sort, flat"),
                 ("grid", "dataflow sort, (dc, node)"),
@@ -3289,24 +3387,43 @@ def train_tinyllama(torch, dev, seed: int) -> dict:
     return out
 
 
+def moe_train_setup(torch, seed: int):
+    """Phase 14's MoE cell, shared with phase 17: Qwen1.5-MoE-A2.7B at its
+    published width cut to ``MOE_TRAIN_LAYERS`` layers, its batch (CPU
+    tensors) and its optimizer. The batch is phase 12's prompts: uniform
+    tokens spread the random router's choices over every expert (the
+    corpus's Zipf tokens repeat, and leave some experts without a
+    token)."""
+    import dataclasses
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.train.optimizer import AdamWConfig
+    cfg = dataclasses.replace(get_config(SERVE_ARCH),
+                              num_layers=MOE_TRAIN_LAYERS)
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(0, cfg.vocab, (PREFILL_PROMPTS, PREFILL_LEN + 1))
+    toks = torch.from_numpy(toks.astype(np.int32))
+    batch = {"tokens": toks[:, :-1].contiguous(),
+             "labels": toks[:, 1:].contiguous()}
+    opt_cfg = AdamWConfig(lr=TRAIN_LR, warmup_steps=20,
+                          total_steps=MOE_TRAIN_STEPS)
+    return cfg, batch, opt_cfg
+
+
 def train_moe_grid(torch, dev, seed: int) -> dict:
     """Phase 14 (2): Qwen1.5-MoE-A2.7B at its published width, 2 layers,
     on ``(1, 8)``: K1 in every MoE layer, the routed experts' missing
     gradients and decay-only updates; then one step of the dense
     dispatch."""
-    import dataclasses
     import math
-    import numpy as np
     from repro_torch.comm import Ranks
-    from repro_torch.configs import get_config
     from repro_torch.models import build
     from repro_torch.models.convert import named_leaves
-    from repro_torch.train.optimizer import AdamWConfig, adamw_update
+    from repro_torch.train.optimizer import adamw_update
     from repro_torch.train.trainer import (build_train_step,
                                            init_train_state, loss_and_grads)
 
-    cfg = dataclasses.replace(get_config(SERVE_ARCH),
-                              num_layers=MOE_TRAIN_LAYERS)
+    cfg, batch, opt_cfg = moe_train_setup(torch, seed)
     model = build(cfg)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
@@ -3316,17 +3433,8 @@ def train_moe_grid(torch, dev, seed: int) -> dict:
     leaves = named_leaves(params, cfg)
     routed = [n for n in leaves if n.split(".")[-1] in
               ("w_gate", "w_up", "w_down")]
-    # phase 12's prompts: uniform tokens spread the random router's
-    # choices over every expert (the corpus's Zipf tokens repeat, and
-    # leave some experts without a token)
-    rng = np.random.default_rng(seed)
-    toks = rng.integers(0, cfg.vocab, (PREFILL_PROMPTS, PREFILL_LEN + 1))
-    toks = torch.from_numpy(toks.astype(np.int32)).to(dev)
-    batch = {"tokens": toks[:, :-1].contiguous(),
-             "labels": toks[:, 1:].contiguous()}
+    batch = {k: v.to(dev) for k, v in batch.items()}
     rk = Ranks(shape=SERVE_GRID, axes=("data", "model"), device=dev)
-    opt_cfg = AdamWConfig(lr=TRAIN_LR, warmup_steps=20,
-                          total_steps=MOE_TRAIN_STEPS)
     step_fn = build_train_step(model, opt_cfg, rk)
     out = {"phase": "train_qwen2_moe_grid", "arch": cfg.arch_id,
            "layers": cfg.num_layers, "cut": "layers 24 -> 2",
@@ -3900,25 +4008,49 @@ def ranks_path(torch, dev, directory: str, seed: int, flat_sorted) -> dict:
     return out
 
 
-# -- phase 16: TinyLlama-1.1B trained as 8 processes on (2, 4) ----------------
+# -- phases 16 and 17: decoders trained as 8 processes ------------------------
 
 
-def train_ranks_collectives(num_layers: int, num_leaves: int) -> dict:
-    """The collectives of one step of the dense decoder on ``(2, 4)`` with
-    its heads sharded (TinyLlama: 32 heads and 4 KV heads over 4 model
-    ranks). Over ``model``: the embedding's ``reduce_from``; a layer's
-    attention and MLP row-parallel sums; the cross-entropy's ``pmax`` and
-    one ``psum``; in the backward the remat recompute of each layer's
-    attention sum (the MLP's is the block's last use, which
-    ``torch.utils.checkpoint`` does not recompute) and the gradient sums
-    of the attention's, the MLP's and the logits' ``copy_to``. Over
-    ``data``: one ``reduce_scatter`` and one ``all_gather`` a leaf (ZeRO-1
-    shards every leaf) and the loss's ``psum``; over both, the norm's
-    ``psum``. No leaf of the attention is replicated, so no ``psum`` of
-    partial gradients."""
-    L = num_layers
-    return {"psum": 1 + 2 * L + 1 + L + 2 * L + 1 + 2, "pmax": 1,
-            "reduce_scatter": num_leaves, "all_gather": num_leaves}
+def train_collectives(cfg, layout: str, n_leaves: int, partial: bool,
+                      data: int) -> dict:
+    """The collectives of one sharded step over a ``(data, model)`` grid
+    by layer count ``L``, which ``tests/test_torch_train_dist_families.py``
+    also holds the CPU processes to. Over ``model``, a layer's forward: the attention's sums
+    (GQA by head: ``wo``'s; MLA: the rope query's and ``wo``'s; by
+    sequence: none, an ``all_gather`` of the query rows instead); the
+    MLP's row-parallel sum, or the MoE's dispatch (two ``all_to_all``s,
+    the drop count's ``psum``), its ``moe_aux`` mean, the shared experts'
+    sum and one ``all_gather`` of its output blocks; over ``data`` the
+    first row's ``moe_aux`` and drops where there are several rows. The
+    remat recompute stops at the block's last saved tensor: it reruns
+    the attention's collectives, the dispatch's first ``all_to_all`` and
+    drop count and the shared experts' sum, not the MLP's sum, the
+    combine, the aux sums or the output gather. The backward sums each
+    ``copy_to``'s gradient: the attention's input (MLA: its latents and
+    its rope query), the MLP's or MoE's input. Around the layers: the
+    embedding's sum, the cross-entropy's ``pmax`` and sum and its
+    logits' ``copy_to``; after the backward one ``psum`` of the partial
+    leaves' gradients where there are any (the router; replicated GQA
+    leaves), one ``reduce_scatter`` and one ``all_gather`` over ``data``
+    a leaf (ZeRO-1, with more than one data rank), and one ``psum`` each
+    of the norm's squares and of the metrics over ``data``."""
+    L = cfg.num_layers
+    mla = cfg.attn_type == "mla"
+    attn_fwd = {"heads": 2 if mla else 1, "sequence": 0}[layout]
+    attn_bwd = 2 if mla else 1
+    if cfg.family == "moe":
+        ffn_fwd = 2 + (data > 1) + bool(cfg.n_shared_experts)
+        ffn_re = 1 + bool(cfg.n_shared_experts)
+        gathers, a2a = 1, 3
+    else:
+        ffn_fwd, ffn_re, gathers, a2a = 1, 0, 0, 0
+    seq_gathers = 2 if layout == "sequence" else 0
+    layer_psum = attn_fwd + ffn_fwd + attn_fwd + ffn_re + attn_bwd + 1
+    zero = n_leaves if data > 1 else 0
+    out = {"psum": 1 + L * layer_psum + 2 + int(partial) + 1 + (data > 1),
+           "pmax": 1, "all_gather": L * (gathers + seq_gathers) + zero,
+           "reduce_scatter": zero, "all_to_all": L * a2a}
+    return {k: v for k, v in out.items() if v}
 
 
 def train_ranks_batches(torch, cfg):
@@ -3946,52 +4078,83 @@ def train_ranks_batches(torch, cfg):
         shutil.rmtree(root, ignore_errors=True)
 
 
-def train_ranks_reference(torch, dev, cfg, batches, opt_cfg,
-                          directory: str) -> dict:
-    """The one-process step on the card: the initial float32 weights
-    (phase 14's, drawn from seed 0) written to ``directory`` as
-    ``init.<leaf>.npy``, the first batch's gradient of
-    ``TRAIN_GRAD_LEAVES``, then ``TRAIN_RANKS_STEPS`` steps (losses,
-    norms, lrs, walls, peak memory) and the parameters after them as
-    ``final.<leaf>.npy``. Then the one process's own rounding floor (not a
-    check): the first gradient as the mean of its two halves', and the
-    same steps with each batch as two micro batches (each step's loss
-    taken on the whole batch first), against the above. The card's
-    memory is freed before returning."""
+def train_ranks_reference(torch, dev, cfg, batches, opt_cfg, directory: str,
+                          grad_leaves, grid=None, accum2: bool = True,
+                          seed: int = 0) -> dict:
+    """The reference step on the card: one process, or the stacked
+    ``Ranks`` of ``grid`` (``("data", "model")``). Its initial float32
+    weights (drawn from ``seed``) written to ``directory`` as
+    ``init.<leaf>.npy``, the first batch's gradient of ``grad_leaves``,
+    then the steps (losses, norms, lrs, metrics, walls, peak memory) and
+    the parameters after them as ``final.<leaf>.npy``. With ``accum2`` a
+    rounding floor (phase 16): the one process against itself (the first
+    gradient as the mean of its two halves', and the same steps with each
+    batch as two micro batches, each step's loss taken on the whole batch
+    first); without it (phase 17) the planted faults' readings
+    (``controls``): the gradient of the batch's first half of rows halved
+    against the first gradient, each held leaf's error over its largest
+    value and the norm's relative error, and the parameters after the
+    steps against the initial ones (no update) by the trainer tests'
+    rule. The card's memory is freed before returning."""
+    from repro_torch.comm import Ranks
     from repro_torch.models import build
     from repro_torch.models.convert import named_leaves
     from repro_torch.train.trainer import (build_train_step,
                                            init_train_state, loss_and_grads)
     model = build(cfg)
     gen = torch.Generator(device=dev)
-    gen.manual_seed(0)
+    gen.manual_seed(seed)
+    rk = (None if grid is None else
+          Ranks(shape=grid, axes=("data", "model"), device=dev))
     params, opt = init_train_state(model, gen, dev)
     leaves = named_leaves(params, cfg)
     for name, p in leaves.items():
         save_npy(directory, f"init.{name}", p.detach())
     on_dev = [{k: v.to(dev) for k, v in b.items()} for b in batches]
-    _, _, g = loss_and_grads(model, params, on_dev[0])
-    grads = {n: g[n].cpu() for n in TRAIN_GRAD_LEAVES}
-    # the floor of the same gradient: the mean of its two halves' (four
-    # sequences each, the data ranks' rows)
-    half = {n: torch.zeros_like(t) for n, t in grads.items()}
-    for rows in (slice(0, TRAIN_BATCH // 2), slice(TRAIN_BATCH // 2, None)):
-        _, _, g = loss_and_grads(model, params,
-                                 {k: v[rows] for k, v in on_dev[0].items()})
-        for n in half:
-            half[n] += g[n].cpu() / 2
-    grad_floor = {n: float((half[n] - grads[n]).abs().max()
-                           / grads[n].abs().max()) for n in grads}
-    del g, half
-    step = build_train_step(model, opt_cfg)
+    _, _, g = loss_and_grads(model, params, on_dev[0], rk)
+    grads = {n: (torch.zeros(leaves[n].shape) if g[n] is None
+                 else g[n].cpu()) for n in grad_leaves}
+    out = {"losses": [], "grad_norms": [], "lrs": [], "step_ms": [],
+           "metrics": []}
+    if not accum2:
+        # a planted fault, not a check: half the batch's rows, halved
+        norm = grads_norm(torch, g)
+        del g
+        _, _, g = loss_and_grads(
+            model, params,
+            {k: v[:v.shape[0] // 2] for k, v in on_dev[0].items()}, rk)
+        half = {}
+        for n, want in grads.items():
+            top = float(want.abs().max())
+            if top:
+                half[n] = float((g[n].cpu() / 2 - want).abs().max()) / top
+        out["controls"] = {"half_batch": {
+            "grad_max_err_over_leaf_max": half,
+            "grad_norm_rel": abs(grads_norm(torch, g) / 2 - norm) / norm}}
+    else:
+        # the floor of the same gradient: the mean of its two halves'
+        # (the data ranks' rows)
+        half = {n: torch.zeros_like(t) for n, t in grads.items()}
+        b = TRAIN_BATCH
+        for rows in (slice(0, b // 2), slice(b // 2, None)):
+            _, _, g = loss_and_grads(
+                model, params, {k: v[rows] for k, v in on_dev[0].items()})
+            for n in half:
+                half[n] += g[n].cpu() / 2
+        out["grad_floor"] = {n: float((half[n] - grads[n]).abs().max()
+                                      / grads[n].abs().max())
+                             for n in grads}
+        del half
+    del g
+    step = build_train_step(model, opt_cfg, rk)
     torch.cuda.reset_peak_memory_stats()
-    out = {"losses": [], "grad_norms": [], "lrs": [], "step_ms": []}
     for b in on_dev:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         _, _, m = step(params, opt, b)
         torch.cuda.synchronize()
         out["step_ms"].append((time.perf_counter() - t0) * 1e3)
+        out["metrics"].append({k: float(v) for k, v in m.items()})
         for k, key in (("losses", "loss"), ("grad_norms", "grad_norm"),
                        ("lrs", "lr")):
             out[k].append(float(m[key]))
@@ -4000,33 +4163,54 @@ def train_ranks_reference(torch, dev, cfg, batches, opt_cfg,
         save_npy(directory, f"final.{name}", p.detach())
     out["grads"] = grads
     out["n_params"] = sum(p.numel() for p in leaves.values())
-    # the rounding floor, not a check: the same steps in the one process
-    # with each batch as two micro batches of 4 sequences (the gradient's
-    # sums grouped as two data ranks group them), against the steps above
     del opt
-    gen.manual_seed(0)
-    twin, twin_opt = init_train_state(model, gen, dev)
-    step2 = build_train_step(model, opt_cfg, accum_steps=2)
-    norms, losses = [], []
-    for b in on_dev:
-        with torch.no_grad():
-            losses.append(float(model.train_loss(twin, b)[0]))
-        _, _, m = step2(twin, twin_opt, b)
-        norms.append(float(m["grad_norm"]))
-    twins = named_leaves(twin, cfg)
-    out["accum2_floor"] = {
-        "losses": losses, "grad_norms": norms,
-        "loss_max_abs_diff": max(abs(a - b) for a, b in
-                                 zip(losses, out["losses"])),
-        "grad_norm_max_rel_diff": max(abs(a - b) / abs(b) for a, b in
-                                      zip(norms, out["grad_norms"])),
-        "grad_max_err_over_leaf_max": grad_floor,
-        "params": rule_counts(((twins[n], p) for n, p in leaves.items()),
-                              sum(out["lrs"]))}
-    del model, params, leaves, step, on_dev, twin, twin_opt, twins, step2
+    if not accum2:
+        # a planted fault, not a check: the steps without their update
+        # (with one batch repeated, the first step's loss and norm again)
+        no_update = out["controls"]["no_update"] = {"params": rule_counts(
+            ((load_tensor(torch, directory, f"init.{n}", dev), p)
+             for n, p in leaves.items()), sum(out["lrs"]))}
+        if all(torch.equal(b["tokens"], batches[0]["tokens"])
+               for b in batches):
+            no_update["loss"] = min(abs(a - out["losses"][0])
+                                    for a in out["losses"][1:])
+            no_update["grad_norm_rel"] = min(
+                abs(a - out["grad_norms"][0]) / a
+                for a in out["grad_norms"][1:])
+    else:
+        # the rounding floor, not a check: the same steps in the one
+        # process with each batch as two micro batches (the gradient's
+        # sums grouped as two data ranks group them)
+        gen.manual_seed(seed)
+        twin, twin_opt = init_train_state(model, gen, dev)
+        step2 = build_train_step(model, opt_cfg, accum_steps=2)
+        norms, losses = [], []
+        for b in on_dev:
+            with torch.no_grad():
+                losses.append(float(model.train_loss(twin, b)[0]))
+            _, _, m = step2(twin, twin_opt, b)
+            norms.append(float(m["grad_norm"]))
+        twins = named_leaves(twin, cfg)
+        out["accum2_floor"] = {
+            "losses": losses, "grad_norms": norms,
+            "loss_max_abs_diff": max(abs(a - b) for a, b in
+                                     zip(losses, out["losses"])),
+            "grad_norm_max_rel_diff": max(abs(a - b) / abs(b) for a, b in
+                                          zip(norms, out["grad_norms"])),
+            "grad_max_err_over_leaf_max": out.pop("grad_floor"),
+            "params": rule_counts(((twins[n], p) for n, p in
+                                   leaves.items()), sum(out["lrs"]))}
+        del twin, twin_opt, twins, step2
+    del params, leaves, step, model, on_dev
     gc.collect()
     torch.cuda.empty_cache()
     return out
+
+
+def grads_norm(torch, grads: dict) -> float:
+    """The global norm of ``{name: gradient or None}``."""
+    return sum(float(torch.linalg.vector_norm(g.float())) ** 2
+               for g in grads.values() if g is not None) ** 0.5
 
 
 def rule_counts(pairs, sum_lr: float) -> dict:
@@ -4034,6 +4218,13 @@ def rule_counts(pairs, sum_lr: float) -> dict:
     want)`` parameter pairs, by counts: "99% within 0.05 * sum(lr)" is
     "at most 1% beyond it", "half within 0.005 * sum(lr)" at most half
     beyond."""
+    return rule_shares(rule_tally(pairs, sum_lr), sum_lr)
+
+
+def rule_tally(pairs, sum_lr: float) -> dict:
+    """The rule's raw counts over ``(got, want)`` pairs: elements, the
+    largest difference, and how many lie beyond 0.05 and 0.005 of
+    ``sum_lr``; tallies of disjoint blocks add up."""
     n = beyond_5 = beyond_05 = 0
     top = 0.0
     for got, want in pairs:
@@ -4042,9 +4233,14 @@ def rule_counts(pairs, sum_lr: float) -> dict:
         top = max(top, float(d.max()))
         beyond_5 += int((d > 0.05 * sum_lr).sum())
         beyond_05 += int((d > 0.005 * sum_lr).sum())
-    return {"elements": n, "max_over_sum_lr": top / sum_lr,
-            "share_beyond_0.05_sum_lr": beyond_5 / n,
-            "share_beyond_0.005_sum_lr": beyond_05 / n}
+    return {"elements": n, "max": top, "beyond_5": beyond_5,
+            "beyond_05": beyond_05}
+
+
+def rule_shares(t: dict, sum_lr: float) -> dict:
+    return {"elements": t["elements"], "max_over_sum_lr": t["max"] / sum_lr,
+            "share_beyond_0.05_sum_lr": t["beyond_5"] / t["elements"],
+            "share_beyond_0.005_sum_lr": t["beyond_05"] / t["elements"]}
 
 
 def comm_by_op_axis(log) -> dict:
@@ -4060,25 +4256,26 @@ def comm_by_op_axis(log) -> dict:
     return out
 
 
-def rank_train(ranks, directory: str, batches, opt_cfg, sum_lr: float
-               ) -> dict:
-    """Phase 16 in one of the 8 processes: this process's shards cut from
-    the initial weights in ``directory``, ``TRAIN_RANKS_STEPS`` sharded
-    steps (the last with its collectives logged), its state's bytes, the
-    first step's gradient blocks of ``TRAIN_GRAD_LEAVES``; process 0
-    gathers the parameters after the steps and holds them to the one
-    process's, leaf by leaf on the card."""
+def rank_train(ranks, directory: str, batches, opt_cfg, sum_lr: float,
+               cfg, grad_leaves) -> dict:
+    """One of the 8 processes of phase 16 or 17: this process's shards
+    cut from the initial weights in ``directory``, the sharded steps (the
+    last with its collectives logged, K1's launches counted from zero
+    each step), its state's bytes, the first step's gradient blocks of
+    ``grad_leaves``; then its parameter blocks after the steps against
+    the reference's (``final.<leaf>.npy``), each distinct block on the
+    first process holding it (the rule's tally), and its routed experts'
+    blocks to the bit."""
     import numpy as np
     import torch
     import torch.distributed as dist
-    from repro_torch.configs import get_config
+    from repro_torch.comm import spec_axes
+    from repro_torch.kernels import partition
     from repro_torch.models import build
     from repro_torch.models.convert import named_leaves
     from repro_torch.models.registry import meta_params
-    from repro_torch.train.trainer import (gather_leaves, init_train_state,
-                                           jit_train_step)
+    from repro_torch.train.trainer import init_train_state, jit_train_step
     dev = ranks.device
-    cfg = get_config(TRAIN_ARCH)
     model = build(cfg)
     shapes = {n: tuple(p.shape)
               for n, p in meta_params(cfg).named_parameters()}
@@ -4088,33 +4285,35 @@ def rank_train(ranks, directory: str, batches, opt_cfg, sum_lr: float
     load_s = time.perf_counter() - t0
     step_fn, (p_specs, opt_specs, _) = jit_train_step(model, opt_cfg, ranks)
     out = {"rank": ranks.rank, "device": str(dev), "load_s": load_s,
-           "losses": [], "grad_norms": [], "lrs": [], "step_ms": [],
-           "counts": []}
+           "losses": [], "grad_norms": [], "lrs": [], "metrics": [],
+           "step_ms": [], "counts": [], "k1_launches": []}
     kept = {}
 
     def keep(grads, specs):
-        kept.update({n: (grads[n].cpu(), specs[n])
-                     for n in TRAIN_GRAD_LEAVES})
+        kept.update({n: (grads[n].cpu(), specs[n]) for n in grad_leaves})
 
     torch.cuda.reset_peak_memory_stats(dev)
-    last = TRAIN_RANKS_STEPS - 1
+    last = len(batches) - 1
     for i, b in enumerate(batches):
         ranks.collectives.clear()
         ranks.log = [] if i == last else None
         dist.barrier()
         torch.cuda.synchronize(dev)
+        before = partition.KERNEL.launches
         t0 = time.perf_counter()
         _, _, m = step_fn(params, opt, b, on_grads=keep if i == 0 else None)
         torch.cuda.synchronize(dev)
         out["step_ms"].append((time.perf_counter() - t0) * 1e3)
+        out["k1_launches"].append(partition.KERNEL.launches - before)
         out["counts"].append(dict(ranks.collectives))
+        out["metrics"].append({k: float(v) for k, v in m.items()})
         for k, key in (("losses", "loss"), ("grad_norms", "grad_norm"),
                        ("lrs", "lr")):
             out[k].append(float(m[key]))
     out["comm_last_step"] = comm_by_op_axis(ranks.log)
-    out["model_all_gathers"] = sum(e["op"] == "all_gather"
-                                   and "model" in e["axes"]
-                                   for e in ranks.log)
+    out["model_all_gather_bytes"] = [e["bytes"] for e in ranks.log
+                                     if e["op"] == "all_gather"
+                                     and "model" in e["axes"]]
     ranks.log = None
     out["peak_mem_bytes"] = torch.cuda.max_memory_allocated(dev)
     leaves = named_leaves(params, cfg)
@@ -4125,135 +4324,146 @@ def rank_train(ranks, directory: str, batches, opt_cfg, sum_lr: float
     del opt
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    full = gather_leaves(ranks, leaves, p_specs, shapes)
-    out["gather_s"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    if full is not None:
-        out["params_vs_one_process"] = rule_counts(
-            ((got.to(dev), torch.from_numpy(np.array(load_npy(
-                directory, f"final.{name}"))).to(dev))
-             for name, got in full.items()), sum_lr)
+    pairs, routed = [], []
+    for name, p in leaves.items():
+        spec = p_specs[name]
+        named = spec_axes(spec)
+        if any(c for a, c in zip(ranks.axes, ranks.coords)
+               if a not in named):
+            continue
+        want = torch.from_numpy(np.array(ranks.local_shard(
+            load_npy(directory, f"final.{name}"), spec))).to(dev)
+        pairs.append((p, want))
+        if name.split(".")[-1] in ("w_gate", "w_up", "w_down") \
+                and ".moe." in name:
+            routed.append(bool(torch.equal(p.detach(), want)))
+    out["params_tally"] = rule_tally(pairs, sum_lr)
+    out["routed_equal"] = routed
     out["compare_s"] = time.perf_counter() - t0
     return out
 
 
-def train_ranks_path(torch, dev) -> dict:
-    """Phase 16 (see the module docstring): the one-process reference,
-    the 8 processes, the checks."""
+def check_train_ranks(torch, cfg, grid, ref, results, grad_leaves,
+                      bounds: dict, k1_per_step: int) -> tuple:
+    """Phase 16's and 17's checks of the processes' ``results`` against
+    the reference run ``ref`` within ``bounds``: (the phase line's
+    numbers, failures). A quantity whose bound is missing is printed, not
+    held (MLA's later steps). Where ``ref`` carries planted faults'
+    readings (``controls``), each held bound they reach must be below its
+    fault's reading: a check that cannot see the fault fails."""
     import math
-    from repro_torch.comm import shard_slices, spawn_ranks, spec_axes
-    from repro_torch.configs import get_config
+    from repro_torch.comm import shard_slices, spec_axes
     from repro_torch.models import build
+    from repro_torch.models.attention import tp_layout
     from repro_torch.models.registry import meta_params
-    from repro_torch.train.optimizer import AdamWConfig
-    from repro_torch.train.trainer import make_state_shardings
-
-    t_phase = time.perf_counter()
-    cfg = get_config(TRAIN_ARCH)
-    opt_cfg = AdamWConfig(lr=TRAIN_LR, warmup_steps=20,
-                          total_steps=TRAIN_STEPS)     # the launcher's
-    batches = train_ranks_batches(torch, cfg)
-    directory = ranks_dir()
-    try:
-        t0 = time.perf_counter()
-        ref = train_ranks_reference(torch, dev, cfg, batches, opt_cfg,
-                                    directory)
-        reference_s = time.perf_counter() - t0
-        sum_lr = sum(ref["lrs"])
-        t0 = time.perf_counter()
-        results = spawn_ranks(rank_train, TRAIN_RANKS_GRID,
-                              ("data", "model"), backend="gloo",
-                              device=dev.type, timeout_s=RANKS_TIMEOUT_S,
-                              args=(directory, batches, opt_cfg, sum_lr))
-        spawn_s = time.perf_counter() - t0
-    finally:
-        shutil.rmtree(directory, ignore_errors=True)
-    grid = dict(zip(("data", "model"), TRAIN_RANKS_GRID))
+    from repro_torch.train.trainer import (make_state_shardings,
+                                           partial_over_model)
+    sizes = dict(zip(("data", "model"), grid))
     r0 = results[0]
-    out = {"phase": "train_ranks", "arch": cfg.arch_id,
-           "layers": cfg.num_layers, "d_model": cfg.d_model,
-           "heads": cfg.n_heads, "kv_heads": cfg.n_kv_heads,
-           "d_ff": cfg.d_ff, "vocab": cfg.vocab, "remat": cfg.remat,
-           "grid": grid, "processes": len(results), "backend": "gloo",
-           "transport": "gloo over CUDA tensors, chosen by name: 8 "
-                        "processes share one card, and NCCL takes one card "
-                        "a rank",
-           "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "steps": TRAIN_RANKS_STEPS,
-           "lr": TRAIN_LR, "device": nvidia_smi_line(),
-           "reference_s": reference_s, "spawn_s": spawn_s,
-           "one_process": {k: ref[k] for k in ("losses", "grad_norms",
-                                               "lrs", "step_ms",
-                                               "peak_mem_bytes",
-                                               "accum2_floor")},
-           "processes_losses": r0["losses"],
-           "processes_grad_norms": r0["grad_norms"],
-           "step_ms_by_process": [r["step_ms"] for r in results],
-           "load_s_max": max(r["load_s"] for r in results),
-           "gather_s": r0["gather_s"], "compare_s": r0["compare_s"],
-           "peak_mem_bytes_by_process": [r["peak_mem_bytes"]
-                                         for r in results],
-           "params_vs_one_process": r0["params_vs_one_process"],
-           "comm_last_step_rank0": r0["comm_last_step"]}
-    # the warm step: the second, the last unlogged one
-    warm = max(r["step_ms"][1] for r in results)
-    out.update({"warm_step_ms_grid": warm,
-                "warm_step_ms_one_process": ref["step_ms"][1],
-                "grid_over_one_process": warm / ref["step_ms"][1],
-                "tokens_per_s_grid": TRAIN_BATCH * TRAIN_SEQ / warm * 1e3})
-    # every check runs and the phase line is printed before a failure ends
-    # the run
     failures = []
-    # (1) the loss, the norm and the lr
+    controls = ref.get("controls", {})
+    seen = {}
+
+    def held(what: str, reading: float, bound, control=None) -> None:
+        if bound is None:
+            return
+        if reading > bound:
+            failures.append(f"{what}: {reading} beyond {bound}")
+        if control is not None:
+            seen[what] = control
+            if control <= bound:
+                failures.append(f"{what}: a planted fault reads {control}, "
+                                f"within the bound {bound}")
+    # (1) the loss, the norm, the lr and the metrics
     for r in results:
-        for k in ("losses", "grad_norms", "lrs"):
+        for k in ("losses", "grad_norms", "lrs", "metrics"):
             if r[k] != r0[k]:
                 failures.append(f"process {r['rank']}'s {k} {r[k]} differ "
                                 f"from process 0's {r0[k]}")
     if r0["lrs"] != ref["lrs"]:
         failures.append(f"lrs {r0['lrs']} != {ref['lrs']}")
-    # the first step's loss from the same weights: the CPU tests' bound;
-    # after a step, full width's (TRAIN_ATOL_LOSS_STEPPED)
     dl = [abs(a - b) for a, b in zip(r0["losses"], ref["losses"])]
-    dg = max(abs(a - b) / abs(b) for a, b in zip(r0["grad_norms"],
-                                                 ref["grad_norms"]))
-    out.update({"loss_abs_diff": dl, "grad_norm_max_rel_diff": dg})
-    if dl[0] > TRAIN_ATOL_LOSS or max(dl) > TRAIN_ATOL_LOSS_STEPPED \
-            or dg > TRAIN_RTOL_GNORM:
-        failures.append(f"losses {r0['losses']} vs {ref['losses']}, grad "
-                        f"norms {r0['grad_norms']} vs {ref['grad_norms']}: "
-                        f"beyond {TRAIN_ATOL_LOSS} (first step), "
-                        f"{TRAIN_ATOL_LOSS_STEPPED} (later) / "
-                        f"{TRAIN_RTOL_GNORM}")
-    # (2) the first step's gradient blocks
-    grad_err = {}
-    for n in TRAIN_GRAD_LEAVES:
+    dgs = [abs(a - b) / abs(b) for a, b in zip(r0["grad_norms"],
+                                               ref["grad_norms"])]
+    out = {"loss_abs_diff": dl, "grad_norm_rel_diff": dgs,
+           "bounds": bounds}
+    half = controls.get("half_batch", {})
+    held("the first step's loss", dl[0], bounds["loss_first"])
+    held("the first step's grad_norm", dgs[0], bounds["grad_norm_rel_first"],
+         half.get("grad_norm_rel"))
+    no_update = controls.get("no_update", {})
+    held("the later losses", max(dl[1:]), bounds.get("loss"),
+         no_update.get("loss"))
+    held("the later grad_norms", max(dgs[1:]), bounds.get("grad_norm_rel"),
+         no_update.get("grad_norm_rel"))
+    if cfg.family == "moe":
+        # the processes' router reads activations rounded otherwise than
+        # the stacked step's (float32 sums over ranks, rounded once), so
+        # a few near-tie tokens may route elsewhere
+        got, want = r0["metrics"][0], ref["metrics"][0]
+        choices = TRAIN_BATCH * r0["seq"] * cfg.top_k * cfg.num_layers
+        out["first_step_moe"] = {k: [got[k], want[k]]
+                                 for k in ("moe_aux", "moe_dropped")}
+        held("the first step's moe_dropped",
+             abs(got["moe_dropped"] - want["moe_dropped"]),
+             bounds["moe_dropped_share"] * choices)
+        held("the first step's moe_aux",
+             abs(got["moe_aux"] - want["moe_aux"]) / want["moe_aux"],
+             bounds["moe_aux_rel"])
+    # (2) the first step's gradient blocks: each within its ``rtol`` of
+    # the leaf's largest value plus ``grad_atol``
+    grad_err, grad_top = {}, {}
+    atol = bounds.get("grad_atol", 0.0)
+    for n in grad_leaves:
         want = ref["grads"][n]
         worst = 0.0
         for rank, r in enumerate(results):
             got, spec = r["grads"][n]
-            sl = shard_slices(want.shape, spec, TRAIN_RANKS_GRID,
-                              ("data", "model"), rank)
+            sl = shard_slices(want.shape, spec, grid, ("data", "model"), rank)
             worst = max(worst, float((got - want[sl]).abs().max()))
-        grad_err[n] = worst / float(want.abs().max())
-        rtol = TRAIN_RTOL_GRAD_EMBED if n == "embed" else TRAIN_RTOL_GRAD
-        if worst > rtol * float(want.abs().max()) + TRAIN_ATOL_GRAD:
-            failures.append(f"{n}: first-step gradient differs by {worst} "
-                            f"from the one process's")
+        top = grad_top[n] = float(want.abs().max())
+        routed = n.split(".")[-1] in ("w_gate", "w_up", "w_down") \
+            and ".moe." in n
+        if routed:
+            grad_err[n] = worst
+            if worst or top:
+                failures.append(f"{n}: a routed expert's gradient is not "
+                                f"zero ({worst}, reference {top})")
+            continue
+        grad_err[n] = worst / top
+        rtol = bounds.get("grad_rtol_leaf", {}).get(n, bounds["grad_rtol"])
+        fault = half.get("grad_max_err_over_leaf_max", {}).get(n)
+        held(f"{n}'s first-step gradient", (worst - atol) / top, rtol,
+             None if fault is None else fault - atol / top)
     out["grad_max_err_over_leaf_max"] = grad_err
-    # (3) the parameters after the steps, gathered: the trainer tests' rule
-    pv = r0["params_vs_one_process"]
-    if pv["max_over_sum_lr"] > 2 or pv["share_beyond_0.05_sum_lr"] > 0.01 \
-            or pv["share_beyond_0.005_sum_lr"] > 0.5:
-        failures.append(f"parameters after {TRAIN_RANKS_STEPS} steps "
-                        f"against the one process's: {pv}")
+    out["grad_leaf_max"] = grad_top
+    # (3) the parameters after the steps: the trainer tests' rule over
+    # every distinct block, each tallied on the first process holding it
+    tally = {k: sum(r["params_tally"][k] for r in results)
+             for k in ("elements", "beyond_5", "beyond_05")}
+    tally["max"] = max(r["params_tally"]["max"] for r in results)
+    pv = rule_shares(tally, sum(ref["lrs"]))
+    out["params_vs_reference"] = pv
+    moved = no_update.get("params", {})
+    for k, bound in bounds.get("params", {}).items():
+        held(f"the parameters' {k} after {len(ref['lrs'])} steps", pv[k],
+             bound, moved.get(k) if k == "share_beyond_0.05_sum_lr"
+             else None)
+    out["planted_faults"] = seen
+    if cfg.family == "moe":
+        routed = [x for r in results for x in r["routed_equal"]]
+        out["routed_experts_decay_only_bitwise"] = all(routed)
+        if not routed or not all(routed):
+            failures.append(f"routed experts after the steps differ from "
+                            f"the reference's decay-only update: {routed}")
     # (4) the state's bytes: the specs' arithmetic
     meta = meta_params(cfg)
     shapes = {n: tuple(p.shape) for n, p in meta.named_parameters()}
-    p_specs, opt_specs = make_state_shardings(build(cfg), grid)
+    p_specs, opt_specs = make_state_shardings(build(cfg), sizes)
 
     def block_bytes(specs):
         return sum(4 * math.prod(shapes[n]) // math.prod(
-            grid[a] for a in spec_axes(specs[n])) for n in shapes)
+            sizes[a] for a in spec_axes(specs[n])) for n in shapes)
     want_p, want_m = block_bytes(p_specs), block_bytes(opt_specs["m"])
     out.update({"param_bytes_per_process": want_p,
                 "moment_bytes_per_process": want_m,
@@ -4265,20 +4475,198 @@ def train_ranks_path(torch, dev) -> dict:
                             f"parameter and {r['moment_bytes']} moment "
                             f"bytes, the specs give {want_p} and {want_m} "
                             f"each")
-    # (5) the collectives: the count from the layer count, no gather of a
-    # weight over model
-    want_c = train_ranks_collectives(cfg.num_layers, len(shapes))
+    # (5) the collectives: the count from the layer count; over model no
+    # all_gather but the MoE's output blocks (B / data, S / model, d)
+    layout = tp_layout(cfg, meta.blocks[0].attn, sizes["model"])
+    partial = any(partial_over_model(n, sp, cfg) for n, sp in p_specs.items())
+    want_c = train_collectives(cfg, layout, len(shapes), partial,
+                               sizes["data"])
     out["collectives_per_step"] = want_c
+    block = (TRAIN_BATCH // sizes["data"] * r0["seq"] // sizes["model"]
+             * cfg.d_model * 2)
+    want_g = ([block] * cfg.num_layers if cfg.family == "moe" else []) \
+        + ([block] * 2 * cfg.num_layers if layout == "sequence" else [])
     for r in results:
-        if any(c != want_c for c in r["counts"]) or r["model_all_gathers"]:
+        if any(c != want_c for c in r["counts"]) or \
+                sorted(r["model_all_gather_bytes"]) != sorted(want_g):
             failures.append(f"process {r['rank']}: collectives "
                             f"{r['counts']} (all_gathers over model: "
-                            f"{r['model_all_gathers']}), predicted {want_c} "
-                            f"a step and none over model")
+                            f"{r['model_all_gather_bytes']}), predicted "
+                            f"{want_c} a step and {want_g}")
+    # (6) K1 in every process, every step
+    out["k1_launches_by_process"] = [r["k1_launches"] for r in results]
+    for r in results:
+        if r["k1_launches"] != [k1_per_step] * len(ref["lrs"]):
+            failures.append(f"process {r['rank']}: K1 launched "
+                            f"{r['k1_launches']} a step, {k1_per_step} "
+                            f"expected")
+    return out, failures
+
+
+def train_on_ranks(torch, dev, cfg, grid, batches, opt_cfg, grad_leaves,
+                   stacked: bool, accum2: bool) -> tuple:
+    """The reference on the card (one process, or the stacked ``grid``
+    with ``stacked``), then the 8 processes from its initial weights:
+    (reference, the processes' results, reference seconds, spawn
+    seconds). The weights travel through ``/dev/shm``."""
+    from repro_torch.comm import spawn_ranks
+    directory = ranks_dir()
+    try:
+        t0 = time.perf_counter()
+        ref = train_ranks_reference(torch, dev, cfg, batches, opt_cfg,
+                                    directory, grad_leaves,
+                                    grid=grid if stacked else None,
+                                    accum2=accum2)
+        reference_s = time.perf_counter() - t0
+        sum_lr = sum(ref["lrs"])
+        t0 = time.perf_counter()
+        results = spawn_ranks(rank_train, grid, ("data", "model"),
+                              backend="gloo", device=dev.type,
+                              timeout_s=RANKS_TIMEOUT_S,
+                              args=(directory, batches, opt_cfg, sum_lr,
+                                    cfg, grad_leaves))
+        spawn_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+    return ref, results, reference_s, spawn_s
+
+
+def ranks_phase_line(cfg, grid, ref, results, batches, reference_s,
+                     spawn_s) -> dict:
+    """The numbers phases 16 and 17 print for one path."""
+    r0 = results[0]
+    # the warm step: the second, the last unlogged one
+    warm = max(r["step_ms"][1] for r in results)
+    seq = batches[0]["tokens"].shape[1]
+    return {"arch": cfg.arch_id, "family": cfg.family,
+            "attn": cfg.attn_type, "layers": cfg.num_layers,
+            "d_model": cfg.d_model, "heads": cfg.n_heads,
+            "kv_heads": cfg.n_kv_heads, "vocab": cfg.vocab,
+            "remat": cfg.remat,
+            "grid": dict(zip(("data", "model"), grid)),
+            "processes": len(results), "backend": "gloo",
+            "transport": "gloo over CUDA tensors, chosen by name: 8 "
+                         "processes share one card, and NCCL takes one "
+                         "card a rank",
+            "batch": batches[0]["tokens"].shape[0], "seq": seq,
+            "steps": len(batches), "device": nvidia_smi_line(),
+            "reference_s": reference_s, "spawn_s": spawn_s,
+            "reference": {k: ref[k] for k in (
+                "losses", "grad_norms", "lrs", "step_ms", "peak_mem_bytes",
+                "metrics", "accum2_floor", "controls") if k in ref},
+            "processes_losses": r0["losses"],
+            "processes_grad_norms": r0["grad_norms"],
+            "processes_metrics": r0["metrics"],
+            "step_ms_by_process": [r["step_ms"] for r in results],
+            "warm_step_ms_grid": warm,
+            "warm_step_ms_reference": ref["step_ms"][1],
+            "grid_over_reference": warm / ref["step_ms"][1],
+            "tokens_per_s_grid": batches[0]["tokens"].numel() / warm * 1e3,
+            "load_s_max": max(r["load_s"] for r in results),
+            "compare_s_max": max(r["compare_s"] for r in results),
+            "peak_mem_bytes_by_process": [r["peak_mem_bytes"]
+                                          for r in results],
+            "comm_last_step_rank0": r0["comm_last_step"]}
+
+
+def train_ranks_path(torch, dev) -> dict:
+    """Phase 16 (see the module docstring): the one-process reference,
+    the 8 processes, the checks."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.train.optimizer import AdamWConfig
+
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH),
+                              num_layers=TRAIN_RANKS_LAYERS)
+    opt_cfg = AdamWConfig(lr=TRAIN_LR, warmup_steps=20,
+                          total_steps=TRAIN_STEPS)     # the launcher's
+    batches = train_ranks_batches(torch, cfg)
+    ref, results, reference_s, spawn_s = train_on_ranks(
+        torch, dev, cfg, TRAIN_RANKS_GRID, batches, opt_cfg,
+        TRAIN_GRAD_LEAVES, stacked=False, accum2=True)
+    for r in results:
+        r["seq"] = TRAIN_SEQ
+    out = {"phase": "train_ranks", "cut": f"layers 22 -> {cfg.num_layers}",
+           **ranks_phase_line(cfg, TRAIN_RANKS_GRID, ref, results, batches,
+                              reference_s, spawn_s)}
+    checks, failures = check_train_ranks(
+        torch, cfg, TRAIN_RANKS_GRID, ref, results, TRAIN_GRAD_LEAVES,
+        TRAIN_RANKS_BOUNDS, 0)
+    out.update(checks)
     out["phase_s"] = time.perf_counter() - t_phase
+    # every check runs and the phase line is printed before a failure ends
+    # the run
     if failures:
         log(json.dumps(out))
         raise AssertionError("phase 16: " + "; ".join(failures))
+    return out
+
+
+def train_families_path(torch, dev, seed: int) -> dict:
+    """Phase 17 (see the module docstring): Qwen1.5-MoE-A2.7B on ``(1,
+    8)`` against phase 14's stacked step, MiniCPM3-4B on ``(2, 4)``
+    against the one-process step, each as 8 processes."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.train.optimizer import AdamWConfig
+
+    t_phase = time.perf_counter()
+    out = {"phase": "train_ranks_families", "paths": {}}
+    failures = []
+    # (1) phase 14's MoE cell: its weights, its batch, its optimizer
+    cfg, batch, opt_cfg = moe_train_setup(torch, seed)
+    batches = [dict(batch) for _ in range(MOE_TRAIN_STEPS)]
+    ref, results, reference_s, spawn_s = train_on_ranks(
+        torch, dev, cfg, SERVE_GRID, batches, opt_cfg, MOE_RANKS_GRAD_LEAVES,
+        stacked=True, accum2=False)
+    for r in results:
+        r["seq"] = PREFILL_LEN
+    line = {"cell": "train-qwen2-moe-a2.7b-1x8-8proc-1xH100",
+            "cut": f"layers 24 -> {cfg.num_layers}",
+            "experts": cfg.num_experts, "top_k": cfg.top_k,
+            "capacity_factor": cfg.capacity_factor,
+            "reference_kind": "stacked Ranks (1, 8), phase 14's step",
+            "reference_moe_metrics": ref["metrics"],
+            **ranks_phase_line(cfg, SERVE_GRID, ref, results, batches,
+                               reference_s, spawn_s)}
+    checks, bad = check_train_ranks(
+        torch, cfg, SERVE_GRID, ref, results, MOE_RANKS_GRAD_LEAVES,
+        MOE_RANKS_BOUNDS, 4 * cfg.num_layers)
+    line.update(checks)
+    line["k1_launches"] = sum(sum(r["k1_launches"]) for r in results)
+    out["paths"]["moe"] = line
+    failures += [f"MoE: {f}" for f in bad]
+    del ref, results
+    gc.collect()
+    torch.cuda.empty_cache()
+    # (2) MiniCPM3-4B, MLA, on (2, 4)
+    cfg = dataclasses.replace(get_config(MLA_TRAIN_ARCH),
+                              num_layers=MLA_TRAIN_LAYERS)
+    opt_cfg = AdamWConfig(lr=TRAIN_LR, warmup_steps=20,
+                          total_steps=TRAIN_STEPS)
+    batches = train_ranks_batches(torch, cfg)
+    ref, results, reference_s, spawn_s = train_on_ranks(
+        torch, dev, cfg, TRAIN_RANKS_GRID, batches, opt_cfg,
+        MLA_RANKS_GRAD_LEAVES, stacked=False, accum2=False)
+    for r in results:
+        r["seq"] = TRAIN_SEQ
+    line = {"cell": "train-minicpm3-4b-2x4-8proc-1xH100",
+            "cut": f"layers 62 -> {cfg.num_layers}",
+            "reference_kind": "one process",
+            "heads_per_rank": cfg.n_heads // TRAIN_RANKS_GRID[1],
+            **ranks_phase_line(cfg, TRAIN_RANKS_GRID, ref, results, batches,
+                               reference_s, spawn_s)}
+    checks, bad = check_train_ranks(
+        torch, cfg, TRAIN_RANKS_GRID, ref, results, MLA_RANKS_GRAD_LEAVES,
+        MLA_RANKS_BOUNDS, 0)
+    line.update(checks)
+    out["paths"]["mla"] = line
+    failures += [f"MLA: {f}" for f in bad]
+    out["phase_s"] = time.perf_counter() - t_phase
+    if failures:
+        log(json.dumps(out))
+        raise AssertionError("phase 17: " + "; ".join(failures))
     return out
 
 
@@ -4460,6 +4848,13 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     train_ranks = train_ranks_path(torch, dev)
     log(json.dumps(train_ranks))
+    gc.collect()
+    torch.cuda.empty_cache()
+    families = train_families_path(torch, dev, args.seed)
+    for tag, p in families["paths"].items():
+        log(json.dumps({"phase": f"train_ranks_families_{tag}", **p}))
+    log(json.dumps({"phase": "train_ranks_families",
+                    "phase_s": families["phase_s"]}))
     phase11 = {r["run"]: r["launches"] for r in chaos["runs"]}
     host_faults = {r["run"]: r["launches"] for r in chaos["host"]}
 
@@ -4484,7 +4879,11 @@ def main(argv=None) -> int:
                       f"steps with remat: send pack + regroup, forward and "
                       f"recompute": trained["moe"]["k1_launches"],
                       **{f"8 processes: {what}": ranked["launches"][tag][
-                          "partition"] for tag, what in RANKED_PATHS}},
+                          "partition"] for tag, what in RANKED_PATHS},
+                      f"8 processes: Qwen1.5-MoE-A2.7B training on (1, 8), "
+                      f"{MOE_TRAIN_LAYERS} MoE layers, {MOE_TRAIN_STEPS} "
+                      f"steps with remat: send pack + regroup, forward and "
+                      f"recompute": families["paths"]["moe"]["k1_launches"]},
         "bitonic_sort": {"dataflow sort, flat": mp["launches"]["bitonic_sort"],
                          "dataflow sort, (dc, node)":
                              wide["launches"]["bitonic_sort"],

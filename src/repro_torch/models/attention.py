@@ -22,7 +22,12 @@ weight replicated and the JAX package's ``_seq_shard``: each rank
 attends from its block of query rows to every key, and ``gather_from``
 joins the rows. A KV head split over ranks (``1 < KV < model``) raises.
 On stacked ranks ``_seq_shard`` is a sharding constraint with nothing to
-do.
+do. :func:`mla_apply` over such ranks shards MLA's heads as
+``_mla_init``'s specs do (``wq_up``, ``wk_up``, ``wv_up`` by columns,
+``wo`` by rows): the down projections, their norms and the decoupled
+rope key run replicated, and the latents enter the heads' products
+through one ``copy_to``, so the replicated weights take their whole
+gradient on every rank; heads that ``model`` does not divide raise.
 
 Scores follow the JAX package's rounding: its einsums take bfloat16
 operands and accumulate and return float32 (``preferred_element_type``),
@@ -38,7 +43,8 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.comm import axis_position, gather_from, model_parallel
+from repro_torch.comm import (axis_position, copy_to, gather_from,
+                              model_parallel, reduce_from)
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import (COMPUTE_DTYPE, Params, apply_rope,
                                        dense_init, enter_parallel,
@@ -193,10 +199,24 @@ def tp_layout(cfg: ModelConfig, params: Params, model: int) -> str:
     ``params.specs``, on a ``model`` axis of ``model`` ranks:
     ``"heads"`` (a rank holds ``H / model`` query heads and the ``KV /
     model`` KV heads they use, or every KV head when ``wk``/``wv`` are
-    replicated, ``KV == 1``) or ``"sequence"`` (every weight replicated:
-    ``_seq_shard``). Raises where a head would split over ranks: the
-    split-dim KV columns of ``1 < KV < model`` (TinyLlama at ``model`` =
-    16), or query heads that ``model`` does not divide."""
+    replicated, ``KV == 1``; MLA: ``H / model`` heads of ``wq_up``,
+    ``wk_up``, ``wv_up`` and ``wo``) or ``"sequence"`` (every weight
+    replicated: ``_seq_shard``). Raises where a head would split over
+    ranks: the split-dim KV columns of ``1 < KV < model`` (TinyLlama at
+    ``model`` = 16), or query heads that ``model`` does not divide
+    (MiniCPM3's 40 at ``model`` = 16)."""
+    if cfg.attn_type == "mla":
+        want = {n: (1 if n in ("wq_up", "wk_up", "wv_up") else
+                    0 if n == "wo" else None) for n in params.specs}
+        got = {n: sharded_dim(params, n) for n in params.specs}
+        if got != want:
+            raise ValueError(f"{cfg.arch_id}: MLA specs {params.specs} are "
+                             f"not column/row-parallel by head")
+        if cfg.n_heads % model:
+            raise ValueError(f"{cfg.arch_id}: {cfg.n_heads} MLA heads do not "
+                             f"split over {model} model ranks: a head's "
+                             f"columns would split over ranks, not ported")
+        return "heads"
     q, kv = sharded_dim(params, "wq"), sharded_dim(params, "wk")
     if q is None:
         if kv is not None or sharded_dim(params, "wo") is not None:
@@ -331,15 +351,79 @@ def init_cache_gqa(cfg: ModelConfig, batch: int, max_len: int,
 # -- MLA -----------------------------------------------------------------------------
 
 
+def _mla_core(q_nope, s_rope, k_nope, val, q_pos, kv_pos, scale: float):
+    """MLA's scores and output with per-head keys and values: ``q_nope``
+    ``(B, S, H, nope)``, ``k_nope`` ``(B, T, H, nope)``, ``val`` ``(B, T,
+    H, v)``, ``s_rope`` the rope part of the scores ``(B, 1, S, T)``,
+    added to every head's; causal. Returns ``(B, S, H, v)`` bfloat16."""
+    mask = (kv_pos[:, None, :] >= 0) & (kv_pos[:, None, :]
+                                        <= q_pos[:, :, None])
+    s_nope = torch.einsum("bshn,bthn->bhst", q_nope.float(), k_nope.float())
+    scores = (s_nope + s_rope) * scale
+    del s_nope
+    scores = scores.masked_fill(~mask[:, None], NEG_INF)
+    probs = torch.softmax(scores, dim=-1).to(COMPUTE_DTYPE)
+    del scores
+    return torch.einsum("bhst,bthv->bshv", probs.float(),
+                        val.float()).to(COMPUTE_DTYPE)
+
+
+def _mla_model_parallel(params, x, cfg: ModelConfig, q_pos, ranks):
+    """MLA over the replicated ``x`` (B, S, d) on a process holding its
+    shards: the latents (``cq``, ``ckv`` and the rope key, computed
+    replicated) enter this rank's heads through one ``copy_to``, whose
+    backward sums their gradient over ``model``; ``wo`` is row-parallel.
+    The rope part of the scores contracts the query's rope columns over
+    every head as well (the JAX package's ``"bshr,btkr->bkst"``, the
+    same for all heads): each rank sums its heads' and one ``psum``
+    forward (``reduce_from``) and one backward (``copy_to``) join them,
+    ``(B, S, rope)`` float32 each. The output is replicated."""
+    B, S, _ = x.shape
+    m = ranks.axis_size("model")
+    tp_layout(cfg, params, m)
+    H = cfg.n_heads // m
+    nope, rope_d, vh = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    qr, r = cfg.q_lora_rank, cfg.kv_lora_rank
+    x = x.to(COMPUTE_DTYPE)
+    cq = rms_norm(x @ params["wq_down"].to(COMPUTE_DTYPE), params["q_norm"],
+                  cfg.norm_eps)
+    ckv_full = x @ params["wkv_down"].to(COMPUTE_DTYPE)
+    ckv = rms_norm(ckv_full[..., :r], params["kv_norm"], cfg.norm_eps)
+    k_rope = apply_rope(ckv_full[..., r:].reshape(B, S, 1, rope_d), q_pos,
+                        cfg.rope_theta)
+    lat = enter_parallel(ranks, torch.cat(
+        [cq, ckv, k_rope.reshape(B, S, rope_d)], dim=-1))
+    cqf, ckvf, krf = lat.split([qr, r, rope_d], dim=-1)
+    q = parallel_product(cqf, params["wq_up"]).reshape(B, S, H, nope + rope_d)
+    q_rope = apply_rope(q[..., nope:], q_pos, cfg.rope_theta)
+    q_rope = copy_to(ranks, reduce_from(ranks, q_rope.float().sum(dim=2),
+                                        "model"), "model")
+    s_rope = torch.einsum("bsr,btr->bst", q_rope,
+                          krf.to(COMPUTE_DTYPE).float())[:, None]
+    k_nope = parallel_product(ckvf, params["wk_up"]).reshape(B, S, H, nope)
+    val = parallel_product(ckvf, params["wv_up"]).reshape(B, S, H, vh)
+    out = _mla_core(q[..., :nope], s_rope, k_nope, val, q_pos, q_pos,
+                    (nope + rope_d) ** -0.5)
+    return row_parallel(ranks, out.reshape(B, S, H * vh), params["wo"])
+
+
 def mla_apply(params, x, cfg: ModelConfig, q_pos,
-              cache: Optional[Dict] = None, absorb: bool = False):
+              cache: Optional[Dict] = None, absorb: bool = False,
+              ranks=None):
     """DeepSeek-V2-style multi-head latent attention (MiniCPM3).
 
     The KV cache is the compressed latent (``ckv``, ``k_rope``), written
     in place. ``absorb=False`` materializes per-head K/V from the latent
     (the model path); ``absorb=True`` folds ``wk_up``/``wv_up`` into the
     query and the output, every product from float32 operands, as the
-    JAX package computes it. Returns (out, cache)."""
+    JAX package computes it. ``ranks`` holding shards
+    (:func:`repro_torch.comm.model_parallel`): the heads-sharded full
+    forward of the module docstring. Returns (out, cache)."""
+    if model_parallel(ranks):
+        if cache is not None or absorb:
+            raise ValueError("model-parallel MLA runs the full forward of a "
+                             "decoder: no cache, no absorption")
+        return _mla_model_parallel(params, x, cfg, q_pos, ranks), None
     B, S, _ = x.shape
     H = cfg.n_heads
     nope, rope_d, vh = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
@@ -373,11 +457,12 @@ def mla_apply(params, x, cfg: ModelConfig, q_pos,
         ckv_t, k_rope_t, kv_pos = ckv, k_rope, q_pos
 
     scale = (nope + rope_d) ** -0.5
-    # rope-part scores (one shared kv head): (B, 1, S, T)
+    # rope-part scores (one shared kv head, contracted over every head as
+    # well, as the JAX package's einsum does): (B, 1, S, T)
     s_rope = torch.einsum("bshr,btkr->bkst", q_rope.float(), k_rope_t.float())
-    mask = (kv_pos[:, None, :] >= 0) & (kv_pos[:, None, :] <= q_pos[:, :, None])
-
     if absorb:
+        mask = (kv_pos[:, None, :] >= 0) & (kv_pos[:, None, :]
+                                            <= q_pos[:, :, None])
         wk = params["wk_up"].float().reshape(r, H, nope)
         q_lat = torch.einsum("bshn,rhn->bshr", q_nope.float(), wk)
         ckv_f = ckv_t.float()
@@ -395,15 +480,7 @@ def mla_apply(params, x, cfg: ModelConfig, q_pos,
         k_nope = (ckv_t @ params["wk_up"].to(COMPUTE_DTYPE)).reshape(
             B, T, H, nope)
         val = (ckv_t @ params["wv_up"].to(COMPUTE_DTYPE)).reshape(B, T, H, vh)
-        s_nope = torch.einsum("bshn,bthn->bhst", q_nope.float(),
-                              k_nope.float())
-        scores = (s_nope + s_rope) * scale
-        del s_nope
-        scores = scores.masked_fill(~mask[:, None], NEG_INF)
-        probs = torch.softmax(scores, dim=-1).to(COMPUTE_DTYPE)
-        del scores
-        out = torch.einsum("bhst,bthv->bshv", probs.float(),
-                           val.float()).to(COMPUTE_DTYPE)
+        out = _mla_core(q_nope, s_rope, k_nope, val, q_pos, kv_pos, scale)
 
     out = out.reshape(B, S, H * vh) @ params["wo"].to(COMPUTE_DTYPE)
     return out, cache

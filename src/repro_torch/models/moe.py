@@ -22,26 +22,53 @@ On :class:`repro_torch.comm.ProcessRanks` each process runs the JAX
 package's ``shard_map`` body for its own block of tokens, with the
 expert weights it holds: rows ``me * e_loc : (me + 1) * e_loc`` of
 ``w_gate``, ``w_up`` and ``w_down``, the shard that their spec
-``("model", None, None)`` gives it (:func:`local_params`).
+``("model", None, None)`` gives it (:func:`local_params`). Inside a
+model-parallel block (:func:`moe_apply_parallel`) the process takes its
+sequence block of its data row's replicated activation, dispatches it,
+and ``gather_from`` joins the blocks again; the shared experts are
+column- then row-parallel over ``model``.
+
+``moe_aux`` and ``moe_dropped`` are data row 0's values, as the JAX
+package's ``out_specs=P()`` hands them out; the gradient of ``moe_aux``
+is every data row's own, each weighted ``1 / rows``, as the transpose
+of that ``shard_map`` gives it (its cotangent divided over the devices,
+the router's gradient summed over them). Only the router reads it: the
+token rows and their routing weights travel framed as bytes, so the
+routed experts get no gradient and the router gets none through them.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Mapping, Optional, Sequence
 
 import torch
 
-from repro_torch.comm import Ranks, Spec
+from repro_torch.comm import (Ranks, Spec, axis_position, gather_from,
+                              reduce_from)
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.shuffle import ShufflePlan
 from repro_torch.kernels.ops import partition_pack
 from repro_torch.models.layers import (COMPUTE_DTYPE, Params, dense_init,
-                                       silu)
+                                       enter_parallel, parallel_product,
+                                       row_parallel, silu)
 
 
 def padded_experts(cfg: ModelConfig, tp: int = 16) -> int:
     e = cfg.num_experts
     return ((e + tp - 1) // tp) * tp
+
+
+def plan_experts(cfg: ModelConfig, e_weights: int, ep: int) -> int:
+    """The experts the dispatch plans for over ``ep`` expert ranks, which
+    must be the ``e_weights`` the weights hold; where the two paddings
+    differ the JAX package fails inside ``shard_map``, and this raises."""
+    e_plan = padded_experts(cfg, ep)
+    if e_weights != e_plan:
+        raise ValueError(f"the expert weights hold {e_weights} experts, but "
+                         f"{ep} expert ranks pad {cfg.num_experts} experts "
+                         f"to {e_plan}")
+    return e_plan
 
 
 class MoE(Params):
@@ -123,14 +150,41 @@ def _expert_ffn(w_gate, w_up, w_down, xe: torch.Tensor) -> torch.Tensor:
     return torch.bmm(h, w_down.to(COMPUTE_DTYPE))
 
 
-def _shared_ffn(params, x: torch.Tensor) -> torch.Tensor:
+def _shared_ffn(params, x: torch.Tensor, ranks=None,
+                xf: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The shared experts over ``x``. Model-parallel (``ranks`` given,
+    ``xf`` the replicated ``x`` from :func:`repro_torch.models.layers.
+    enter_parallel`): ``ws_gate``/``ws_up`` column- and ``ws_down``
+    row-parallel, the sum over ranks rounded once; ``shared_gate`` reads
+    the replicated ``x`` itself, so its gradient and the one it gives
+    ``x`` are whole on every rank."""
     x = x.to(COMPUTE_DTYPE)
-    h = silu(x @ params["ws_gate"].to(COMPUTE_DTYPE))
-    h = h * (x @ params["ws_up"].to(COMPUTE_DTYPE))
-    out = h @ params["ws_down"].to(COMPUTE_DTYPE)
+    if ranks is None:
+        h = silu(x @ params["ws_gate"].to(COMPUTE_DTYPE))
+        h = h * (x @ params["ws_up"].to(COMPUTE_DTYPE))
+        out = h @ params["ws_down"].to(COMPUTE_DTYPE)
+    else:
+        h = silu(parallel_product(xf, params["ws_gate"]))
+        h = h * parallel_product(xf, params["ws_up"])
+        out = row_parallel(ranks, h, params["ws_down"])
     g = (x @ params["shared_gate"].to(COMPUTE_DTYPE)).float()
     g = 1.0 / (1.0 + torch.exp(-g))                     # jax.nn.sigmoid
     return out * g.to(COMPUTE_DTYPE)
+
+
+class _RowZeroValue(torch.autograd.Function):
+    """Forward ``value`` (data row 0's ``moe_aux``); backward the
+    gradient of ``rows.mean()``: each data row's own aux takes ``1 /
+    rows`` of it (a process holds its row's: all of it)."""
+
+    @staticmethod
+    def forward(ctx, rows, value):
+        ctx.shape = rows.shape
+        return value.detach().clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.expand(ctx.shape) / math.prod(ctx.shape), None
 
 
 # -- sphere (bucket shuffle) dispatch ----------------------------------------------
@@ -138,13 +192,15 @@ def _shared_ffn(params, x: torch.Tensor) -> torch.Tensor:
 
 def _moe_sphere_local(params: Mapping[str, torch.Tensor], x_local,
                       cfg: ModelConfig, plan: ShufflePlan, ranks: Ranks,
-                      dp: int):
+                      dp: int, dp_axes: Sequence[str] = ()):
     """The JAX package's ``shard_map`` body on stacked ranks. ``x_local``
     ``(R, b, s_loc, d)``: every rank's tokens, distinct per rank. Ranks
-    are ordered ``(dp, ep)`` row-major: ``dp`` groups (the data rows)
-    running the plan side by side over ``ep`` expert ranks each, which
-    hold the same experts from one group to the next. On process ranks
-    ``R`` is 1 and ``params`` hold the process's own experts."""
+    are ordered ``(dp, ep)`` row-major: ``dp`` groups (the data rows,
+    along ``dp_axes``) running the plan side by side over ``ep`` expert
+    ranks each, which hold the same experts from one group to the next.
+    On process ranks ``R`` is 1 and ``params`` hold the process's own
+    experts. ``moe_aux`` and ``moe_dropped`` as the module docstring
+    says."""
     R, b, s_loc, d = x_local.shape
     local = R != ranks.world          # one process's row of the grid
     n = b * s_loc
@@ -204,14 +260,20 @@ def _moe_sphere_local(params: Mapping[str, torch.Tensor], x_local,
     # contributions
     combined, _ = plan.combine(ranks, processed, res, n * k)
     out = combined.reshape(R, n, k, d).sum(dim=2).reshape(R, b, s_loc, d)
-    # pmean over the plan's axes; shard_map's out_specs=P() then hands out
-    # data row 0's value (as it does the drop count). A process keeps its
-    # own data row's: the same for one data row
-    if local:
-        aux = ranks.psum(aux, plan.axes)[0] / ep
-    else:
-        aux = aux.reshape(dp, ep).mean(dim=1)[0]
+    # pmean over the plan's axes (reduce_from: each expert rank's gradient
+    # is its own tokens' part); shard_map's out_specs=P() then hands out
+    # data row 0's value, as it does the drop count
     dropped = res.dropped if res.dropped.dim() == 0 else res.dropped[0]
+    if not local:
+        rows = aux.reshape(dp, ep).mean(dim=1)
+        return out, _RowZeroValue.apply(rows, rows[0]), dropped
+    aux = reduce_from(ranks, aux[0], plan.axes) / ep
+    if dp > 1:
+        first = float(axis_position(ranks, dp_axes) == 0)
+        both = torch.stack([aux.detach(), dropped.float()]) * first
+        both = ranks.psum(both.unsqueeze(0), tuple(dp_axes)).reshape(2)
+        aux = _RowZeroValue.apply(aux, both[0])
+        dropped = both[1].to(dropped.dtype)
     return out, aux, dropped
 
 
@@ -243,9 +305,9 @@ def moe_apply_sphere(params, x: torch.Tensor, cfg: ModelConfig,
     process's expert shard (:func:`local_params`), and the output is the
     process's block of the global output, ``(B / rows, S / cols, d)``,
     the block the input spec gives it. ``moe_aux`` and ``moe_dropped`` are
-    the process's data row's (data row 0's on stacked ranks); the mean of
-    ``moe_aux`` over the expert ranks is one ``psum`` more than stacked
-    ranks count."""
+    data row 0's (one ``psum`` over the data axes more where there are
+    several rows); the mean of ``moe_aux`` over the expert ranks is one
+    ``psum`` more than stacked ranks count."""
     b, s, d = x.shape
     k = cfg.top_k
     if ep_axes is not None:
@@ -265,20 +327,14 @@ def moe_apply_sphere(params, x: torch.Tensor, cfg: ModelConfig,
                          f"the {rows} x {cols} grid")
     n_local = (b // rows) * (s // cols)
     local = ranks.rows != ranks.world
-    e_pad = params["w_gate"].shape[0] * (ep if local else 1)
-    e_plan = padded_experts(cfg, ep)
-    if e_pad != e_plan:
-        # the JAX package fails here inside shard_map (the weights' expert
-        # shard and the plan's experts per rank differ)
-        raise ValueError(f"the expert weights hold {e_pad} experts, but "
-                         f"{ep} expert ranks pad {cfg.num_experts} experts "
-                         f"to {e_plan}")
+    e_plan = plan_experts(cfg, params["w_gate"].shape[0]
+                          * (ep if local else 1), ep)
     plan = ShufflePlan.for_ranks(ranks, e_plan, n_local * k,
                                  cfg.capacity_factor, ep_axes, chunks=chunks)
     if local:
         x = token_block(x, rows, cols, ranks.rank)
         out, aux, dropped = _moe_sphere_local(params, x[None], cfg, plan,
-                                              ranks, dp)
+                                              ranks, dp, dp_axes)
         out = out[0]
     else:
         # x (B, S, d) -> per rank (R, b_loc, s_loc, d), ranks row-major
@@ -291,6 +347,50 @@ def moe_apply_sphere(params, x: torch.Tensor, cfg: ModelConfig,
             1, 2).reshape(b, s, d)
     if cfg.n_shared_experts:
         out = out + _shared_ffn(params, x)
+    return out, {"moe_aux": aux, "moe_dropped": dropped}
+
+
+def moe_apply_parallel(params, h: torch.Tensor, cfg: ModelConfig,
+                       ranks: Ranks, dp_axes: Sequence[str] = ("data",)):
+    """The MoE of a model-parallel block over process ranks
+    (:func:`repro_torch.comm.model_parallel`): ``h`` ``(b, S, d)`` is this
+    process's data row of the activation, replicated over ``model``,
+    and ``params`` hold the process's shards (the routed experts' and the
+    shared experts' blocks by their specs, the router and ``shared_gate``
+    whole). The output is replicated too.
+
+    ``h`` enters once through ``enter_parallel`` (whose backward sums its
+    gradient over ``model``). The process dispatches its block of
+    ``S / model`` positions, the block ``P(dp, "model", None)`` gives it
+    in the JAX package's ``shard_map``, with K1 in the send pack and the
+    regroup, and ``gather_from`` joins the blocks' outputs; the shared
+    experts run on the whole ``h``. The router reads the process's own
+    tokens only: its gradient is a part of the whole, summed over
+    ``model`` by the trainer."""
+    b, s, d = h.shape
+    m = ranks.axis_size("model")
+    if cfg.moe_impl != "sphere":
+        raise ValueError(f"{cfg.arch_id}: a model-parallel MoE dispatches "
+                         f"through the sphere shuffle, not {cfg.moe_impl!r}")
+    _grid_layout(ranks, dp_axes, ("model",))
+    if s % m:
+        raise ValueError(f"a model-parallel MoE: {s} positions do not split "
+                         f"over {m} expert ranks")
+    s_loc = s // m
+    plan = ShufflePlan.for_ranks(
+        ranks, plan_experts(cfg, params["w_gate"].shape[0] * m, m),
+        b * s_loc * cfg.top_k, cfg.capacity_factor, ("model",))
+    hf = enter_parallel(ranks, h)
+    shared = (_shared_ffn(params, h, ranks, hf) if cfg.n_shared_experts
+              else None)
+    c = axis_position(ranks, "model")
+    block = hf[:, c * s_loc:(c + 1) * s_loc]
+    out, aux, dropped = _moe_sphere_local(
+        params, block[None], cfg, plan, ranks,
+        ranks.axis_size(tuple(dp_axes)), dp_axes)
+    out = gather_from(ranks, out[0], "model", 1)
+    if shared is not None:
+        out = out + shared
     return out, {"moe_aux": aux, "moe_dropped": dropped}
 
 

@@ -38,7 +38,7 @@ from repro_torch.models.layers import (COMPUTE_DTYPE, MLP, Params,
                                        mlp_apply, padded_vocab, rms_norm,
                                        round_scalar, sharded_dim,
                                        softmax_xent)
-from repro_torch.models.moe import MoE, moe_apply
+from repro_torch.models.moe import MoE, moe_apply, moe_apply_parallel
 
 ATTN_KINDS = ("dense", "moe", "shared_attn")
 
@@ -118,16 +118,13 @@ def _attn_block(params, x, cfg: ModelConfig, q_pos, cache, ranks, dp_axes):
     """One attention block under ``cfg`` (the caller's: a capacity factor
     may differ from the one the block was built with). Where the process
     holds shards (:func:`repro_torch.comm.model_parallel`) the attention
-    and the MLP are model-parallel and the norms and the residual see
-    their replicated outputs."""
+    (GQA, SWA or MLA) and the MLP or the MoE are model-parallel and the
+    norms and the residual see their replicated outputs."""
     tp = model_parallel(ranks)
-    if tp and (cfg.attn_type == "mla" or "moe" in params):
-        raise ValueError(f"{cfg.arch_id}: model-parallel blocks over "
-                         f"process ranks cover GQA/SWA attention and the "
-                         f"dense MLP; MLA and MoE are not ported")
     h = rms_norm(x, params["ln1"], cfg.norm_eps)
     if cfg.attn_type == "mla":
-        a, new_cache = attn.mla_apply(params["attn"], h, cfg, q_pos, cache)
+        a, new_cache = attn.mla_apply(params["attn"], h, cfg, q_pos, cache,
+                                      ranks=ranks)
     else:
         a, new_cache = attn.attn_apply(params["attn"], h, cfg, q_pos, cache,
                                        ranks=ranks if tp else None)
@@ -137,7 +134,9 @@ def _attn_block(params, x, cfg: ModelConfig, q_pos, cache, ranks, dp_axes):
     x = x + a * scale
     h = rms_norm(x, params["ln2"], cfg.norm_eps)
     aux = {}
-    if "moe" in params:
+    if "moe" in params and tp:
+        f, aux = moe_apply_parallel(params["moe"], h, cfg, ranks, dp_axes)
+    elif "moe" in params:
         f, aux = moe_apply(params["moe"], h, cfg, ranks, dp_axes)
     else:
         f = mlp_apply(params["mlp"], h, cfg.mlp_gated, ranks)

@@ -112,7 +112,12 @@ class SlaveNode:
         total = 0
         for dirpath, _dirnames, filenames in os.walk(self.root):
             for name in filenames:
-                total += os.path.getsize(os.path.join(dirpath, name))
+                try:
+                    total += os.path.getsize(os.path.join(dirpath, name))
+                except FileNotFoundError:
+                    # renamed or removed since the walk listed it (an
+                    # asynchronous checkpoint renames its ``.tmp`` files)
+                    continue
         return total
 
     def available_bytes(self) -> int:

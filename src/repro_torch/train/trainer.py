@@ -1,6 +1,6 @@
 """Trainer: the train step (gradient accumulation, AdamW, metrics) for any
 registry model, on one device or a stacked rank grid, and the sharded
-step of the dense decoder over process ranks.
+step of the dense and the MoE decoder over process ranks.
 
 Port of ``repro/train/trainer.py``. The JAX package jits the step and
 donates its buffers; here the step runs eagerly and updates parameters
@@ -15,23 +15,30 @@ Over process ranks (:class:`repro_torch.comm.ProcessRanks`)
 parameters (cut by their specs) and of the moments (cut by their ZeRO-1
 specs), and :func:`jit_train_step` runs the step the JAX package jits
 over a mesh, with every collective explicit: the batch over the data
-axes, the dense decoder model-parallel over ``model`` (the layers'
-``copy_to``/``reduce_from``/``gather_from``), the gradients reduced
-over the data axes (a ``reduce_scatter`` to the moment shard where
-ZeRO-1 shards a leaf, else a ``psum``), AdamW on the moment shard and
-the matching slice of the parameter, and the slices all-gathered back.
+axes, the decoder model-parallel over ``model`` (the layers'
+``copy_to``/``reduce_from``/``gather_from``; GQA, SWA or MLA attention,
+the MLP or the MoE with its dispatch's ``all_to_all``s), the gradients
+reduced over the data axes (a ``reduce_scatter`` to the moment shard
+where ZeRO-1 shards a leaf, else a ``psum``), AdamW on the moment shard
+and the matching slice of the parameter, and the slices all-gathered
+back.
 
 **Replicated leaves' gradients.** A leaf whose spec names no ``model``
 axis is replicated along it. Read outside a model-parallel region (the
-norms, on replicated activations) every rank's gradient is already the
-whole one. Read inside one (the attention's replicated weights: every
-weight of the ``_seq_shard`` branch, ``wk``/``wv`` where one KV head is
-replicated, ``q_norm``/``k_norm``), each rank's gradient is its own
-heads' or query rows' part of it. The rule: the gradients of the
-attention's leaves whose spec names no ``model`` axis are summed over
-``model`` once, after the backward (one ``psum`` of them all); then
-every ``model`` rank holds each replicated leaf's whole gradient, equal
-to the one-process gradient.
+norms, on replicated activations; MoE's ``shared_gate``; MLA's
+``wq_down``, ``q_norm``, ``wkv_down`` and ``kv_norm``, whose latents
+enter the heads through ``copy_to``) every rank's gradient is already
+the whole one. Read inside one, each rank's gradient is its own heads',
+query rows' or tokens' part of it: the GQA/SWA attention's replicated
+weights (every weight of the ``_seq_shard`` branch, ``wk``/``wv`` where
+one KV head is replicated, ``q_norm``/``k_norm``), and the MoE's
+``router``, which each model rank reads on its own block of positions
+(its only gradient, through ``moe_aux``). The rule
+(:func:`partial_over_model`): the gradients of those leaves are summed
+over ``model`` once, after the backward (one ``psum`` of them all);
+then every ``model`` rank holds each replicated leaf's whole gradient,
+equal to the one-process gradient. The routed experts get no gradient
+(the dispatch frames their inputs as bytes), so AdamW only decays them.
 """
 
 from __future__ import annotations
@@ -47,6 +54,7 @@ from repro_torch.comm import (Ranks, Spec, axis_position, model_parallel,
                               shard_slices, spec_axes)
 from repro_torch.models.attention import tp_layout
 from repro_torch.models.convert import flatten, named_leaves, unflatten
+from repro_torch.models.moe import plan_experts
 from repro_torch.models.registry import Model, meta_params
 from repro_torch.train.optimizer import (AdamWConfig, adamw_update,
                                          zero1_specs,
@@ -182,11 +190,17 @@ def _local_shape(shape, spec: Spec, ranks: Ranks) -> Tuple[int, ...]:
     return tuple(len(range(n)[sl]) for n, sl in zip(shape, blocks))
 
 
-def partial_over_model(name: str, spec: Spec) -> bool:
-    """The rule of the module docstring: an attention leaf whose spec
-    names no ``model`` axis takes a part of its gradient on each model
-    rank."""
-    return ".attn." in f".{name}" and "model" not in spec_axes(spec)
+def partial_over_model(name: str, spec: Spec, cfg=None) -> bool:
+    """The rule of the module docstring: a leaf whose spec names no
+    ``model`` axis takes a part of its gradient on each model rank if it
+    is a MoE's ``router`` or a GQA/SWA attention's (``cfg`` None or not
+    MLA); MLA's replicated leaves hold their whole gradient."""
+    if "model" in spec_axes(spec):
+        return False
+    dotted = f".{name}"
+    if ".moe." in dotted:
+        return dotted.endswith(".router")
+    return ".attn." in dotted and (cfg is None or cfg.attn_type != "mla")
 
 
 def _rank_batch(batch: Mapping[str, Any], b_specs: Mapping[str, Spec],
@@ -238,9 +252,11 @@ def jit_train_step(model: Model, opt_cfg: AdamWConfig, ranks: Ranks,
     each leaf's block under its spec in ``specs`` (the moment's under
     ZeRO-1).
 
-    The dense decoder family (GQA and SWA) only; a KV head split over
-    model ranks raises here (:func:`repro_torch.models.attention.
-    tp_layout`)."""
+    The dense decoder (GQA, SWA, MLA) and the MoE decoder only; a KV head
+    split over model ranks, MLA heads that ``model`` does not divide
+    (:func:`repro_torch.models.attention.tp_layout`), or experts padded
+    otherwise for ``model`` expert ranks than for the weights raise
+    here."""
     cfg = model.cfg
     dp = tuple(dp_axes)
     p_specs, opt_specs = make_state_shardings(model, _sizes(ranks),
@@ -252,20 +268,27 @@ def jit_train_step(model: Model, opt_cfg: AdamWConfig, ranks: Ranks,
     specs = (p_specs, opt_specs, b_specs)
     if ranks.rows == ranks.world:
         return build_train_step(model, opt_cfg, ranks, dp, accum_steps), specs
-    if cfg.family != "dense" or cfg.attn_type == "mla":
+    if cfg.family not in ("dense", "moe"):
         raise ValueError(f"{cfg.arch_id}: training over process ranks "
-                         f"covers the dense GQA/SWA decoder; the {cfg.family}"
-                         f" family ({cfg.attn_type}) is not ported")
+                         f"covers the dense (GQA, SWA, MLA) and the moe "
+                         f"decoder; the {cfg.family} family is not ported")
     meta = meta_params(cfg)
     tp = model_parallel(ranks)
+    if cfg.family == "moe" and not tp:
+        raise ValueError(f"{cfg.arch_id}: a MoE over process ranks "
+                         f"dispatches through the sphere shuffle over a "
+                         f"model axis of more than one rank; {ranks!r}")
     if tp:
+        m = ranks.axis_size("model")
         for block in meta.blocks:
-            tp_layout(cfg, block.attn, ranks.axis_size("model"))
+            tp_layout(cfg, block.attn, m)
+            if "moe" in block:
+                plan_experts(cfg, block.moe.w_gate.shape[0], m)
     shapes = {n: tuple(p.shape) for n, p in meta.named_parameters()}
     local = {n: _local_shape(shapes[n], sp, ranks)
              for n, sp in p_specs.items()}
     partial = [n for n, sp in p_specs.items()
-               if tp and partial_over_model(n, sp)]
+               if tp and partial_over_model(n, sp, cfg)]
     dsize = ranks.axis_size(dp)
     # ZeRO-1: the dimension a moment's spec shards over data axes where the
     # parameter's does not, and those axes

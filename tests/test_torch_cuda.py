@@ -1344,3 +1344,64 @@ def test_process_ranks_train_step_on_the_card(card, grid):
     assert float(diffs.max()) <= 2 * lr
     assert float(torch.quantile(diffs, 0.99)) <= 0.05 * lr
     assert float(diffs.median()) <= 0.005 * lr
+
+
+@pytest.mark.parametrize("arch,grid", [("qwen2_moe_a2_7b", (1, 2)),
+                                       ("minicpm3_4b", (2, 1))],
+                         ids=["moe_model2", "mla_data2"])
+def test_process_ranks_family_train_step_on_the_card(card, arch, grid):
+    """Two gloo processes on ``cuda:0`` run one step of smoke qwen2-moe
+    with 16 experts (the experts, the dispatch and the shared experts
+    over ``(1, 2)``, K1 4 times a layer in each process) or smoke
+    MiniCPM3 (MLA, the batch split on ``(2, 1)``) from weights drawn on
+    the card, held to the stacked step on the same grid (MoE) or the
+    one-process step (MLA) on the card by
+    ``tests/test_torch_train_dist_families.py``'s first-step bounds: the
+    loss within 2e-3, ``grad_norm`` within 5e-3 relative, the parameters
+    by ``tests/test_torch_train.py``'s rule, the routed experts' decay to
+    the bit."""
+    import dataclasses
+    import torch_train_dist_families_paths as fpaths
+    from repro_torch.comm import spawn_ranks
+    from repro_torch.configs.base import get_smoke_config
+    from repro_torch.data import synthetic_tokens
+    from repro_torch.models import build
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.trainer import build_train_step, init_train_state
+    cfg = get_smoke_config(arch)
+    moe = cfg.family == "moe"
+    if moe:
+        cfg = dataclasses.replace(cfg, num_experts=16)
+    block = synthetic_tokens(8 * 33, cfg.vocab).reshape(8, 33)
+    batch = {"tokens": torch.from_numpy(block[:, :-1].copy()),
+             "labels": torch.from_numpy(block[:, 1:].copy())}
+    opt = AdamWConfig(lr=3e-3, warmup_steps=5, total_steps=60)
+    res = spawn_ranks(fpaths.card_step, grid, ("data", "model"),
+                      backend="gloo", device="cuda", timeout_s=300,
+                      args=(cfg, batch, opt))
+    model = build(cfg)
+    params, state = init_train_state(model, _gen(card, 0), card)
+    rk = Ranks(shape=grid, axes=("data", "model"), device=card) \
+        if moe else None
+    _, _, m = build_train_step(model, opt, rk)(
+        params, state, {k: v.to(card) for k, v in batch.items()})
+    lr = float(m["lr"])
+    for r in res:
+        assert r["device"] == "cuda:0"
+        assert abs(r["losses"][0] - float(m["loss"])) <= 2e-3
+        assert abs(r["grad_norms"][0] - float(m["grad_norm"])) <= \
+            5e-3 * float(m["grad_norm"])
+        assert r["lrs"][0] == lr
+        assert r["k1_launches"] == (4 * cfg.num_layers if moe else 0)
+    got = res[0]["params"]
+    want = {n: p.detach().cpu() for n, p in params.named_parameters()}
+    diffs = torch.cat([(got[n] - w).abs().reshape(-1)
+                       for n, w in want.items()])
+    assert float(diffs.max()) <= 2 * lr
+    assert float(torch.quantile(diffs, 0.99)) <= 0.05 * lr
+    assert float(diffs.median()) <= 0.005 * lr
+    routed = [n for n in want if moe and n.split(".")[-1] in
+              ("w_gate", "w_up", "w_down")]
+    assert len(routed) == (3 * cfg.num_layers if moe else 0)
+    for n in routed:
+        assert torch.equal(got[n], want[n]), n

@@ -13,6 +13,7 @@ of the JAX package and has no port counterpart.)
 
 import dataclasses
 import hashlib
+import os
 import types
 
 import pytest
@@ -487,3 +488,26 @@ def test_client_recover_retries_until_survivor_appears(tmp_path):
     assert len(first) == 2                         # failed twice, then won
     assert stash in dict(got)["locations"]
     assert len(second) == 2                        # attempts-1 backoffs
+
+
+def test_used_bytes_skips_a_file_gone_during_the_walk(tmp_path, monkeypatch):
+    """A slave's ``used_bytes`` walks its directory while an asynchronous
+    checkpoint upload may rename a ``.tmp`` file there: a file the walk
+    lists that is gone when its size is read counts as nothing, and the
+    placement that asked goes on (the port's slave)."""
+    S = PKGS["torch"]
+    slave = S.SlaveNode(0, S.NodeAddress(0, 0, 0), str(tmp_path / "s0"),
+                        ip="10.1.0.0")
+    os.makedirs(slave.root, exist_ok=True)
+    for name, size in (("a.dat", 10), ("b.json.tmp", 5)):
+        with open(os.path.join(slave.root, name), "wb") as f:
+            f.write(b"x" * size)
+    real = os.path.getsize
+
+    def renamed_meanwhile(path):
+        if path.endswith(".tmp"):
+            os.rename(path, path[:-len(".tmp")] + ".moved")
+        return real(path)
+
+    monkeypatch.setattr(os.path, "getsize", renamed_meanwhile)
+    assert slave.used_bytes() == 10

@@ -54,7 +54,7 @@ def train_run(ranks: ProcessRanks, cfg, source, batches, opt_cfg: AdamWConfig,
     shapes = {n: tuple(p.shape)
               for n, p in meta_params(cfg).named_parameters()}
     out = {"losses": [], "grad_norms": [], "lrs": [], "counts": [],
-           "metrics_keys": None,
+           "metrics": [], "metrics_keys": None,
            "init_params": gather_leaves(ranks, named_leaves(params, cfg),
                                         p_specs, shapes)}
     first = {}
@@ -75,6 +75,7 @@ def train_run(ranks: ProcessRanks, cfg, source, batches, opt_cfg: AdamWConfig,
         out["grad_norms"].append(float(m["grad_norm"]))
         out["lrs"].append(float(m["lr"]))
         out["counts"].append(dict(ranks.collectives))
+        out["metrics"].append({k: float(v) for k, v in m.items()})
         out["metrics_keys"] = sorted(m)
     ranks.log = None
     leaves = named_leaves(state.params, cfg)
