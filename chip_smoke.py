@@ -171,8 +171,9 @@ Phases, in order (any failure ends the script with a non-zero exit):
     replication 2 in a ``tempfile.mkdtemp()`` directory, the synthetic
     corpus as 8 Sector slices, ``SectorDataPipeline`` batches of 8
     sequences of 2048 tokens, AdamW at the launcher's settings (lr 3e-3,
-    warmup 20), 16 steps with an async checkpoint at step 8 and the final
-    blocking one (float32 parameters, ``m`` and ``v``: 12 bytes a
+    warmup 20), 8 steps (16 before phase 18's room was made) with an
+    async checkpoint at step 4 and the final blocking one (float32
+    parameters, ``m`` and ``v``: 12 bytes a
     parameter). Checks every loss and gradient norm finite, the first
     loss within 1.0 of ln(32000), zero kernel launches (the dense path
     has none, as in the JAX package); then one more batch: the same step
@@ -219,25 +220,27 @@ Phases, in order (any failure ends the script with a non-zero exit):
 16. ``train_ranks``: TinyLlama-1.1B at its published width (d 2048, 32
     heads, 4 KV heads, d_ff 5632, vocab 32000, remat), its depth cut 22
     -> 11 layers to leave phase 17 room in the time limit, trained
-    3 steps as 8 processes on ``(data, model) = (2, 4)`` (``backend="gloo"``
-    over CUDA tensors, chosen by name: NCCL takes one card a rank), on
-    phase 14's first 3 batches (8 x 2048 tokens) at the launcher's lr and
+    2 steps (3 before phase 18's room was made) as 8 processes on
+    ``(data, model) = (2, 4)`` (``backend="gloo"`` over CUDA tensors,
+    chosen by name: NCCL takes one card a rank), on the launcher's
+    first 2 batches at 16 steps (8 x 2048 tokens; phase
+    14's corpus before its cut to 8 steps) at the launcher's lr and
     warmup. First the one-process step on the card: its initial float32
     weights (phase 14's, seed 0) written to ``/dev/shm``, the first
-    batch's gradient of a few leaves, 3 steps, the parameters after
+    batch's gradient of a few leaves, 2 steps, the parameters after
     them; its memory freed. Then each process cuts its shards of the
     parameters (by their specs) and of the moments (ZeRO-1) from the
     saved weights (``init_train_state(..., ranks=)``) and runs
     ``jit_train_step``: heads sharded over ``model``, the batch over
     ``data``. Checks: every process's losses, norms and lrs the same
-    bits; the first loss within 2e-3 and the later ones within 5e-3,
+    bits; the first loss within 2e-3 and the second within 5e-3,
     ``grad_norm`` within 5e-3 relative of the one process's; the first
     step's gradient blocks within 3% of each leaf's largest value (the
     embedding's within 25%); the two wider bounds are full width's,
     stated with their measurement and cause at
     ``TRAIN_ATOL_LOSS_STEPPED``, and the one process's own floor (its
     gradient over two halves of the batch, its steps over two micro
-    batches) is printed beside them; the parameters after 3 steps inside
+    batches) is printed beside them; the parameters after 2 steps inside
     the trainer tests' rule (every one within ``2 * sum(lr)``, 99% within
     0.05 and half within 0.005 of it), each distinct block held by the
     first process that holds it against the reference's block; each
@@ -267,9 +270,10 @@ Phases, in order (any failure ends the script with a non-zero exit):
     leaf's. (2) ``train-minicpm3-4b-2x4-8proc-1xH100``: MiniCPM3-4B at
     its published width (MLA, 40 heads, q rank 768, kv rank 256), depth
     cut 62 -> 8, on ``(2, 4)``, 10 heads a model rank, phase 16's corpus
-    batches (8 x 2048 tokens) and optimizer, against the one-process
-    step. Both models are far more sensitive to rounding at full width
-    than the smoke configs, so the bounds are fixed numbers stated with
+    batches (8 x 2048 tokens; 2 steps, 3 before phase 18's room was
+    made) and optimizer, against the one-process step. Both models are
+    far more sensitive to rounding at full width than the smoke configs,
+    so the bounds are fixed numbers stated with
     their measurement (``MOE_RANKS_BOUNDS``, ``MLA_RANKS_BOUNDS``), and
     each but the CPU tests' own is shown able to fail: the reference also
     reads two planted faults, the gradient of the first half of the
@@ -281,6 +285,38 @@ Phases, in order (any failure ends the script with a non-zero exit):
     losses, norms and parameters are printed, not compared. Prints each
     path's warm step against its reference, gloo bytes and seconds by op
     and axis, the peak memory a process and K1's launches.
+18. ``train_ranks_ssm``: the SSM and hybrid families as 8 gloo processes
+    on ``cuda:0`` on ``(data, model) = (2, 4)``, both in one spawn (each
+    process trains xLSTM, frees it, trains zamba2), each against the
+    one-process step on the card and checked as phase 16 is. (1)
+    ``train-xlstm-125m-2x4-8proc-1xH100``: xLSTM-125M at its published
+    config (12 layers, 10 mLSTM and 2 sLSTM, d 768, d_in 1536, 4 heads,
+    chunk 256), one mLSTM head a model rank (the ``[z | x]`` exchange,
+    q, k, v and gates summed by ``reduce_scatter``, the norm's squares
+    summed), sLSTM's gates and output gathered around its recurrence,
+    which every model rank runs whole. (2)
+    ``train-zamba2-1.2b-2x4-8proc-1xH100``: Zamba2-1.2B at its published
+    width (d 2048, d_in 4096, 64 SSM heads, state 64; the shared block's
+    32 heads and d_ff 8192), depth cut 38 -> 12 (the shared block at
+    layers 5 and 11), 16 SSM heads and 8 attention heads a model rank.
+    Each trains 2 steps on 8 x 1024 tokens of phase 16's corpus at the
+    launcher's lr and warmup. The reference also reads the one process's
+    own floor (its first gradient over two halves of the batch, its steps
+    over two micro batches) and two planted faults: the gradient of the
+    batch's first half of rows halved, and the steps without their
+    update. The bounds are fixed numbers stated with their measurement
+    (``SSM_RANKS_BOUNDS``), with no absolute term on the gradients (the
+    per-head leaves' whole gradients lie below the CPU tests' 1e-3); each
+    held reading is printed beside its bound, its planted fault and the
+    floor, and the phase fails where a fault reads within its bound.
+    Checks as phase 16's: the processes' metrics the same bits, the first
+    step's loss, norm and named leaves' gradients, the second step's loss
+    and norm, the parameters after 2 steps by the trainer tests' rule,
+    the state's bytes, the collectives a step (``train_collectives``) and
+    the ``all_gather``s over ``model`` of activations only
+    (``model_gathers``). Prints each path's cold and warm step against the
+    one process's, gloo bytes and seconds by op and axis and the peak
+    memory a process.
 
 Each path's launch counts are read from zero: every count is reset just
 before the path runs and read just after. The last lines are the
@@ -344,11 +380,15 @@ STREAM_CARRY = 1 << 18
 TENANTS = {"free": 1.0, "pro": 3.0, "enterprise": 4.0}
 STREAM_STEPS = 34
 #: phase 14: TinyLlama-1.1B trained through the launcher's functions (8
-#: sequences of its 2048-token context, an async save at step 8, the
-#: launcher's lr and warmup); Qwen1.5-MoE-A2.7B at its published width
+#: sequences of its 2048-token context, 8 steps, an async save at step 4,
+#: the launcher's lr and warmup); Qwen1.5-MoE-A2.7B at its published width
 #: with its depth cut to 2 layers, 3 steps on phase 12's grid and prompts
 TRAIN_ARCH = "tinyllama_1_1b"
-TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_CKPT_EVERY = 16, 8, 2048, 8
+TRAIN_LAUNCH_STEPS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_CKPT_EVERY = 8, 8, 2048, 4
+#: the schedule's ``total_steps`` and the corpus's length that phases
+#: 16-18 build from: the launcher's at 16 steps, phase 14's before its cut
+#: to 8 (``synthetic_tokens`` draws another corpus for another length)
+TRAIN_STEPS = 16
 TRAIN_LR = 3e-3
 MOE_TRAIN_LAYERS, MOE_TRAIN_STEPS = 2, 3
 #: phase 15: the 8 processes' time limit, and the MoE layer's bound
@@ -358,10 +398,12 @@ MOE_RANKS_TOL = 2.0 ** -7
 #: phase 16: TinyLlama-1.1B at its published width, depth cut 22 -> 11
 #: (phase 17's room in the script's time limit), trained as 8 processes
 #: on the (data, model) grid, against the one-process step on phase 14's
-#: first batches; the CPU tests' bounds (tests/test_torch_train_dist.py)
+#: first batches, 2 steps (3 before phase 18's room was made; phase 17's
+#: MiniCPM3 takes the same batches); the CPU tests' bounds
+#: (tests/test_torch_train_dist.py)
 TRAIN_RANKS_GRID = (2, 4)
 TRAIN_RANKS_LAYERS = 11
-TRAIN_RANKS_STEPS = 3
+TRAIN_RANKS_STEPS = 2
 TRAIN_ATOL_LOSS, TRAIN_RTOL_GNORM = 2e-3, 5e-3
 TRAIN_RTOL_GRAD, TRAIN_ATOL_GRAD = 0.03, 1e-3
 #: the two bounds full width needs wider than the CPU tests' (measured on
@@ -443,6 +485,57 @@ MLA_RANKS_GRAD_LEAVES = ("final_ln", "blocks.7.ln1",
                          "blocks.7.attn.wq_up", "blocks.7.attn.wk_up",
                          "blocks.7.attn.wv_up", "blocks.7.attn.wo",
                          "blocks.7.mlp.w_down")
+#: phase 18: xLSTM-125M at its published width and depth and Zamba2-1.2B
+#: at its published width with its depth cut 38 -> 12 (the shared block's
+#: points at layers 5 and 11 kept), each trained 2 steps as 8 processes on
+#: (2, 4) on 8 x 1024 tokens of phase 16's corpus, against the one-process
+#: step; by architecture: (the cell, depth or None, the leaves whose
+#: first-step gradient blocks are held)
+SSM_RANKS_SEQ, SSM_RANKS_STEPS = 1024, 2
+SSM_RANKS_CELLS = {
+    "xlstm_125m": ("train-xlstm-125m-2x4-8proc-1xH100", None, (
+        "embed", "final_ln", "blocks.0.cell.up_proj", "blocks.0.cell.wqkv",
+        "blocks.0.cell.wif", "blocks.10.cell.norm", "blocks.10.cell.wqkv",
+        "blocks.11.cell.w_gates", "blocks.11.cell.r_gates",
+        "blocks.11.cell.norm", "blocks.11.cell.out_proj")),
+    "zamba2_1_2b": ("train-zamba2-1.2b-2x4-8proc-1xH100", 12, (
+        "embed", "final_ln", "blocks.0.mamba.in_zx", "blocks.0.mamba.in_bcdt",
+        "blocks.11.mamba.in_zx", "blocks.11.mamba.in_bcdt",
+        "blocks.11.mamba.a_log", "blocks.11.mamba.dt_bias",
+        "blocks.11.mamba.d_skip", "blocks.11.mamba.norm",
+        "blocks.11.mamba.out_proj", "shared_attn.attn.wq",
+        "shared_attn.mlp.w_down"))}
+#: phase 18's bounds against the one-process step (measured on an NVIDIA
+#: H100 80GB HBM3 at 700 W; PERF.md section 6 has each reading): the CPU
+#: tests' for the first step's loss and norm (read: 1e-5 and 0.12% for
+#: xLSTM, 4.4e-4 and 0.003% for zamba2); phase 16's full-width 5e-3 for
+#: the second step's loss (read: 1.4e-3 and 2.7e-4; the one process
+#: against its own steps over two micro batches, 1.6e-3 for xLSTM); the
+#: second step's norm 2% and each held leaf's first gradient 15% of its
+#: largest value, with no absolute term (the per-head vectors' whole
+#: gradients lie below the CPU tests' 1e-3): rerun with the models'
+#: products in float32, the one process moved its first gradients by
+#: 3.2-11.5% (xLSTM) and 1.4-9.6% (zamba2) of their largest values and
+#: xLSTM's norm by 1.1%, a sample of what rounding alone does at these
+#: widths; the processes read up to 7.1% and 0.62% (xLSTM through
+#: autograd's sLSTM backward, 0.14% through the hand-written one; zamba2,
+#: set before its first reading: 6.0% and 0.012%); half the batch's
+#: gradient reads 0.48-1.03 and 0.30. The parameters after 2 steps: the
+#: trainer tests' rule (99% within 0.05 and half within 0.005 of
+#: sum(lr)) cannot hold at full width, where the launcher's warmup lr
+#: (1.5e-4, then 3e-4) moves each weight by about lr * sign(g): the one
+#: process against its own steps over two micro batches has 16% of
+#: xLSTM's parameters beyond 0.05 sum(lr) and 64% beyond 0.005 sum(lr)
+#: (zamba2 2.5% and 38%; the processes 31% and 80%, zamba2 5.8% and
+#: 55%), so the shares are held at about twice xLSTM's readings, below
+#: the steps without their update (94% and 95%); every weight within
+#: 2.5 sum(lr) (two sign flips give 2, read 1.999)
+SSM_RANKS_BOUNDS = {
+    "loss_first": TRAIN_ATOL_LOSS, "grad_norm_rel_first": TRAIN_RTOL_GNORM,
+    "loss": TRAIN_ATOL_LOSS_STEPPED, "grad_norm_rel": 0.02,
+    "grad_rtol": 0.15,
+    "params": {"max_over_sum_lr": 2.5, "share_beyond_0.05_sum_lr": 0.6,
+               "share_beyond_0.005_sum_lr": 0.95}}
 #: phase 15's paths in the kernel table
 RANKED_PATHS = (("flat", "dataflow sort, flat"),
                 ("grid", "dataflow sort, (dc, node)"),
@@ -3251,7 +3344,7 @@ def train_tinyllama(torch, dev, seed: int) -> dict:
     out = {"phase": "train_tinyllama", "arch": cfg.arch_id,
            "layers": cfg.num_layers, "d_model": cfg.d_model,
            "vocab": cfg.vocab, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
-           "steps": TRAIN_STEPS, "lr": TRAIN_LR,
+           "steps": TRAIN_LAUNCH_STEPS, "lr": TRAIN_LR,
            "sector_root": root, "sector_root_free_bytes": free,
            "sector_fs": filesystem_of(root),
            "host_mem": mem}
@@ -3266,7 +3359,7 @@ def train_tinyllama(torch, dev, seed: int) -> dict:
                                f"{mem['MemAvailable']} available; one "
                                f"checkpoint of {state} bytes does not fit")
         if not full:
-            ckpt_every = TRAIN_STEPS + 1
+            ckpt_every = TRAIN_LAUNCH_STEPS + 1
             out["cut"] = (f"no mid-run save: {free} bytes free under "
                           f"{root}")
         reset_launches()
@@ -3274,7 +3367,7 @@ def train_tinyllama(torch, dev, seed: int) -> dict:
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         run = launch_train.train(
-            cfg, steps=TRAIN_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+            cfg, steps=TRAIN_LAUNCH_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
             lr=TRAIN_LR, ckpt_every=ckpt_every, workdir=root, device=dev,
             log=log)
         torch.cuda.synchronize()
@@ -3286,7 +3379,7 @@ def train_tinyllama(torch, dev, seed: int) -> dict:
         losses, metrics = run["losses"], run["metrics"]
         ckpt, client = run["ckpt"], run["client"]
         manifest = json.loads(client.download(
-            f"/ckpt/run0/step_{TRAIN_STEPS:08d}/MANIFEST.json"))
+            f"/ckpt/run0/step_{TRAIN_LAUNCH_STEPS:08d}/MANIFEST.json"))
         state_bytes = manifest["total_bytes"]
         if any(v for v in launches.values()):
             raise AssertionError(f"the dense model's training launched "
@@ -3299,8 +3392,8 @@ def train_tinyllama(torch, dev, seed: int) -> dict:
         if abs(losses[0] - math.log(cfg.vocab)) > 1.0:
             raise AssertionError(f"first loss {losses[0]} is not within "
                                  f"1.0 of ln({cfg.vocab})")
-        want_steps = sorted({TRAIN_STEPS} | (
-            {ckpt_every} if ckpt_every <= TRAIN_STEPS else set()))
+        want_steps = sorted({TRAIN_LAUNCH_STEPS} | (
+            {ckpt_every} if ckpt_every <= TRAIN_LAUNCH_STEPS else set()))
         if ckpt.list_steps() != want_steps:
             raise AssertionError(f"checkpoints {ckpt.list_steps()} != "
                                  f"{want_steps}")
@@ -3367,7 +3460,7 @@ def train_tinyllama(torch, dev, seed: int) -> dict:
                     "repeat_differs": repeat, "resume_differs": resumed,
                     "extra_steps_peak_mem_bytes":
                         torch.cuda.max_memory_allocated()})
-        if not all(md5_ok) or step != TRAIN_STEPS or not restored_equal:
+        if not all(md5_ok) or step != TRAIN_LAUNCH_STEPS or not restored_equal:
             raise AssertionError(f"restore: md5s {md5_ok}, step {step}, "
                                  f"equal to the saved state "
                                  f"{restored_equal}")
@@ -4011,32 +4104,56 @@ def ranks_path(torch, dev, directory: str, seed: int, flat_sorted) -> dict:
 # -- phases 16 and 17: decoders trained as 8 processes ------------------------
 
 
-def train_collectives(cfg, layout: str, n_leaves: int, partial: bool,
-                      data: int) -> dict:
+#: the collectives of a recurrent layer a sharded step, over ``model``
+#: (see ``train_collectives``)
+RECURRENT_COLLECTIVES = {
+    "mamba": {"psum": 6, "all_to_all": 3},
+    "mlstm": {"psum": 5, "all_to_all": 3, "reduce_scatter": 2,
+              "all_gather": 1},
+    "slstm": {"psum": 2, "all_gather": 3}}
+
+
+def train_collectives(cfg, layout, n_leaves: int, partial: bool,
+                      data: int, n_zero=None) -> dict:
     """The collectives of one sharded step over a ``(data, model)`` grid
-    by layer count ``L``, which ``tests/test_torch_train_dist_families.py``
-    also holds the CPU processes to. Over ``model``, a layer's forward: the attention's sums
-    (GQA by head: ``wo``'s; MLA: the rope query's and ``wo``'s; by
-    sequence: none, an ``all_gather`` of the query rows instead); the
-    MLP's row-parallel sum, or the MoE's dispatch (two ``all_to_all``s,
-    the drop count's ``psum``), its ``moe_aux`` mean, the shared experts'
-    sum and one ``all_gather`` of its output blocks; over ``data`` the
-    first row's ``moe_aux`` and drops where there are several rows. The
-    remat recompute stops at the block's last saved tensor: it reruns
-    the attention's collectives, the dispatch's first ``all_to_all`` and
-    drop count and the shared experts' sum, not the MLP's sum, the
-    combine, the aux sums or the output gather. The backward sums each
-    ``copy_to``'s gradient: the attention's input (MLA: its latents and
-    its rope query), the MLP's or MoE's input. Around the layers: the
-    embedding's sum, the cross-entropy's ``pmax`` and sum and its
-    logits' ``copy_to``; after the backward one ``psum`` of the partial
-    leaves' gradients where there are any (the router; replicated GQA
-    leaves), one ``reduce_scatter`` and one ``all_gather`` over ``data``
-    a leaf (ZeRO-1, with more than one data rank), and one ``psum`` each
-    of the norm's squares and of the metrics over ``data``."""
-    L = cfg.num_layers
+    from the layer pattern, which ``tests/test_torch_train_dist_families.py``
+    and ``tests/test_torch_train_dist_ssm.py`` also hold the CPU
+    processes to. Over ``model``, an attention layer's forward (zamba2's
+    shared block at each of its points, ``layout`` its attention's
+    branch): the attention's sums (GQA by head: ``wo``'s; MLA: the rope
+    query's and ``wo``'s; by sequence: none, an ``all_gather`` of the
+    query rows instead); the MLP's row-parallel sum, or the MoE's
+    dispatch (two ``all_to_all``s, the drop count's ``psum``), its
+    ``moe_aux`` mean, the shared experts' sum and one ``all_gather`` of
+    its output blocks; over ``data`` the first row's ``moe_aux`` and
+    drops where there are several rows. The remat recompute stops at the
+    block's last saved tensor: it reruns the attention's collectives, the
+    dispatch's first ``all_to_all`` and drop count and the shared
+    experts' sum, not the MLP's sum, the combine, the aux sums or the
+    output gather. The backward sums each ``copy_to``'s gradient: the
+    attention's input (MLA: its latents and its rope query), the MLP's
+    or MoE's input. A recurrent layer (``RECURRENT_COLLECTIVES``):
+    Mamba2's ``[z | x]`` exchange, the norm's square sum and
+    ``out_proj``'s sum forward, the exchange and the square sum again in
+    the recompute, and in the backward the square sum, the exchange and
+    the two ``copy_to`` gradients (the input's, B, C and dt's); mLSTM the
+    same but for B, C and dt, with its q, k, v and gates'
+    ``reduce_scatter`` forward and in the recompute and its
+    ``all_gather`` in the backward; sLSTM the gates' and the output's
+    ``all_gather`` forward, the gates' again in the recompute, and its
+    two ``copy_to`` gradients. Around the layers: the embedding's sum,
+    the cross-entropy's ``pmax`` and sum and its logits' ``copy_to``;
+    after the backward one ``psum`` of the partial leaves' gradients
+    where there are any (the router; replicated GQA leaves; the
+    recurrent blocks' per-head vectors), over ``data`` (with more than
+    one data rank) one ``reduce_scatter`` and one ``all_gather`` a leaf
+    ZeRO-1 shards (``n_zero`` of the ``n_leaves``, default all) and one
+    ``psum`` each of the others, and one ``psum`` each of the norm's
+    squares and of the metrics over ``data``."""
+    from repro_torch.models.transformer import (_shared_attn_points,
+                                                layer_pattern)
     mla = cfg.attn_type == "mla"
-    attn_fwd = {"heads": 2 if mla else 1, "sequence": 0}[layout]
+    attn_fwd = {"heads": 2 if mla else 1, "sequence": 0}.get(layout, 0)
     attn_bwd = 2 if mla else 1
     if cfg.family == "moe":
         ffn_fwd = 2 + (data > 1) + bool(cfg.n_shared_experts)
@@ -4045,18 +4162,58 @@ def train_collectives(cfg, layout: str, n_leaves: int, partial: bool,
     else:
         ffn_fwd, ffn_re, gathers, a2a = 1, 0, 0, 0
     seq_gathers = 2 if layout == "sequence" else 0
-    layer_psum = attn_fwd + ffn_fwd + attn_fwd + ffn_re + attn_bwd + 1
-    zero = n_leaves if data > 1 else 0
-    out = {"psum": 1 + L * layer_psum + 2 + int(partial) + 1 + (data > 1),
-           "pmax": 1, "all_gather": L * (gathers + seq_gathers) + zero,
-           "reduce_scatter": zero, "all_to_all": L * a2a}
+    attention = {"psum": attn_fwd + ffn_fwd + attn_fwd + ffn_re + attn_bwd
+                 + 1, "all_gather": gathers + seq_gathers, "all_to_all": a2a}
+    n_zero = n_leaves if n_zero is None else n_zero
+    zero = n_zero if data > 1 else 0
+    plain = n_leaves - n_zero if data > 1 else 0
+    out = {"psum": 1 + 2 + int(partial) + 1 + (data > 1) + plain,
+           "pmax": 1, "all_gather": zero, "reduce_scatter": zero,
+           "all_to_all": 0}
+    kinds = layer_pattern(cfg) + ["shared_attn"] * len(
+        _shared_attn_points(cfg))
+    for kind in kinds:
+        for op, n in RECURRENT_COLLECTIVES.get(kind, attention).items():
+            out[op] += n
     return {k: v for k, v in out.items() if v}
 
 
-def train_ranks_batches(torch, cfg):
-    """Phase 14's first ``TRAIN_RANKS_STEPS`` batches: the launcher's
-    corpus in Sector slices, served by a fresh ``SectorDataPipeline`` (the
-    launcher's seed), as int32 tensors."""
+def model_gathers(cfg, layout, grid, seq: int) -> list:
+    """The bytes of each ``all_gather`` over ``model`` a sharded step
+    makes (what a process hands to gloo), all of activations: a MoE
+    layer's output blocks and the sequence-parallel attention's query
+    rows twice (forward and recompute), ``(B / data, S / model, d)``
+    bfloat16; sLSTM's input gates twice, ``(B / data, S, 4 d / model)``,
+    and its output once, ``(B / data, S, d / model)``, bfloat16; the
+    gradient of mLSTM's q, k, v and gates, ``(B / data, S, (3 d_in + 2
+    H) / model)`` float32."""
+    from repro_torch.models.ssm import mlstm_dims
+    from repro_torch.models.transformer import (_shared_attn_points,
+                                                layer_pattern)
+    data, m = grid
+    rows = TRAIN_BATCH // data * seq
+    block = rows // m * cfg.d_model * 2
+    out = []
+    for kind in layer_pattern(cfg) + ["shared_attn"] * len(
+            _shared_attn_points(cfg)):
+        if kind == "moe":
+            out.append(block)
+        if kind in ("dense", "moe", "shared_attn") and layout == "sequence":
+            out += [block] * 2
+        if kind == "slstm":
+            out += [rows * 4 * cfg.d_model // m * 2] * 2 + [
+                rows * cfg.d_model // m * 2]
+        if kind == "mlstm":
+            d_in, H, _ = mlstm_dims(cfg)
+            out.append(rows * (3 * d_in + 2 * H) // m * 4)
+    return out
+
+
+def train_ranks_batches(torch, cfg, seq: int = TRAIN_SEQ,
+                        steps: int = TRAIN_RANKS_STEPS):
+    """The first ``steps`` batches of ``seq`` tokens of the launcher's
+    corpus at ``TRAIN_STEPS`` steps, in Sector slices, served by a fresh
+    ``SectorDataPipeline`` (the launcher's seed), as int32 tensors."""
     import tempfile
     from repro_torch.data import (SectorDataPipeline, synthetic_tokens,
                                   upload_token_dataset)
@@ -4071,31 +4228,33 @@ def train_ranks_batches(torch, cfg):
         upload_token_dataset(client, "/corpus/train", toks, num_slices=8)
         daemon.run_until_stable()
         it = iter(SectorDataPipeline(master, client, "/corpus/train",
-                                     batch=TRAIN_BATCH, seq_len=TRAIN_SEQ))
+                                     batch=TRAIN_BATCH, seq_len=seq))
         return [{k: torch.from_numpy(v) for k, v in next(it).items()}
-                for _ in range(TRAIN_RANKS_STEPS)]
+                for _ in range(steps)]
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
 
 def train_ranks_reference(torch, dev, cfg, batches, opt_cfg, directory: str,
-                          grad_leaves, grid=None, accum2: bool = True,
-                          seed: int = 0) -> dict:
+                          grad_leaves, grid=None, floor: bool = True,
+                          faults: bool = False, seed: int = 0) -> dict:
     """The reference step on the card: one process, or the stacked
     ``Ranks`` of ``grid`` (``("data", "model")``). Its initial float32
     weights (drawn from ``seed``) written to ``directory`` as
-    ``init.<leaf>.npy``, the first batch's gradient of ``grad_leaves``,
-    then the steps (losses, norms, lrs, metrics, walls, peak memory) and
-    the parameters after them as ``final.<leaf>.npy``. With ``accum2`` a
-    rounding floor (phase 16): the one process against itself (the first
-    gradient as the mean of its two halves', and the same steps with each
-    batch as two micro batches, each step's loss taken on the whole batch
-    first); without it (phase 17) the planted faults' readings
-    (``controls``): the gradient of the batch's first half of rows halved
-    against the first gradient, each held leaf's error over its largest
-    value and the norm's relative error, and the parameters after the
-    steps against the initial ones (no update) by the trainer tests'
-    rule. The card's memory is freed before returning."""
+    ``init.<leaf>.npy``, the steps (losses, norms, lrs, metrics, walls,
+    peak memory), the first step's gradient of ``grad_leaves`` (read
+    through the step's ``on_grads``) and the parameters after the steps
+    as ``final.<leaf>.npy``. With ``floor`` a rounding floor (phases 16
+    and 18): the one process against itself, the same steps with each
+    batch as two micro batches (the gradient's sums grouped as two data
+    ranks group them; each step's loss taken on the whole batch first),
+    its first gradient the mean of the two halves'. With ``faults``
+    (phases 17 and 18) the planted faults' readings (``controls``): the
+    gradient of each batch's first half of rows, halved, against the
+    step's (the first step's held leaves, each's error over its largest
+    value, and every step's norm's relative error), and the parameters
+    after the steps against the initial ones (no update) by the trainer
+    tests' rule. The card's memory is freed before returning."""
     from repro_torch.comm import Ranks
     from repro_torch.models import build
     from repro_torch.models.convert import named_leaves
@@ -4111,47 +4270,36 @@ def train_ranks_reference(torch, dev, cfg, batches, opt_cfg, directory: str,
     for name, p in leaves.items():
         save_npy(directory, f"init.{name}", p.detach())
     on_dev = [{k: v.to(dev) for k, v in b.items()} for b in batches]
-    _, _, g = loss_and_grads(model, params, on_dev[0], rk)
-    grads = {n: (torch.zeros(leaves[n].shape) if g[n] is None
-                 else g[n].cpu()) for n in grad_leaves}
     out = {"losses": [], "grad_norms": [], "lrs": [], "step_ms": [],
            "metrics": []}
-    if not accum2:
-        # a planted fault, not a check: half the batch's rows, halved
-        norm = grads_norm(torch, g)
-        del g
-        _, _, g = loss_and_grads(
-            model, params,
-            {k: v[:v.shape[0] // 2] for k, v in on_dev[0].items()}, rk)
-        half = {}
-        for n, want in grads.items():
-            top = float(want.abs().max())
-            if top:
-                half[n] = float((g[n].cpu() / 2 - want).abs().max()) / top
-        out["controls"] = {"half_batch": {
-            "grad_max_err_over_leaf_max": half,
-            "grad_norm_rel": abs(grads_norm(torch, g) / 2 - norm) / norm}}
-    else:
-        # the floor of the same gradient: the mean of its two halves'
-        # (the data ranks' rows)
-        half = {n: torch.zeros_like(t) for n, t in grads.items()}
-        b = TRAIN_BATCH
-        for rows in (slice(0, b // 2), slice(b // 2, None)):
-            _, _, g = loss_and_grads(
-                model, params, {k: v[rows] for k, v in on_dev[0].items()})
-            for n in half:
-                half[n] += g[n].cpu() / 2
-        out["grad_floor"] = {n: float((half[n] - grads[n]).abs().max()
-                                      / grads[n].abs().max())
-                             for n in grads}
-        del half
-    del g
+    kept = {}
+
+    def keep(g):
+        kept.update({n: (torch.zeros(leaves[n].shape) if g[n] is None
+                         else g[n].float().cpu()) for n in grad_leaves})
+
+    # with one batch repeated the steps without their update read the
+    # later steps' faults (below)
+    repeated = all(torch.equal(b["tokens"], batches[0]["tokens"])
+                   for b in batches)
+    half_leaves, half_norms = {}, []
     step = build_train_step(model, opt_cfg, rk)
     torch.cuda.reset_peak_memory_stats()
-    for b in on_dev:
+    for i, b in enumerate(on_dev):
+        if faults and (i == 0 or not repeated):
+            # a planted fault, not a check: half the batch's rows (data
+            # row 0's alone), its gradient halved
+            _, _, g = loss_and_grads(
+                model, params, {k: v[:v.shape[0] // 2] for k, v in b.items()},
+                rk)
+            half_norms.append(grads_norm(torch, g) / 2)
+            if i == 0:
+                half_leaves = {n: g[n].float().cpu() / 2 for n in grad_leaves
+                               if g[n] is not None}
+            del g
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        _, _, m = step(params, opt, b)
+        _, _, m = step(params, opt, b, on_grads=keep if i == 0 else None)
         torch.cuda.synchronize()
         out["step_ms"].append((time.perf_counter() - t0) * 1e3)
         out["metrics"].append({k: float(v) for k, v in m.items()})
@@ -4159,36 +4307,46 @@ def train_ranks_reference(torch, dev, cfg, batches, opt_cfg, directory: str,
                        ("lrs", "lr")):
             out[k].append(float(m[key]))
     out["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+    grads = out["grads"] = dict(kept)
     for name, p in leaves.items():
         save_npy(directory, f"final.{name}", p.detach())
-    out["grads"] = grads
     out["n_params"] = sum(p.numel() for p in leaves.values())
     del opt
-    if not accum2:
+    if faults:
+        norms = out["grad_norms"]
+        out["controls"] = {"half_batch": {
+            "grad_max_err_over_leaf_max": {
+                n: float((half_leaves[n] - w).abs().max() / w.abs().max())
+                for n, w in grads.items() if n in half_leaves},
+            "grad_norm_rel": abs(half_norms[0] - norms[0]) / norms[0],
+            "later_grad_norm_rel": min(
+                (abs(h - a) / a for h, a in zip(half_norms[1:], norms[1:])),
+                default=None)}}
+        del half_leaves
         # a planted fault, not a check: the steps without their update
         # (with one batch repeated, the first step's loss and norm again)
         no_update = out["controls"]["no_update"] = {"params": rule_counts(
             ((load_tensor(torch, directory, f"init.{n}", dev), p)
              for n, p in leaves.items()), sum(out["lrs"]))}
-        if all(torch.equal(b["tokens"], batches[0]["tokens"])
-               for b in batches):
+        if repeated:
             no_update["loss"] = min(abs(a - out["losses"][0])
                                     for a in out["losses"][1:])
             no_update["grad_norm_rel"] = min(
                 abs(a - out["grad_norms"][0]) / a
                 for a in out["grad_norms"][1:])
-    else:
+    if floor:
         # the rounding floor, not a check: the same steps in the one
-        # process with each batch as two micro batches (the gradient's
-        # sums grouped as two data ranks group them)
+        # process with each batch as two micro batches
         gen.manual_seed(seed)
         twin, twin_opt = init_train_state(model, gen, dev)
         step2 = build_train_step(model, opt_cfg, accum_steps=2)
         norms, losses = [], []
-        for b in on_dev:
+        kept.clear()
+        for i, b in enumerate(on_dev):
             with torch.no_grad():
                 losses.append(float(model.train_loss(twin, b)[0]))
-            _, _, m = step2(twin, twin_opt, b)
+            _, _, m = step2(twin, twin_opt, b,
+                            on_grads=keep if i == 0 else None)
             norms.append(float(m["grad_norm"]))
         twins = named_leaves(twin, cfg)
         out["accum2_floor"] = {
@@ -4197,7 +4355,9 @@ def train_ranks_reference(torch, dev, cfg, batches, opt_cfg, directory: str,
                                      zip(losses, out["losses"])),
             "grad_norm_max_rel_diff": max(abs(a - b) / abs(b) for a, b in
                                           zip(norms, out["grad_norms"])),
-            "grad_max_err_over_leaf_max": out.pop("grad_floor"),
+            "grad_max_err_over_leaf_max": {
+                n: float((kept[n] - grads[n]).abs().max()
+                         / grads[n].abs().max()) for n in grads},
             "params": rule_counts(((twins[n], p) for n, p in
                                    leaves.items()), sum(out["lrs"]))}
         del twin, twin_opt, twins, step2
@@ -4362,11 +4522,14 @@ def check_train_ranks(torch, cfg, grid, ref, results, grad_leaves,
     r0 = results[0]
     failures = []
     controls = ref.get("controls", {})
-    seen = {}
+    seen, table = {}, {}
 
-    def held(what: str, reading: float, bound, control=None) -> None:
+    def held(what: str, reading: float, bound, control=None,
+             floor=None) -> None:
         if bound is None:
             return
+        table[what] = {"reading": reading, "bound": bound,
+                       "planted_fault": control, "one_process_floor": floor}
         if reading > bound:
             failures.append(f"{what}: {reading} beyond {bound}")
         if control is not None:
@@ -4388,14 +4551,23 @@ def check_train_ranks(torch, cfg, grid, ref, results, grad_leaves,
     out = {"loss_abs_diff": dl, "grad_norm_rel_diff": dgs,
            "bounds": bounds}
     half = controls.get("half_batch", {})
-    held("the first step's loss", dl[0], bounds["loss_first"])
+    # the one process's own floor (phases 16 and 18), printed beside the
+    # bounds: its steps over two micro batches
+    fl = ref.get("accum2_floor")
+    fdl = fdg = [None] * len(dl)
+    if fl is not None:
+        fdl = [abs(a - b) for a, b in zip(fl["losses"], ref["losses"])]
+        fdg = [abs(a - b) / abs(b) for a, b in zip(fl["grad_norms"],
+                                                   ref["grad_norms"])]
+    held("the first step's loss", dl[0], bounds["loss_first"], None, fdl[0])
     held("the first step's grad_norm", dgs[0], bounds["grad_norm_rel_first"],
-         half.get("grad_norm_rel"))
+         half.get("grad_norm_rel"), fdg[0])
     no_update = controls.get("no_update", {})
     held("the later losses", max(dl[1:]), bounds.get("loss"),
-         no_update.get("loss"))
+         no_update.get("loss"), None if fl is None else max(fdl[1:]))
     held("the later grad_norms", max(dgs[1:]), bounds.get("grad_norm_rel"),
-         no_update.get("grad_norm_rel"))
+         no_update.get("grad_norm_rel", half.get("later_grad_norm_rel")),
+         None if fl is None else max(fdg[1:]))
     if cfg.family == "moe":
         # the processes' router reads activations rounded otherwise than
         # the stacked step's (float32 sums over ranks, rounded once), so
@@ -4434,7 +4606,9 @@ def check_train_ranks(torch, cfg, grid, ref, results, grad_leaves,
         rtol = bounds.get("grad_rtol_leaf", {}).get(n, bounds["grad_rtol"])
         fault = half.get("grad_max_err_over_leaf_max", {}).get(n)
         held(f"{n}'s first-step gradient", (worst - atol) / top, rtol,
-             None if fault is None else fault - atol / top)
+             None if fault is None else fault - atol / top,
+             None if fl is None else
+             fl["grad_max_err_over_leaf_max"][n] - atol / top)
     out["grad_max_err_over_leaf_max"] = grad_err
     out["grad_leaf_max"] = grad_top
     # (3) the parameters after the steps: the trainer tests' rule over
@@ -4448,8 +4622,9 @@ def check_train_ranks(torch, cfg, grid, ref, results, grad_leaves,
     for k, bound in bounds.get("params", {}).items():
         held(f"the parameters' {k} after {len(ref['lrs'])} steps", pv[k],
              bound, moved.get(k) if k == "share_beyond_0.05_sum_lr"
-             else None)
+             else None, None if fl is None else fl["params"][k])
     out["planted_faults"] = seen
+    out["held"] = table
     if cfg.family == "moe":
         routed = [x for r in results for x in r["routed_equal"]]
         out["routed_experts_decay_only_bitwise"] = all(routed)
@@ -4475,17 +4650,17 @@ def check_train_ranks(torch, cfg, grid, ref, results, grad_leaves,
                             f"parameter and {r['moment_bytes']} moment "
                             f"bytes, the specs give {want_p} and {want_m} "
                             f"each")
-    # (5) the collectives: the count from the layer count; over model no
-    # all_gather but the MoE's output blocks (B / data, S / model, d)
-    layout = tp_layout(cfg, meta.blocks[0].attn, sizes["model"])
+    # (5) the collectives: the count from the layer pattern; over model no
+    # all_gather but of activations (``model_gathers``)
+    attn = (meta.shared_attn.attn if "shared_attn" in meta else
+            meta.blocks[0].attn if "attn" in meta.blocks[0] else None)
+    layout = None if attn is None else tp_layout(cfg, attn, sizes["model"])
     partial = any(partial_over_model(n, sp, cfg) for n, sp in p_specs.items())
+    n_zero = sum(opt_specs["m"][n] != sp for n, sp in p_specs.items())
     want_c = train_collectives(cfg, layout, len(shapes), partial,
-                               sizes["data"])
+                               sizes["data"], n_zero)
     out["collectives_per_step"] = want_c
-    block = (TRAIN_BATCH // sizes["data"] * r0["seq"] // sizes["model"]
-             * cfg.d_model * 2)
-    want_g = ([block] * cfg.num_layers if cfg.family == "moe" else []) \
-        + ([block] * 2 * cfg.num_layers if layout == "sequence" else [])
+    want_g = model_gathers(cfg, layout, grid, r0["seq"])
     for r in results:
         if any(c != want_c for c in r["counts"]) or \
                 sorted(r["model_all_gather_bytes"]) != sorted(want_g):
@@ -4504,7 +4679,7 @@ def check_train_ranks(torch, cfg, grid, ref, results, grad_leaves,
 
 
 def train_on_ranks(torch, dev, cfg, grid, batches, opt_cfg, grad_leaves,
-                   stacked: bool, accum2: bool) -> tuple:
+                   stacked: bool, floor: bool, faults: bool) -> tuple:
     """The reference on the card (one process, or the stacked ``grid``
     with ``stacked``), then the 8 processes from its initial weights:
     (reference, the processes' results, reference seconds, spawn
@@ -4516,7 +4691,7 @@ def train_on_ranks(torch, dev, cfg, grid, batches, opt_cfg, grad_leaves,
         ref = train_ranks_reference(torch, dev, cfg, batches, opt_cfg,
                                     directory, grad_leaves,
                                     grid=grid if stacked else None,
-                                    accum2=accum2)
+                                    floor=floor, faults=faults)
         reference_s = time.perf_counter() - t0
         sum_lr = sum(ref["lrs"])
         t0 = time.perf_counter()
@@ -4584,7 +4759,7 @@ def train_ranks_path(torch, dev) -> dict:
     batches = train_ranks_batches(torch, cfg)
     ref, results, reference_s, spawn_s = train_on_ranks(
         torch, dev, cfg, TRAIN_RANKS_GRID, batches, opt_cfg,
-        TRAIN_GRAD_LEAVES, stacked=False, accum2=True)
+        TRAIN_GRAD_LEAVES, stacked=False, floor=True, faults=False)
     for r in results:
         r["seq"] = TRAIN_SEQ
     out = {"phase": "train_ranks", "cut": f"layers 22 -> {cfg.num_layers}",
@@ -4619,7 +4794,7 @@ def train_families_path(torch, dev, seed: int) -> dict:
     batches = [dict(batch) for _ in range(MOE_TRAIN_STEPS)]
     ref, results, reference_s, spawn_s = train_on_ranks(
         torch, dev, cfg, SERVE_GRID, batches, opt_cfg, MOE_RANKS_GRAD_LEAVES,
-        stacked=True, accum2=False)
+        stacked=True, floor=False, faults=True)
     for r in results:
         r["seq"] = PREFILL_LEN
     line = {"cell": "train-qwen2-moe-a2.7b-1x8-8proc-1xH100",
@@ -4648,7 +4823,7 @@ def train_families_path(torch, dev, seed: int) -> dict:
     batches = train_ranks_batches(torch, cfg)
     ref, results, reference_s, spawn_s = train_on_ranks(
         torch, dev, cfg, TRAIN_RANKS_GRID, batches, opt_cfg,
-        MLA_RANKS_GRAD_LEAVES, stacked=False, accum2=False)
+        MLA_RANKS_GRAD_LEAVES, stacked=False, floor=False, faults=True)
     for r in results:
         r["seq"] = TRAIN_SEQ
     line = {"cell": "train-minicpm3-4b-2x4-8proc-1xH100",
@@ -4667,6 +4842,80 @@ def train_families_path(torch, dev, seed: int) -> dict:
     if failures:
         log(json.dumps(out))
         raise AssertionError("phase 17: " + "; ".join(failures))
+    return out
+
+
+def rank_train_cells(ranks, cells) -> list:
+    """:func:`rank_train` of each cell's arguments in turn in one process,
+    the card's memory freed between them."""
+    import torch
+    out = []
+    for args in cells:
+        out.append(rank_train(ranks, *args))
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def train_ssm_ranks_path(torch, dev) -> dict:
+    """Phase 18 (see the module docstring): xLSTM-125M and Zamba2-1.2B
+    (depth 12) on ``(2, 4)``, each against the one-process step (its
+    floor and its planted faults), both in one spawn of 8 processes."""
+    import dataclasses
+    from repro_torch.comm import spawn_ranks
+    from repro_torch.configs import get_config
+    from repro_torch.train.optimizer import AdamWConfig
+
+    t_phase = time.perf_counter()
+    out = {"phase": "train_ranks_ssm", "paths": {}}
+    opt_cfg = AdamWConfig(lr=TRAIN_LR, warmup_steps=20,
+                          total_steps=TRAIN_STEPS)     # the launcher's
+    cells, dirs, failures = [], [], []
+    try:
+        for arch, (_, layers, leaves) in SSM_RANKS_CELLS.items():
+            cfg = get_config(arch)
+            if layers is not None:
+                cfg = dataclasses.replace(cfg, num_layers=layers)
+            batches = train_ranks_batches(torch, cfg, SSM_RANKS_SEQ,
+                                          SSM_RANKS_STEPS)
+            dirs.append(ranks_dir())
+            t0 = time.perf_counter()
+            ref = train_ranks_reference(torch, dev, cfg, batches, opt_cfg,
+                                        dirs[-1], leaves, floor=True,
+                                        faults=True)
+            cells.append((cfg, leaves, batches, ref,
+                          time.perf_counter() - t0))
+        t0 = time.perf_counter()
+        per_rank = spawn_ranks(
+            rank_train_cells, TRAIN_RANKS_GRID, ("data", "model"),
+            backend="gloo", device=dev.type, timeout_s=RANKS_TIMEOUT_S,
+            args=([(d, b, opt_cfg, sum(ref["lrs"]), cfg, leaves)
+                   for d, (cfg, leaves, b, ref, _) in zip(dirs, cells)],))
+        spawn_s = time.perf_counter() - t0
+    finally:
+        for d in dirs:
+            shutil.rmtree(d, ignore_errors=True)
+    for i, (cfg, leaves, batches, ref, reference_s) in enumerate(cells):
+        results = [r[i] for r in per_rank]
+        for r in results:
+            r["seq"] = SSM_RANKS_SEQ
+        cut = {"xlstm_125m": "none (12 layers: 10 mLSTM, 2 sLSTM)",
+               "zamba2_1_2b": f"layers 38 -> {cfg.num_layers}"}[cfg.arch_id]
+        line = {"cell": SSM_RANKS_CELLS[cfg.arch_id][0], "cut": cut,
+                "reference_kind": "one process",
+                "spawn_s_both_cells": spawn_s,
+                **ranks_phase_line(cfg, TRAIN_RANKS_GRID, ref, results,
+                                   batches, reference_s, spawn_s)}
+        checks, bad = check_train_ranks(
+            torch, cfg, TRAIN_RANKS_GRID, ref, results, leaves,
+            SSM_RANKS_BOUNDS, 0)
+        line.update(checks)
+        out["paths"][cfg.family] = line
+        failures += [f"{cfg.arch_id}: {f}" for f in bad]
+    out["phase_s"] = time.perf_counter() - t_phase
+    if failures:
+        log(json.dumps(out))
+        raise AssertionError("phase 18: " + "; ".join(failures))
     return out
 
 
@@ -4855,6 +5104,12 @@ def main(argv=None) -> int:
         log(json.dumps({"phase": f"train_ranks_families_{tag}", **p}))
     log(json.dumps({"phase": "train_ranks_families",
                     "phase_s": families["phase_s"]}))
+    gc.collect()
+    torch.cuda.empty_cache()
+    ssm = train_ssm_ranks_path(torch, dev)
+    for tag, p in ssm["paths"].items():
+        log(json.dumps({"phase": f"train_ranks_ssm_{tag}", **p}))
+    log(json.dumps({"phase": "train_ranks_ssm", "phase_s": ssm["phase_s"]}))
     phase11 = {r["run"]: r["launches"] for r in chaos["runs"]}
     host_faults = {r["run"]: r["launches"] for r in chaos["host"]}
 

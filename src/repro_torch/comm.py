@@ -50,7 +50,10 @@ test every layer makes before it takes a sharded path (a process, one
 row, on a grid whose ``model`` axis has more than one rank; the stacked
 backend never), and :func:`copy_to`, :func:`reduce_from` and
 :func:`gather_from` are the differentiable collectives the layers use,
-counted and logged like the others.
+with :func:`exchange` (an ``all_to_all`` each way), :func:`scatter_sum`
+(a ``reduce_scatter``, its backward an ``all_gather``) and
+:func:`sum_both` (a ``psum`` each way), counted and logged like the
+others.
 
 Entry points run on ``cuda`` unless the caller asks for ``"cpu"``; asking
 for ``cuda`` without a card raises — there is no quiet CPU fallback.
@@ -545,6 +548,31 @@ class ProcessRanks(Ranks):
             return out
         return out.unsqueeze(0)
 
+    def all_to_all_v(self, x: torch.Tensor, send: Sequence[int],
+                     recv: Sequence[int], axis: str) -> torch.Tensor:
+        """``all_to_all`` along one axis with blocks of given sizes: ``x``
+        is ``(1, sum(send), ...)``, its consecutive blocks of ``send[j]``
+        rows going to the rank at ``j`` along ``axis``; the result ``(1,
+        sum(recv), ...)`` holds the blocks of ``recv[i]`` rows from the
+        rank at ``i``, in the axis's order. Counted as ``all_to_all``."""
+        self._check(x)
+        names = self.axis_names(axis)
+        size = self.axis_size(names)
+        if len(names) != 1 or len(send) != size or len(recv) != size:
+            raise ValueError(f"all_to_all_v along one axis of {size} ranks: "
+                             f"axis {axis}, {len(send)} send and "
+                             f"{len(recv)} receive sizes")
+        if sum(send) != x.shape[1]:
+            raise ValueError(f"send sizes {list(send)} do not cover "
+                             f"{x.shape[1]} rows")
+        self.collectives["all_to_all"] += 1
+        part = x[0].contiguous()
+        out = part.new_empty((sum(recv),) + tuple(part.shape[1:]))
+        self._call("all_to_all", names,
+                   lambda o, i, group: dist.all_to_all_single(
+                       o, i, list(recv), list(send), group=group), out, part)
+        return out.unsqueeze(0)
+
     def gather_to_first(self, x: torch.Tensor
                         ) -> Optional[List[torch.Tensor]]:
         """Every process's ``x`` (no rank axis, one shape on all), in rank
@@ -653,6 +681,52 @@ class _GatherFrom(torch.autograd.Function):
         return g.narrow(ctx.dim, ctx.start, ctx.n), None, None, None
 
 
+class _Exchange(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, ranks, axis, dim, send, recv):
+        ctx.ranks, ctx.axis, ctx.dim = ranks, axis, dim
+        ctx.send, ctx.recv = send, recv
+        return _exchange(ranks, x, axis, dim, send, recv)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (_exchange(ctx.ranks, g, ctx.axis, ctx.dim, ctx.recv,
+                          ctx.send), None, None, None, None, None)
+
+
+def _exchange(ranks, x, axis, dim, send, recv):
+    part = x.movedim(dim, 0).contiguous()
+    out = ranks.all_to_all_v(part.unsqueeze(0), send, recv, axis)[0]
+    return out.movedim(0, dim).contiguous()
+
+
+class _ScatterSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, ranks, axis, dim):
+        ctx.ranks, ctx.axis, ctx.dim = ranks, axis, dim
+        part = x.float().movedim(dim, 0).contiguous()
+        mine = ranks.reduce_scatter(part.unsqueeze(0), axis)[0]
+        return mine.movedim(0, dim).to(x.dtype).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        part = g.movedim(ctx.dim, 0).contiguous()
+        full = ctx.ranks.all_gather(part.unsqueeze(0), ctx.axis)
+        full = full.reshape((-1,) + tuple(part.shape[1:]))
+        return full.movedim(0, ctx.dim).contiguous(), None, None, None
+
+
+class _SumBoth(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, ranks, axis):
+        ctx.ranks, ctx.axis = ranks, axis
+        return _local_psum(ranks, x, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _local_psum(ctx.ranks, g, ctx.axis), None, None
+
+
 def _one_row(ranks: Ranks) -> None:
     if ranks.rows != 1:
         raise ValueError(f"{ranks!r} stacks {ranks.rows} rows; the "
@@ -687,6 +761,43 @@ def gather_from(ranks: "ProcessRanks", x: torch.Tensor, axis: AxisLike,
     attention."""
     _one_row(ranks)
     return _GatherFrom.apply(x, ranks, axis, dim % x.dim())
+
+
+def exchange(ranks: "ProcessRanks", x: torch.Tensor, send: Sequence[int],
+             recv: Sequence[int], axis: str, dim: int) -> torch.Tensor:
+    """``all_to_all`` over ``axis`` along ``dim`` forward: ``x``'s
+    consecutive blocks of ``send[j]`` along ``dim`` go to the rank at
+    ``j``, and the result joins the blocks of ``recv[i]`` from the rank
+    at ``i`` in the axis's order (no arithmetic: the values in ``x``'s
+    dtype). The backward is the inverse ``all_to_all``. Where a
+    column-parallel product's blocks are not the columns a rank goes on
+    with (Mamba2's and mLSTM's ``[z | x]``)."""
+    _one_row(ranks)
+    return _Exchange.apply(x, ranks, axis, dim % x.dim(), tuple(send),
+                           tuple(recv))
+
+
+def scatter_sum(ranks: "ProcessRanks", x: torch.Tensor, axis: AxisLike,
+                dim: int) -> torch.Tensor:
+    """The sum over ``axis`` (``reduce_scatter``, in float32, rounded once
+    to ``x``'s dtype) of ``x``, keeping this rank's block of ``dim`` (as
+    many equal blocks as the axis has ranks, in its order). The backward
+    ``all_gather``s the blocks' gradients: each rank's ``x`` feeds every
+    block. After a row-parallel product whose output columns the ranks
+    then split (mLSTM's q, k, v and gates): ``reduce_from`` and a slice
+    would keep only this rank's block of the gradient."""
+    _one_row(ranks)
+    return _ScatterSum.apply(x, ranks, axis, dim % x.dim())
+
+
+def sum_both(ranks: "ProcessRanks", x: torch.Tensor,
+             axis: AxisLike) -> torch.Tensor:
+    """``psum`` over ``axis`` forward and backward (in float32, rounded
+    once to the dtype): where every rank reads the sum and each rank's
+    read differs (a norm's squares over a sharded dimension), so that
+    each rank's gradient of the sum is a part of the whole one."""
+    _one_row(ranks)
+    return _SumBoth.apply(x, ranks, axis)
 
 
 def free_port() -> int:

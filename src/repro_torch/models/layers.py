@@ -27,7 +27,7 @@ import torch
 from torch import nn
 
 from repro_torch.comm import (Spec, axis_position, copy_to, model_parallel,
-                              reduce_from, spec_axes)
+                              reduce_from, spec_axes, sum_both)
 
 COMPUTE_DTYPE = torch.bfloat16
 
@@ -104,6 +104,20 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor,
              eps: float = 1e-5) -> torch.Tensor:
     xf = x.float()
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    out = xf * torch.rsqrt(var + eps) * scale.float()
+    return out.to(COMPUTE_DTYPE)
+
+
+def rms_norm_parallel(ranks, x: torch.Tensor, scale: torch.Tensor,
+                      eps: float, width: int) -> torch.Tensor:
+    """:func:`rms_norm` over a last dimension of ``width`` split over the
+    model axis: ``x`` and ``scale`` are this rank's blocks, the mean of
+    squares the ranks' square sums added by :func:`repro_torch.comm.
+    sum_both` (each rank's gradient of it is its own block's part) over
+    ``width``."""
+    xf = x.float()
+    var = sum_both(ranks, torch.sum(xf * xf, dim=-1, keepdim=True),
+                   "model") / width
     out = xf * torch.rsqrt(var + eps) * scale.float()
     return out.to(COMPUTE_DTYPE)
 

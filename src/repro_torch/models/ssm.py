@@ -16,6 +16,33 @@ returns it):
 - mLSTM: ``{"C": (B,H,P,P) fp32, "n": (B,H,P), "m": (B,H), "conv":
   (B,K-1,d_in)}``
 - sLSTM: ``{"c", "n", "h", "m": (B,H,P)}``
+
+Model-parallel (training over process ranks, where
+:func:`repro_torch.comm.model_parallel` holds) each block keeps the
+blocks its specs give the process, and a rank runs its heads:
+
+- Mamba2 and mLSTM: the ``[z | x]`` projection is column-parallel over
+  the concatenated columns, so a rank's block is not its heads' z and x
+  (at ``model`` = 2 rank 0 holds all of z): one :func:`repro_torch.comm.
+  exchange` gives each rank its heads' channels of both, which the conv,
+  the ``norm`` and the output projection's blocks match. The norm sums
+  its squares over ``model`` (:func:`repro_torch.models.layers.
+  rms_norm_parallel`); the output projection is row-parallel.
+- Mamba2's B, C and dt (``in_bcdt``, ``conv_bc``) are computed
+  replicated and enter the heads through one ``copy_to``, so those
+  leaves hold their whole gradient; the per-head ``a_log``, ``d_skip``
+  and ``dt_bias`` are replicated and sliced by head: each rank's
+  gradient is its heads' part.
+- mLSTM's ``wqkv`` and ``wif`` are row-parallel over the conv's
+  channels: one :func:`repro_torch.comm.scatter_sum` sums the partial q,
+  k, v and gates and keeps this rank's heads' (its backward gathers the
+  gradient every rank's channels feed); ``if_bias`` is sliced by head.
+- sLSTM: ``w_gates`` is column-parallel over ``[i | f | z | o]`` (at
+  ``model`` = 4 a rank holds one whole gate), so ``gather_from`` rebuilds
+  the input gates and every model rank runs the whole recurrence with
+  the replicated ``r_gates``, ``gate_bias`` and ``norm``; ``out_proj``
+  is column-parallel, its blocks gathered. No collective runs inside
+  the time loop.
 """
 
 from __future__ import annotations
@@ -25,9 +52,13 @@ from typing import Dict, Optional
 
 import torch
 
+from repro_torch.comm import (axis_position, copy_to, exchange,
+                              gather_from, model_parallel, scatter_sum)
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import (COMPUTE_DTYPE, Params, dense_init,
-                                       rms_norm, silu)
+                                       enter_parallel, parallel_product,
+                                       rms_norm, rms_norm_parallel,
+                                       row_parallel, silu)
 
 
 def softplus(x: torch.Tensor) -> torch.Tensor:
@@ -38,6 +69,70 @@ def softplus(x: torch.Tensor) -> torch.Tensor:
 def log_sigmoid(x: torch.Tensor) -> torch.Tensor:
     """``jax.nn.log_sigmoid``: ``-softplus(-x)``."""
     return -softplus(-x)
+
+
+def tp_heads(cfg: ModelConfig, kind: str, model: int) -> int:
+    """The heads a rank runs of a recurrent block (``"mamba"``,
+    ``"mlstm"``, ``"slstm"``) on a ``model`` axis of ``model`` ranks;
+    raises where the heads do not split over them."""
+    H = {"mamba": lambda: mamba2_dims(cfg)[1],
+         "mlstm": lambda: mlstm_dims(cfg)[1],
+         "slstm": lambda: slstm_heads(cfg)[0]}[kind]()
+    if H % model:
+        raise ValueError(f"{cfg.arch_id}: {H} {kind} heads do not split "
+                         f"over {model} ranks of the model axis")
+    return H // model
+
+
+def _parallel_only(ranks, cache) -> bool:
+    """Whether to take the model-parallel branch: a full forward (no
+    cache) on a process holding shards."""
+    if not model_parallel(ranks):
+        return False
+    if cache is not None:
+        raise ValueError("a model-parallel recurrent block runs the full "
+                         "forward of a decoder: no cache")
+    return True
+
+
+def zx_plan(d_in: int, model: int, rank: int):
+    """The ``[z | x]`` exchange of model rank ``rank``: ``(pieces, send,
+    recv)``. Cut into ``2 model`` pieces of ``d_in / model`` columns,
+    piece ``k`` is the z (``k < model``) or the x of the heads of rank
+    ``k % model``; rank ``r``'s column block holds pieces ``2r`` and
+    ``2r + 1`` (at ``model`` = 4 ranks 0-1 hold only z), which it sends
+    in ``pieces``' order (ascending destination), ``send[j]`` columns to
+    rank ``j``; it receives ``recv[i]`` from rank ``i``, its z from a
+    lower rank than its x, so the result is its heads' ``[z | x]``."""
+    w = d_in // model
+    pieces = [k for _, k in sorted((k % model, k)
+                                   for k in (2 * rank, 2 * rank + 1))]
+    send, recv = [0] * model, [0] * model
+    for k in pieces:
+        send[k % model] += w
+    for k in (rank, model + rank):
+        recv[k // 2] += w
+    return pieces, send, recv
+
+
+def _zx_heads(ranks, zx: torch.Tensor, d_in: int) -> torch.Tensor:
+    """This rank's column block of a ``[z | x]`` product (``2 d_in``
+    columns cut into equal blocks over ``model``) exchanged into its
+    heads' ``[z | x]`` (``d_in / model`` channels of each):
+    :func:`zx_plan`."""
+    r = axis_position(ranks, "model")
+    pieces, send, recv = zx_plan(d_in, ranks.axis_size("model"), r)
+    if pieces != [2 * r, 2 * r + 1]:
+        w = d_in // len(send)
+        zx = torch.cat([zx[..., (k - 2 * r) * w:(k - 2 * r + 1) * w]
+                        for k in pieces], dim=-1)
+    return exchange(ranks, zx, send, recv, "model", -1)
+
+
+def _head_block(t: torch.Tensor, ranks, per_rank: int) -> torch.Tensor:
+    """This rank's heads' entries of a per-head vector."""
+    r = axis_position(ranks, "model")
+    return t[..., r * per_rank:(r + 1) * per_rank]
 
 
 def _write(cache: Dict, new: Dict) -> Dict:
@@ -104,8 +199,8 @@ class Mamba2(Params):
         self.norm.fill_(1.0)
         dense_init(self.out_proj, generator)
 
-    def forward(self, x, cache: Optional[Dict] = None):
-        return mamba2_apply(self, x, self.cfg, cache)
+    def forward(self, x, cache: Optional[Dict] = None, ranks=None):
+        return mamba2_apply(self, x, self.cfg, cache, ranks)
 
 
 def _causal_conv(x, w, b, state=None):
@@ -127,8 +222,12 @@ def _causal_conv(x, w, b, state=None):
     return silu(y), new_state
 
 
-def mamba2_apply(params, x, cfg: ModelConfig, cache: Optional[Dict] = None):
-    """x: (B, L, d). Returns (y (B,L,d), cache)."""
+def mamba2_apply(params, x, cfg: ModelConfig, cache: Optional[Dict] = None,
+                 ranks=None):
+    """x: (B, L, d). Returns (y (B,L,d), cache). ``ranks`` holding
+    shards: the model-parallel full forward of the module docstring."""
+    if _parallel_only(ranks, cache):
+        return _mamba2_parallel(params, x, cfg, ranks), None
     B, L, _ = x.shape
     d_in, H, Pdim = mamba2_dims(cfg)
     N = cfg.ssm_state
@@ -169,6 +268,37 @@ def mamba2_apply(params, x, cfg: ModelConfig, cache: Optional[Dict] = None):
     return out, cache
 
 
+def _mamba2_parallel(params, x, cfg: ModelConfig, ranks):
+    """Mamba2 over the replicated ``x`` on a process holding its shards
+    (the module docstring); the output is replicated."""
+    B, L, _ = x.shape
+    d_in, H, Pdim = mamba2_dims(cfg)
+    N = cfg.ssm_state
+    heads = tp_heads(cfg, "mamba", ranks.axis_size("model"))
+    xc = x.to(COMPUTE_DTYPE)
+    zx = parallel_product(enter_parallel(ranks, xc), params["in_zx"])
+    z, xi = _zx_heads(ranks, zx, d_in).chunk(2, dim=-1)
+    bcdt = xc @ params["in_bcdt"].to(COMPUTE_DTYPE)
+    bc, dt_raw = bcdt[..., :2 * N], bcdt[..., 2 * N:]
+    xi, _ = _causal_conv(xi, params["conv_x"].to(COMPUTE_DTYPE),
+                         params["conv_x_b"].to(COMPUTE_DTYPE))
+    bc, _ = _causal_conv(bc, params["conv_bc"].to(COMPUTE_DTYPE),
+                         params["conv_bc_b"].to(COMPUTE_DTYPE))
+    # B, C and dt feed every head: their gradient summed over model
+    shared = copy_to(ranks, torch.cat([bc, dt_raw], dim=-1).float(), "model")
+    Bs, Cs, dt_all = shared.split([N, N, H], dim=-1)
+    dt = softplus(_head_block(dt_all, ranks, heads)
+                  + _head_block(params["dt_bias"], ranks, heads))
+    A = -torch.exp(_head_block(params["a_log"], ranks, heads))
+    y, _ = _ssd_chunked(xi.reshape(B, L, heads, Pdim), Bs, Cs, dt, A,
+                        _head_block(params["d_skip"], ranks, heads),
+                        cfg.chunk_size)
+    y = y.reshape(B, L, heads * Pdim)
+    y = rms_norm_parallel(ranks, y * silu(z.float()).to(COMPUTE_DTYPE),
+                          params["norm"], cfg.norm_eps, d_in)
+    return row_parallel(ranks, y, params["out_proj"])
+
+
 def _ssd_step(x, Bv, Cv, dt, A, d_skip, state):
     """One decode step. x: (B,H,P); Bv/Cv: (B,N); dt: (B,H); state
     (B,H,P,N). Returns (y, new state)."""
@@ -183,16 +313,21 @@ def _ssd_step(x, Bv, Cv, dt, A, d_skip, state):
 
 
 def _intra_decay(w, upper, cb, dt):
-    """``where(upper, 0, exp(w)) * cb * dt``, the chunk's decay weights.
-    Without gradients (serving) in ``w``'s own buffer, so that no second
-    (B,C,Q,Q,H) float32 buffer exists; with gradients out of place, since
-    autograd keeps ``exp``'s output for the backward. Both round every op
-    alike, so they give the same bits."""
+    """``where(upper, 0, exp(w)) * cb * dt``, the chunk's decay weights,
+    as ``exp(where(upper, -inf, w)) * cb * dt``: the same bits (``exp(-inf)``
+    is 0), but the upper triangle's ``w`` (the decay from later positions,
+    up to ``+200`` at Zamba2-1.2B's chunk of 256) never reaches ``exp``.
+    The JAX package's ``jnp.where(tri, jnp.exp(diff), 0.0)`` overflows to
+    inf there, and its gradient takes ``0 * inf``: NaN gradients from the
+    first step at full width. Without gradients (serving) in ``w``'s own
+    buffer, so that no second (B,C,Q,Q,H) float32 buffer exists; with
+    gradients out of place, since autograd keeps ``exp``'s output for the
+    backward. Both round every op alike, so they give the same bits."""
     if not torch.is_grad_enabled():
+        w.masked_fill_(upper, float("-inf"))
         w.exp_()
-        w.masked_fill_(upper, 0.0)
         return w.mul_(cb).mul_(dt)
-    return torch.exp(w).masked_fill(upper, 0.0) * cb * dt
+    return torch.exp(w.masked_fill(upper, float("-inf"))) * cb * dt
 
 
 def _ssd_chunked(xs, Bs, Cs, dt, A, d_skip, Q: int, init_state=None):
@@ -313,8 +448,8 @@ class MLSTM(Params):
         self.norm.fill_(1.0)
         dense_init(self.down_proj, generator)
 
-    def forward(self, x, cache: Optional[Dict] = None):
-        return mlstm_apply(self, x, self.cfg, cache)
+    def forward(self, x, cache: Optional[Dict] = None, ranks=None):
+        return mlstm_apply(self, x, self.cfg, cache, ranks)
 
 
 def _mlstm_chunked(q, k, v, log_i, log_f, Q: int, init_state=None):
@@ -407,7 +542,12 @@ def _mlstm_step(q, k, v, log_i, log_f, cache):
     return y.to(COMPUTE_DTYPE), {"C": C, "n": n, "m": m_new}
 
 
-def mlstm_apply(params, x, cfg: ModelConfig, cache: Optional[Dict] = None):
+def mlstm_apply(params, x, cfg: ModelConfig, cache: Optional[Dict] = None,
+                ranks=None):
+    """x: (B, L, d). Returns (y, cache). ``ranks`` holding shards: the
+    model-parallel full forward of the module docstring."""
+    if _parallel_only(ranks, cache):
+        return _mlstm_parallel(params, x, cfg, ranks), None
     B, L, _ = x.shape
     d_in, H, Pdim = mlstm_dims(cfg)
     up = x.to(COMPUTE_DTYPE) @ params["up_proj"].to(COMPUTE_DTYPE)
@@ -436,6 +576,43 @@ def mlstm_apply(params, x, cfg: ModelConfig, cache: Optional[Dict] = None):
     if cache is not None:
         _write(cache, dict(new_rec, conv=new_conv))
     return out, cache
+
+
+def _mlstm_parallel(params, x, cfg: ModelConfig, ranks):
+    """mLSTM over the replicated ``x`` on a process holding its shards
+    (the module docstring); the output is replicated."""
+    B, L, _ = x.shape
+    d_in, H, Pdim = mlstm_dims(cfg)
+    m = ranks.axis_size("model")
+    heads = tp_heads(cfg, "mlstm", m)
+    w = heads * Pdim
+    up = parallel_product(enter_parallel(ranks, x), params["up_proj"])
+    z, xi = _zx_heads(ranks, up, d_in).chunk(2, dim=-1)
+    xi, _ = _causal_conv(xi, params["conv_w"].to(COMPUTE_DTYPE),
+                         params["conv_b"].to(COMPUTE_DTYPE))
+    xf = xi.float()
+    # this rank's channels' parts of q, k, v and the gates, laid out by
+    # the rank whose heads each column is, summed and kept there
+    qkv = xf @ params["wqkv"].to(COMPUTE_DTYPE).float()
+    gates = xf @ params["wif"].to(COMPUTE_DTYPE).float()
+    parts = torch.cat(
+        [qkv.reshape(B, L, 3, m, w).movedim(3, 2).reshape(B, L, m, 3 * w),
+         gates.reshape(B, L, 2, m, heads).movedim(3, 2).reshape(
+             B, L, m, 2 * heads)], dim=-1)
+    mine = scatter_sum(ranks, parts, "model", 2).reshape(B, L, -1)
+    q, k, v = [t.reshape(B, L, heads, Pdim) for t in
+               mine[..., :3 * w].to(COMPUTE_DTYPE).chunk(3, dim=-1)]
+    bias = params["if_bias"]
+    gates = mine[..., 3 * w:].to(COMPUTE_DTYPE).float() + torch.cat(
+        [_head_block(bias[:H], ranks, heads),
+         _head_block(bias[H:], ranks, heads)])
+    log_i = torch.clamp(gates[..., :heads], max=15.0)
+    log_f = log_sigmoid(gates[..., heads:])
+    y, _ = _mlstm_chunked(q, k, v, log_i, log_f, cfg.chunk_size)
+    y = rms_norm_parallel(ranks, y.reshape(B, L, w)
+                          * silu(z.float()).to(COMPUTE_DTYPE),
+                          params["norm"], cfg.norm_eps, d_in)
+    return row_parallel(ranks, y, params["down_proj"])
 
 
 def mlstm_init_cache(cfg: ModelConfig, batch: int, device=None) -> Dict:
@@ -487,44 +664,158 @@ class SLSTM(Params):
         self.norm.fill_(1.0)
         dense_init(self.out_proj, generator)
 
-    def forward(self, x, cache: Optional[Dict] = None):
-        return slstm_apply(self, x, self.cfg, cache)
+    def forward(self, x, cache: Optional[Dict] = None, ranks=None):
+        return slstm_apply(self, x, self.cfg, cache, ranks)
 
 
-def slstm_apply(params, x, cfg: ModelConfig, cache: Optional[Dict] = None):
-    """A loop over time (sLSTM is a true recurrence). x: (B,L,d)."""
+def slstm_apply(params, x, cfg: ModelConfig, cache: Optional[Dict] = None,
+                ranks=None):
+    """A loop over time (sLSTM is a true recurrence). x: (B,L,d).
+    ``ranks`` holding shards: the input gates and the output gathered
+    over ``model`` around the replicated recurrence (the module
+    docstring)."""
     B, L, d = x.shape
-    H, Pd = slstm_heads(cfg)
-    wx = (x.to(COMPUTE_DTYPE) @ params["w_gates"].to(COMPUTE_DTYPE)
-          ).float() + params["gate_bias"]                      # (B,L,4d)
-    wx = wx.reshape(B, L, 4, H, Pd)
-    st = cache if cache is not None else slstm_init_cache(cfg, B, x.device)
-    c, n, h, m = st["c"], st["n"], st["h"], st["m"]
-    r = params["r_gates"]                                      # (H,P,4P)
-    hs = torch.empty((B, L, H, Pd), dtype=torch.float32, device=x.device)
-    for t in range(L):
-        wxt = wx[:, t]
-        rh = torch.einsum("bhp,hpq->bhq", h, r).reshape(B, H, 4, Pd)
-        pre_i = wxt[:, 0] + rh[:, :, 0]
-        pre_f = wxt[:, 1] + rh[:, :, 1]
-        pre_z = wxt[:, 2] + rh[:, :, 2]
-        pre_o = wxt[:, 3] + rh[:, :, 3]
-        m_new = torch.maximum(pre_f + m, pre_i)
-        i_g = torch.exp(pre_i - m_new)
-        f_g = torch.exp(pre_f + m - m_new)
-        z_g = torch.tanh(pre_z)
-        o_g = torch.sigmoid(pre_o)
-        c = f_g * c + i_g * z_g
-        n = f_g * n + i_g
-        h = o_g * c / torch.clamp(n, min=1.0)
-        m = m_new
-        hs[:, t] = h
-    y = rms_norm(hs.reshape(B, L, d).to(COMPUTE_DTYPE), params["norm"],
-                 cfg.norm_eps)
+    tp = _parallel_only(ranks, cache)
+    if tp:
+        tp_heads(cfg, "slstm", ranks.axis_size("model"))
+        wx = gather_from(ranks, parallel_product(enter_parallel(ranks, x),
+                                                 params["w_gates"]),
+                         "model", -1)
+    else:
+        wx = x.to(COMPUTE_DTYPE) @ params["w_gates"].to(COMPUTE_DTYPE)
+    y, state = _slstm_scan(params, wx.float() + params["gate_bias"], cfg,
+                           cache)
+    if tp:
+        out = gather_from(ranks, parallel_product(enter_parallel(ranks, y),
+                                                  params["out_proj"]),
+                          "model", -1)
+        return out, None
     out = y @ params["out_proj"].to(COMPUTE_DTYPE)
     if cache is not None:
-        _write(cache, {"c": c, "n": n, "h": h, "m": m})
+        _write(cache, state)
     return out, cache
+
+
+def _slstm_step(wxt, h, c, n, m, r):
+    """One time step of the recurrence: ``wxt`` (B,4,H,P) the input gates,
+    ``h``, ``c``, ``n``, ``m`` (B,H,P) the state, ``r`` (H,P,4P). Returns
+    the new ``(h, c, n, m)`` and what the step's derivative reads,
+    ``(pre_i, fm, i_g, f_g, z_g, o_g)``. The ops and their order are the
+    JAX package's (one add for the four gates' pre-activations, ``pre_f
+    + m`` once)."""
+    B, H, Pd = h.shape
+    rh = torch.einsum("bhp,hpq->bhq", h, r).reshape(B, H, 4, Pd)
+    pre_i, pre_f, pre_z, pre_o = (wxt + rh.transpose(1, 2)).unbind(1)
+    fm = pre_f + m
+    m_new = torch.maximum(fm, pre_i)
+    i_g = torch.exp(pre_i - m_new)
+    f_g = torch.exp(fm - m_new)
+    z_g = torch.tanh(pre_z)
+    o_g = torch.sigmoid(pre_o)
+    c = f_g * c + i_g * z_g
+    n = f_g * n + i_g
+    h = o_g * c / torch.clamp(n, min=1.0)
+    return (h, c, n, m_new), (pre_i, fm, i_g, f_g, z_g, o_g)
+
+
+def _slstm_loop(wx, r, c, n, h, m):
+    """The recurrence over ``wx`` (B,L,4,H,P): ``(hs (B,L,H,P), c, n, h,
+    m)``."""
+    hs = []
+    for t in range(wx.shape[1]):
+        (h, c, n, m), _ = _slstm_step(wx[:, t], h, c, n, m, r)
+        hs.append(h)
+    return torch.stack(hs, dim=1), c, n, h, m
+
+
+class _SLSTMScan(torch.autograd.Function):
+    """:func:`_slstm_loop` as one autograd node, for training: the forward
+    runs the same steps unrecorded and saves each step's states and
+    gates stacked over time; the backward runs each op's derivative by
+    hand, step by step in reverse, as autograd would (``maximum`` halving
+    a tie, ``clamp`` passing where ``n >= 1``), and ``r_gates``' gradient
+    as one product over every step. Autograd's graph of the loop is
+    about 30 nodes a step, whose bookkeeping on the host costs more than
+    the step's small launches; the hand-written backward issues none of
+    it (float64 checks: ``tests/test_torch_train_dist_ssm.py``)."""
+
+    @staticmethod
+    def forward(ctx, wx, r, c, n, h, m):
+        states = {"h": [h], "c": [c], "n": [n]}
+        gates = [[] for _ in range(6)]
+        for t in range(wx.shape[1]):
+            (h, c, n, m), g = _slstm_step(wx[:, t], h, c, n, m, r)
+            for k, v in (("h", h), ("c", c), ("n", n)):
+                states[k].append(v)
+            for lst, v in zip(gates, g):
+                lst.append(v)
+        ctx.save_for_backward(r, *(torch.stack(v, dim=1) for v in
+                                   (*states.values(), *gates)))
+        return torch.stack(states["h"][1:], dim=1), c, n, h, m
+
+    @staticmethod
+    def backward(ctx, dhs, dc, dn, dh, dm):
+        r, H_all, C_all, N_all, PI, FM, IG, FG, ZG, OG = ctx.saved_tensors
+        B, L1, H, Pd = H_all.shape
+
+        def zero_if_none(g):
+            return torch.zeros_like(H_all[:, 0]) if g is None else g
+        dc, dn, dh, dm = (zero_if_none(g) for g in (dc, dn, dh, dm))
+        dpre = [None] * (L1 - 1)
+        for t in range(L1 - 2, -1, -1):
+            cp, np_, c2, n2 = C_all[:, t], N_all[:, t], C_all[:, t + 1], \
+                N_all[:, t + 1]
+            i_g, f_g, z_g, o_g = IG[:, t], FG[:, t], ZG[:, t], OG[:, t]
+            if dhs is not None:
+                dh = dh + dhs[:, t]
+            # h = o_g * c2 / q, q = clamp(n2, min=1)
+            q = torch.clamp(n2, min=1.0)
+            d_oc = dh / q
+            dq = -dh * (o_g * c2) / (q * q)
+            do = d_oc * c2
+            dc = dc + d_oc * o_g
+            dn = dn + torch.where(n2 >= 1.0, dq, 0.0)
+            # c2 = f_g * cp + i_g * z_g, n2 = f_g * np + i_g
+            df = dc * cp + dn * np_
+            di = dc * z_g + dn
+            dz = dc * i_g
+            dc = dc * f_g
+            dn = dn * f_g
+            # i_g = exp(pre_i - m_new), f_g = exp(fm - m_new)
+            ai, af = di * i_g, df * f_g
+            dmn = dm - ai - af
+            fm, pre_i = FM[:, t], PI[:, t]
+            split = torch.where(fm == pre_i, dmn / 2, dmn)
+            dfm = af + torch.where(fm < pre_i, 0.0, split)
+            d_pre_i = ai + torch.where(fm > pre_i, 0.0, split)
+            dm = dfm                              # fm = pre_f + m
+            dpre[t] = torch.stack([d_pre_i, dfm, dz * (1 - z_g * z_g),
+                                   do * (1 - o_g) * o_g], dim=1)
+            dh = torch.einsum("bhq,hpq->bhp",
+                              dpre[t].transpose(1, 2).reshape(B, H, 4 * Pd),
+                              r)
+        dwx = torch.stack(dpre, dim=1)                       # (B,L,4,H,P)
+        dr = torch.einsum("blhp,blhq->hpq", H_all[:, :-1],
+                          dwx.transpose(2, 3).reshape(B, L1 - 1, H, 4 * Pd))
+        return dwx, dr, dc, dn, dh, dm
+
+
+def _slstm_scan(params, wx, cfg: ModelConfig, cache: Optional[Dict]):
+    """The recurrence over the input gates ``wx`` (B,L,4d) float32 from
+    ``cache``'s state (or the initial one), and the normed output:
+    (y (B,L,d) bfloat16, final state). With gradients through
+    :class:`_SLSTMScan`."""
+    B, L, d = wx.shape[0], wx.shape[1], wx.shape[2] // 4
+    H, Pd = slstm_heads(cfg)
+    wx = wx.reshape(B, L, 4, H, Pd)
+    st = cache if cache is not None else slstm_init_cache(cfg, B, wx.device)
+    r = params["r_gates"]                                      # (H,P,4P)
+    scan = (_SLSTMScan.apply if torch.is_grad_enabled()
+            and (wx.requires_grad or r.requires_grad) else _slstm_loop)
+    hs, c, n, h, m = scan(wx, r, st["c"], st["n"], st["h"], st["m"])
+    y = rms_norm(hs.reshape(B, L, d).to(COMPUTE_DTYPE), params["norm"],
+                 cfg.norm_eps)
+    return y, {"c": c, "n": n, "h": h, "m": m}
 
 
 def slstm_init_cache(cfg: ModelConfig, batch: int, device=None) -> Dict:

@@ -152,12 +152,16 @@ _RECURRENT = {"mamba": ("mamba", ssm.mamba2_apply),
 
 def apply_block(params, x, cfg: ModelConfig, kind: str, q_pos, cache,
                 ranks=None, dp_axes: Sequence[str] = ("data",)):
-    """``_apply_block`` of the JAX package: (x, cache, aux)."""
+    """``_apply_block`` of the JAX package: (x, cache, aux). Where the
+    process holds shards (:func:`repro_torch.comm.model_parallel`) every
+    kind is model-parallel: the attention blocks (zamba2's shared block
+    at each of its points too) and the recurrent ones
+    (:mod:`repro_torch.models.ssm`)."""
     if kind in ATTN_KINDS:
         return _attn_block(params, x, cfg, q_pos, cache, ranks, dp_axes)
     name, fn = _RECURRENT[kind]
     h = rms_norm(x, params["ln1"], cfg.norm_eps)
-    y, new_cache = fn(params[name], h, cfg, cache)
+    y, new_cache = fn(params[name], h, cfg, cache, ranks)
     return x + y, new_cache, {}
 
 

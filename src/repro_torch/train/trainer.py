@@ -1,6 +1,7 @@
 """Trainer: the train step (gradient accumulation, AdamW, metrics) for any
 registry model, on one device or a stacked rank grid, and the sharded
-step of the dense and the MoE decoder over process ranks.
+step of the dense, MoE, SSM (xLSTM) and hybrid (zamba2) decoders over
+process ranks.
 
 Port of ``repro/train/trainer.py``. The JAX package jits the step and
 donates its buffers; here the step runs eagerly and updates parameters
@@ -17,7 +18,10 @@ specs), and :func:`jit_train_step` runs the step the JAX package jits
 over a mesh, with every collective explicit: the batch over the data
 axes, the decoder model-parallel over ``model`` (the layers'
 ``copy_to``/``reduce_from``/``gather_from``; GQA, SWA or MLA attention,
-the MLP or the MoE with its dispatch's ``all_to_all``s), the gradients
+the MLP or the MoE with its dispatch's ``all_to_all``s; Mamba2 and mLSTM
+by head with their ``[z | x]`` exchange, mLSTM's ``scatter_sum`` and the
+norms' ``sum_both``, sLSTM's gates gathered; zamba2's shared attention
+block at each of its points), the gradients
 reduced over the data axes (a ``reduce_scatter`` to the moment shard
 where ZeRO-1 shards a leaf, else a ``psum``), AdamW on the moment shard
 and the matching slice of the parameter, and the slices all-gathered
@@ -27,13 +31,20 @@ back.
 axis is replicated along it. Read outside a model-parallel region (the
 norms, on replicated activations; MoE's ``shared_gate``; MLA's
 ``wq_down``, ``q_norm``, ``wkv_down`` and ``kv_norm``, whose latents
-enter the heads through ``copy_to``) every rank's gradient is already
-the whole one. Read inside one, each rank's gradient is its own heads',
-query rows' or tokens' part of it: the GQA/SWA attention's replicated
-weights (every weight of the ``_seq_shard`` branch, ``wk``/``wv`` where
-one KV head is replicated, ``q_norm``/``k_norm``), and the MoE's
-``router``, which each model rank reads on its own block of positions
-(its only gradient, through ``moe_aux``). The rule
+enter the heads through ``copy_to``; Mamba2's ``in_bcdt``, ``conv_bc``
+and ``conv_bc_b``, whose B, C and dt enter the heads so; sLSTM's
+``r_gates``, ``gate_bias`` and ``norm``, read by the recurrence each
+model rank runs whole) every rank's gradient is already the whole one.
+Read inside one, each rank's gradient is its own heads', query rows' or
+tokens' part of it: the GQA/SWA
+attention's replicated weights (every weight of the ``_seq_shard``
+branch, ``wk``/``wv`` where one KV head is replicated,
+``q_norm``/``k_norm``; zamba2's ``shared_attn.attn`` too, its parts
+added over its application points by autograd), the MoE's ``router``,
+which each model rank reads on its own block of positions (its only
+gradient, through ``moe_aux``), and the per-head vectors each rank
+slices its heads from: Mamba2's ``a_log``, ``d_skip`` and ``dt_bias``,
+mLSTM's ``if_bias``. The rule
 (:func:`partial_over_model`): the gradients of those leaves are summed
 over ``model`` once, after the backward (one ``psum`` of them all);
 then every ``model`` rank holds each replicated leaf's whole gradient,
@@ -56,6 +67,7 @@ from repro_torch.models.attention import tp_layout
 from repro_torch.models.convert import flatten, named_leaves, unflatten
 from repro_torch.models.moe import plan_experts
 from repro_torch.models.registry import Model, meta_params
+from repro_torch.models.ssm import tp_heads
 from repro_torch.train.optimizer import (AdamWConfig, adamw_update,
                                          zero1_specs,
                                          init_opt_state)
@@ -89,8 +101,11 @@ def build_train_step(model: Model, opt_cfg: AdamWConfig,
                      ranks: Optional[Ranks] = None,
                      dp_axes: Sequence[str] = ("data",),
                      accum_steps: int = 1):
-    """Returns ``train_step(params, opt_state, batch) -> (params,
-    opt_state, metrics)``, updating both in place.
+    """Returns ``train_step(params, opt_state, batch, *, on_grads=None)
+    -> (params, opt_state, metrics)``, updating both in place;
+    ``on_grads(grads)``, if given, sees ``{name: gradient or None}`` (the
+    accumulated float32 gradient with ``accum_steps``) before the
+    update.
 
     With ``accum_steps > 1`` the batch's leading axis must be divisible;
     the gradients of the micro batches are accumulated in float32 as
@@ -98,7 +113,8 @@ def build_train_step(model: Model, opt_cfg: AdamWConfig,
     batch's and ``metrics`` holds only the optimizer's and the loss, as
     in the JAX package."""
 
-    def train_step(params, opt_state, batch):
+    def train_step(params, opt_state, batch, *,
+                   on_grads: Optional[Callable] = None):
         if accum_steps == 1:
             loss, metrics, grads = loss_and_grads(model, params, batch,
                                                   ranks, dp_axes)
@@ -117,6 +133,8 @@ def build_train_step(model: Model, opt_cfg: AdamWConfig,
                         acc[n] = acc[n] + g.float() / accum_steps
                 del grads
             grads, metrics = acc, {}
+        if on_grads is not None:
+            on_grads(grads)
         _, _, opt_metrics = adamw_update(
             opt_cfg, named_leaves(params, model.cfg), grads, opt_state)
         return params, opt_state, dict(metrics, **opt_metrics, loss=loss)
@@ -190,16 +208,28 @@ def _local_shape(shape, spec: Spec, ranks: Ranks) -> Tuple[int, ...]:
     return tuple(len(range(n)[sl]) for n, sl in zip(shape, blocks))
 
 
+#: the per-head vectors of the recurrent blocks, by their block's name
+_PER_HEAD = {".mamba.": (".a_log", ".d_skip", ".dt_bias"),
+             ".cell.": (".if_bias",)}
+
+
 def partial_over_model(name: str, spec: Spec, cfg=None) -> bool:
     """The rule of the module docstring: a leaf whose spec names no
     ``model`` axis takes a part of its gradient on each model rank if it
-    is a MoE's ``router`` or a GQA/SWA attention's (``cfg`` None or not
-    MLA); MLA's replicated leaves hold their whole gradient."""
+    is a MoE's ``router``, a GQA/SWA attention's (``cfg`` None or not
+    MLA; zamba2's ``shared_attn.attn`` among them) or a recurrent
+    block's per-head vector (Mamba2's ``a_log``, ``d_skip``,
+    ``dt_bias``; mLSTM's ``if_bias``); MLA's replicated leaves, Mamba2's
+    B, C and dt projections and sLSTM's leaves hold their whole
+    gradient."""
     if "model" in spec_axes(spec):
         return False
     dotted = f".{name}"
     if ".moe." in dotted:
         return dotted.endswith(".router")
+    for block, vectors in _PER_HEAD.items():
+        if block in dotted:
+            return dotted.endswith(vectors)
     return ".attn." in dotted and (cfg is None or cfg.attn_type != "mla")
 
 
@@ -252,11 +282,13 @@ def jit_train_step(model: Model, opt_cfg: AdamWConfig, ranks: Ranks,
     each leaf's block under its spec in ``specs`` (the moment's under
     ZeRO-1).
 
-    The dense decoder (GQA, SWA, MLA) and the MoE decoder only; a KV head
-    split over model ranks, MLA heads that ``model`` does not divide
-    (:func:`repro_torch.models.attention.tp_layout`), or experts padded
-    otherwise for ``model`` expert ranks than for the weights raise
-    here."""
+    The dense (GQA, SWA, MLA), MoE, SSM (xLSTM) and hybrid (zamba2)
+    decoders; the enc-dec and VLM families raise here, and so do a KV
+    head split over model ranks, MLA heads that ``model`` does not divide
+    (:func:`repro_torch.models.attention.tp_layout`), experts padded
+    otherwise for ``model`` expert ranks than for the weights, and
+    Mamba2, mLSTM or sLSTM heads that ``model`` does not divide
+    (:func:`repro_torch.models.ssm.tp_heads`)."""
     cfg = model.cfg
     dp = tuple(dp_axes)
     p_specs, opt_specs = make_state_shardings(model, _sizes(ranks),
@@ -268,10 +300,11 @@ def jit_train_step(model: Model, opt_cfg: AdamWConfig, ranks: Ranks,
     specs = (p_specs, opt_specs, b_specs)
     if ranks.rows == ranks.world:
         return build_train_step(model, opt_cfg, ranks, dp, accum_steps), specs
-    if cfg.family not in ("dense", "moe"):
+    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
         raise ValueError(f"{cfg.arch_id}: training over process ranks "
-                         f"covers the dense (GQA, SWA, MLA) and the moe "
-                         f"decoder; the {cfg.family} family is not ported")
+                         f"covers the dense (GQA, SWA, MLA), moe, ssm and "
+                         f"hybrid decoders; the {cfg.family} family is not "
+                         f"ported")
     meta = meta_params(cfg)
     tp = model_parallel(ranks)
     if cfg.family == "moe" and not tp:
@@ -280,8 +313,12 @@ def jit_train_step(model: Model, opt_cfg: AdamWConfig, ranks: Ranks,
                          f"model axis of more than one rank; {ranks!r}")
     if tp:
         m = ranks.axis_size("model")
-        for block in meta.blocks:
-            tp_layout(cfg, block.attn, m)
+        shared = [meta.shared_attn] if "shared_attn" in meta else []
+        for block in list(meta.blocks) + shared:
+            if "attn" in block:
+                tp_layout(cfg, block.attn, m)
+            else:
+                tp_heads(cfg, block.kind, m)
             if "moe" in block:
                 plan_experts(cfg, block.moe.w_gate.shape[0], m)
     shapes = {n: tuple(p.shape) for n, p in meta.named_parameters()}

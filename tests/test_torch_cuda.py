@@ -1405,3 +1405,52 @@ def test_process_ranks_family_train_step_on_the_card(card, arch, grid):
     assert len(routed) == (3 * cfg.num_layers if moe else 0)
     for n in routed:
         assert torch.equal(got[n], want[n]), n
+
+
+@pytest.mark.parametrize("arch,grid", [("xlstm_125m", (1, 2)),
+                                       ("xlstm_125m", (2, 1)),
+                                       ("zamba2_1_2b", (1, 2)),
+                                       ("zamba2_1_2b", (2, 1))],
+                         ids=["xlstm_model2", "xlstm_data2",
+                              "zamba2_model2", "zamba2_data2"])
+def test_process_ranks_ssm_train_step_on_the_card(card, arch, grid):
+    """Two gloo processes on ``cuda:0`` run one step of smoke xLSTM
+    (mLSTM and sLSTM) or smoke zamba2 (Mamba2 and the shared attention
+    block) from weights drawn on the card, the heads over ``(1, 2)`` or
+    the batch over ``(2, 1)``, held to the one-process step on the card
+    by ``tests/test_torch_train_dist_ssm.py``'s bounds: the loss within
+    2e-3, ``grad_norm`` within 5e-3 relative, the parameters by
+    ``tests/test_torch_train.py``'s rule; no kernel launches."""
+    import torch_train_dist_families_paths as fpaths
+    from repro_torch.comm import spawn_ranks
+    from repro_torch.configs.base import get_smoke_config
+    from repro_torch.data import synthetic_tokens
+    from repro_torch.models import build
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.trainer import build_train_step, init_train_state
+    cfg = get_smoke_config(arch)
+    block = synthetic_tokens(8 * 33, cfg.vocab).reshape(8, 33)
+    batch = {"tokens": torch.from_numpy(block[:, :-1].copy()),
+             "labels": torch.from_numpy(block[:, 1:].copy())}
+    opt = AdamWConfig(lr=3e-3, warmup_steps=5, total_steps=60)
+    res = spawn_ranks(fpaths.card_step, grid, ("data", "model"),
+                      backend="gloo", device="cuda", timeout_s=300,
+                      args=(cfg, batch, opt))
+    model = build(cfg)
+    params, state = init_train_state(model, _gen(card, 0), card)
+    _, _, m = build_train_step(model, opt)(
+        params, state, {k: v.to(card) for k, v in batch.items()})
+    lr = float(m["lr"])
+    for r in res:
+        assert r["device"] == "cuda:0"
+        assert abs(r["losses"][0] - float(m["loss"])) <= 2e-3
+        assert abs(r["grad_norms"][0] - float(m["grad_norm"])) <= \
+            5e-3 * float(m["grad_norm"])
+        assert r["lrs"][0] == lr
+        assert r["k1_launches"] == 0
+    got = res[0]["params"]
+    diffs = torch.cat([(got[n] - p.detach().cpu()).abs().reshape(-1)
+                       for n, p in params.named_parameters()])
+    assert float(diffs.max()) <= 2 * lr
+    assert float(torch.quantile(diffs, 0.99)) <= 0.05 * lr
+    assert float(diffs.median()) <= 0.005 * lr

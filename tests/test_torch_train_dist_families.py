@@ -575,18 +575,22 @@ def test_no_weight_is_gathered_over_model(spawned, cases, case):
 
 def test_what_is_not_ported_raises(spawned):
     """On ``(2, 2)``: 6 experts pad to 16 in the weights but to 6 for 2
-    expert ranks; 3 MLA heads do not split over 2 ranks; the SSM, hybrid,
-    enc-dec and VLM families are named."""
+    expert ranks; 3 MLA heads, 1 xLSTM head and 3 Mamba2 heads do not
+    split over 2 ranks; the enc-dec and VLM families are named; smoke
+    xLSTM and zamba2 (the SSM and hybrid families) build."""
     results, _ = spawned
     for res in results:
         msgs = res["raises"]
         assert "pad 6 experts to 6" in msgs["padding"]
         assert "3 MLA heads do not split over 2" in msgs["mla_heads"]
-        for arch, family in (("xlstm_125m", "ssm"), ("zamba2_1_2b",
-                                                     "hybrid"),
-                             ("whisper_small", "audio"),
+        assert "1 mlstm heads do not split over 2 ranks of the model " \
+            "axis" in msgs["xlstm_heads"]
+        assert "3 mamba heads do not split over 2 ranks of the model " \
+            "axis" in msgs["mamba_heads"]
+        for arch, family in (("whisper_small", "audio"),
                              ("internvl2_1b", "vlm")):
             assert f"the {family} family is not ported" in msgs[arch]
+        assert msgs["xlstm_125m"] == msgs["zamba2_1_2b"] == ""
 
 
 def test_published_configs_raise_where_they_do_not_split():

@@ -55,10 +55,16 @@ def run_cases(ranks, cases: dict, opt_cfg: AdamWConfig) -> dict:
 def raising_configs() -> dict:
     """Configs ``jit_train_step`` refuses on a model axis of 2: smoke
     qwen2-moe's 6 experts (the weights pad them to 16, two expert ranks
-    to 6), MLA with 3 heads, and a family of each kind not ported."""
+    to 6), MLA with 3 heads, xLSTM with 1 head, Mamba2 with 3 (zamba2 at
+    ``d_model`` 96), and the two families not ported (enc-dec, VLM);
+    with smoke xLSTM and zamba2, which it builds."""
     mla = get_smoke_config("minicpm3_4b")
     return {"padding": get_smoke_config("qwen2_moe_a2_7b"),
             "mla_heads": dataclasses.replace(mla, n_heads=3, n_kv_heads=3),
+            "xlstm_heads": dataclasses.replace(
+                get_smoke_config("xlstm_125m"), ssm_heads=1),
+            "mamba_heads": dataclasses.replace(
+                get_smoke_config("zamba2_1_2b"), d_model=96),
             **{arch: get_smoke_config(arch) for arch in
                ("xlstm_125m", "zamba2_1_2b", "whisper_small",
                 "internvl2_1b")}}
