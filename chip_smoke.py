@@ -217,6 +217,12 @@ Phases, in order (any failure ends the script with a non-zero exit):
     each collective's host seconds and the bytes each process hands to
     gloo per hop, and each process's peak memory. A process that raises
     or outlasts its limit fails the phase.
+Phases 16-18 share one spawn of 8 processes for their seven cells
+    (``train_grid_path``: every cell's reference on the card first, then
+    each process trains the cells one after another, phase 17's MoE cell
+    on a ``(1, 8)`` grid built over the same processes and the others on
+    ``(2, 4)``, then every cell is checked and printed under its phase's
+    line), so that the processes start and warm up once.
 16. ``train_ranks``: TinyLlama-1.1B at its published width (d 2048, 32
     heads, 4 KV heads, d_ff 5632, vocab 32000, remat), its depth cut 22
     -> 11 layers to leave phase 17 room in the time limit, trained
@@ -251,7 +257,9 @@ Phases, in order (any failure ends the script with a non-zero exit):
     last step's gloo bytes and seconds by op and axis, the peak memory a
     process. A process that raises or outlasts its limit fails the phase.
 17. ``train_ranks_families``: two paths, each as 8 gloo processes on
-    ``cuda:0`` checked as phase 16 is. (1)
+    ``cuda:0`` checked as phase 16 is (the MoE cell's printed as
+    ``train_ranks_families_moe``, MiniCPM3's as
+    ``train_ranks_families_mla``). (1)
     ``train-qwen2-moe-a2.7b-1x8-8proc-1xH100``: phase 14's MoE cell
     (Qwen1.5-MoE-A2.7B at its published width, 2 layers, its weights
     from the seed, its batch of 8 x 1024 uniform tokens three times, its
@@ -285,10 +293,11 @@ Phases, in order (any failure ends the script with a non-zero exit):
     losses, norms and parameters are printed, not compared. Prints each
     path's warm step against its reference, gloo bytes and seconds by op
     and axis, the peak memory a process and K1's launches.
-18. ``train_ranks_ssm``: the SSM and hybrid families as 8 gloo processes
-    on ``cuda:0`` on ``(data, model) = (2, 4)``, both in one spawn (each
-    process trains xLSTM, frees it, trains zamba2), each against the
-    one-process step on the card and checked as phase 16 is. (1)
+18. ``train_ranks_cells``: four families as 8 gloo processes on
+    ``cuda:0`` on ``(data, model) = (2, 4)`` (each process trains a
+    cell, frees it, trains the next; the lines printed as
+    ``train_ranks_cells_<family>``), each against the one-process step
+    on the card and checked as phase 16 is. (1)
     ``train-xlstm-125m-2x4-8proc-1xH100``: xLSTM-125M at its published
     config (12 layers, 10 mLSTM and 2 sLSTM, d 768, d_in 1536, 4 heads,
     chunk 256), one mLSTM head a model rank (the ``[z | x]`` exchange,
@@ -297,26 +306,42 @@ Phases, in order (any failure ends the script with a non-zero exit):
     which every model rank runs whole. (2)
     ``train-zamba2-1.2b-2x4-8proc-1xH100``: Zamba2-1.2B at its published
     width (d 2048, d_in 4096, 64 SSM heads, state 64; the shared block's
-    32 heads and d_ff 8192), depth cut 38 -> 12 (the shared block at
-    layers 5 and 11), 16 SSM heads and 8 attention heads a model rank.
-    Each trains 2 steps on 8 x 1024 tokens of phase 16's corpus at the
-    launcher's lr and warmup. The reference also reads the one process's
-    own floor (its first gradient over two halves of the batch, its steps
-    over two micro batches) and two planted faults: the gradient of the
-    batch's first half of rows halved, and the steps without their
-    update. The bounds are fixed numbers stated with their measurement
-    (``SSM_RANKS_BOUNDS``), with no absolute term on the gradients (the
-    per-head leaves' whole gradients lie below the CPU tests' 1e-3); each
-    held reading is printed beside its bound, its planted fault and the
-    floor, and the phase fails where a fault reads within its bound.
-    Checks as phase 16's: the processes' metrics the same bits, the first
-    step's loss, norm and named leaves' gradients, the second step's loss
-    and norm, the parameters after 2 steps by the trainer tests' rule,
-    the state's bytes, the collectives a step (``train_collectives``) and
-    the ``all_gather``s over ``model`` of activations only
-    (``model_gathers``). Prints each path's cold and warm step against the
-    one process's, gloo bytes and seconds by op and axis and the peak
-    memory a process.
+    32 heads and d_ff 8192), depth cut 38 -> 6 (the shared block at
+    layer 5), 16 SSM heads and 8 attention heads a model rank.
+    Each trains 2 steps on 8 x 1024 tokens of phase 16's corpus. (3)
+    ``train-whisper-small-2x4-8proc-1xH100``: Whisper-small at its
+    published width (d 768, 12 heads, d_ff 3072, vocab 51865, 1500
+    encoder frames), depth cut 12 + 12 -> 6 + 6, its 12 heads against
+    ``tp_size`` 16 in the sequence layout (375 encoder frames and 112
+    decoder positions of query rows a model rank; the cross-attention
+    over all 1500 frames, their keys and values each rank's products of
+    the encoder output, which enters the decoder through one
+    ``copy_to``): 8 rows of stub frames drawn on the card from the seed,
+    448 tokens of the corpus under a ``loss_mask`` of transcript lengths
+    64-448 drawn from the seed, the loss the global masked mean. (4)
+    ``train-internvl2-1b-2x4-8proc-1xH100``: InternVL2-1B's LM at its
+    published width (d 896, 14 heads, 2 KV heads, d_ff 4864, vocab
+    151655), depth cut 24 -> 12, sequence layout: 8 rows of 256 image
+    embeddings drawn on the card in front of 768 tokens of the corpus,
+    the loss on the text. All at the launcher's lr and warmup. The
+    reference also reads the one process's own floor (its first gradient
+    over two halves of the batch, its steps over two micro batches) and
+    two planted faults: the gradient of the batch's first half of rows
+    halved, and the steps without their update. The bounds are fixed
+    numbers stated with their measurement (``SSM_RANKS_BOUNDS``;
+    ``ENCDEC_RANKS_BOUNDS``, the same, fixed before the new cells' first
+    reading), with no absolute term on the gradients; each held reading
+    is printed beside its bound, its planted fault and the floor, and the
+    phase fails where a fault reads within its bound. Checks as phase
+    16's: the processes' metrics the same bits, the first step's loss,
+    norm and named leaves' gradients, the second step's loss and norm,
+    the parameters after 2 steps by the trainer tests' rule, the state's
+    bytes, the collectives a step (``train_collectives``, the mask's
+    count among them) and the ``all_gather``s over ``model`` of
+    activations only (``model_gathers``). Prints each path's cold and
+    warm step against the one process's, gloo bytes and seconds by op
+    and axis, the peak memory a process and, for Whisper, each data
+    rank's unmasked tokens.
 
 Each path's launch counts are read from zero: every count is reset just
 before the path runs and read just after. The last lines are the
@@ -396,10 +421,13 @@ MOE_TRAIN_LAYERS, MOE_TRAIN_STEPS = 2, 3
 RANKS_TIMEOUT_S = 600
 MOE_RANKS_TOL = 2.0 ** -7
 #: phase 16: TinyLlama-1.1B at its published width, depth cut 22 -> 11
-#: (phase 17's room in the script's time limit), trained as 8 processes
-#: on the (data, model) grid, against the one-process step on phase 14's
-#: first batches, 2 steps (3 before phase 18's room was made; phase 17's
-#: MiniCPM3 takes the same batches); the CPU tests' bounds
+#: (phase 17's room in the script's time limit; at 6 layers its first
+#: grad_norm reads 0.67%, and so does the one process against its own two
+#: micro batches: beyond the 0.5% held), trained as 8 processes on the
+#: (data, model) grid, against the one-process step on phase 14's first
+#: batches, 2 steps (3 before phase 18's room was made; phase 17's
+#: MiniCPM3 takes the same batches; every (2, 4) cell of phases 16-18
+#: trains 2 steps, in one spawn); the CPU tests' bounds
 #: (tests/test_torch_train_dist.py)
 TRAIN_RANKS_GRID = (2, 4)
 TRAIN_RANKS_LAYERS = 11
@@ -486,24 +514,26 @@ MLA_RANKS_GRAD_LEAVES = ("final_ln", "blocks.7.ln1",
                          "blocks.7.attn.wv_up", "blocks.7.attn.wo",
                          "blocks.7.mlp.w_down")
 #: phase 18: xLSTM-125M at its published width and depth and Zamba2-1.2B
-#: at its published width with its depth cut 38 -> 12 (the shared block's
-#: points at layers 5 and 11 kept), each trained 2 steps as 8 processes on
+#: at its published width with its depth cut 38 -> 6 (one point of the
+#: shared block, at layer 5; 12 layers and a second point at layer 11
+#: until the script's time limit needed the room), each trained 2 steps
+#: as 8 processes on
 #: (2, 4) on 8 x 1024 tokens of phase 16's corpus, against the one-process
 #: step; by architecture: (the cell, depth or None, the leaves whose
 #: first-step gradient blocks are held)
-SSM_RANKS_SEQ, SSM_RANKS_STEPS = 1024, 2
+SSM_RANKS_SEQ = 1024
 SSM_RANKS_CELLS = {
     "xlstm_125m": ("train-xlstm-125m-2x4-8proc-1xH100", None, (
         "embed", "final_ln", "blocks.0.cell.up_proj", "blocks.0.cell.wqkv",
         "blocks.0.cell.wif", "blocks.10.cell.norm", "blocks.10.cell.wqkv",
         "blocks.11.cell.w_gates", "blocks.11.cell.r_gates",
         "blocks.11.cell.norm", "blocks.11.cell.out_proj")),
-    "zamba2_1_2b": ("train-zamba2-1.2b-2x4-8proc-1xH100", 12, (
+    "zamba2_1_2b": ("train-zamba2-1.2b-2x4-8proc-1xH100", 6, (
         "embed", "final_ln", "blocks.0.mamba.in_zx", "blocks.0.mamba.in_bcdt",
-        "blocks.11.mamba.in_zx", "blocks.11.mamba.in_bcdt",
-        "blocks.11.mamba.a_log", "blocks.11.mamba.dt_bias",
-        "blocks.11.mamba.d_skip", "blocks.11.mamba.norm",
-        "blocks.11.mamba.out_proj", "shared_attn.attn.wq",
+        "blocks.5.mamba.in_zx", "blocks.5.mamba.in_bcdt",
+        "blocks.5.mamba.a_log", "blocks.5.mamba.dt_bias",
+        "blocks.5.mamba.d_skip", "blocks.5.mamba.norm",
+        "blocks.5.mamba.out_proj", "shared_attn.attn.wq",
         "shared_attn.mlp.w_down"))}
 #: phase 18's bounds against the one-process step (measured on an NVIDIA
 #: H100 80GB HBM3 at 700 W; PERF.md section 6 has each reading): the CPU
@@ -536,6 +566,43 @@ SSM_RANKS_BOUNDS = {
     "grad_rtol": 0.15,
     "params": {"max_over_sum_lr": 2.5, "share_beyond_0.05_sum_lr": 0.6,
                "share_beyond_0.005_sum_lr": 0.95}}
+#: phase 18's enc-dec and VLM cells (in phase 18's spawn):
+#: Whisper-small and InternVL2-1B at their published widths, depths cut
+#: (Whisper 12 + 12 -> 6 + 6 layers, InternVL2 24 -> 12) to fit the
+#: script's time limit, each trained 2 steps as 8 processes on (2, 4)
+#: against the one-process step; by architecture: (the cell, the
+#: config's cuts, the leaves whose first-step gradient blocks are held).
+#: Whisper: 8 rows of 1500 stub frames drawn on the card from the seed,
+#: 448 decoder tokens of phase 16's corpus (its published text context,
+#: ``WHISPER_PROMPT_LEN``) under a ``loss_mask`` of transcript lengths
+#: drawn from the seed, 64 to 448 tokens a row; InternVL2: 8 rows of 256
+#: image embeddings drawn on the card in front of 768 text tokens of the
+#: corpus
+ENCDEC_RANKS_CELLS = {
+    "whisper_small": ("train-whisper-small-2x4-8proc-1xH100",
+                      {"enc_layers": 6, "num_layers": 6}, (
+        "embed", "final_ln", "enc_ln", "enc_blocks.0.attn.wq",
+        "enc_blocks.5.attn.wo", "enc_blocks.5.mlp.w_up",
+        "dec_blocks.0.self_attn.wq", "dec_blocks.5.self_attn.wv",
+        "dec_blocks.5.ln_x", "dec_blocks.5.cross_attn.wq",
+        "dec_blocks.5.cross_attn.wk", "dec_blocks.5.cross_attn.wo",
+        "dec_blocks.5.mlp.w_down")),
+    "internvl2_1b": ("train-internvl2-1b-2x4-8proc-1xH100",
+                     {"num_layers": 12}, (
+        "embed", "final_ln", "img_proj", "blocks.0.ln1",
+        "blocks.0.attn.wq", "blocks.0.attn.wk", "blocks.11.attn.wv",
+        "blocks.11.attn.wo", "blocks.11.mlp.w_gate",
+        "blocks.11.mlp.w_down"))}
+WHISPER_TRANSCRIPT_MIN = 64
+VLM_TEXT_LEN = 768
+#: the enc-dec and VLM cells' bounds, fixed before their first reading:
+#: phase 18's SSM and hybrid bounds (``SSM_RANKS_BOUNDS``, set from
+#: their one process's float32-products sample at full width: the first
+#: gradients moved 1.4-11.5% by rounding alone), unchanged; each
+#: held reading is printed beside the one process's own floor (its steps
+#: over two micro batches) and the planted half-batch fault, and the
+#: phase fails where a fault reads within its bound
+ENCDEC_RANKS_BOUNDS = dict(SSM_RANKS_BOUNDS)
 #: phase 15's paths in the kernel table
 RANKED_PATHS = (("flat", "dataflow sort, flat"),
                 ("grid", "dataflow sort, (dc, node)"),
@@ -4114,7 +4181,7 @@ RECURRENT_COLLECTIVES = {
 
 
 def train_collectives(cfg, layout, n_leaves: int, partial: bool,
-                      data: int, n_zero=None) -> dict:
+                      data: int, n_zero=None, masked: bool = False) -> dict:
     """The collectives of one sharded step over a ``(data, model)`` grid
     from the layer pattern, which ``tests/test_torch_train_dist_families.py``
     and ``tests/test_torch_train_dist_ssm.py`` also hold the CPU
@@ -4141,7 +4208,12 @@ def train_collectives(cfg, layout, n_leaves: int, partial: bool,
     ``reduce_scatter`` forward and in the recompute and its
     ``all_gather`` in the backward; sLSTM the gates' and the output's
     ``all_gather`` forward, the gates' again in the recompute, and its
-    two ``copy_to`` gradients. Around the layers: the embedding's sum,
+    two ``copy_to`` gradients. The enc-dec: each encoder layer an
+    attention layer's; each decoder layer one's with a second attention,
+    the cross-attention, whose collectives are the self-attention's (its
+    keys and values are this rank's products of the encoder output, which
+    enters the decoder once: one ``copy_to`` gradient a step). Around the
+    layers: the embedding's sum,
     the cross-entropy's ``pmax`` and sum and its logits' ``copy_to``;
     after the backward one ``psum`` of the partial leaves' gradients
     where there are any (the router; replicated GQA leaves; the
@@ -4149,7 +4221,8 @@ def train_collectives(cfg, layout, n_leaves: int, partial: bool,
     one data rank) one ``reduce_scatter`` and one ``all_gather`` a leaf
     ZeRO-1 shards (``n_zero`` of the ``n_leaves``, default all) and one
     ``psum`` each of the others, and one ``psum`` each of the norm's
-    squares and of the metrics over ``data``."""
+    squares and of the metrics over ``data``; with ``masked`` and more
+    than one data rank, one ``psum`` of the loss mask's count."""
     from repro_torch.models.transformer import (_shared_attn_points,
                                                 layer_pattern)
     mla = cfg.attn_type == "mla"
@@ -4167,13 +4240,24 @@ def train_collectives(cfg, layout, n_leaves: int, partial: bool,
     n_zero = n_leaves if n_zero is None else n_zero
     zero = n_zero if data > 1 else 0
     plain = n_leaves - n_zero if data > 1 else 0
-    out = {"psum": 1 + 2 + int(partial) + 1 + (data > 1) + plain,
+    out = {"psum": 1 + 2 + int(partial) + 1 + (data > 1) + plain
+           + (masked and data > 1),
            "pmax": 1, "all_gather": zero, "reduce_scatter": zero,
            "all_to_all": 0}
-    kinds = layer_pattern(cfg) + ["shared_attn"] * len(
-        _shared_attn_points(cfg))
+    if cfg.family == "audio":
+        cross = {"psum": 2 * attn_fwd + attn_bwd, "all_gather": seq_gathers}
+        decoder = {op: attention.get(op, 0) + cross.get(op, 0)
+                   for op in attention}
+        kinds = ["enc"] * cfg.enc_layers + ["dec"] * cfg.num_layers
+        out["psum"] += 1
+    else:
+        decoder = None
+        kinds = layer_pattern(cfg) + ["shared_attn"] * len(
+            _shared_attn_points(cfg))
     for kind in kinds:
-        for op, n in RECURRENT_COLLECTIVES.get(kind, attention).items():
+        layer = decoder if kind == "dec" else RECURRENT_COLLECTIVES.get(
+            kind, attention)
+        for op, n in layer.items():
             out[op] += n
     return {k: v for k, v in out.items() if v}
 
@@ -4183,16 +4267,24 @@ def model_gathers(cfg, layout, grid, seq: int) -> list:
     makes (what a process hands to gloo), all of activations: a MoE
     layer's output blocks and the sequence-parallel attention's query
     rows twice (forward and recompute), ``(B / data, S / model, d)``
-    bfloat16; sLSTM's input gates twice, ``(B / data, S, 4 d / model)``,
-    and its output once, ``(B / data, S, d / model)``, bfloat16; the
-    gradient of mLSTM's q, k, v and gates, ``(B / data, S, (3 d_in + 2
-    H) / model)`` float32."""
+    bfloat16 (``S`` every position: the VLM's image tokens and its text;
+    the enc-dec encoder's frames, and twice the decoder's tokens, for
+    the self- and the cross-attention); sLSTM's input gates twice, ``(B
+    / data, S, 4 d / model)``, and its output once, ``(B / data, S, d /
+    model)``, bfloat16; the gradient of mLSTM's q, k, v and gates, ``(B
+    / data, S, (3 d_in + 2 H) / model)`` float32."""
     from repro_torch.models.ssm import mlstm_dims
     from repro_torch.models.transformer import (_shared_attn_points,
                                                 layer_pattern)
     data, m = grid
     rows = TRAIN_BATCH // data * seq
     block = rows // m * cfg.d_model * 2
+    if cfg.family == "audio":
+        if layout != "sequence":
+            return []
+        frames = TRAIN_BATCH // data * cfg.enc_seq // m * cfg.d_model * 2
+        return ([frames] * 2 * cfg.enc_layers
+                + [block] * 4 * cfg.num_layers)
     out = []
     for kind in layer_pattern(cfg) + ["shared_attn"] * len(
             _shared_attn_points(cfg)):
@@ -4210,10 +4302,13 @@ def model_gathers(cfg, layout, grid, seq: int) -> list:
 
 
 def train_ranks_batches(torch, cfg, seq: int = TRAIN_SEQ,
-                        steps: int = TRAIN_RANKS_STEPS):
+                        steps: int = TRAIN_RANKS_STEPS, dev=None,
+                        seed: int = 0):
     """The first ``steps`` batches of ``seq`` tokens of the launcher's
     corpus at ``TRAIN_STEPS`` steps, in Sector slices, served by a fresh
-    ``SectorDataPipeline`` (the launcher's seed), as int32 tensors."""
+    ``SectorDataPipeline`` (the launcher's seed), as int32 tensors; with
+    the enc-dec's or the VLM's inputs besides (:func:`family_inputs`,
+    drawn on ``dev`` from ``seed``)."""
     import tempfile
     from repro_torch.data import (SectorDataPipeline, synthetic_tokens,
                                   upload_token_dataset)
@@ -4229,10 +4324,39 @@ def train_ranks_batches(torch, cfg, seq: int = TRAIN_SEQ,
         daemon.run_until_stable()
         it = iter(SectorDataPipeline(master, client, "/corpus/train",
                                      batch=TRAIN_BATCH, seq_len=seq))
-        return [{k: torch.from_numpy(v) for k, v in next(it).items()}
-                for _ in range(steps)]
+        batches = [{k: torch.from_numpy(v) for k, v in next(it).items()}
+                   for _ in range(steps)]
     finally:
         shutil.rmtree(root, ignore_errors=True)
+    if cfg.family in ("audio", "vlm"):
+        family_inputs(torch, dev, cfg, batches, seed)
+    return batches
+
+
+def family_inputs(torch, dev, cfg, batches, seed: int) -> None:
+    """The enc-dec's and the VLM's inputs besides the tokens, added to
+    each batch in place (CPU tensors): the stub frames or image
+    embeddings drawn on the card from ``seed`` as phase 13's
+    ``zoo_inputs`` draws them; the enc-dec's ``loss_mask`` of transcript
+    lengths from ``WHISPER_TRANSCRIPT_MIN`` to the batch's length drawn
+    from ``seed``, the padding after each masked."""
+    import numpy as np
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    rng = np.random.default_rng(seed)
+    for b in batches:
+        B, S = b["tokens"].shape
+        if cfg.family == "audio":
+            b["frames"] = torch.randn(
+                (B, cfg.enc_seq, cfg.d_model), generator=gen,
+                device=dev).bfloat16().cpu()
+            lengths = rng.integers(WHISPER_TRANSCRIPT_MIN, S + 1, B)
+            b["loss_mask"] = torch.from_numpy(
+                (np.arange(S)[None] < lengths[:, None]).astype(np.float32))
+        else:
+            b["img_embeds"] = torch.randn(
+                (B, cfg.img_tokens, cfg.d_model), generator=gen,
+                device=dev).bfloat16().cpu()
 
 
 def train_ranks_reference(torch, dev, cfg, batches, opt_cfg, directory: str,
@@ -4248,7 +4372,10 @@ def train_ranks_reference(torch, dev, cfg, batches, opt_cfg, directory: str,
     and 18): the one process against itself, the same steps with each
     batch as two micro batches (the gradient's sums grouped as two data
     ranks group them; each step's loss taken on the whole batch first),
-    its first gradient the mean of the two halves'. With ``faults``
+    its first gradient the mean of the two halves'; with a ``loss_mask``
+    each micro batch's mean over its own unmasked count, as the JAX
+    package's scan takes them, so there the floor holds that weighting
+    besides rounding). With ``faults``
     (phases 17 and 18) the planted faults' readings (``controls``): the
     gradient of each batch's first half of rows, halved, against the
     step's (the first step's held leaves, each's error over its largest
@@ -4504,13 +4631,15 @@ def rank_train(ranks, directory: str, batches, opt_cfg, sum_lr: float,
 
 
 def check_train_ranks(torch, cfg, grid, ref, results, grad_leaves,
-                      bounds: dict, k1_per_step: int) -> tuple:
+                      bounds: dict, k1_per_step: int,
+                      masked: bool = False) -> tuple:
     """Phase 16's and 17's checks of the processes' ``results`` against
     the reference run ``ref`` within ``bounds``: (the phase line's
     numbers, failures). A quantity whose bound is missing is printed, not
     held (MLA's later steps). Where ``ref`` carries planted faults'
     readings (``controls``), each held bound they reach must be below its
-    fault's reading: a check that cannot see the fault fails."""
+    fault's reading: a check that cannot see the fault fails. ``masked``:
+    the batches carry a ``loss_mask`` (its count's ``psum`` a step)."""
     import math
     from repro_torch.comm import shard_slices, spec_axes
     from repro_torch.models import build
@@ -4652,13 +4781,17 @@ def check_train_ranks(torch, cfg, grid, ref, results, grad_leaves,
                             f"each")
     # (5) the collectives: the count from the layer pattern; over model no
     # all_gather but of activations (``model_gathers``)
-    attn = (meta.shared_attn.attn if "shared_attn" in meta else
-            meta.blocks[0].attn if "attn" in meta.blocks[0] else None)
+    if "enc_blocks" in meta:
+        attn = meta.enc_blocks[0].attn
+    elif "shared_attn" in meta:
+        attn = meta.shared_attn.attn
+    else:
+        attn = meta.blocks[0].attn if "attn" in meta.blocks[0] else None
     layout = None if attn is None else tp_layout(cfg, attn, sizes["model"])
     partial = any(partial_over_model(n, sp, cfg) for n, sp in p_specs.items())
     n_zero = sum(opt_specs["m"][n] != sp for n, sp in p_specs.items())
     want_c = train_collectives(cfg, layout, len(shapes), partial,
-                               sizes["data"], n_zero)
+                               sizes["data"], n_zero, masked)
     out["collectives_per_step"] = want_c
     want_g = model_gathers(cfg, layout, grid, r0["seq"])
     for r in results:
@@ -4676,34 +4809,6 @@ def check_train_ranks(torch, cfg, grid, ref, results, grad_leaves,
                             f"{r['k1_launches']} a step, {k1_per_step} "
                             f"expected")
     return out, failures
-
-
-def train_on_ranks(torch, dev, cfg, grid, batches, opt_cfg, grad_leaves,
-                   stacked: bool, floor: bool, faults: bool) -> tuple:
-    """The reference on the card (one process, or the stacked ``grid``
-    with ``stacked``), then the 8 processes from its initial weights:
-    (reference, the processes' results, reference seconds, spawn
-    seconds). The weights travel through ``/dev/shm``."""
-    from repro_torch.comm import spawn_ranks
-    directory = ranks_dir()
-    try:
-        t0 = time.perf_counter()
-        ref = train_ranks_reference(torch, dev, cfg, batches, opt_cfg,
-                                    directory, grad_leaves,
-                                    grid=grid if stacked else None,
-                                    floor=floor, faults=faults)
-        reference_s = time.perf_counter() - t0
-        sum_lr = sum(ref["lrs"])
-        t0 = time.perf_counter()
-        results = spawn_ranks(rank_train, grid, ("data", "model"),
-                              backend="gloo", device=dev.type,
-                              timeout_s=RANKS_TIMEOUT_S,
-                              args=(directory, batches, opt_cfg, sum_lr,
-                                    cfg, grad_leaves))
-        spawn_s = time.perf_counter() - t0
-    finally:
-        shutil.rmtree(directory, ignore_errors=True)
-    return ref, results, reference_s, spawn_s
 
 
 def ranks_phase_line(cfg, grid, ref, results, batches, reference_s,
@@ -4744,178 +4849,172 @@ def ranks_phase_line(cfg, grid, ref, results, batches, reference_s,
             "comm_last_step_rank0": r0["comm_last_step"]}
 
 
-def train_ranks_path(torch, dev) -> dict:
-    """Phase 16 (see the module docstring): the one-process reference,
-    the 8 processes, the checks."""
-    import dataclasses
-    from repro_torch.configs import get_config
-    from repro_torch.train.optimizer import AdamWConfig
-
-    t_phase = time.perf_counter()
-    cfg = dataclasses.replace(get_config(TRAIN_ARCH),
-                              num_layers=TRAIN_RANKS_LAYERS)
-    opt_cfg = AdamWConfig(lr=TRAIN_LR, warmup_steps=20,
-                          total_steps=TRAIN_STEPS)     # the launcher's
-    batches = train_ranks_batches(torch, cfg)
-    ref, results, reference_s, spawn_s = train_on_ranks(
-        torch, dev, cfg, TRAIN_RANKS_GRID, batches, opt_cfg,
-        TRAIN_GRAD_LEAVES, stacked=False, floor=True, faults=False)
-    for r in results:
-        r["seq"] = TRAIN_SEQ
-    out = {"phase": "train_ranks", "cut": f"layers 22 -> {cfg.num_layers}",
-           **ranks_phase_line(cfg, TRAIN_RANKS_GRID, ref, results, batches,
-                              reference_s, spawn_s)}
-    checks, failures = check_train_ranks(
-        torch, cfg, TRAIN_RANKS_GRID, ref, results, TRAIN_GRAD_LEAVES,
-        TRAIN_RANKS_BOUNDS, 0)
-    out.update(checks)
-    out["phase_s"] = time.perf_counter() - t_phase
-    # every check runs and the phase line is printed before a failure ends
-    # the run
-    if failures:
-        log(json.dumps(out))
-        raise AssertionError("phase 16: " + "; ".join(failures))
-    return out
-
-
-def train_families_path(torch, dev, seed: int) -> dict:
-    """Phase 17 (see the module docstring): Qwen1.5-MoE-A2.7B on ``(1,
-    8)`` against phase 14's stacked step, MiniCPM3-4B on ``(2, 4)``
-    against the one-process step, each as 8 processes."""
-    import dataclasses
-    from repro_torch.configs import get_config
-    from repro_torch.train.optimizer import AdamWConfig
-
-    t_phase = time.perf_counter()
-    out = {"phase": "train_ranks_families", "paths": {}}
-    failures = []
-    # (1) phase 14's MoE cell: its weights, its batch, its optimizer
-    cfg, batch, opt_cfg = moe_train_setup(torch, seed)
-    batches = [dict(batch) for _ in range(MOE_TRAIN_STEPS)]
-    ref, results, reference_s, spawn_s = train_on_ranks(
-        torch, dev, cfg, SERVE_GRID, batches, opt_cfg, MOE_RANKS_GRAD_LEAVES,
-        stacked=True, floor=False, faults=True)
-    for r in results:
-        r["seq"] = PREFILL_LEN
-    line = {"cell": "train-qwen2-moe-a2.7b-1x8-8proc-1xH100",
-            "cut": f"layers 24 -> {cfg.num_layers}",
-            "experts": cfg.num_experts, "top_k": cfg.top_k,
-            "capacity_factor": cfg.capacity_factor,
-            "reference_kind": "stacked Ranks (1, 8), phase 14's step",
-            "reference_moe_metrics": ref["metrics"],
-            **ranks_phase_line(cfg, SERVE_GRID, ref, results, batches,
-                               reference_s, spawn_s)}
-    checks, bad = check_train_ranks(
-        torch, cfg, SERVE_GRID, ref, results, MOE_RANKS_GRAD_LEAVES,
-        MOE_RANKS_BOUNDS, 4 * cfg.num_layers)
-    line.update(checks)
-    line["k1_launches"] = sum(sum(r["k1_launches"]) for r in results)
-    out["paths"]["moe"] = line
-    failures += [f"MoE: {f}" for f in bad]
-    del ref, results
-    gc.collect()
-    torch.cuda.empty_cache()
-    # (2) MiniCPM3-4B, MLA, on (2, 4)
-    cfg = dataclasses.replace(get_config(MLA_TRAIN_ARCH),
-                              num_layers=MLA_TRAIN_LAYERS)
-    opt_cfg = AdamWConfig(lr=TRAIN_LR, warmup_steps=20,
-                          total_steps=TRAIN_STEPS)
-    batches = train_ranks_batches(torch, cfg)
-    ref, results, reference_s, spawn_s = train_on_ranks(
-        torch, dev, cfg, TRAIN_RANKS_GRID, batches, opt_cfg,
-        MLA_RANKS_GRAD_LEAVES, stacked=False, floor=False, faults=True)
-    for r in results:
-        r["seq"] = TRAIN_SEQ
-    line = {"cell": "train-minicpm3-4b-2x4-8proc-1xH100",
-            "cut": f"layers 62 -> {cfg.num_layers}",
-            "reference_kind": "one process",
-            "heads_per_rank": cfg.n_heads // TRAIN_RANKS_GRID[1],
-            **ranks_phase_line(cfg, TRAIN_RANKS_GRID, ref, results, batches,
-                               reference_s, spawn_s)}
-    checks, bad = check_train_ranks(
-        torch, cfg, TRAIN_RANKS_GRID, ref, results, MLA_RANKS_GRAD_LEAVES,
-        MLA_RANKS_BOUNDS, 0)
-    line.update(checks)
-    out["paths"]["mla"] = line
-    failures += [f"MLA: {f}" for f in bad]
-    out["phase_s"] = time.perf_counter() - t_phase
-    if failures:
-        log(json.dumps(out))
-        raise AssertionError("phase 17: " + "; ".join(failures))
-    return out
-
-
 def rank_train_cells(ranks, cells) -> list:
     """:func:`rank_train` of each cell's arguments in turn in one process,
-    the card's memory freed between them."""
+    on the cell's ``(data, model)`` grid (a grid other than the spawn's
+    built once over the same processes), the card's memory freed between
+    them; once every process is done with a cell, the first removes its
+    weights' directory (host memory: ``/dev/shm``)."""
     import torch
+    import torch.distributed as dist
+    from repro_torch.comm import ProcessRanks
+    grids = {tuple(ranks.shape): ranks}
     out = []
-    for args in cells:
-        out.append(rank_train(ranks, *args))
+    for grid, args in cells:
+        if grid not in grids:
+            grids[grid] = ProcessRanks(grid, ranks.axes,
+                                       backend=ranks.backend,
+                                       device=ranks.device)
+        out.append(rank_train(grids[grid], *args))
         gc.collect()
         torch.cuda.empty_cache()
+        dist.barrier()
+        if ranks.rank == 0:
+            shutil.rmtree(args[0], ignore_errors=True)
     return out
 
 
-def train_ssm_ranks_path(torch, dev) -> dict:
-    """Phase 18 (see the module docstring): xLSTM-125M and Zamba2-1.2B
-    (depth 12) on ``(2, 4)``, each against the one-process step (its
-    floor and its planted faults), both in one spawn of 8 processes."""
+def grid_cells(torch, seed: int) -> list:
+    """The training cells of phases 16, 17 and 18 in the order each
+    process trains them, one dict a cell: its phase line's name, the
+    cell, its config, grid, batches, optimizer, bounds and held leaves,
+    K1's launches a step, whether the reference is the stacked step on
+    the grid (else the one process) and whether it reads its own floor
+    and the planted faults."""
     import dataclasses
-    from repro_torch.comm import spawn_ranks
     from repro_torch.configs import get_config
     from repro_torch.train.optimizer import AdamWConfig
+    launcher = AdamWConfig(lr=TRAIN_LR, warmup_steps=20,
+                           total_steps=TRAIN_STEPS)
+    # phase 14's MoE cell: its weights, its batch, its optimizer
+    moe_cfg, batch, moe_opt = moe_train_setup(torch, seed)
+    out = [
+        {"line": "train_ranks_families_moe",
+         "cell": "train-qwen2-moe-a2.7b-1x8-8proc-1xH100", "cfg": moe_cfg,
+         "grid": SERVE_GRID, "stacked": True,
+         "batches": [dict(batch) for _ in range(MOE_TRAIN_STEPS)],
+         "opt": moe_opt, "bounds": MOE_RANKS_BOUNDS,
+         "leaves": MOE_RANKS_GRAD_LEAVES, "floor": False, "faults": True,
+         "k1": 4 * moe_cfg.num_layers},
+        {"line": "train_ranks",
+         "cell": "train-tinyllama-1.1b-2x4-8proc-1xH100",
+         "cfg": dataclasses.replace(get_config(TRAIN_ARCH),
+                                    num_layers=TRAIN_RANKS_LAYERS),
+         "seq": TRAIN_SEQ, "bounds": TRAIN_RANKS_BOUNDS,
+         "leaves": TRAIN_GRAD_LEAVES, "floor": True, "faults": False},
+        {"line": "train_ranks_families_mla",
+         "cell": "train-minicpm3-4b-2x4-8proc-1xH100",
+         "cfg": dataclasses.replace(get_config(MLA_TRAIN_ARCH),
+                                    num_layers=MLA_TRAIN_LAYERS),
+         "seq": TRAIN_SEQ, "bounds": MLA_RANKS_BOUNDS,
+         "leaves": MLA_RANKS_GRAD_LEAVES, "floor": False, "faults": True}]
+    for arch, (cell, layers, leaves) in SSM_RANKS_CELLS.items():
+        cfg = get_config(arch)
+        if layers is not None:
+            cfg = dataclasses.replace(cfg, num_layers=layers)
+        out.append({"cell": cell, "cfg": cfg, "seq": SSM_RANKS_SEQ,
+                    "bounds": SSM_RANKS_BOUNDS, "leaves": leaves})
+    for arch, (cell, cuts, leaves) in ENCDEC_RANKS_CELLS.items():
+        cfg = dataclasses.replace(get_config(arch), **cuts)
+        seq = WHISPER_PROMPT_LEN if cfg.family == "audio" else VLM_TEXT_LEN
+        out.append({"cell": cell, "cfg": cfg, "seq": seq,
+                    "bounds": ENCDEC_RANKS_BOUNDS, "leaves": leaves})
+    for c in out[3:]:
+        c.update(line=f"train_ranks_cells_{c['cfg'].family}", floor=True,
+                 faults=True)
+    for c in out[1:]:
+        c.update(grid=TRAIN_RANKS_GRID, stacked=False, opt=launcher, k1=0)
+    return out
+
+
+def grid_cut(cfg) -> str:
+    """What phases 16-18 cut of ``cfg``'s published config."""
+    from repro_torch.configs import get_config
+    full = get_config(cfg.arch_id)
+    if cfg.family == "audio":
+        return (f"encoder and decoder layers {full.enc_layers} + "
+                f"{full.num_layers} -> {cfg.enc_layers} + {cfg.num_layers}")
+    if cfg.num_layers == full.num_layers:
+        return f"none ({cfg.num_layers} layers)"
+    return f"layers {full.num_layers} -> {cfg.num_layers}"
+
+
+def train_grid_path(torch, dev, seed: int) -> dict:
+    """Phases 16, 17 and 18 (see the module docstring): every cell's
+    reference on the card one after another, then one spawn of 8
+    processes training every cell in turn, then each cell's checks.
+    Returns ``{"paths": {line name: line}, ...}``; every cell is checked
+    and printed before a failure ends the run."""
+    from repro_torch.comm import spawn_ranks
 
     t_phase = time.perf_counter()
-    out = {"phase": "train_ranks_ssm", "paths": {}}
-    opt_cfg = AdamWConfig(lr=TRAIN_LR, warmup_steps=20,
-                          total_steps=TRAIN_STEPS)     # the launcher's
-    cells, dirs, failures = [], [], []
+    out = {"phase": "train_grid", "paths": {}}
+    cells, dirs, failures = grid_cells(torch, seed), [], []
     try:
-        for arch, (_, layers, leaves) in SSM_RANKS_CELLS.items():
-            cfg = get_config(arch)
-            if layers is not None:
-                cfg = dataclasses.replace(cfg, num_layers=layers)
-            batches = train_ranks_batches(torch, cfg, SSM_RANKS_SEQ,
-                                          SSM_RANKS_STEPS)
+        for c in cells:
+            if "batches" not in c:
+                c["batches"] = train_ranks_batches(
+                    torch, c["cfg"], c["seq"], TRAIN_RANKS_STEPS, dev, seed)
             dirs.append(ranks_dir())
             t0 = time.perf_counter()
-            ref = train_ranks_reference(torch, dev, cfg, batches, opt_cfg,
-                                        dirs[-1], leaves, floor=True,
-                                        faults=True)
-            cells.append((cfg, leaves, batches, ref,
-                          time.perf_counter() - t0))
+            c["ref"] = train_ranks_reference(
+                torch, dev, c["cfg"], c["batches"], c["opt"], dirs[-1],
+                c["leaves"], grid=c["grid"] if c["stacked"] else None,
+                floor=c["floor"], faults=c["faults"])
+            c["reference_s"] = time.perf_counter() - t0
+            gc.collect()
+            torch.cuda.empty_cache()
+        out["references_s"] = time.perf_counter() - t_phase
         t0 = time.perf_counter()
         per_rank = spawn_ranks(
             rank_train_cells, TRAIN_RANKS_GRID, ("data", "model"),
             backend="gloo", device=dev.type, timeout_s=RANKS_TIMEOUT_S,
-            args=([(d, b, opt_cfg, sum(ref["lrs"]), cfg, leaves)
-                   for d, (cfg, leaves, b, ref, _) in zip(dirs, cells)],))
-        spawn_s = time.perf_counter() - t0
+            args=([(c["grid"], (d, c["batches"], c["opt"],
+                                sum(c["ref"]["lrs"]), c["cfg"], c["leaves"]))
+                   for d, c in zip(dirs, cells)],))
+        spawn_s = out["spawn_s"] = time.perf_counter() - t0
     finally:
         for d in dirs:
             shutil.rmtree(d, ignore_errors=True)
-    for i, (cfg, leaves, batches, ref, reference_s) in enumerate(cells):
+    for i, c in enumerate(cells):
+        cfg, batches, ref = c["cfg"], c["batches"], c["ref"]
         results = [r[i] for r in per_rank]
+        positions = batches[0]["tokens"].shape[1] + (
+            cfg.img_tokens if cfg.family == "vlm" else 0)
         for r in results:
-            r["seq"] = SSM_RANKS_SEQ
-        cut = {"xlstm_125m": "none (12 layers: 10 mLSTM, 2 sLSTM)",
-               "zamba2_1_2b": f"layers 38 -> {cfg.num_layers}"}[cfg.arch_id]
-        line = {"cell": SSM_RANKS_CELLS[cfg.arch_id][0], "cut": cut,
-                "reference_kind": "one process",
-                "spawn_s_both_cells": spawn_s,
-                **ranks_phase_line(cfg, TRAIN_RANKS_GRID, ref, results,
-                                   batches, reference_s, spawn_s)}
+            r["seq"] = positions
+        line = {"cell": c["cell"], "cut": grid_cut(cfg),
+                "reference_kind": (f"stacked Ranks {c['grid']}, phase 14's "
+                                   f"step" if c["stacked"] else
+                                   "one process"),
+                "positions_per_row": positions,
+                "spawn_s_all_cells": spawn_s,
+                **ranks_phase_line(cfg, c["grid"], ref, results, batches,
+                                   c["reference_s"], spawn_s)}
+        if cfg.family == "moe":
+            line.update(experts=cfg.num_experts, top_k=cfg.top_k,
+                        capacity_factor=cfg.capacity_factor,
+                        reference_moe_metrics=ref["metrics"])
+        if cfg.attn_type == "mla":
+            line["heads_per_rank"] = cfg.n_heads // c["grid"][1]
+        if cfg.family == "audio":
+            half = TRAIN_BATCH // c["grid"][0]
+            line["encoder_frames"] = cfg.enc_seq
+            line["unmasked_tokens_by_step_and_data_rank"] = [
+                [int(b["loss_mask"][d * half:(d + 1) * half].sum())
+                 for d in range(c["grid"][0])] for b in batches]
         checks, bad = check_train_ranks(
-            torch, cfg, TRAIN_RANKS_GRID, ref, results, leaves,
-            SSM_RANKS_BOUNDS, 0)
+            torch, cfg, c["grid"], ref, results, c["leaves"], c["bounds"],
+            c["k1"], "loss_mask" in batches[0])
         line.update(checks)
-        out["paths"][cfg.family] = line
-        failures += [f"{cfg.arch_id}: {f}" for f in bad]
+        line["k1_launches"] = sum(sum(r["k1_launches"]) for r in results)
+        out["paths"][c["line"]] = line
+        failures += [f"{c['cell']}: {f}" for f in bad]
     out["phase_s"] = time.perf_counter() - t_phase
     if failures:
-        log(json.dumps(out))
-        raise AssertionError("phase 18: " + "; ".join(failures))
+        for name, line in out["paths"].items():
+            log(json.dumps({"phase": name, **line}))
+        raise AssertionError("phases 16-18: " + "; ".join(failures))
     return out
 
 
@@ -5095,21 +5194,11 @@ def main(argv=None) -> int:
     log(json.dumps(ranked))
     gc.collect()
     torch.cuda.empty_cache()
-    train_ranks = train_ranks_path(torch, dev)
-    log(json.dumps(train_ranks))
-    gc.collect()
-    torch.cuda.empty_cache()
-    families = train_families_path(torch, dev, args.seed)
-    for tag, p in families["paths"].items():
-        log(json.dumps({"phase": f"train_ranks_families_{tag}", **p}))
-    log(json.dumps({"phase": "train_ranks_families",
-                    "phase_s": families["phase_s"]}))
-    gc.collect()
-    torch.cuda.empty_cache()
-    ssm = train_ssm_ranks_path(torch, dev)
-    for tag, p in ssm["paths"].items():
-        log(json.dumps({"phase": f"train_ranks_ssm_{tag}", **p}))
-    log(json.dumps({"phase": "train_ranks_ssm", "phase_s": ssm["phase_s"]}))
+    grid = train_grid_path(torch, dev, args.seed)
+    for name, p in grid["paths"].items():
+        log(json.dumps({"phase": name, **p}))
+    log(json.dumps({k: grid[k] for k in ("phase", "references_s",
+                                         "spawn_s", "phase_s")}))
     phase11 = {r["run"]: r["launches"] for r in chaos["runs"]}
     host_faults = {r["run"]: r["launches"] for r in chaos["host"]}
 
@@ -5138,7 +5227,8 @@ def main(argv=None) -> int:
                       f"8 processes: Qwen1.5-MoE-A2.7B training on (1, 8), "
                       f"{MOE_TRAIN_LAYERS} MoE layers, {MOE_TRAIN_STEPS} "
                       f"steps with remat: send pack + regroup, forward and "
-                      f"recompute": families["paths"]["moe"]["k1_launches"]},
+                      f"recompute": grid["paths"]["train_ranks_families_moe"][
+                          "k1_launches"]},
         "bitonic_sort": {"dataflow sort, flat": mp["launches"]["bitonic_sort"],
                          "dataflow sort, (dc, node)":
                              wide["launches"]["bitonic_sort"],

@@ -20,14 +20,18 @@ replicated when there is one KV head), ``wo`` row-parallel with
 ``reduce_from``; or, where the heads do not divide ``tp_size``, every
 weight replicated and the JAX package's ``_seq_shard``: each rank
 attends from its block of query rows to every key, and ``gather_from``
-joins the rows. A KV head split over ranks (``1 < KV < model``) raises.
-On stacked ranks ``_seq_shard`` is a sharding constraint with nothing to
-do. :func:`mla_apply` over such ranks shards MLA's heads as
-``_mla_init``'s specs do (``wq_up``, ``wk_up``, ``wv_up`` by columns,
-``wo`` by rows): the down projections, their norms and the decoupled
-rope key run replicated, and the latents enter the heads' products
-through one ``copy_to``, so the replicated weights take their whole
-gradient on every rank; heads that ``model`` does not divide raise.
+joins the rows. Rope is optional (the enc-dec's self-attention runs
+without it), and cross-attention attends from the same query heads or
+rows over every encoder position, its keys and values the rank's
+products of the encoder output. A KV head split over ranks (``1 < KV <
+model``) raises. On stacked ranks ``_seq_shard`` is a sharding
+constraint with nothing to do. :func:`mla_apply` over such ranks shards
+MLA's heads as ``_mla_init``'s specs do (``wq_up``, ``wk_up``, ``wv_up``
+by columns, ``wo`` by rows): the down projections, their norms and the
+decoupled rope key run replicated, and the latents enter the heads'
+products through one ``copy_to``, so the replicated weights take their
+whole gradient on every rank; heads that ``model`` does not divide
+raise.
 
 Scores follow the JAX package's rounding: its einsums take bfloat16
 operands and accumulate and return float32 (``preferred_element_type``),
@@ -239,14 +243,20 @@ def tp_layout(cfg: ModelConfig, params: Params, model: int) -> str:
 
 
 def _attn_model_parallel(params, x, cfg: ModelConfig, q_pos, ranks,
-                         causal: bool):
-    """Self-attention over the replicated ``x`` (B, S, d) on a process
-    holding its shards (see the module docstring); the output is
-    replicated."""
+                         causal: bool, rope: bool = True,
+                         cross_kv: Optional[Tuple] = None):
+    """Self- or cross-attention over the replicated ``x`` (B, S, d) on a
+    process holding its shards (see the module docstring); the output is
+    replicated. ``cross_kv=(k, v, kv_pos)``: keys and values this rank
+    computed from the encoder output (its KV heads in the heads layout,
+    every one in the sequence layout), which entered through
+    ``copy_to`` (:func:`repro_torch.models.encdec.decode_stack`), so
+    their gradients are summed over ``model`` there."""
     B, S, _ = x.shape
     hd, m = cfg.hd, ranks.axis_size("model")
     layout = tp_layout(cfg, params, m)
-    window = cfg.window if cfg.attn_type == "swa" else None
+    window = (cfg.window if cfg.attn_type == "swa" and cross_kv is None
+              else None)
     h = enter_parallel(ranks, x)
 
     def proj(inp, name, heads):
@@ -267,14 +277,20 @@ def _attn_model_parallel(params, x, cfg: ModelConfig, q_pos, ranks,
         hq, pq = h[:, rows], q_pos[:, rows]
         heads, kv_heads = cfg.n_heads, cfg.n_kv_heads
     q = proj(hq, "wq", heads)
-    k, v = proj(h, "wk", kv_heads), proj(h, "wv", kv_heads)
+    if cross_kv is None:
+        k, v = proj(h, "wk", kv_heads), proj(h, "wv", kv_heads)
+        kv_pos = q_pos
+    else:
+        k, v, kv_pos = cross_kv
     if cfg.qk_norm:
         q = rms_norm(q, params["q_norm"], cfg.norm_eps)
-        k = rms_norm(k, params["k_norm"], cfg.norm_eps)
-    q = apply_rope(q, pq, cfg.rope_theta)
-    k = apply_rope(k, q_pos, cfg.rope_theta)
-    out = _sdpa(q, k, v, pq, q_pos, causal=causal, window=window,
-                scale=hd ** -0.5)
+        if cross_kv is None:
+            k = rms_norm(k, params["k_norm"], cfg.norm_eps)
+    if rope and cross_kv is None:
+        q = apply_rope(q, pq, cfg.rope_theta)
+        k = apply_rope(k, q_pos, cfg.rope_theta)
+    out = _sdpa(q, k, v, pq, kv_pos, causal=causal and cross_kv is None,
+                window=window, scale=hd ** -0.5)
     out = out.reshape(B, hq.shape[1], heads * hd)
     if layout == "heads":
         return row_parallel(ranks, out, params["wo"])
@@ -293,14 +309,16 @@ def attn_apply(params, x, cfg: ModelConfig, q_pos,
     values precomputed from an encoder (only ``q_norm`` applies to q; no
     rope, no cache write). ``ranks`` holding shards
     (:func:`repro_torch.comm.model_parallel`): the model-parallel
-    self-attention of a full forward. Returns (out, cache)."""
+    attention of a full forward, causal or not, with rope or without
+    (the encoder's and the decoder's self-attention of the enc-dec), or
+    cross-attention over ``cross_kv`` from this rank's shards. Returns
+    (out, cache)."""
     if model_parallel(ranks):
-        if cache is not None or cross_kv is not None or not rope:
-            raise ValueError("model-parallel attention runs the full "
-                             "forward of a decoder: no cache, no cross "
-                             "attention, rope on")
-        return _attn_model_parallel(params, x, cfg, q_pos, ranks,
-                                    causal), None
+        if cache is not None:
+            raise ValueError("model-parallel attention runs a full "
+                             "forward: no cache")
+        return _attn_model_parallel(params, x, cfg, q_pos, ranks, causal,
+                                    rope, cross_kv), None
     B, S, _ = x.shape
     hd = cfg.hd
     x = x.to(COMPUTE_DTYPE)

@@ -10,6 +10,18 @@ JAX package does. The decoder's self-attention caches are layer-stacked
 With gradients on and ``cfg.remat``, every encoder and decoder layer is
 recomputed in the backward (the JAX package's ``jax.checkpoint`` of its
 scan bodies).
+
+Over process ranks that hold shards
+(:func:`repro_torch.comm.model_parallel`) the training forward is
+model-parallel: the embedding and the readout vocab-parallel, the MLPs
+column/row-parallel, the attentions in the branch their specs give
+(:func:`attention.tp_layout`; Whisper's 12 heads against ``tp_size`` 16
+take the sequence layout: each rank attends from its block of query rows,
+over every encoder position in the cross-attention). The encoder output
+enters the decoder once, through ``copy_to``: each rank's cross keys and
+values read all of it, but only for its own query rows or heads, so the
+backward sums its gradient over ``model`` before the encoder sees it.
+Serving over process ranks is not ported.
 """
 
 from __future__ import annotations
@@ -19,13 +31,15 @@ from typing import Dict, Optional
 import torch
 from torch import nn
 
+from repro_torch.comm import model_parallel
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models.layers import (COMPUTE_DTYPE, MLP, Params,
-                                       dense_init, embed_lookup, lm_logits,
-                                       mlp_apply, padded_vocab, rms_norm,
-                                       sinusoid_at, sinusoid_positions,
-                                       softmax_xent)
+                                       dense_init, embed_lookup,
+                                       enter_parallel, lm_logits, mlp_apply,
+                                       padded_vocab, parallel_product,
+                                       rms_norm, sinusoid_at,
+                                       sinusoid_positions, softmax_xent)
 from repro_torch.models.transformer import remat_call
 
 
@@ -101,73 +115,102 @@ def _positions(b: int, t: int, device) -> torch.Tensor:
     return torch.arange(t, dtype=torch.int32, device=device).expand(b, t)
 
 
-def encode(params: EncDec, cfg: ModelConfig, frames) -> torch.Tensor:
+def encode(params: EncDec, cfg: ModelConfig, frames,
+           ranks=None) -> torch.Tensor:
     """frames: (B, T_enc, d) stub embeddings -> encoder hidden (B, T_enc,
-    d), bfloat16."""
+    d), bfloat16 (replicated over ``model`` where ``ranks`` hold
+    shards)."""
     B, T, _ = frames.shape
     x = frames.to(COMPUTE_DTYPE) + sinusoid_positions(
         T, cfg.d_model, frames.device).to(COMPUTE_DTYPE)
     pos = _positions(B, T, frames.device)
     for bp in params.enc_blocks:
-        x = remat_call(cfg.remat, _enc_layer, bp, x, cfg, pos)
+        x = remat_call(cfg.remat, _enc_layer, bp, x, cfg, pos, ranks)
     return rms_norm(x, params.enc_ln, cfg.norm_eps)
 
 
-def _enc_layer(bp: EncBlock, x, cfg: ModelConfig, pos):
+def _enc_layer(bp: EncBlock, x, cfg: ModelConfig, pos, ranks=None):
     a, _ = attn.attn_apply(bp.attn, rms_norm(x, bp.ln1, cfg.norm_eps),
-                           cfg, pos, causal=False, rope=False)
+                           cfg, pos, causal=False, rope=False, ranks=ranks)
     x = x + a
-    f = mlp_apply(bp.mlp, rms_norm(x, bp.ln2, cfg.norm_eps), cfg.mlp_gated)
+    f = mlp_apply(bp.mlp, rms_norm(x, bp.ln2, cfg.norm_eps), cfg.mlp_gated,
+                  ranks)
     return x + f
 
 
-def _cross_kv(bp: DecBlock, cfg: ModelConfig, enc_out):
+def _cross_kv(bp: DecBlock, cfg: ModelConfig, enc_out, ranks=None):
+    """The cross-attention's keys, values and positions. Where ``ranks``
+    hold shards ``enc_out`` is :func:`decode_stack`'s float32 entry, and
+    the products are this rank's (its KV heads in the heads layout)."""
     B, T, _ = enc_out.shape
     hd = cfg.hd
-    k = (enc_out @ bp.cross_attn.wk.to(COMPUTE_DTYPE)).reshape(
-        B, T, cfg.n_kv_heads, hd)
-    v = (enc_out @ bp.cross_attn.wv.to(COMPUTE_DTYPE)).reshape(
-        B, T, cfg.n_kv_heads, hd)
-    return k, v, _positions(B, T, enc_out.device)
+    if model_parallel(ranks):
+        k = parallel_product(enc_out, bp.cross_attn.wk)
+        v = parallel_product(enc_out, bp.cross_attn.wv)
+    else:
+        k = enc_out @ bp.cross_attn.wk.to(COMPUTE_DTYPE)
+        v = enc_out @ bp.cross_attn.wv.to(COMPUTE_DTYPE)
+    return (k.reshape(B, T, -1, hd), v.reshape(B, T, -1, hd),
+            _positions(B, T, enc_out.device))
 
 
 def decode_stack(params: EncDec, cfg: ModelConfig, tokens, enc_out,
-                 q_pos=None, caches: Optional[Dict] = None):
+                 q_pos=None, caches: Optional[Dict] = None, ranks=None):
     """Decoder over tokens; ``enc_out`` precomputed. ``caches``: the
     stacked self-attention caches (decode, written in place) or None
-    (teacher forcing). Returns (logits at every position, caches)."""
+    (teacher forcing). ``ranks`` holding shards: the model-parallel
+    teacher-forced forward (no caches), the logits this rank's
+    vocabulary columns. Returns (logits at every position, caches)."""
     B, S = tokens.shape
-    x = embed_lookup(params.embed, tokens)
+    tp = model_parallel(ranks)
+    if tp and caches is not None:
+        raise ValueError("the model-parallel enc-dec runs the teacher-"
+                         "forced forward: no caches")
+    x = embed_lookup(params.embed, tokens, ranks)
     if q_pos is None:
         q_pos = _positions(B, S, x.device)
     x = x + sinusoid_at(q_pos, cfg.d_model).to(COMPUTE_DTYPE)
+    if tp:
+        # once for every layer's cross keys and values: the backward sums
+        # the encoder output's gradient over model
+        enc_out = enter_parallel(ranks, enc_out)
     for i, bp in enumerate(params.dec_blocks):
         c = ({k: v[i] for k, v in caches.items()} if caches is not None
              else None)
-        x = remat_call(cfg.remat, _dec_layer, bp, x, cfg, q_pos, c, enc_out)
+        x = remat_call(cfg.remat, _dec_layer, bp, x, cfg, q_pos, c, enc_out,
+                       ranks)
     x = rms_norm(x, params.final_ln, cfg.norm_eps)
-    logits = lm_logits(params.embed, x, cfg.logit_cap, cfg.vocab)
+    logits = lm_logits(params.embed, x, cfg.logit_cap, cfg.vocab, ranks)
     return logits, caches
 
 
-def _dec_layer(bp: DecBlock, x, cfg: ModelConfig, q_pos, cache, enc_out):
+def _dec_layer(bp: DecBlock, x, cfg: ModelConfig, q_pos, cache, enc_out,
+               ranks=None):
     a, _ = attn.attn_apply(bp.self_attn, rms_norm(x, bp.ln1, cfg.norm_eps),
-                           cfg, q_pos, cache=cache, causal=True, rope=False)
+                           cfg, q_pos, cache=cache, causal=True, rope=False,
+                           ranks=ranks)
     x = x + a
     xa, _ = attn.attn_apply(bp.cross_attn, rms_norm(x, bp.ln_x, cfg.norm_eps),
-                            cfg, q_pos, cross_kv=_cross_kv(bp, cfg, enc_out),
-                            rope=False)
+                            cfg, q_pos,
+                            cross_kv=_cross_kv(bp, cfg, enc_out, ranks),
+                            rope=False, ranks=ranks)
     x = x + xa
-    f = mlp_apply(bp.mlp, rms_norm(x, bp.ln2, cfg.norm_eps), cfg.mlp_gated)
+    f = mlp_apply(bp.mlp, rms_norm(x, bp.ln2, cfg.norm_eps), cfg.mlp_gated,
+                  ranks)
     return x + f
 
 
-def train_loss(params: EncDec, cfg: ModelConfig, batch: Dict):
+def train_loss(params: EncDec, cfg: ModelConfig, batch: Dict, ranks=None):
     """Teacher-forced cross-entropy of the decoder over ``frames`` and
-    ``tokens`` against ``labels``. Returns (loss, {"loss": loss})."""
-    enc_out = encode(params, cfg, batch["frames"])
-    logits, _ = decode_stack(params, cfg, batch["tokens"], enc_out)
-    loss = softmax_xent(logits, batch["labels"], batch.get("loss_mask"))
+    ``tokens`` against ``labels`` (masked by ``loss_mask`` if given, over
+    ``loss_count`` positions where the sharded step gives it). ``ranks``
+    holding shards: the model-parallel forward of the module docstring.
+    Returns (loss, {"loss": loss})."""
+    enc_out = encode(params, cfg, batch["frames"], ranks)
+    logits, _ = decode_stack(params, cfg, batch["tokens"], enc_out,
+                             ranks=ranks)
+    loss = softmax_xent(logits, batch["labels"], batch.get("loss_mask"),
+                        ranks, batch.get("loss_count"))
     return loss, {"loss": loss}
 
 

@@ -60,16 +60,18 @@ class Params(nn.Module):
             requires_grad=False))
         self.specs[name] = tuple(spec)
 
-    def trainable(self) -> "Params":
+    def trainable(self, dtype: torch.dtype = torch.float32) -> "Params":
         """The training form, in place: every parameter float32 with
         ``requires_grad`` (the values carried over exactly; draw or load
         the weights after this call, so that nothing is rounded to
-        bfloat16 first)."""
+        bfloat16 first). ``dtype=torch.bfloat16``: every parameter
+        rounded to bfloat16, the JAX launcher's ``bf16_params`` form,
+        trained against the optimizer's float32 master copy."""
         for mod in self.modules():
             for name, p in list(mod._parameters.items()):
                 if p is not None:
                     mod._parameters[name] = nn.Parameter(
-                        p.detach().to(torch.float32), requires_grad=True)
+                        p.detach().to(dtype), requires_grad=True)
         return self
 
 
@@ -355,10 +357,15 @@ def _xent_parallel(logits: torch.Tensor, labels: torch.Tensor, ranks):
 
 def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
                  mask: Optional[torch.Tensor] = None,
-                 ranks=None) -> torch.Tensor:
+                 ranks=None, count: Optional[torch.Tensor] = None
+                 ) -> torch.Tensor:
     """Mean cross-entropy over (optionally masked) positions; float32.
     Vocab-parallel where the process holds shards: ``logits`` are this
-    rank's columns (:func:`lm_logits`)."""
+    rank's columns (:func:`lm_logits`). ``count``, with a ``mask``: the
+    divisor in place of ``max(sum(mask), 1)``. The sharded train step
+    gives each data rank the global batch's ``max(sum(mask), 1)`` over
+    the data ranks' number, so that their mean loss is the global masked
+    mean (:func:`repro_torch.train.trainer.jit_train_step`)."""
     if model_parallel(ranks):
         nll = _xent_parallel(logits, labels, ranks)
     else:
@@ -367,5 +374,7 @@ def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
         nll = logz - gold
     if mask is not None:
         m = mask.float()
-        return torch.sum(nll * m) / torch.clamp(torch.sum(m), min=1.0)
+        if count is None:
+            count = torch.clamp(torch.sum(m), min=1.0)
+        return torch.sum(nll * m) / count
     return torch.mean(nll)

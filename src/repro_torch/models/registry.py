@@ -19,7 +19,8 @@ builds an :class:`encdec.EncDec`. The bundle exposes:
 float32 with a gradient, as the JAX package's ``init``); the default is
 the serving form (matrix weights in bfloat16, no gradient). A training
 batch holds ``tokens`` and ``labels`` (``img_embeds`` for ``vlm``,
-``frames`` for ``audio``). An LM's prefill batch holds ``tokens`` (and
+``frames`` for ``audio``; a ``loss_mask`` optionally, and the sharded
+step's ``loss_count`` with it). An LM's prefill batch holds ``tokens`` (and
 ``img_embeds`` for ``vlm``, put in front of the text) and returns the
 next-token logits; its decode batch ``tokens`` and ``pos``. The enc-dec
 prefill takes ``frames`` and ``tokens`` and returns the logits at every
@@ -253,7 +254,7 @@ def _build_encdec(cfg: ModelConfig) -> Model:
         return _init(encdec.EncDec, cfg, generator, device, dtype)
 
     def train_loss(params, batch: Dict, ranks=None, dp_axes=("data",)):
-        return encdec.train_loss(params, cfg, batch)
+        return encdec.train_loss(params, cfg, batch, ranks)
 
     @torch.inference_mode()
     def prefill(params, batch: Dict, caches, ranks=None, dp_axes=("data",)):

@@ -322,16 +322,18 @@ def train_loss(params: DecoderLM, cfg: ModelConfig, batch: Dict,
                ranks: Optional[Ranks] = None,
                dp_axes: Sequence[str] = ("data",), aux_weight: float = 0.01):
     """Mean next-token cross-entropy over ``batch["labels"]`` (masked by
-    ``loss_mask`` if given; the ``vlm`` family on its text positions
-    only), plus ``aux_weight`` times the MoE load-balance loss. Returns
-    (loss, metrics: the aux values and the loss)."""
+    ``loss_mask`` if given, over ``loss_count`` positions where the
+    sharded step gives it, :func:`layers.softmax_xent`; the ``vlm``
+    family on its text positions only), plus ``aux_weight`` times the MoE
+    load-balance loss. Returns (loss, metrics: the aux values and the
+    loss)."""
     img = batch.get("img_embeds")
     logits, _, aux = lm_forward(params, cfg, batch["tokens"], ranks=ranks,
                                 dp_axes=dp_axes, img_embeds=img)
     if cfg.family == "vlm" and img is not None:
         logits = logits[:, img.shape[1]:]           # loss on text positions
     loss = softmax_xent(logits, batch["labels"], batch.get("loss_mask"),
-                        ranks)
+                        ranks, batch.get("loss_count"))
     if "moe_aux" in aux:
         loss = loss + aux_weight * aux["moe_aux"]
     return loss, dict(aux, loss=loss)

@@ -1,7 +1,6 @@
 """Trainer: the train step (gradient accumulation, AdamW, metrics) for any
-registry model, on one device or a stacked rank grid, and the sharded
-step of the dense, MoE, SSM (xLSTM) and hybrid (zamba2) decoders over
-process ranks.
+registry model, on one device or a stacked rank grid, and its sharded
+step over process ranks for every family.
 
 Port of ``repro/train/trainer.py``. The JAX package jits the step and
 donates its buffers; here the step runs eagerly and updates parameters
@@ -21,11 +20,23 @@ axes, the decoder model-parallel over ``model`` (the layers'
 the MLP or the MoE with its dispatch's ``all_to_all``s; Mamba2 and mLSTM
 by head with their ``[z | x]`` exchange, mLSTM's ``scatter_sum`` and the
 norms' ``sum_both``, sLSTM's gates gathered; zamba2's shared attention
-block at each of its points), the gradients
+block at each of its points; the VLM's image tokens in front of the
+text; the enc-dec's encoder, and its decoder's cross-attention over the
+encoder output, :mod:`repro_torch.models.encdec`), the gradients
 reduced over the data axes (a ``reduce_scatter`` to the moment shard
 where ZeRO-1 shards a leaf, else a ``psum``), AdamW on the moment shard
-and the matching slice of the parameter, and the slices all-gathered
-back.
+and the matching slice of the parameter (with the float32 master copy,
+its slice, cut by the moments' specs, and the parameter's slice cast
+from it), and the slices all-gathered back.
+
+**A masked loss** (``loss_mask`` in the batch) is the global batch's
+masked mean, ``sum(nll * m) / max(sum(m), 1)`` over every data row, as
+the JAX package's ``softmax_xent`` computes it over the whole batch: one
+``psum`` of the mask's count over the data axes a micro batch, and each
+data rank divides its sum by the global count over the data ranks'
+number (``loss_count``), so that the mean over data ranks the step takes
+of the losses and the gradients is the global one, whatever each rank's
+own count.
 
 **Replicated leaves' gradients.** A leaf whose spec names no ``model``
 axis is replicated along it. Read outside a model-parallel region (the
@@ -40,7 +51,10 @@ tokens' part of it: the GQA/SWA
 attention's replicated weights (every weight of the ``_seq_shard``
 branch, ``wk``/``wv`` where one KV head is replicated,
 ``q_norm``/``k_norm``; zamba2's ``shared_attn.attn`` too, its parts
-added over its application points by autograd), the MoE's ``router``,
+added over its application points by autograd; the enc-dec's encoder
+``attn`` and decoder ``self_attn`` and ``cross_attn``, whose keys and
+values each rank computes from all of the encoder output for its own
+query rows), the MoE's ``router``,
 which each model rank reads on its own block of positions (its only
 gradient, through ``moe_aux``), and the per-head vectors each rank
 slices its heads from: Mamba2's ``a_log``, ``d_skip`` and ``dt_bias``,
@@ -50,6 +64,8 @@ over ``model`` once, after the backward (one ``psum`` of them all);
 then every ``model`` rank holds each replicated leaf's whole gradient,
 equal to the one-process gradient. The routed experts get no gradient
 (the dispatch frames their inputs as bytes), so AdamW only decays them.
+The VLM's ``img_proj`` acts on replicated activations, outside any
+model-parallel region: its gradient is whole.
 """
 
 from __future__ import annotations
@@ -150,25 +166,29 @@ def init_train_state(model: Model, generator: Optional[torch.Generator] = None,
                      source: Optional[Mapping[str, Any]] = None
                      ) -> Tuple[Any, Dict]:
     """The training form of the model's parameters (float32, drawn on
-    ``device`` from ``generator``) and AdamW's zero state.
+    ``device`` from ``generator``) and AdamW's zero state. With
+    ``master`` the parameters are bfloat16 (the JAX launcher's
+    ``bf16_params``) and the optimizer state holds their float32 master
+    copy, the unrounded weights.
 
     With process ``ranks`` (one row a process), this process's shards
     only, on the ranks' device: each parameter the block its spec gives
-    this process of the one-process init (bit for bit), each moment the
-    block of its ZeRO-1 spec (:func:`make_state_shardings`). The full
-    weights come from ``source``, the JAX package's tree or a flat
-    ``{port name: array}`` (numpy arrays or memmaps, of which only the
-    block is read, or tensors), else are drawn whole from ``generator``
-    on its device and cut."""
+    this process of the one-process init (bit for bit), each moment (and
+    the master copy) the block of its ZeRO-1 spec
+    (:func:`make_state_shardings`). The full weights come from
+    ``source``, the JAX package's tree or a flat ``{port name: array}``
+    (numpy arrays or memmaps, of which only the block is read, or
+    tensors), else are drawn whole from ``generator`` on its device and
+    cut."""
     if ranks is None or ranks.rows == ranks.world:
         params = model.init(generator, device, dtype=torch.float32)
-        return params, init_opt_state(named_leaves(params, model.cfg), master)
-    if master:
-        raise ValueError("the float32 master copy over process ranks is "
-                         "not ported")
+        opt = init_opt_state(named_leaves(params, model.cfg), master)
+        if master:
+            params.trainable(torch.bfloat16)
+        return params, opt
     cfg = model.cfg
     p_specs, opt_specs = make_state_shardings(model, _sizes(ranks),
-                                              param_specs, zero1)
+                                              param_specs, zero1, master)
     if source is None:
         if generator is None:
             raise ValueError("process ranks draw the weights from a seeded "
@@ -176,22 +196,29 @@ def init_train_state(model: Model, generator: Optional[torch.Generator] = None,
         source = named_leaves(model.init(generator, generator.device,
                                          dtype=torch.float32), cfg)
     full = flatten(source)
+
+    def block(leaf: str, spec: Spec) -> torch.Tensor:
+        b = ranks.local_shard(full[leaf], spec)
+        t = (b.detach().to(torch.float32, copy=True)
+             if isinstance(b, torch.Tensor) else
+             torch.from_numpy(np.array(b, np.float32)))
+        return t.to(ranks.device)
+
     params = meta_params(cfg)
     shapes = {n: tuple(p.shape) for n, p in params.named_parameters()}
+    dtype = torch.bfloat16 if master else torch.float32
     for prefix, mod in params.named_modules():
         for name in list(mod._parameters):
             leaf = f"{prefix}.{name}" if prefix else name
-            block = ranks.local_shard(full[leaf], p_specs[leaf])
-            t = (block.detach().to(torch.float32, copy=True)
-                 if isinstance(block, torch.Tensor) else
-                 torch.from_numpy(np.array(block, np.float32)))
-            mod._parameters[name] = nn.Parameter(t.to(ranks.device),
-                                                 requires_grad=True)
+            mod._parameters[name] = nn.Parameter(
+                block(leaf, p_specs[leaf]).to(dtype), requires_grad=True)
     zeros = {n: torch.zeros(_local_shape(shapes[n], opt_specs["m"][n], ranks),
                             dtype=torch.float32, device=ranks.device)
              for n in p_specs}
     opt = {"m": zeros, "v": {n: torch.zeros_like(z) for n, z in zeros.items()},
            "step": torch.zeros((), dtype=torch.int32, device=ranks.device)}
+    if master:
+        opt["master"] = {n: block(n, opt_specs["master"][n]) for n in p_specs}
     return params, opt
 
 
@@ -213,15 +240,22 @@ _PER_HEAD = {".mamba.": (".a_log", ".d_skip", ".dt_bias"),
              ".cell.": (".if_bias",)}
 
 
+#: the attention modules' names: a decoder block's ``attn`` (zamba2's
+#: shared block's too, and the enc-dec encoder's), the enc-dec decoder's
+#: ``self_attn`` and ``cross_attn``
+_ATTENTIONS = (".attn.", ".self_attn.", ".cross_attn.")
+
+
 def partial_over_model(name: str, spec: Spec, cfg=None) -> bool:
     """The rule of the module docstring: a leaf whose spec names no
     ``model`` axis takes a part of its gradient on each model rank if it
     is a MoE's ``router``, a GQA/SWA attention's (``cfg`` None or not
-    MLA; zamba2's ``shared_attn.attn`` among them) or a recurrent
-    block's per-head vector (Mamba2's ``a_log``, ``d_skip``,
+    MLA; zamba2's ``shared_attn.attn``, the enc-dec's encoder ``attn``
+    and decoder ``self_attn`` and ``cross_attn`` among them) or a
+    recurrent block's per-head vector (Mamba2's ``a_log``, ``d_skip``,
     ``dt_bias``; mLSTM's ``if_bias``); MLA's replicated leaves, Mamba2's
-    B, C and dt projections and sLSTM's leaves hold their whole
-    gradient."""
+    B, C and dt projections, sLSTM's leaves and the VLM's ``img_proj``
+    hold their whole gradient."""
     if "model" in spec_axes(spec):
         return False
     dotted = f".{name}"
@@ -230,7 +264,8 @@ def partial_over_model(name: str, spec: Spec, cfg=None) -> bool:
     for block, vectors in _PER_HEAD.items():
         if block in dotted:
             return dotted.endswith(vectors)
-    return ".attn." in dotted and (cfg is None or cfg.attn_type != "mla")
+    return (any(a in dotted for a in _ATTENTIONS)
+            and (cfg is None or cfg.attn_type != "mla"))
 
 
 def _rank_batch(batch: Mapping[str, Any], b_specs: Mapping[str, Spec],
@@ -250,6 +285,25 @@ def _rank_batch(batch: Mapping[str, Any], b_specs: Mapping[str, Spec],
              else torch.from_numpy(np.ascontiguousarray(block)))
         out[k] = t.to(ranks.device)
     return out
+
+
+def _blocks(meta) -> list:
+    """The model's blocks: a decoder's layers and zamba2's shared block,
+    or the enc-dec's encoder and decoder layers."""
+    if "enc_blocks" in meta:
+        return list(meta.enc_blocks) + list(meta.dec_blocks)
+    return list(meta.blocks) + ([meta.shared_attn] if "shared_attn" in meta
+                                else [])
+
+
+def _loss_count(ranks: Ranks, dp: Tuple[str, ...], micro: Mapping,
+                dsize: int) -> torch.Tensor:
+    """The divisor of this data rank's masked loss: the micro batch's
+    global ``max(sum(loss_mask), 1)`` (one ``psum`` over the data axes)
+    over the ``dsize`` data ranks."""
+    local = micro["loss_mask"].float().sum().reshape(1, 1)
+    total = ranks.psum(local, dp).reshape(())
+    return torch.clamp(total, min=1.0) / dsize
 
 
 def _rank_zero_on(ranks: Ranks, spec: Spec) -> bool:
@@ -274,37 +328,39 @@ def jit_train_step(model: Model, opt_cfg: AdamWConfig, ranks: Ranks,
     :func:`init_train_state` gives the process: ``step_fn(params,
     opt_state, batch, *, on_grads=None) -> (params, opt_state,
     metrics)``, in place, ``batch`` the global batch (each process takes
-    its rows by ``batch_specs``, default the data axes on the batch
-    dimension). The loss is the global batch's mean (the last micro
-    batch's with ``accum_steps``), ``grad_norm`` the norm of the whole
-    gradient, each distinct shard counted once. ``on_grads(grads,
-    specs)``, if given, sees the reduced gradients before the update:
-    each leaf's block under its spec in ``specs`` (the moment's under
-    ZeRO-1).
+    its rows by ``batch_specs``, default the model's ``batch_specs`` of
+    a training shape over ``dp_axes``; a ``loss_mask`` without a spec of
+    its own is cut as ``labels``). The
+    loss is the global batch's mean (the last micro batch's with
+    ``accum_steps``; a masked loss the global masked mean, see the module
+    docstring), ``grad_norm`` the norm of the whole gradient, each
+    distinct shard counted once. ``on_grads(grads, specs)``, if given,
+    sees the reduced gradients before the update: each leaf's block under
+    its spec in ``specs`` (the moment's under ZeRO-1). An ``opt_state``
+    holding the float32 ``master`` copy (``init_train_state(...,
+    master=True, ranks=)``) is updated in its slices and the bfloat16
+    parameters cast from them.
 
-    The dense (GQA, SWA, MLA), MoE, SSM (xLSTM) and hybrid (zamba2)
-    decoders; the enc-dec and VLM families raise here, and so do a KV
-    head split over model ranks, MLA heads that ``model`` does not divide
-    (:func:`repro_torch.models.attention.tp_layout`), experts padded
-    otherwise for ``model`` expert ranks than for the weights, and
-    Mamba2, mLSTM or sLSTM heads that ``model`` does not divide
-    (:func:`repro_torch.models.ssm.tp_heads`)."""
+    Every family: the dense (GQA, SWA, MLA), MoE, SSM (xLSTM) and hybrid
+    (zamba2) decoders, the VLM (internvl2) and the enc-dec (whisper).
+    Raise: a KV head split over model ranks, MLA heads that ``model``
+    does not divide (:func:`repro_torch.models.attention.tp_layout`),
+    experts padded otherwise for ``model`` expert ranks than for the
+    weights, Mamba2, mLSTM or sLSTM heads that ``model`` does not divide
+    (:func:`repro_torch.models.ssm.tp_heads`), and encoder frames that
+    the sequence layout does not split over ``model`` (Whisper's 1500
+    over 8)."""
     cfg = model.cfg
     dp = tuple(dp_axes)
     p_specs, opt_specs = make_state_shardings(model, _sizes(ranks),
                                               param_specs, zero1)
-    if batch_specs is None:
-        entry = dp if len(dp) > 1 else dp[0]
-        batch_specs = {"tokens": (entry, None), "labels": (entry, None)}
-    b_specs = dict(batch_specs)
+    b_specs = dict(model.batch_specs("train_4k", dp) if batch_specs is None
+                   else batch_specs)
     specs = (p_specs, opt_specs, b_specs)
+    cut_specs = dict(b_specs)
+    cut_specs.setdefault("loss_mask", b_specs["labels"])
     if ranks.rows == ranks.world:
         return build_train_step(model, opt_cfg, ranks, dp, accum_steps), specs
-    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
-        raise ValueError(f"{cfg.arch_id}: training over process ranks "
-                         f"covers the dense (GQA, SWA, MLA), moe, ssm and "
-                         f"hybrid decoders; the {cfg.family} family is not "
-                         f"ported")
     meta = meta_params(cfg)
     tp = model_parallel(ranks)
     if cfg.family == "moe" and not tp:
@@ -313,14 +369,20 @@ def jit_train_step(model: Model, opt_cfg: AdamWConfig, ranks: Ranks,
                          f"model axis of more than one rank; {ranks!r}")
     if tp:
         m = ranks.axis_size("model")
-        shared = [meta.shared_attn] if "shared_attn" in meta else []
-        for block in list(meta.blocks) + shared:
-            if "attn" in block:
-                tp_layout(cfg, block.attn, m)
-            else:
+        for block in _blocks(meta):
+            attns = [a for a in ("attn", "self_attn", "cross_attn")
+                     if a in block]
+            for a in attns:
+                tp_layout(cfg, block[a], m)
+            if not attns:
                 tp_heads(cfg, block.kind, m)
             if "moe" in block:
                 plan_experts(cfg, block.moe.w_gate.shape[0], m)
+        if cfg.family == "audio" and cfg.enc_seq % m and tp_layout(
+                cfg, meta.enc_blocks[0].attn, m) == "sequence":
+            raise ValueError(f"{cfg.arch_id}: {cfg.enc_seq} encoder frames "
+                             f"do not split over {m} model ranks of the "
+                             f"sequence-parallel attention")
     shapes = {n: tuple(p.shape) for n, p in meta.named_parameters()}
     local = {n: _local_shape(shapes[n], sp, ranks)
              for n, sp in p_specs.items()}
@@ -360,12 +422,11 @@ def jit_train_step(model: Model, opt_cfg: AdamWConfig, ranks: Ranks,
                                  f"process's shard {local[n]} (spec "
                                  f"{p_specs[n]}): init_train_state(..., "
                                  f"ranks=) gives the shards")
-        if "loss_mask" in batch:
-            raise ValueError("a masked loss over process ranks is not "
-                             "ported (its mean needs the global count)")
         grads: Dict[str, torch.Tensor] = {}
         for i in range(accum_steps):
-            micro = _rank_batch(batch, b_specs, ranks, accum_steps, i)
+            micro = _rank_batch(batch, cut_specs, ranks, accum_steps, i)
+            if "loss_mask" in micro and dsize > 1:
+                micro["loss_count"] = _loss_count(ranks, dp, micro, dsize)
             loss, metrics, g = loss_and_grads(model, params, micro, ranks,
                                               dp)
             for n, p in leaves.items():

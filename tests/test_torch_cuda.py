@@ -1454,3 +1454,54 @@ def test_process_ranks_ssm_train_step_on_the_card(card, arch, grid):
     assert float(diffs.max()) <= 2 * lr
     assert float(torch.quantile(diffs, 0.99)) <= 0.05 * lr
     assert float(diffs.median()) <= 0.005 * lr
+
+
+@pytest.mark.parametrize("arch,grid", [("whisper_small", (1, 2)),
+                                       ("whisper_small", (2, 1)),
+                                       ("internvl2_1b", (1, 2)),
+                                       ("internvl2_1b", (2, 1))],
+                         ids=["whisper_model2", "whisper_data2",
+                              "internvl2_model2", "internvl2_data2"])
+def test_process_ranks_encdec_vlm_train_step_on_the_card(card, arch, grid):
+    """Two gloo processes on ``cuda:0`` run one step of smoke whisper (the
+    encoder, causal and cross attention, a ``loss_mask`` whose unmasked
+    counts differ between the data ranks) or smoke internvl2 (the image
+    tokens in front of the text) from weights drawn on the card, the
+    sequence-parallel attention over ``(1, 2)`` or the batch over ``(2,
+    1)``, held to the one-process step on the card by
+    ``tests/test_torch_train_dist_encdec.py``'s bounds: the loss within
+    2e-3, ``grad_norm`` within 5e-3 relative, the parameters by
+    ``tests/test_torch_train.py``'s rule."""
+    import numpy as np
+    import torch_train_dist_encdec_paths as epaths
+    from repro_torch.comm import spawn_ranks
+    from repro_torch.configs.base import get_smoke_config
+    from repro_torch.data import synthetic_tokens
+    from repro_torch.models import build
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.trainer import build_train_step, init_train_state
+    cfg = get_smoke_config(arch)
+    toks = synthetic_tokens(8 * 33, cfg.vocab).reshape(1, 8, 33)
+    batch = {k: torch.from_numpy(v) for k, v in epaths.train_batches(
+        np.random.default_rng(0), toks, cfg, 2)[0].items()}
+    opt = AdamWConfig(lr=3e-3, warmup_steps=5, total_steps=60)
+    res = spawn_ranks(epaths.card_step, grid, ("data", "model"),
+                      backend="gloo", device="cuda", timeout_s=300,
+                      args=(cfg, batch, opt))
+    model = build(cfg)
+    params, state = init_train_state(model, _gen(card, 0), card)
+    _, _, m = build_train_step(model, opt)(
+        params, state, {k: v.to(card) for k, v in batch.items()})
+    lr = float(m["lr"])
+    for r in res:
+        assert r["device"] == "cuda:0"
+        assert abs(r["losses"][0] - float(m["loss"])) <= 2e-3
+        assert abs(r["grad_norms"][0] - float(m["grad_norm"])) <= \
+            5e-3 * float(m["grad_norm"])
+        assert r["lrs"][0] == lr
+    got = res[0]["params"]
+    diffs = torch.cat([(got[n] - p.detach().cpu()).abs().reshape(-1)
+                       for n, p in params.named_parameters()])
+    assert float(diffs.max()) <= 2 * lr
+    assert float(torch.quantile(diffs, 0.99)) <= 0.05 * lr
+    assert float(diffs.median()) <= 0.005 * lr

@@ -576,8 +576,8 @@ def test_no_weight_is_gathered_over_model(spawned, cases, case):
 def test_what_is_not_ported_raises(spawned):
     """On ``(2, 2)``: 6 experts pad to 16 in the weights but to 6 for 2
     expert ranks; 3 MLA heads, 1 xLSTM head and 3 Mamba2 heads do not
-    split over 2 ranks; the enc-dec and VLM families are named; smoke
-    xLSTM and zamba2 (the SSM and hybrid families) build."""
+    split over 2 ranks; smoke xLSTM, zamba2, whisper and internvl2 (the
+    SSM, hybrid, enc-dec and VLM families) build."""
     results, _ = spawned
     for res in results:
         msgs = res["raises"]
@@ -587,10 +587,9 @@ def test_what_is_not_ported_raises(spawned):
             "axis" in msgs["xlstm_heads"]
         assert "3 mamba heads do not split over 2 ranks of the model " \
             "axis" in msgs["mamba_heads"]
-        for arch, family in (("whisper_small", "audio"),
-                             ("internvl2_1b", "vlm")):
-            assert f"the {family} family is not ported" in msgs[arch]
-        assert msgs["xlstm_125m"] == msgs["zamba2_1_2b"] == ""
+        for arch in ("xlstm_125m", "zamba2_1_2b", "whisper_small",
+                     "internvl2_1b"):
+            assert msgs[arch] == "", arch
 
 
 def test_published_configs_raise_where_they_do_not_split():

@@ -56,8 +56,8 @@ def raising_configs() -> dict:
     """Configs ``jit_train_step`` refuses on a model axis of 2: smoke
     qwen2-moe's 6 experts (the weights pad them to 16, two expert ranks
     to 6), MLA with 3 heads, xLSTM with 1 head, Mamba2 with 3 (zamba2 at
-    ``d_model`` 96), and the two families not ported (enc-dec, VLM);
-    with smoke xLSTM and zamba2, which it builds."""
+    ``d_model`` 96); with smoke xLSTM, zamba2, whisper and internvl2,
+    which it builds."""
     mla = get_smoke_config("minicpm3_4b")
     return {"padding": get_smoke_config("qwen2_moe_a2_7b"),
             "mla_heads": dataclasses.replace(mla, n_heads=3, n_kv_heads=3),

@@ -41,13 +41,17 @@ def nbytes(tensors) -> int:
 
 
 def train_run(ranks: ProcessRanks, cfg, source, batches, opt_cfg: AdamWConfig,
-              accum_steps: int = 1) -> dict:
+              accum_steps: int = 1, master: bool = False) -> dict:
     """``len(batches)`` sharded steps of ``cfg`` from the full weights
-    ``source`` (a flat ``{port name: array}`` or a seeded generator)."""
+    ``source`` (a flat ``{port name: array}`` or a seeded generator);
+    with ``master`` bfloat16 parameters and the float32 master copy (its
+    blocks' bytes and, on process 0, the copy after the last step
+    gathered whole)."""
     model = build(cfg)
     gen = source if isinstance(source, torch.Generator) else None
     params, opt = init_train_state(
-        model, gen, ranks=ranks, source=None if gen is not None else source)
+        model, gen, master=master, ranks=ranks,
+        source=None if gen is not None else source)
     state = TrainState(params, opt)
     step_fn, (p_specs, opt_specs, _) = jit_train_step(
         model, opt_cfg, ranks, accum_steps=accum_steps)
@@ -90,6 +94,13 @@ def train_run(ranks: ProcessRanks, cfg, source, batches, opt_cfg: AdamWConfig,
         "moment_bytes": nbytes(state.opt["m"].values())
         + nbytes(state.opt["v"].values()),
         "params": gather_leaves(ranks, leaves, p_specs, shapes)})
+    if master:
+        out.update({
+            "master_shapes": {n: tuple(t.shape)
+                              for n, t in state.opt["master"].items()},
+            "master_bytes": nbytes(state.opt["master"].values()),
+            "master": gather_leaves(ranks, state.opt["master"],
+                                    opt_specs["m"], shapes)})
     return out
 
 
