@@ -72,10 +72,11 @@ Phases, in order (any failure ends the script with a non-zero exit):
    bucket files with K1, phase 1 sorts each bucket file with K2. Checks a
    globally sorted permutation with each value row beside its key, keys
    equal to ``torch.sort`` of the input's and to phase 5's, no errors, K1 once per phase-0 segment and K2 once per phase-1
-   bucket file; prints cold and warm wall, records/s, the per-phase
-   split, the slaves' write, md5 and ``used_bytes`` seconds of the warm
-   run, disk bytes written and peak device memory (``--profile``: the
-   device busy share of a warm run); holds K1 and K2 to their plain
+   bucket file; prints the wall of that one run (its warm rerun went
+   for the script's time limit), records/s, the per-phase split, the
+   slaves' write, md5 and ``used_bytes`` seconds, disk bytes written and
+   peak device memory (``--profile``: the device busy share of a warm
+   run); holds K1 and K2 to their plain
    versions at this path's shapes; then sorts a 2^20-record prefix again
    with one SPE crashing after its first segment (same output, retries
    > 0);
@@ -114,7 +115,8 @@ Phases, in order (any failure ends the script with a non-zero exit):
     8), axes=("data", "model"))``, capacity factor 1.25, each MoE layer
     dispatching its tokens through the Sphere bucket shuffle (K1 for the
     send pack and for the per-expert regroup: exactly 48 launches a
-    prefill), cold and warm, then 16 greedy decode steps from those
+    prefill), cold and warm, then 8 greedy decode steps (16 until the
+    script's time limit needed the room) from those
     caches; prints walls, prefill tokens/s, ``moe_dropped``, ``moe_aux``,
     decode step p50, peak memory. (2) Held: layer 0's MoE at ``x`` of
     (2, 512, 2048) and capacity factor 8 drops nothing on the grid and
@@ -130,7 +132,7 @@ Phases, in order (any failure ends the script with a non-zero exit):
     may take another expert); two more grid prefills at 1.25 give logits
     identical to the bit. (3) ``ServeEngine``: the launcher's traffic (4
     slots, ``max_len`` 128, prompts of 4-12 tokens from
-    ``default_rng(0)``, 12 new tokens, greedy), 16 requests so that slots
+    ``default_rng(0)``, 12 new tokens, greedy), 8 requests so that slots
     refill: all complete, every token below the vocabulary; prints wall,
     tokens/s, step p50/p99, peak memory. Then the same traffic at a
     no-drop capacity factor (E / k + 1 = 16: at 1.25 a decode step of 4
@@ -163,26 +165,30 @@ Phases, in order (any failure ends the script with a non-zero exit):
     amplifies it). The largest logit difference and the spread are
     printed. (3) ``ServeEngine`` with phase 12's
     traffic (frames for whisper, drawn as the launcher draws them): all
-    16 requests complete, every token below the vocabulary. No kernel
+    8 requests complete, every token below the vocabulary. No kernel
     lies on these paths: every model's run reads zero launches of each.
 14. ``train``: (1) ``train-tinyllama-1.1b``: TinyLlama-1.1B at its
-    published config through ``repro_torch.launch.train.train``, the
+    published width, its depth cut 22 -> 11 layers as phase 16's (the
+    script's time limit), through ``repro_torch.launch.train.train``, the
     launcher's main path: a Sector deployment of 4 slaves with
     replication 2 in a ``tempfile.mkdtemp()`` directory, the synthetic
     corpus as 8 Sector slices, ``SectorDataPipeline`` batches of 8
     sequences of 2048 tokens, AdamW at the launcher's settings (lr 3e-3,
     warmup 20), 8 steps (16 before phase 18's room was made) with an
     async checkpoint at step 4 and the final blocking one (float32
-    parameters, ``m`` and ``v``: 12 bytes a
-    parameter). Checks every loss and gradient norm finite, the first
-    loss within 1.0 of ln(32000), zero kernel launches (the dense path
-    has none, as in the JAX package); then one more batch: the same step
-    twice from one state gives the same bits, and the final checkpoint
-    restored into a fresh state (every slice's MD5 verified, the state
-    equal to the saved one to the bit) gives the same step to the bit.
-    Prints step wall p50/p99, tokens/s, peak memory, checkpoint bytes,
-    save, upload and restore seconds, the async upload's overlap with
-    the steps, the Sector root's free disk and file system. (2)
+    parameters, ``m`` and ``v``: 12 bytes a parameter; each slice
+    uploaded and replicated by its own thread). Checks every loss and
+    gradient norm finite, the first loss within 1.0 of ln(32000), zero
+    kernel launches (the dense path has none, as in the JAX package);
+    then one more batch: the same step twice from one state gives the
+    same bits, and the final checkpoint restored into a fresh state
+    (every slice's bytes checked against the manifest's MD5 by the
+    restore, in a thread pool, and the index's MD5 of each slice equal
+    to the manifest's; the state equal to the saved one to the bit)
+    gives the same step to the bit. Prints step wall p50/p99, tokens/s,
+    peak memory, checkpoint bytes, save, upload and restore seconds, the
+    async upload's overlap with the steps, the Sector root's free disk
+    and file system. (2)
     ``train-qwen2-moe-grid-1x8``: Qwen1.5-MoE-A2.7B at its published
     width with its depth cut to 2 layers (the one cut; 24 layers would
     need about 230 GB of training state), 3 steps of 8 x 1024 tokens on
@@ -201,8 +207,8 @@ Phases, in order (any failure ends the script with a non-zero exit):
     takes one card a rank). Phase 5 wrote its records, phase 7 its words
     and phase 5 its sorted keys once to ``/dev/shm`` as ``.npy``; each
     process reads its rows. First the stacked backend reruns the four
-    paths on those inputs (cold counts, warm wall). Then the processes
-    run: the flat and the ``(dc, node)`` sort of the 2^25 records (K1,
+    paths on those inputs (cold counts, warm wall) while the processes
+    start and read their rows; then the processes run: the flat and the ``(dc, node)`` sort of the 2^25 records (K1,
     K3), the wordcount (K1, K2) and one Qwen1.5-MoE-A2.7B layer at its
     published width (60 experts padded to 64, top-4, capacity factor
     1.25) on 8 x 1024 tokens over ``(1, 8)``, each process holding the 8
@@ -218,11 +224,14 @@ Phases, in order (any failure ends the script with a non-zero exit):
     gloo per hop, and each process's peak memory. A process that raises
     or outlasts its limit fails the phase.
 Phases 16-18 share one spawn of 8 processes for their seven cells
-    (``train_grid_path``: every cell's reference on the card first, then
-    each process trains the cells one after another, phase 17's MoE cell
-    on a ``(1, 8)`` grid built over the same processes and the others on
-    ``(2, 4)``, then every cell is checked and printed under its phase's
-    line), so that the processes start and warm up once.
+    (``train_grid_path``: the processes start first and train the cells
+    one after another in ``GRID_CELL_ORDER``, each as soon as its
+    reference on the card is done, while the next reference runs beside
+    them (its own time and the cell's both read with the other running);
+    phase 17's MoE cell on a ``(1, 8)`` grid built over the same
+    processes and the others on ``(2, 4)``; then every cell is checked
+    and printed under its phase's line), so that the processes start and
+    warm up once and the references take no time of their own.
 16. ``train_ranks``: TinyLlama-1.1B at its published width (d 2048, 32
     heads, 4 KV heads, d_ff 5632, vocab 32000, remat), its depth cut 22
     -> 11 layers to leave phase 17 room in the time limit, trained
@@ -255,7 +264,24 @@ Phases 16-18 share one spawn of 8 processes for their seven cells
     count (``train_collectives``), none an ``all_gather`` over
     ``model``. Prints the warm step wall against the one process's, the
     last step's gloo bytes and seconds by op and axis, the peak memory a
-    process. A process that raises or outlasts its limit fails the phase.
+    process. Then the checkpoints (``rank_checkpoint``, printed as the
+    line's ``checkpoint``): the state after the 2 steps (550.0 M
+    parameters x 12 B = 6.60 GB) saved by the 8 processes into a Sector
+    deployment they share (4 slaves, replication 2, 4 slices: the
+    launcher's; its root on ``/dev/shm``), the upload on the background
+    thread (``SectorCheckpointer.save(..., blocking=False, ranks=,
+    specs=)``); restored onto ``(data, model) = (4, 2)`` built over the
+    same processes (``train.elastic.remesh_state``; the first checkpoint
+    then deleted); saved again from ``(4, 2)``. No step runs on ``(4,
+    2)``. Checks: the second checkpoint's slice MD5s, sizes and leaf
+    table equal the first's; the leaf table is the one-process save's
+    for the config (``leaf_table`` of the state on the ``meta`` device);
+    every process's restored blocks have the ``(4, 2)`` specs' shapes
+    and bytes, on its card; every slice has 2 holders; the Sector root
+    stays below 40 GB. Prints the save, exchange, upload and restore
+    seconds, each process's gloo bytes and seconds, and the root's bytes
+    after each save with its file system. A process that raises or
+    outlasts its limit fails the phase.
 17. ``train_ranks_families``: two paths, each as 8 gloo processes on
     ``cuda:0`` checked as phase 16 is (the MoE cell's printed as
     ``train_ranks_families_moe``, MiniCPM3's as
@@ -379,12 +405,12 @@ TIMED_ITERS = 10
 K2_BYTES_PER_KV = 4 + 4 * 16
 #: phase 12: Qwen1.5-MoE-A2.7B served at its published config; the grid
 #: prefill's prompts, their length and the caches' length; decode steps;
-#: the engine's traffic (the launcher's, with 16 requests)
+#: the engine's traffic (the launcher's, with 8 requests)
 SERVE_ARCH = "qwen2_moe_a2_7b"
 SERVE_GRID = (1, 8)            # ("data", "model"): 8 expert ranks
 PREFILL_PROMPTS, PREFILL_LEN, PREFILL_MAX_LEN = 8, 1024, 1040
-DECODE_STEPS = 16
-SERVE_REQUESTS, SERVE_SLOTS, SERVE_MAX_LEN, SERVE_NEW = 16, 4, 128, 12
+DECODE_STEPS = 8
+SERVE_REQUESTS, SERVE_SLOTS, SERVE_MAX_LEN, SERVE_NEW = 8, 4, 128, 12
 #: the CPU tests' bounds between two paths of one model: the sphere
 #: against the dense dispatch (tests/test_spmd.py, 0.3) and decoding
 #: through caches against a full forward (tests/test_models.py, 0.25)
@@ -404,11 +430,13 @@ STREAM_REQUEST = 1 << 18
 STREAM_CARRY = 1 << 18
 TENANTS = {"free": 1.0, "pro": 3.0, "enterprise": 4.0}
 STREAM_STEPS = 34
-#: phase 14: TinyLlama-1.1B trained through the launcher's functions (8
-#: sequences of its 2048-token context, 8 steps, an async save at step 4,
-#: the launcher's lr and warmup); Qwen1.5-MoE-A2.7B at its published width
-#: with its depth cut to 2 layers, 3 steps on phase 12's grid and prompts
+#: phase 14: TinyLlama-1.1B at its published width through the launcher's
+#: functions, its depth cut 22 -> 11 as phase 16's (8 sequences of its
+#: 2048-token context, 8 steps, an async save at step 4, the launcher's
+#: lr and warmup); Qwen1.5-MoE-A2.7B at its published width with its
+#: depth cut to 2 layers, 3 steps on phase 12's grid and prompts
 TRAIN_ARCH = "tinyllama_1_1b"
+TRAIN_LAUNCH_LAYERS = 11
 TRAIN_LAUNCH_STEPS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_CKPT_EVERY = 8, 8, 2048, 4
 #: the schedule's ``total_steps`` and the corpus's length that phases
 #: 16-18 build from: the launcher's at 16 steps, phase 14's before its cut
@@ -432,6 +460,25 @@ MOE_RANKS_TOL = 2.0 ** -7
 TRAIN_RANKS_GRID = (2, 4)
 TRAIN_RANKS_LAYERS = 11
 TRAIN_RANKS_STEPS = 2
+#: the order in which phases 16-18's processes train their cells, each
+#: beside the next cell's reference on the card: a cell and the next
+#: reference together at most about 60 GB of the card's 80 (the
+#: processes' peak memory and the references' as read on an NVIDIA H100
+#: 80GB HBM3: zamba2 13 and 9 GB, the MoE 37 and 44, Whisper 12 and 6,
+#: TinyLlama 38 and 31, xLSTM 9 and 10, InternVL2 21 and 24, MiniCPM3
+#: 44 and 34), a short reference first, beside the processes' start;
+#: and the one spawn's time limit, the references included
+GRID_CELL_ORDER = ("zamba2_1_2b", "qwen2_moe_a2_7b", "whisper_small",
+                   "tinyllama_1_1b", "xlstm_125m", "internvl2_1b",
+                   "minicpm3_4b")
+GRID_TIMEOUT_S = 900
+#: phase 16's checkpoints: the state after its steps saved from (2, 4) as
+#: 4 slices (the launcher's), restored onto (4, 2) and saved again; the
+#: Sector root's bound (/dev/shm is host memory: 2 x 7.39 GB a checkpoint
+#: at replication 2, one checkpoint held at a time)
+CKPT_RANKS_GRID = (4, 2)
+CKPT_SLICES = 4
+CKPT_ROOT_LIMIT = 40e9
 TRAIN_ATOL_LOSS, TRAIN_RTOL_GNORM = 2e-3, 5e-3
 TRAIN_RTOL_GRAD, TRAIN_ATOL_GRAD = 0.03, 1e-3
 #: the two bounds full width needs wider than the CPU tests' (measured on
@@ -762,18 +809,19 @@ def new_path_shapes(sh: Shapes):
             ("radix_sort", "stream reduce, 4 ranks", (half, sh.s_rows_4), 0)]
 
 
-def check_new_shapes(torch, dev, gen, sh: Shapes, checks):
+def check_new_shapes(torch, dev, gen, sh: Shapes, checks, words):
     """Phase 3, continued: K1, K3 and K2 against their plain versions
     (tolerance 0) at the shapes a lost rank and the stream give them
     (:func:`new_path_shapes`), each timed beside its bound. K1's ids are
     random over its destinations plus the overflow one; K3's rows hold a
     quarter of real keys inside one bucket's range of the default
     splitters, then the int32 maximum, as a resumed regroup gives them;
-    K2's rows hold Zipf word ids below 2^20, then the int32 maximum."""
-    import numpy as np
+    K2's rows hold Zipf word ids below 2^20, drawn at random from phase
+    7's ``words`` (numpy's Zipf draw takes about a minute at these
+    shapes), then the int32 maximum."""
     from repro_torch.kernels import partition, radix_sort, ref
     from repro_torch.kernels.bitonic_sort import sort_kv_segments_bitonic
-    rng = np.random.default_rng(11)
+    pool = torch.from_numpy(words).to(dev)
     out = []
     for name, where, shape, nd in new_path_shapes(sh):
         chk = checks[name][0]
@@ -809,9 +857,8 @@ def check_new_shapes(torch, dev, gen, sh: Shapes, checks):
                       pairs_sorted(torch, gk, gv), pairs_sorted(torch, rk, rv))
             fn = sort_kv_segments_bitonic
         else:
-            words = ((rng.zipf(ZIPF_A, size=shape) - 1) % VOCAB).astype(
-                np.int32)
-            keys = torch.from_numpy(words).to(dev)
+            keys = pool[torch.randint(0, pool.numel(), shape, generator=gen,
+                                      device=dev)]
             keys[:, n // 2:] = 0x7FFFFFFF
             gk, gv = radix_sort.sort_kv_segments_radix(keys, vals)
             rk, rv = radix_sort.sort_kv_segments_radix_ref(keys, vals)
@@ -824,6 +871,7 @@ def check_new_shapes(torch, dev, gen, sh: Shapes, checks):
                     "bound_ms": bound_ms(16 * keys.numel())})
         del keys, vals
         torch.cuda.empty_cache()
+    del pool
     return out
 
 
@@ -948,8 +996,9 @@ def check_partition(torch, dev, gen, sh: Shapes):
         if not shapes:      # the send path: the row of the kernel table
             offs = (torch.arange(WORLD, device=dev, dtype=torch.int32)[:, None]
                     * (nd + 1))
+            # the plain version takes about a second a call: 3 timed
             row["plain_ms"] = time_ms(
-                torch, lambda: ref.partition_rank_ref(dest, nd))
+                torch, lambda: ref.partition_rank_ref(dest, nd), iters=3)
             row["library_ms"] = time_ms(torch, lambda: torch.bincount(
                 (dest + offs).reshape(-1), minlength=WORLD * (nd + 1)))
             row["library_call"] = "torch.bincount (histogram half only)"
@@ -1930,8 +1979,8 @@ def host_path(torch, dev, codec, slices, flat_sorted_keys, checks,
     """Phase 9: Terasort over Sector files through ``HostExecutor`` — the
     paper's own data plane. Phase 0 decodes each input slice on the card
     and splits it into bucket files with K1; phase 1 sorts each bucket
-    file with K2. Checks, cold and warm wall, the per-phase split, disk
-    bytes, peak memory; then K1 and K2 against their plain versions at
+    file with K2. Checks, the wall, the per-phase split, the spans and
+    the slaves' writes of that one traced run, disk bytes, peak memory; then K1 and K2 against their plain versions at
     the shapes this path gave them; then a small run with a crashing
     SPE."""
     import numpy as np
@@ -1957,13 +2006,15 @@ def host_path(torch, dev, codec, slices, flat_sorted_keys, checks,
         disk0 = sector.disk_bytes()
         ex = HostExecutor(sector.master, sector.client, sector.spes(),
                           daemon=daemon)
+        tracer = Tracer()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         reset_launches()
-        t0 = time.perf_counter()
-        res = ex.run(df, sector.paths)
-        torch.cuda.synchronize()
-        cold = time.perf_counter() - t0
+        with SlaveClock() as slave_clock:
+            t0 = time.perf_counter()
+            res = ex.run(df, sector.paths, trace=tracer)
+            torch.cuda.synchronize()
+            cold = time.perf_counter() - t0
         launches = read_launches()
         peak = torch.cuda.max_memory_allocated()
         disk_written = sector.disk_bytes() - disk0
@@ -1979,34 +2030,15 @@ def host_path(torch, dev, codec, slices, flat_sorted_keys, checks,
         phases = [{k: p[k] for k in ("phase", "terminator", "seconds",
                                      "engine_s", "materialize_s",
                                      "segments")} for p in res.phase_times]
-        cold_replication_s = daemon.seconds
         del res
-        sector.drop_scratch()
-        tracer = Tracer()
-        daemon.seconds = 0.0
-        torch.cuda.synchronize()
-        with SlaveClock() as slave_clock:
-            t0 = time.perf_counter()
-            warm = ex.run(df, sector.paths, trace=tracer)
-            torch.cuda.synchronize()
-            warm_s = time.perf_counter() - t0
-        warm_phases = [{k: p[k] for k in ("seconds", "engine_s",
-                                          "materialize_s")}
-                       for p in warm.phase_times]
-        check_host_result(torch, warm, in_keys, in_value, want_keys,
-                          "host path, warm")
-        del warm
         out = {"phase": "host_sector_terasort", "records": n,
                "record_bytes": codec.nbytes, "slaves": WORLD,
                "replication": 2, "spes": WORLD, "buckets": WORLD,
                "segments": segs, "launches": launches,
                "wall_ms": cold * 1e3, "records_per_s": n / cold,
-               "warm_wall_ms": warm_s * 1e3, "warm_records_per_s": n / warm_s,
-               "phase_times": phases, "warm_phase_times": warm_phases,
-               "replication_s": cold_replication_s,
-               "warm_replication_s": daemon.seconds,
-               "warm_spans_s": span_seconds(tracer),
-               "warm_slave_writes": slave_clock.report(),
+               "phase_times": phases, "replication_s": daemon.seconds,
+               "spans_s": span_seconds(tracer),
+               "slave_writes": slave_clock.report(),
                "setup_s": sector.setup_s,
                "disk_bytes_written": disk_written,
                "disk_free_bytes_before": sector.free_bytes,
@@ -3308,22 +3340,22 @@ def written_bytes() -> int:
     return 0
 
 
-def sector_root(need: int, fallback_need: int):
-    """A directory for phase 14's Sector slaves: on ``/dev/shm`` (a RAM
-    file system: a checkpoint's writes do not count against the machine's
-    disk) when it holds ``need`` bytes, else when it holds
+def sector_root(need: int, fallback_need=None):
+    """A directory for phase 14's and 16's Sector slaves: on ``/dev/shm``
+    (a RAM file system: a checkpoint's writes do not count against the
+    machine's disk) when it holds ``need`` bytes, else when it holds
     ``fallback_need``, else on the temporary directory's disk. Returns
     (root, its free bytes, whether ``need`` fits)."""
     import shutil
     import tempfile
+    wants = [need] + ([] if fallback_need is None else [fallback_need])
     for base in ("/dev/shm", None):
         if base is not None and not os.path.isdir(base):
             continue
         free = shutil.disk_usage(base or tempfile.gettempdir()).free
-        for want, full in ((need, True), (fallback_need, False)):
-            if free >= want or base is None:
-                return (tempfile.mkdtemp(prefix="chip_smoke_train_",
-                                         dir=base), free, free >= need)
+        if any(free >= want for want in wants) or base is None:
+            return (tempfile.mkdtemp(prefix="chip_smoke_train_", dir=base),
+                    free, free >= need)
     raise AssertionError("unreachable")
 
 
@@ -3387,9 +3419,9 @@ class CkptClock:
 
 def train_tinyllama(torch, dev, seed: int) -> dict:
     """Phase 14 (1): the launcher's main path at TinyLlama's published
-    config (see the module docstring)."""
+    width (see the module docstring)."""
     import copy
-    import hashlib
+    import dataclasses
     import math
     import shutil
     from repro_torch.configs import get_config
@@ -3398,7 +3430,8 @@ def train_tinyllama(torch, dev, seed: int) -> dict:
     from repro_torch.train.trainer import (init_train_state,
                                            load_state_tree, state_tree)
 
-    cfg = get_config(TRAIN_ARCH)
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH),
+                              num_layers=TRAIN_LAUNCH_LAYERS)
     n_params = sum(p.numel() for p in DecoderLM(
         cfg, torch.device("meta")).parameters())
     # a saved state is 12 bytes a parameter (float32 params, m, v),
@@ -3409,6 +3442,7 @@ def train_tinyllama(torch, dev, seed: int) -> dict:
     mem = host_memory()
     written0 = written_bytes()
     out = {"phase": "train_tinyllama", "arch": cfg.arch_id,
+           "cut": grid_cut(cfg),
            "layers": cfg.num_layers, "d_model": cfg.d_model,
            "vocab": cfg.vocab, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
            "steps": TRAIN_LAUNCH_STEPS, "lr": TRAIN_LR,
@@ -3427,7 +3461,7 @@ def train_tinyllama(torch, dev, seed: int) -> dict:
                                f"checkpoint of {state} bytes does not fit")
         if not full:
             ckpt_every = TRAIN_LAUNCH_STEPS + 1
-            out["cut"] = (f"no mid-run save: {free} bytes free under "
+            out["save_cut"] = (f"no mid-run save: {free} bytes free under "
                           f"{root}")
         reset_launches()
         torch.cuda.synchronize()
@@ -3503,11 +3537,10 @@ def train_tinyllama(torch, dev, seed: int) -> dict:
         # slice's MD5 verified, then the same step from it
         fresh, fresh_opt = init_train_state(
             model, torch.Generator(device=dev).manual_seed(seed + 1), dev)
-        md5_ok = []
-        for sm in manifest["slices"]:
-            md5_ok.append(hashlib.md5(client.download(sm["path"]))
-                          .hexdigest() == sm["md5"]
-                          == client.stat(sm["path"]).md5)
+        # the index's MD5 of each slice is the manifest's; the restore
+        # checks every slice's bytes against the manifest's MD5
+        md5_ok = [client.stat(sm["path"]).md5 == sm["md5"]
+                  for sm in manifest["slices"]]
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         tree, step = ckpt.restore(state_tree(model, fresh, fresh_opt),
@@ -3707,7 +3740,9 @@ def train_profile(torch, dev, seed: int, out_dir: str) -> list:
     rows = []
     for cell in ("train-tinyllama-1.1b", "train-qwen2-moe-grid-1x8"):
         if cell.startswith("train-tinyllama"):
-            cfg, ranks = get_config(TRAIN_ARCH), None
+            cfg = dataclasses.replace(get_config(TRAIN_ARCH),
+                                      num_layers=TRAIN_LAUNCH_LAYERS)
+            ranks = None
             shape = (TRAIN_BATCH, TRAIN_SEQ)
         else:
             cfg = dataclasses.replace(get_config(SERVE_ARCH),
@@ -3939,13 +3974,15 @@ def rank_moe(torch, ranks, seed: int) -> dict:
 def rank_paths(ranks, directory: str, seed: int) -> dict:
     """Phase 15 in one of the 8 processes (``ranks``: its ``(8,)`` grid;
     the ``(dc, node)`` and ``(data, model)`` grids are built over the same
-    process group)."""
+    process group). Starts once the parent's stacked runs are done."""
     import torch
     from repro_torch.comm import ProcessRanks
     dev = ranks.device
-    torch.cuda.reset_peak_memory_stats(dev)
     out = {"rank": ranks.rank, "device": str(dev)}
     keys, value = load_npy(directory, "keys"), load_npy(directory, "value")
+    wait_file(os.path.join(directory, "go"),
+              os.path.join(directory, "abort"))
+    torch.cuda.reset_peak_memory_stats(dev)
     out["flat"] = rank_sort(torch, ranks, keys, value, directory, "flat")
     grid = ProcessRanks(GRID, ("dc", "node"), device=dev)
     out["grid"] = rank_sort(torch, grid, keys, value, directory, "grid")
@@ -4091,18 +4128,67 @@ def nccl_world_one(torch) -> dict:
         dist.destroy_process_group()
 
 
+class SpawnBeside:
+    """``spawn_ranks(*args, **kwargs)`` on a thread, so that this process
+    works on the card while the processes start; they wait for files this
+    process writes into ``ready_dir`` (:func:`wait_file`), and an
+    ``abort`` file there stops them."""
+
+    def __init__(self, ready_dir: str, *args, **kwargs):
+        import threading
+        from repro_torch.comm import spawn_ranks
+        self.abort = os.path.join(ready_dir, "abort")
+        self.box = {}
+
+        def run():
+            t0 = time.perf_counter()
+            try:
+                self.box["out"] = spawn_ranks(*args, **kwargs)
+            except BaseException as e:      # re-raised by join()
+                self.box["error"] = e
+            self.box["seconds"] = time.perf_counter() - t0
+
+        self.thread = threading.Thread(target=run, daemon=True)
+        self.thread.start()
+
+    def alive(self) -> bool:
+        return self.thread.is_alive()
+
+    def join(self):
+        """(each rank's result, the spawn's seconds), or its error."""
+        self.thread.join()
+        if "error" in self.box:
+            raise self.box["error"]
+        return self.box["out"], self.box["seconds"]
+
+    def stop(self, error: BaseException):
+        """After ``error`` in this process: stop the processes, and raise
+        the spawn's own error if that is what ended the wait, else
+        ``error``."""
+        spawn_failed = not self.alive() and "error" in self.box
+        open(self.abort, "w").close()
+        self.thread.join()
+        raise (self.box["error"] if spawn_failed else error)
+
+
 def ranks_path(torch, dev, directory: str, seed: int, flat_sorted) -> dict:
-    """Phase 15 (see the module docstring): the stacked runs first, then
-    the 8 processes, then the checks."""
+    """Phase 15 (see the module docstring): the 8 processes start while
+    the stacked runs go, then run once those are done; then the
+    checks."""
     import numpy as np
-    from repro_torch.comm import spawn_ranks
+    from repro_torch.models.registry import meta_params
 
     t_phase = time.perf_counter()
-    ref = stacked_references(torch, dev, directory, seed)
-    t0 = time.perf_counter()
-    results = spawn_ranks(rank_paths, (WORLD,), ("data",), backend="gloo",
-                          timeout_s=RANKS_TIMEOUT_S, args=(directory, seed))
-    spawn_s = time.perf_counter() - t0
+    spawn = SpawnBeside(directory, rank_paths, (WORLD,), ("data",),
+                        backend="gloo", timeout_s=RANKS_TIMEOUT_S,
+                        args=(directory, seed))
+    try:
+        ref = stacked_references(torch, dev, directory, seed)
+        torch.cuda.empty_cache()
+        put_file(os.path.join(directory, "go"), True)
+        results, spawn_s = spawn.join()
+    except BaseException as e:
+        spawn.stop(e)
     out = {"phase": "ranks", "processes": WORLD, "backend": "gloo",
            "transport": "gloo over CUDA tensors, staged through host "
                         "memory inside gloo (8 processes share one card; "
@@ -4544,12 +4630,14 @@ def comm_by_op_axis(log) -> dict:
 
 
 def rank_train(ranks, directory: str, batches, opt_cfg, sum_lr: float,
-               cfg, grad_leaves) -> dict:
+               cfg, grad_leaves, ckpt_root=None) -> dict:
     """One of the 8 processes of phase 16 or 17: this process's shards
     cut from the initial weights in ``directory``, the sharded steps (the
     last with its collectives logged, K1's launches counted from zero
     each step), its state's bytes, the first step's gradient blocks of
-    ``grad_leaves``; then its parameter blocks after the steps against
+    ``grad_leaves``; with ``ckpt_root`` the state after the steps saved,
+    restored onto another grid and saved again (:func:`rank_checkpoint`);
+    then its parameter blocks after the steps against
     the reference's (``final.<leaf>.npy``), each distinct block on the
     first process holding it (the rule's tally), and its routed experts'
     blocks to the bit."""
@@ -4603,6 +4691,9 @@ def rank_train(ranks, directory: str, batches, opt_cfg, sum_lr: float,
                                      and "model" in e["axes"]]
     ranks.log = None
     out["peak_mem_bytes"] = torch.cuda.max_memory_allocated(dev)
+    if ckpt_root is not None:
+        out["checkpoint"] = rank_checkpoint(ranks, model, params, opt,
+                                            ckpt_root)
     leaves = named_leaves(params, cfg)
     out["param_bytes"] = sum(p.numel() * 4 for p in leaves.values())
     out["moment_bytes"] = {k: sum(t.numel() * 4 for t in opt[k].values())
@@ -4628,6 +4719,193 @@ def rank_train(ranks, directory: str, batches, opt_cfg, sum_lr: float,
     out["routed_equal"] = routed
     out["compare_s"] = time.perf_counter() - t0
     return out
+
+
+def rank_checkpoint(ranks, model, params, opt, root: str) -> dict:
+    """Phase 16's checkpoints, in one of its 8 processes: the state after
+    the steps saved from ``ranks``' grid into a Sector deployment the
+    processes share under ``root`` (4 slaves, replication 2, the
+    launcher's), its upload on the background thread; restored onto
+    ``CKPT_RANKS_GRID`` built over the same processes (the first
+    checkpoint then deleted); saved again from there. Seconds, gloo bytes
+    by op and axis, the restored blocks' shapes and bytes against the new
+    grid's specs, the Sector root's bytes after each save, and (process
+    0) both manifests and the slices' holders."""
+    import json
+    import math
+    import torch
+    from repro_torch.comm import ProcessRanks
+    from repro_torch.launch.train import shared_sector
+    from repro_torch.models.convert import flatten, named_leaves
+    from repro_torch.models.registry import meta_params
+    from repro_torch.train.checkpoint import SectorCheckpointer
+    from repro_torch.train.elastic import grid_state_specs, remesh_state
+    from repro_torch.train.optimizer import init_opt_state
+    from repro_torch.train.trainer import (_local_shape, make_state_shardings,
+                                           state_tree)
+    dev, cfg = ranks.device, model.cfg
+    sector, client, _ = shared_sector(root, ranks, lambda c: None)
+    ckpt = SectorCheckpointer(client, "/ckpt/run0", num_slices=CKPT_SLICES)
+    prefix = "/ckpt/run0/step_{:08d}/"
+    out = {"rank": ranks.rank, "root_bytes": []}
+
+    def timed(grid, fn):
+        grid.log = []
+        torch.cuda.synchronize(dev)
+        grid.barrier()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize(dev)
+        seconds = time.perf_counter() - t0
+        gloo = comm_by_op_axis(grid.log)
+        grid.log = None
+        grid.barrier()
+        if ranks.rank == 0:
+            out["root_bytes"].append(sum(s.used_bytes()
+                                         for s in sector.slaves.values()))
+        return res, dict(ckpt.timings, seconds=seconds, gloo=gloo)
+
+    def save_async():
+        ckpt.save(1, state_tree(model, params, opt), blocking=False,
+                  ranks=ranks, specs=grid_state_specs(model, ranks))
+        returned = time.perf_counter()
+        ckpt.wait()
+        return returned
+
+    t0 = time.perf_counter()
+    returned, out["save"] = timed(ranks, save_async)
+    out["save"]["returned_s"] = returned - t0
+    first = json.loads(client.download(prefix.format(1) + "MANIFEST.json"))
+    new = ProcessRanks(CKPT_RANKS_GRID, ranks.axes, backend=ranks.backend,
+                       device=dev)
+    meta = meta_params(cfg).trainable()
+    like = state_tree(model, meta, init_opt_state(named_leaves(meta, cfg)))
+    new_specs = grid_state_specs(model, new)
+    (tree, step), out["restore"] = timed(
+        new, lambda: remesh_state(ckpt, like, new, new_specs))
+    # the restored blocks against the new grid's specs
+    p_specs, opt_specs = make_state_shardings(
+        model, dict(zip(new.axes, new.shape)))
+    shapes = {n: tuple(p.shape) for n, p in meta.named_parameters()}
+    got = {"params": flatten(tree["params"]), "m": flatten(tree["opt"]["m"]),
+           "v": flatten(tree["opt"]["v"])}
+    specs = {"params": p_specs, "m": opt_specs["m"], "v": opt_specs["v"]}
+    bad = [f"{k}.{n}" for k in got for n in shapes
+           if tuple(got[k][n].shape) != _local_shape(shapes[n], specs[k][n],
+                                                     new)
+           or got[k][n].device != dev]
+    out.update({
+        "restored_step": step, "shape_faults": bad,
+        "restored_bytes": sum(t.numel() * t.element_size()
+                              for k in got for t in got[k].values()),
+        "want_bytes": sum(4 * math.prod(_local_shape(shapes[n], specs[k][n],
+                                                     new))
+                          for k in specs for n in shapes),
+        "restored_step_leaf": int(tree["opt"]["step"])})
+    # the first checkpoint, read, goes: the root holds one at a time
+    for fm in client.ls(prefix.format(1)):
+        if ranks.rank == 0:
+            client.delete(fm.path)
+        else:
+            sector.forget(fm.path)
+    new.barrier()
+    _, out["resave"] = timed(new, lambda: ckpt.save(2, tree, ranks=new,
+                                                    specs=new_specs))
+    del tree, got
+    if ranks.rank == 0:
+        second = json.loads(client.download(prefix.format(2)
+                                            + "MANIFEST.json"))
+        out.update({"first": first, "second": second,
+                    "holders": [sorted(client.stat(s["path"]).locations)
+                                for s in second["slices"]],
+                    "fs": filesystem_of(root)})
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_rank_checkpoint(cfg, results) -> tuple:
+    """Phase 16's checkpoint checks: (the numbers printed, failures). The
+    second checkpoint's slices, MD5s and leaf table equal the first's;
+    the leaf table is the one-process save's for ``cfg`` (the
+    ``leaf_table`` of the state on the ``meta`` device); every process's
+    restored blocks have the new grid's shapes, bytes and device; every
+    slice has 2 holders; the Sector root stays below
+    ``CKPT_ROOT_LIMIT``."""
+    from repro_torch.models import build
+    from repro_torch.models.convert import named_leaves
+    from repro_torch.models.registry import meta_params
+    from repro_torch.train.checkpoint import leaf_table
+    from repro_torch.train.optimizer import init_opt_state
+    from repro_torch.train.trainer import state_tree
+    ck = [r["checkpoint"] for r in results]
+    c0, failures = ck[0], []
+    meta = meta_params(cfg).trainable()       # float32, as trained
+    table = leaf_table(state_tree(build(cfg), meta, init_opt_state(
+        named_leaves(meta, cfg))))
+    first, second = c0["first"], c0["second"]
+    if [s["md5"] for s in second["slices"]] != \
+            [s["md5"] for s in first["slices"]]:
+        failures.append("the checkpoint saved from the new grid has other "
+                        "MD5s")
+    if [s["nbytes"] for s in second["slices"]] != \
+            [s["nbytes"] for s in first["slices"]] \
+            or second["leaves"] != first["leaves"]:
+        failures.append("the two checkpoints' slices or leaf tables differ")
+    if first["leaves"] != table:
+        failures.append("the leaf table is not the one-process save's")
+    for c in ck:
+        if c["shape_faults"] or c["restored_bytes"] != c["want_bytes"] \
+                or c["restored_step"] != 1 or c["restored_step_leaf"] \
+                != TRAIN_RANKS_STEPS:
+            failures.append(f"process {c['rank']}: restored blocks "
+                            f"{c['shape_faults'][:3]}, {c['restored_bytes']} "
+                            f"bytes against {c['want_bytes']}")
+    if any(len(h) != 2 for h in c0["holders"]):
+        failures.append(f"slice holders {c0['holders']}")
+    peak = max(c0["root_bytes"])
+    if peak > CKPT_ROOT_LIMIT:
+        failures.append(f"the Sector root held {peak} bytes")
+
+    def by(key, field):
+        return [c[key][field] for c in ck]
+
+    line = {
+        "grids": {"saved": list(TRAIN_RANKS_GRID),
+                  "restored": list(CKPT_RANKS_GRID)},
+        "slices": CKPT_SLICES, "replication": 2,
+        "state_bytes": first["total_bytes"],
+        "md5s": [s["md5"] for s in first["slices"]],
+        "md5s_equal": [s["md5"] for s in second["slices"]]
+        == [s["md5"] for s in first["slices"]],
+        "leaf_table_is_one_process": first["leaves"] == table,
+        "save_s": max(by("save", "seconds")),
+        "save_returned_s": max(by("save", "returned_s")),
+        "restore_s": max(by("restore", "seconds")),
+        "resave_s": max(by("resave", "seconds")),
+        # each process's part: the exchanges, the slice owners' upload
+        # (write, MD5, one more copy), the gather's wait for the slowest
+        # upload and the manifest; the owners' read and MD5 check
+        "by_process": {
+            f"{k}_{f}": by(k, f"{'restore' if k == 'restore' else 'save'}"
+                           f"_{f}")
+            for k, fs in (("save", ("exchange_s", "upload_s", "gather_s",
+                                    "finish_s")),
+                          ("restore", ("read_s", "exchange_s")),
+                          ("resave", ("exchange_s", "upload_s", "gather_s",
+                                      "finish_s")))
+            for f in fs},
+        "gloo_bytes_by_process": {
+            k: [sum(v["bytes"] for v in c[k]["gloo"].values()) for c in ck]
+            for k in ("save", "restore", "resave")},
+        "gloo_seconds_by_process": {
+            k: [sum(v["seconds"] for v in c[k]["gloo"].values())
+                for c in ck] for k in ("save", "restore", "resave")},
+        "restored_bytes_by_process": [c["restored_bytes"] for c in ck],
+        "sector_root_bytes_peak": peak,
+        "sector_root_bytes_after_each_save": c0["root_bytes"],
+        "sector_fs": c0["fs"], "holders": c0["holders"]}
+    return line, failures
 
 
 def check_train_ranks(torch, cfg, grid, ref, results, grad_leaves,
@@ -4849,18 +5127,48 @@ def ranks_phase_line(cfg, grid, ref, results, batches, reference_s,
             "comm_last_step_rank0": r0["comm_last_step"]}
 
 
-def rank_train_cells(ranks, cells) -> list:
-    """:func:`rank_train` of each cell's arguments in turn in one process,
-    on the cell's ``(data, model)`` grid (a grid other than the spawn's
-    built once over the same processes), the card's memory freed between
-    them; once every process is done with a cell, the first removes its
-    weights' directory (host memory: ``/dev/shm``)."""
+def cell_file(ready_dir: str, what: str, i: int) -> str:
+    """The file by which the parent hands cell ``i`` to the processes
+    (``what="cell"``) or the first process reports it done
+    (``"done"``)."""
+    return os.path.join(ready_dir, f"{what}{i}.pt")
+
+
+def put_file(path: str, obj) -> None:
+    """``torch.save`` of ``obj`` to ``path``, seen whole or not at all."""
+    import torch
+    torch.save(obj, path + ".tmp", pickle_protocol=4)
+    os.replace(path + ".tmp", path)
+
+
+def wait_file(path: str, abort: str, alive=None) -> None:
+    """Poll for ``path``; raise if ``abort`` appears first, or if
+    ``alive()`` turns false."""
+    while not os.path.exists(path):
+        if os.path.exists(abort) or (alive is not None and not alive()):
+            raise RuntimeError(f"stopped waiting for {path}")
+        time.sleep(0.05)
+
+
+def rank_train_cells(ranks, ready_dir: str, n_cells: int) -> list:
+    """:func:`rank_train` of each cell in turn in one process, as soon as
+    the parent has handed it over (its arguments in
+    ``cell_file(ready_dir, "cell", i)``, written once its reference is
+    done), on the cell's ``(data, model)`` grid (a grid other than the
+    spawn's built once over the same processes), the card's memory freed
+    between them; once every process is done with a cell, the first
+    removes its weights' directory and its checkpoints' Sector root (host
+    memory: ``/dev/shm``) and reports it done."""
     import torch
     import torch.distributed as dist
     from repro_torch.comm import ProcessRanks
     grids = {tuple(ranks.shape): ranks}
+    abort = os.path.join(ready_dir, "abort")
     out = []
-    for grid, args in cells:
+    for i in range(n_cells):
+        path = cell_file(ready_dir, "cell", i)
+        wait_file(path, abort)
+        grid, args = torch.load(path, weights_only=False)
         if grid not in grids:
             grids[grid] = ProcessRanks(grid, ranks.axes,
                                        backend=ranks.backend,
@@ -4871,6 +5179,9 @@ def rank_train_cells(ranks, cells) -> list:
         dist.barrier()
         if ranks.rank == 0:
             shutil.rmtree(args[0], ignore_errors=True)
+            if args[6] is not None:           # phase 16's checkpoints
+                shutil.rmtree(args[6], ignore_errors=True)
+            put_file(cell_file(ready_dir, "done", i), True)
     return out
 
 
@@ -4901,7 +5212,8 @@ def grid_cells(torch, seed: int) -> list:
          "cfg": dataclasses.replace(get_config(TRAIN_ARCH),
                                     num_layers=TRAIN_RANKS_LAYERS),
          "seq": TRAIN_SEQ, "bounds": TRAIN_RANKS_BOUNDS,
-         "leaves": TRAIN_GRAD_LEAVES, "floor": True, "faults": False},
+         "leaves": TRAIN_GRAD_LEAVES, "floor": True, "faults": False,
+         "checkpoint": True},
         {"line": "train_ranks_families_mla",
          "cell": "train-minicpm3-4b-2x4-8proc-1xH100",
          "cfg": dataclasses.replace(get_config(MLA_TRAIN_ARCH),
@@ -4940,18 +5252,46 @@ def grid_cut(cfg) -> str:
 
 
 def train_grid_path(torch, dev, seed: int) -> dict:
-    """Phases 16, 17 and 18 (see the module docstring): every cell's
-    reference on the card one after another, then one spawn of 8
-    processes training every cell in turn, then each cell's checks.
-    Returns ``{"paths": {line name: line}, ...}``; every cell is checked
-    and printed before a failure ends the run."""
-    from repro_torch.comm import spawn_ranks
+    """Phases 16, 17 and 18 (see the module docstring): one spawn of 8
+    processes started first, training every cell in turn as soon as its
+    reference on the card is done, while this process computes the next
+    reference (one ahead: reference ``i`` waits until cell ``i - 2`` is
+    done, so that the card and ``/dev/shm`` hold two cells at a time),
+    then each cell's checks. Returns ``{"paths": {line name: line},
+    ...}``; every cell is checked and printed before a failure ends the
+    run."""
+    import tempfile
+    from repro_torch.models.registry import meta_params
 
     t_phase = time.perf_counter()
-    out = {"phase": "train_grid", "paths": {}}
-    cells, dirs, failures = grid_cells(torch, seed), [], []
+    out = {"phase": "train_grid", "paths": {}, "references_s": 0.0}
+    order = {arch: i for i, arch in enumerate(GRID_CELL_ORDER)}
+    cells = sorted(grid_cells(torch, seed),
+                   key=lambda c: order[c["cfg"].arch_id])
+    dirs, failures = [], []
+    ready = tempfile.mkdtemp(prefix="chip_smoke_cells_",
+                             dir="/dev/shm" if os.path.isdir("/dev/shm")
+                             else None)
+    spawn = SpawnBeside(ready, rank_train_cells, TRAIN_RANKS_GRID,
+                        ("data", "model"), backend="gloo", device=dev.type,
+                        timeout_s=GRID_TIMEOUT_S, args=(ready, len(cells)))
     try:
-        for c in cells:
+        for i, c in enumerate(cells):
+            if i >= 2:
+                wait_file(cell_file(ready, "done", i - 2), spawn.abort,
+                          spawn.alive)
+            if c.get("checkpoint"):
+                # phase 16's Sector root: one checkpoint at a time, twice
+                # (replication 2), with room to spare
+                state = 12 * sum(p.numel() for p in meta_params(
+                    c["cfg"]).parameters())
+                need = 2 * state + (4 << 30)
+                c["ckpt_root"], free, fits = sector_root(need)
+                dirs.append(c["ckpt_root"])
+                if not fits:
+                    raise RuntimeError(f"{c['ckpt_root']} has {free} bytes "
+                                       f"free; phase 16's checkpoints need "
+                                       f"{need}")
             if "batches" not in c:
                 c["batches"] = train_ranks_batches(
                     torch, c["cfg"], c["seq"], TRAIN_RANKS_STEPS, dev, seed)
@@ -4962,20 +5302,20 @@ def train_grid_path(torch, dev, seed: int) -> dict:
                 c["leaves"], grid=c["grid"] if c["stacked"] else None,
                 floor=c["floor"], faults=c["faults"])
             c["reference_s"] = time.perf_counter() - t0
+            out["references_s"] += c["reference_s"]
             gc.collect()
             torch.cuda.empty_cache()
-        out["references_s"] = time.perf_counter() - t_phase
-        t0 = time.perf_counter()
-        per_rank = spawn_ranks(
-            rank_train_cells, TRAIN_RANKS_GRID, ("data", "model"),
-            backend="gloo", device=dev.type, timeout_s=RANKS_TIMEOUT_S,
-            args=([(c["grid"], (d, c["batches"], c["opt"],
-                                sum(c["ref"]["lrs"]), c["cfg"], c["leaves"]))
-                   for d, c in zip(dirs, cells)],))
-        spawn_s = out["spawn_s"] = time.perf_counter() - t0
+            put_file(cell_file(ready, "cell", i),
+                     (c["grid"], (dirs[-1], c["batches"], c["opt"],
+                                  sum(c["ref"]["lrs"]), c["cfg"],
+                                  c["leaves"], c.get("ckpt_root"))))
+        per_rank, spawn_s = spawn.join()
+    except BaseException as e:
+        spawn.stop(e)
     finally:
-        for d in dirs:
+        for d in dirs + [ready]:
             shutil.rmtree(d, ignore_errors=True)
+    out["spawn_s"] = spawn_s
     for i, c in enumerate(cells):
         cfg, batches, ref = c["cfg"], c["batches"], c["ref"]
         results = [r[i] for r in per_rank]
@@ -5007,6 +5347,9 @@ def train_grid_path(torch, dev, seed: int) -> dict:
             torch, cfg, c["grid"], ref, results, c["leaves"], c["bounds"],
             c["k1"], "loss_mask" in batches[0])
         line.update(checks)
+        if c.get("checkpoint"):
+            line["checkpoint"], ck_bad = check_rank_checkpoint(cfg, results)
+            bad = bad + [f"checkpoint: {f}" for f in ck_bad]
         line["k1_launches"] = sum(sum(r["k1_launches"]) for r in results)
         out["paths"][c["line"]] = line
         failures += [f"{c['cell']}: {f}" for f in bad]
@@ -5113,6 +5456,8 @@ def main(argv=None) -> int:
     gen = torch.Generator(device=dev)
     gen.manual_seed(args.seed)
     sh = Shapes(args.n_log2)
+    # phase 7's words, drawn first: phase 3 draws K2's Zipf rows from them
+    words, gen_s = draw_words(args.seed, sh.words)
     checks = {"partition": check_partition(torch, dev, gen, sh),
               "bitonic_sort": check_sort(torch, dev, gen, "bitonic_sort",
                                          [sh.recv, sh.recv_grid], sh.recv,
@@ -5120,7 +5465,7 @@ def main(argv=None) -> int:
               "radix_sort": check_sort(torch, dev, gen, "radix_sort",
                                        [sh.recv, sh.wc_recv], sh.wc_recv),
               "bucket_hist": check_bucket_hist(torch, dev, gen, sh)}
-    new_shapes = check_new_shapes(torch, dev, gen, sh, checks)
+    new_shapes = check_new_shapes(torch, dev, gen, sh, checks, words)
     for name, (chk, timing) in checks.items():
         log(json.dumps({"phase": "kernel_check", "name": name,
                         "cases": chk.cases, "max_abs_err": chk.max_abs_err,
@@ -5146,7 +5491,6 @@ def main(argv=None) -> int:
     save_npy(rdir, "flat_sorted", host_flat)
     del keys, value, flat_sorted
     torch.cuda.empty_cache()
-    words, gen_s = draw_words(args.seed, sh.words)
     save_npy(rdir, "words", words)
     wc = wordcount_path(torch, dev, words, gen_s, sh, args.profile)
     log(json.dumps(wc))

@@ -387,6 +387,12 @@ class ProcessRanks(Ranks):
     "bytes", "seconds"}``: the bytes this rank hands to the transport and
     the call's host time, the card synchronised before and after it (a
     measurement mode: the synchronisations cost what they cost).
+
+    Host tensors (a checkpoint's bytes, :meth:`gather_to_first`), objects
+    and barriers go over the whole grid. Under gloo that is the default
+    group; beside NCCL, which takes CUDA tensors only, a gloo group of
+    the whole grid made at the first such call (every process makes its
+    first one at the same point: it is a collective).
     """
 
     def __init__(self, shape: Sequence[int], axes: Optional[Sequence[str]]
@@ -417,6 +423,7 @@ class ProcessRanks(Ranks):
         self.coords = grid_coords(self.shape, rank)
         self.log: Optional[List[Dict[str, Any]]] = None
         self._groups: Dict[Tuple[str, ...], Any] = {}
+        self._host: Any = None
         for r in range(1, len(self.axes)):
             for names in itertools.combinations(self.axes, r):
                 rest = [k for k, a in enumerate(self.axes) if a not in names]
@@ -452,14 +459,31 @@ class ProcessRanks(Ranks):
                 f"rank={self.rank}, backend={self.backend!r}, "
                 f"device={str(self.device)!r})")
 
-    def _group(self, names: Tuple[str, ...]):
-        """The process group of ``names`` (None: the default group)."""
+    def host_group(self):
+        """The group of the whole grid for host tensors and objects: the
+        default group (None) under gloo, else a gloo group of its own."""
+        if self.backend == "gloo":
+            return None
+        if self._host is None:
+            self._host = dist.new_group(backend="gloo")
+        return self._host
+
+    def _group(self, names: Tuple[str, ...], host: bool = False):
+        """The process group of ``names`` (None: the default group), for
+        host tensors with ``host``."""
         key = tuple(a for a in self.axes if a in names)
-        return None if len(key) == len(self.axes) else self._groups[key]
+        whole = len(key) == len(self.axes)
+        if host and self.backend != "gloo":
+            if not whole:
+                raise ValueError(f"{self.backend} takes device tensors: "
+                                 f"host tensors go over the whole grid, "
+                                 f"not {key}")
+            return self.host_group()
+        return None if whole else self._groups[key]
 
     def _call(self, op: str, names: Tuple[str, ...], fn, *tensors) -> None:
         """``fn(*tensors, group=...)``, logged when :attr:`log` is a list."""
-        group = self._group(names)
+        group = self._group(names, tensors[-1].device.type == "cpu")
         if self.log is None:
             fn(*tensors, group=group)
             return
@@ -549,19 +573,21 @@ class ProcessRanks(Ranks):
         return out.unsqueeze(0)
 
     def all_to_all_v(self, x: torch.Tensor, send: Sequence[int],
-                     recv: Sequence[int], axis: str) -> torch.Tensor:
-        """``all_to_all`` along one axis with blocks of given sizes: ``x``
-        is ``(1, sum(send), ...)``, its consecutive blocks of ``send[j]``
-        rows going to the rank at ``j`` along ``axis``; the result ``(1,
-        sum(recv), ...)`` holds the blocks of ``recv[i]`` rows from the
-        rank at ``i``, in the axis's order. Counted as ``all_to_all``."""
+                     recv: Sequence[int], axis: AxisLike) -> torch.Tensor:
+        """``all_to_all`` with blocks of given sizes: ``x`` is ``(1,
+        sum(send), ...)``, its consecutive blocks of ``send[j]`` rows going
+        to the rank at ``j`` along ``axis``; the result ``(1, sum(recv),
+        ...)`` holds the blocks of ``recv[i]`` rows from the rank at ``i``,
+        in the axis's order. ``axis`` may name several axes (None: the
+        whole grid), their ranks in the grid's row-major order. Counted
+        as ``all_to_all``."""
         self._check(x)
-        names = self.axis_names(axis)
+        names = tuple(a for a in self.axes if a in self.axis_names(axis))
         size = self.axis_size(names)
-        if len(names) != 1 or len(send) != size or len(recv) != size:
-            raise ValueError(f"all_to_all_v along one axis of {size} ranks: "
-                             f"axis {axis}, {len(send)} send and "
-                             f"{len(recv)} receive sizes")
+        if len(send) != size or len(recv) != size:
+            raise ValueError(f"all_to_all_v over {size} ranks: axis "
+                             f"{axis}, {len(send)} send and {len(recv)} "
+                             f"receive sizes")
         if sum(send) != x.shape[1]:
             raise ValueError(f"send sizes {list(send)} do not cover "
                              f"{x.shape[1]} rows")
@@ -572,6 +598,20 @@ class ProcessRanks(Ranks):
                    lambda o, i, group: dist.all_to_all_single(
                        o, i, list(recv), list(send), group=group), out, part)
         return out.unsqueeze(0)
+
+    def all_gather_object(self, obj: Any) -> List[Any]:
+        """Every process's picklable ``obj`` in rank order, on every
+        process: small host metadata (a checkpoint's file table, a flag),
+        counted as ``all_gather_object``."""
+        self.collectives["all_gather_object"] += 1
+        out: List[Any] = [None] * self.world
+        dist.all_gather_object(out, obj, group=self.host_group())
+        return out
+
+    def barrier(self) -> None:
+        """Wait for every process of the grid; counted as ``barrier``."""
+        self.collectives["barrier"] += 1
+        dist.barrier(group=self.host_group())
 
     def gather_to_first(self, x: torch.Tensor
                         ) -> Optional[List[torch.Tensor]]:

@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import threading
 import time
 from typing import Dict, List, Optional, Sequence, Set, Tuple
 
@@ -53,6 +54,14 @@ class Master:
         self.index: Dict[str, FileMeta] = {}
         self.stats = {"replications": 0, "lost_files": 0, "transfers": 0,
                       "recoveries": 0}
+        #: the placement choice and the bookkeeping around each transfer
+        #: (busy counts, the index, stats); transfers themselves run
+        #: outside it, so that threads upload, download and replicate
+        #: files side by side
+        self._lock = threading.RLock()
+        #: files a thread is copying to another slave now: another thread
+        #: leaves them alone (see _replicate_once)
+        self._copying: Set[str] = set()
 
     # -- slave membership ---------------------------------------------------
     def register_slave(self, slave: SlaveNode) -> None:
@@ -74,7 +83,7 @@ class Master:
     def mark_slave_down(self, slave_id: int) -> None:
         """Heartbeat loss (declared by a :class:`FailureDetector`): drop the
         slave from every file's location set."""
-        for meta in self.index.values():
+        for meta in self.metas():
             meta.locations.discard(slave_id)
 
     # -- metadata recovery ----------------------------------------------------
@@ -156,15 +165,18 @@ class Master:
         self.security.check_access(session_id, path, "w")
         if self.block_mode and len(data) > self.block_size:
             return self._upload_blocks(path, data, client_addr)
-        slave = self.choose_upload_slave(len(data), client_addr)
-        slave.active_services += 1
+        with self._lock:
+            slave = self.choose_upload_slave(len(data), client_addr)
+            slave.active_services += 1
         try:
             info = slave.write_file(path, data)
         finally:
-            slave.active_services -= 1
+            with self._lock:
+                slave.active_services -= 1
         meta = FileMeta(path, info.size, info.md5, {slave.slave_id})
-        self.index[path] = meta
-        self.stats["transfers"] += 1
+        with self._lock:
+            self.index[path] = meta
+            self.stats["transfers"] += 1
         return meta
 
     def _upload_blocks(self, path: str, data: bytes,
@@ -214,13 +226,16 @@ class Master:
         return self._download_one(path, client_addr)
 
     def _download_one(self, path: str, client_addr: Optional[NodeAddress]) -> bytes:
-        slave = self.choose_download_slave(path, client_addr)
-        slave.active_services += 1
+        with self._lock:
+            slave = self.choose_download_slave(path, client_addr)
+            slave.active_services += 1
         try:
             data = slave.read_file(path)
         finally:
-            slave.active_services -= 1
-        self.stats["transfers"] += 1
+            with self._lock:
+                slave.active_services -= 1
+        with self._lock:
+            self.stats["transfers"] += 1
         return data
 
     def delete(self, session_id: int, path: str) -> None:
@@ -235,8 +250,16 @@ class Master:
     def lookup(self, path: str) -> Optional[FileMeta]:
         return self.index.get(path)
 
+    def metas(self) -> List[FileMeta]:
+        """The index's entries now, taken under the lock: threads may be
+        adding files while the caller walks them."""
+        with self._lock:
+            return list(self.index.values())
+
     def list_dir(self, prefix: str) -> List[FileMeta]:
-        return [m for p, m in sorted(self.index.items()) if p.startswith(prefix)]
+        with self._lock:
+            items = sorted(self.index.items())
+        return [m for p, m in items if p.startswith(prefix)]
 
     def locations_of(self, path: str) -> List[NodeAddress]:
         meta = self._meta_or_raise(path)
@@ -251,21 +274,57 @@ class Master:
 
     def _replicate_once(self, meta: FileMeta) -> bool:
         """Create at most one new topology-spread copy of ``meta`` from a
-        live holder. Returns True iff a copy was made."""
-        live = self._live_holders(meta)
-        if not live:
-            return False
-        cands = self._placement_candidates(meta.size, exclude=set(live))
-        if not cands:
-            return False
-        existing = [self.slaves[s].address for s in live]
-        addr = spread_choice([c.address for c in cands], existing)
-        dst = next(c for c in cands if c.address == addr)
-        data = self.slaves[live[0]].read_file(meta.path)
-        dst.write_file(meta.path, data)
-        meta.locations.add(dst.slave_id)
-        self.stats["replications"] += 1
+        live holder, while it has fewer live copies than the replication
+        factor. Returns True iff a copy was made (False too while another
+        thread copies the same file: a daemon pass beside a checkpoint's
+        upload threads neither writes one copy twice nor one too many)."""
+        with self._lock:
+            if meta.path in self._copying:
+                return False
+            live = self._live_holders(meta)
+            if not live or len(live) >= self.replication_factor:
+                return False
+            cands = self._placement_candidates(meta.size, exclude=set(live))
+            if not cands:
+                return False
+            existing = [self.slaves[s].address for s in live]
+            addr = spread_choice([c.address for c in cands], existing)
+            dst = next(c for c in cands if c.address == addr)
+            self._copying.add(meta.path)
+        try:
+            data = self.slaves[live[0]].read_file(meta.path)
+            dst.write_file(meta.path, data)
+        finally:
+            with self._lock:
+                self._copying.discard(meta.path)
+        with self._lock:
+            meta.locations.add(dst.slave_id)
+            self.stats["replications"] += 1
         return True
+
+    def replicate(self, path: str) -> int:
+        """Bring one file up to the replication factor now, from a live
+        holder, with topology-spread copies (what a daemon pass does for
+        it); returns the copies made. A copy another thread is making is
+        left to it."""
+        meta = self._meta_or_raise(path)
+        made = 0
+        while (len(self._live_holders(meta)) < self.replication_factor
+               and self._replicate_once(meta)):
+            made += 1
+        return made
+
+    def learn(self, meta: FileMeta) -> None:
+        """Index a file that another master's view of the same slaves
+        wrote (its path, size, MD5 and holders): the entry a scan of
+        those slaves would give, without reading the file."""
+        self.index[meta.path] = FileMeta(meta.path, meta.size, meta.md5,
+                                         set(meta.locations))
+
+    def forget(self, path: str) -> None:
+        """Drop a file from this view's index, its copies untouched:
+        another view of the same slaves has deleted them."""
+        self.index.pop(path, None)
 
     def recover_file(self, path: str) -> FileMeta:
         """Restore a file whose index locations went stale mid-job (paper
@@ -421,7 +480,7 @@ class ReplicationDaemon:
         m = self.master
         det = self.detector
         return [
-            meta for meta in m.index.values()
+            meta for meta in m.metas()
             if meta.locations and
             len([s for s in meta.locations
                  if det.believes_alive(s)]) < m.replication_factor

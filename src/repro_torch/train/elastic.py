@@ -15,6 +15,12 @@ layout-agnostic byte rows in rank-major order, restart is:
 :func:`shardings_for` keeps the reference's axis filter on sharding specs:
 a spec restored onto a grid that lacks some of its axes (``pod`` after a
 pod is lost) drops them.
+
+A train state over process ranks restarts from its Sector checkpoint
+onto another grid: :func:`grid_state_specs` gives the state's specs on
+the new grid (the ZeRO-1 moments' change with ``data``) and
+:func:`remesh_state` restores each process's blocks under them, the
+counterpart of the reference's ``remesh(tree, mesh, specs)``.
 """
 
 from __future__ import annotations
@@ -52,13 +58,41 @@ def shardings_for(axes: Sequence[str], specs: Any) -> Any:
                 out.append(e if e in have else None)
         return tuple(out)
 
+    from repro_torch.models.convert import Stacked
+
     def walk(node):
         if isinstance(node, dict):
             return {k: walk(v) for k, v in node.items()}
         if isinstance(node, list):
             return [walk(v) for v in node]
+        if isinstance(node, Stacked):        # a stacked leaf's layers' specs
+            return Stacked(fix(s) for s in node)
         return fix(node)
     return walk(specs)
+
+
+def grid_state_specs(model, ranks, master: bool = False) -> Any:
+    """The train state's specs on ``ranks``' grid, in
+    :func:`repro_torch.train.trainer.state_tree`'s layout: the model's
+    parameter specs filtered to the grid's axes by :func:`shardings_for`,
+    and the ZeRO-1 moments (and master copy) of the grid's own
+    :func:`repro_torch.train.trainer.make_state_shardings`, which change
+    with the ``data`` extent."""
+    from repro_torch.train.trainer import make_state_shardings, state_specs
+    sizes = dict(zip(ranks.axes, ranks.shape))
+    p_specs = shardings_for(ranks.axes, model.param_specs())
+    return state_specs(model, *make_state_shardings(model, sizes, p_specs,
+                                                    master=master))
+
+
+def remesh_state(ckpt, tree_like, ranks, specs, step=None):
+    """The JAX package's ``remesh(tree, mesh, specs)`` for a train state
+    saved in Sector: the checkpoint ``step`` (default the last) restored
+    onto ``ranks``' grid, each process getting its blocks under ``specs``
+    filtered to the grid's axes, on ``ranks.device`` (a Sector checkpoint
+    is the state's bytes, whatever grid saved it). Returns (tree, step)."""
+    return ckpt.restore(tree_like, step, ranks=ranks,
+                        specs=shardings_for(ranks.axes, specs))
 
 
 def remesh(tree: Any, ranks: Ranks) -> Any:

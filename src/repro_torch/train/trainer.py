@@ -525,7 +525,9 @@ def state_tree(model: Model, params, opt_state: Dict) -> Dict:
 def load_state_tree(model: Model, params, opt_state: Dict,
                     tree: Dict) -> None:
     """Copy a tree of :func:`state_tree`'s layout (a restored checkpoint)
-    into ``params`` and ``opt_state``, in place."""
+    into ``params`` and ``opt_state``, in place: the whole state, or a
+    process's blocks (``SectorCheckpointer.restore(..., ranks=)``) into
+    that process's shards."""
     own = named_leaves(params, model.cfg)
     for name, v in flatten(tree["params"]).items():
         own[name].copy_(v)
@@ -560,3 +562,17 @@ def make_state_shardings(model: Model, mesh_shape: Mapping[str, int],
     if master:
         opt["master"] = m_specs
     return p_specs, opt
+
+
+def state_specs(model: Model, param_specs: Mapping[str, Spec],
+                opt_specs: Mapping[str, Any]) -> Dict:
+    """:func:`make_state_shardings`' (or :func:`jit_train_step`'s) specs
+    laid out as :func:`state_tree` lays out the state: ``{"params": ...,
+    "opt": {"m", "v", "step"[, "master"]}}``, the layers of a stacked
+    collection as one :class:`repro_torch.models.convert.Stacked` of
+    their specs. What a checkpoint saved or restored over process ranks
+    is cut by."""
+    cfg = model.cfg
+    opt = {k: (unflatten(v, cfg) if isinstance(v, dict) else v)
+           for k, v in opt_specs.items()}
+    return {"params": unflatten(dict(param_specs), cfg), "opt": opt}
