@@ -143,7 +143,9 @@ Phases, in order (any failure ends the script with a non-zero exit):
     caches over the same prefix. Phase 3 holds K1 at this phase's two
     shapes.
 13. ``serve-model-zoo``: the other five families at their published
-    configs (``configs/*.py``), random weights drawn on the card from
+    configs (``configs/*.py``; MiniCPM3 at 31 of its 62 layers and
+    Zamba2 at 19 of its 38 since phase 19 needed the room,
+    ``ZOO_LAYERS``), random weights drawn on the card from
     ``--seed``, one model at a time, each freed before the next:
     minicpm3_4b (MLA), xlstm_125m (mLSTM + sLSTM), zamba2_1_2b (Mamba2 +
     shared attention), whisper_small (enc-dec) and internvl2_1b (VLM).
@@ -223,7 +225,8 @@ Phases, in order (any failure ends the script with a non-zero exit):
     each collective's host seconds and the bytes each process hands to
     gloo per hop, and each process's peak memory. A process that raises
     or outlasts its limit fails the phase.
-Phases 16-18 share one spawn of 8 processes for their seven cells
+Phases 16-18 (and 19) share one spawn of 8 processes for their seven
+    cells (and phase 19's three)
     (``train_grid_path``: the processes start first and train the cells
     one after another in ``GRID_CELL_ORDER``, each as soon as its
     reference on the card is done, while the next reference runs beside
@@ -304,8 +307,9 @@ Phases 16-18 share one spawn of 8 processes for their seven cells
     leaf's. (2) ``train-minicpm3-4b-2x4-8proc-1xH100``: MiniCPM3-4B at
     its published width (MLA, 40 heads, q rank 768, kv rank 256), depth
     cut 62 -> 8, on ``(2, 4)``, 10 heads a model rank, phase 16's corpus
-    batches (8 x 2048 tokens; 2 steps, 3 before phase 18's room was
-    made) and optimizer, against the one-process step. Both models are
+    batch (8 x 2048 tokens; 1 step, 2 before phase 19's room was made,
+    3 before phase 18's) and optimizer, against the one-process step.
+    Both models are
     far more sensitive to rounding at full width than the smoke configs,
     so the bounds are fixed numbers stated with
     their measurement (``MOE_RANKS_BOUNDS``, ``MLA_RANKS_BOUNDS``), and
@@ -315,8 +319,10 @@ Phases 16-18 share one spawn of 8 processes for their seven cells
     missing) and, for the MoE's repeated batch, the steps without their
     update, and the phase fails where a fault reads within its bound.
     MLA is held at its first step only (loss, norm, the last layer's
-    gradients): past it the full-width model is chaotic, and its later
-    losses, norms and parameters are printed, not compared. Prints each
+    gradients): past it the full-width model is chaotic, so it takes
+    that one step (its parameters after it printed, not compared; its
+    wall, read with the collective log on, is its warm step's). Prints
+    each
     path's warm step against its reference, gloo bytes and seconds by op
     and axis, the peak memory a process and K1's launches.
 18. ``train_ranks_cells``: four families as 8 gloo processes on
@@ -368,6 +374,44 @@ Phases 16-18 share one spawn of 8 processes for their seven cells
     warm step against the one process's, gloo bytes and seconds by op
     and axis, the peak memory a process and, for Whisper, each data
     rank's unmasked tokens.
+19. ``serve_ranks``: serving as 8 processes, in phases 16-18's spawn
+    after their cells (each cell handed over as its reference on the
+    card ends, one ahead, as theirs are; the lines printed as
+    ``serve_ranks_<cell>``). Each process holds its blocks of the
+    weights (``init(..., ranks=)``: each tensor drawn whole on the card
+    from the seed, the block its spec gives the process kept), its data
+    rows of phase 12's 8 prompts of 1024 tokens and its blocks of the
+    caches of 1040 slots (``init_caches(..., ranks=)``, as the JAX
+    package's ``cache_specs`` lay them out), prefills through
+    ``prefill`` and decodes ``DECODE_STEPS`` steps through
+    ``decode_step`` teacher-forced on the reference's greedy tokens.
+    (1) ``serve-tinyllama-1.1b-2x4-8proc-1xH100``: TinyLlama-1.1B whole
+    (22 layers) on ``(2, 4)``, 8 heads and 1 of the 4 KV heads a model
+    rank; the caches keep every KV head (``cache_specs`` shard KV heads
+    only where 16 divides them), so each layer gathers the new keys and
+    values over ``model``, writes every head and reads its own back.
+    (2) ``serve-minicpm3-4b-2x4-8proc-1xH100``: MiniCPM3-4B at phase
+    17's 8 layers on ``(2, 4)``, 10 MLA heads a model rank over the
+    latent cache every rank writes whole. (3)
+    ``serve-qwen2-moe-a2.7b-1x8-8proc-1xH100``: phase 12's
+    Qwen1.5-MoE-A2.7B (24 layers, its weights and prompts) on ``(1,
+    8)``: the prefill through the sphere shuffle (K1 twice a MoE layer
+    in every process), every decode step through the expert-sharded
+    dense dispatch (8 experts a process, the capacity counted over the
+    whole batch). The references on the card: the one process's prefill
+    and greedy decode (the MoE: phase 12's stacked grid prefill on
+    ``Ranks(1, 8)`` and its decode), with two planted faults read: a
+    decode step from caches whose layer 0 was left unwritten, and the
+    largest entry at the last step's slot (a skipped write). Checks:
+    every call's logits and every written cache slot within
+    ``SERVE_RANKS_BOUNDS``, each below its fault's reading; ``pos``
+    equal and empty slots zero; ``moe_dropped`` the reference's; each
+    decode step's collectives ``serve_collectives``'; K1 as said and
+    none in a decode step; each process's cache bytes the specs'. Prints
+    the prefill wall and tokens/s, the decode step p50, the collectives
+    of the prefill and of a decode step by op and axis (gloo bytes and
+    host seconds), the peak memory and the weight and cache bytes a
+    process, beside the reference's walls.
 
 Each path's launch counts are read from zero: every count is reset just
 before the path runs and read just after. The last lines are the
@@ -380,8 +424,10 @@ from __future__ import annotations
 
 import argparse
 import atexit
+import contextlib
 import gc
 import json
+import math
 import os
 import shutil
 import statistics
@@ -419,6 +465,10 @@ SPHERE_DENSE_TOL, DECODE_TOL = 0.3, 0.25
 CHECK_CF = 8.0
 #: phase 13: the other five families at their published configs; whisper's
 #: decoder prompts are its published text context
+#: their depths where phase 19's room in the script's time limit cut them
+#: (MiniCPM3 62 -> 31, Zamba2 38 -> 19: half the layers, every block kind
+#: and, for Zamba2, 3 of the shared block's 6 points kept)
+ZOO_LAYERS = {"minicpm3_4b": 31, "zamba2_1_2b": 19}
 ZOO_ARCHS = ("minicpm3_4b", "xlstm_125m", "zamba2_1_2b", "whisper_small",
              "internvl2_1b")
 WHISPER_PROMPT_LEN = 448
@@ -517,6 +567,9 @@ MOE_RANKS_GRAD_LEAVES = ("embed", "final_ln", "blocks.0.attn.wq",
                          "blocks.1.moe.shared_gate", "blocks.0.moe.w_gate",
                          "blocks.1.moe.w_down")
 MLA_TRAIN_ARCH, MLA_TRAIN_LAYERS = "minicpm3_4b", 8
+#: MiniCPM3's steps as 8 processes: only the first is held (past it the
+#: full-width model is chaotic), so one since phase 19 needed the room
+MLA_TRAIN_STEPS = 1
 #: phase 17's bounds for the MoE path against the stacked step (measured
 #: on an NVIDIA H100 80GB HBM3 at 700 W; beside each, in brackets, how far
 #: the stacked step moved when rerun with the models' products in
@@ -650,6 +703,31 @@ VLM_TEXT_LEN = 768
 #: over two micro batches) and the planted half-batch fault, and the
 #: phase fails where a fault reads within its bound
 ENCDEC_RANKS_BOUNDS = dict(SSM_RANKS_BOUNDS)
+#: phase 19: serving as 8 processes in phases 16-18's spawn, after their
+#: cells: (phase line, cell, arch, (data, model) grid, depth or None for
+#: the published one). Each prefills phase 12's 8 prompts of 1024 tokens
+#: into caches of 1040 slots and decodes ``DECODE_STEPS`` steps teacher
+#: forced on its reference's greedy tokens: TinyLlama-1.1B whole (the
+#: heads layout; its 4 KV heads kept whole in the caches, gathered over
+#: ``model`` a layer), MiniCPM3-4B at phase 17's 8 layers (MLA, 10 heads
+#: a process) and Qwen1.5-MoE-A2.7B whole (phase 12's model and prompts:
+#: the sphere prefill with K1, the decode through the expert-sharded
+#: dense dispatch)
+SERVE_RANKS_CELLS = (
+    ("serve_ranks_tinyllama", "serve-tinyllama-1.1b-2x4-8proc-1xH100",
+     TRAIN_ARCH, TRAIN_RANKS_GRID, None),
+    ("serve_ranks_mla", "serve-minicpm3-4b-2x4-8proc-1xH100",
+     MLA_TRAIN_ARCH, TRAIN_RANKS_GRID, MLA_TRAIN_LAYERS),
+    ("serve_ranks_moe", "serve-qwen2-moe-a2.7b-1x8-8proc-1xH100",
+     SERVE_ARCH, SERVE_GRID, None))
+#: phase 19's bounds against the reference, by cell: the logits
+#: (float32, the real vocabulary) over every call, each written cache
+#: slot, and the MoE's share of routed choices that differ
+SERVE_RANKS_BOUNDS = {
+    "serve_ranks_tinyllama": {"logits": 0.25, "cache": 0.25},
+    "serve_ranks_mla": {"logits": 1.5, "cache": 2.0},
+    "serve_ranks_moe": {"logits": 2.25, "cache": 1.0,
+                        "moved_share": 0.12}}
 #: phase 15's paths in the kernel table
 RANKED_PATHS = (("flat", "dataflow sort, flat"),
                 ("grid", "dataflow sort, (dc, node)"),
@@ -3124,6 +3202,7 @@ def decode_spread(torch, model, params, cfg, batch, emitted, rows, enc_out,
 def zoo_model(torch, dev, arch: str, seed: int):
     """One model of phase 13: build and draw it, prefill, decode, the held
     checks, the engine; every kernel's launches read zero."""
+    import dataclasses
     import numpy as np
     from repro_torch.configs import get_config
     from repro_torch.models import build, encdec
@@ -3131,6 +3210,8 @@ def zoo_model(torch, dev, arch: str, seed: int):
 
     t_model = time.perf_counter()
     cfg = get_config(arch)
+    if arch in ZOO_LAYERS:
+        cfg = dataclasses.replace(cfg, num_layers=ZOO_LAYERS[arch])
     model = build(cfg)
     v = cfg.vocab
     gen = torch.Generator(device=dev)
@@ -4348,6 +4429,40 @@ def train_collectives(cfg, layout, n_leaves: int, partial: bool,
     return {k: v for k, v in out.items() if v}
 
 
+def serve_collectives(cfg, layout, data: int) -> dict:
+    """The collectives of one decode step over a ``(data, model)`` grid
+    from the layer count, which ``tests/test_torch_serve_dist.py`` also
+    holds the CPU processes to: the embedding's sum over ``model``; an
+    attention layer's sums (GQA by head: ``wo``'s; MLA: the rope query's
+    and ``wo``'s; by sequence: none, one position is attended whole),
+    and in the heads layout one ``all_gather`` of the new keys and
+    values where the cache keeps every KV head and ``wk`` shards them;
+    the MLP's row-parallel sum, or the MoE's expert-sharded dense
+    dispatch: one sum of the routed and the shared experts' parts and,
+    with more than one data rank, one ``all_gather`` of the per-expert
+    counts over ``data``; the enc-dec's decoder layers a self- and a
+    cross-attention each (no cache, so no gather, in the latter); the
+    logits gathered over ``model`` once."""
+    from repro_torch.models.registry import _kv_spec
+    mla = cfg.attn_type == "mla"
+    heads = layout == "heads"
+    gathered = (heads and not mla and _kv_spec(cfg) is None
+                and cfg.n_kv_heads > 1)
+    attn = {"psum": (2 if mla else 1) if heads else 0,
+            "all_gather": int(gathered)}
+    if cfg.family == "moe":
+        ffn = {"psum": 1, "all_gather": int(data > 1)}
+    else:
+        ffn = {"psum": 1}
+    layer = {op: attn.get(op, 0) + ffn.get(op, 0) for op in ("psum",
+                                                            "all_gather")}
+    if cfg.family == "audio":
+        layer["psum"] += int(heads)
+    out = {"psum": 1 + cfg.num_layers * layer["psum"],
+           "all_gather": 1 + cfg.num_layers * layer["all_gather"]}
+    return {k: v for k, v in out.items() if v}
+
+
 def model_gathers(cfg, layout, grid, seq: int) -> list:
     """The bytes of each ``all_gather`` over ``model`` a sharded step
     makes (what a process hands to gloo), all of activations: a MoE
@@ -4541,7 +4656,7 @@ def train_ranks_reference(torch, dev, cfg, batches, opt_cfg, directory: str,
         no_update = out["controls"]["no_update"] = {"params": rule_counts(
             ((load_tensor(torch, directory, f"init.{n}", dev), p)
              for n, p in leaves.items()), sum(out["lrs"]))}
-        if repeated:
+        if repeated and len(batches) > 1:
             no_update["loss"] = min(abs(a - out["losses"][0])
                                     for a in out["losses"][1:])
             no_update["grad_norm_rel"] = min(
@@ -4970,11 +5085,13 @@ def check_train_ranks(torch, cfg, grid, ref, results, grad_leaves,
     held("the first step's grad_norm", dgs[0], bounds["grad_norm_rel_first"],
          half.get("grad_norm_rel"), fdg[0])
     no_update = controls.get("no_update", {})
-    held("the later losses", max(dl[1:]), bounds.get("loss"),
-         no_update.get("loss"), None if fl is None else max(fdl[1:]))
-    held("the later grad_norms", max(dgs[1:]), bounds.get("grad_norm_rel"),
-         no_update.get("grad_norm_rel", half.get("later_grad_norm_rel")),
-         None if fl is None else max(fdg[1:]))
+    if len(dl) > 1:
+        held("the later losses", max(dl[1:]), bounds.get("loss"),
+             no_update.get("loss"), None if fl is None else max(fdl[1:]))
+        held("the later grad_norms", max(dgs[1:]),
+             bounds.get("grad_norm_rel"),
+             no_update.get("grad_norm_rel", half.get("later_grad_norm_rel")),
+             None if fl is None else max(fdg[1:]))
     if cfg.family == "moe":
         # the processes' router reads activations rounded otherwise than
         # the stacked step's (float32 sums over ranks, rounded once), so
@@ -5093,8 +5210,8 @@ def ranks_phase_line(cfg, grid, ref, results, batches, reference_s,
                      spawn_s) -> dict:
     """The numbers phases 16 and 17 print for one path."""
     r0 = results[0]
-    # the warm step: the second, the last unlogged one
-    warm = max(r["step_ms"][1] for r in results)
+    # the warm step: the second (MiniCPM3's only step, cold, logged)
+    warm = max(r["step_ms"][-1] for r in results)
     seq = batches[0]["tokens"].shape[1]
     return {"arch": cfg.arch_id, "family": cfg.family,
             "attn": cfg.attn_type, "layers": cfg.num_layers,
@@ -5117,14 +5234,462 @@ def ranks_phase_line(cfg, grid, ref, results, batches, reference_s,
             "processes_metrics": r0["metrics"],
             "step_ms_by_process": [r["step_ms"] for r in results],
             "warm_step_ms_grid": warm,
-            "warm_step_ms_reference": ref["step_ms"][1],
-            "grid_over_reference": warm / ref["step_ms"][1],
+            "warm_step_ms_reference": ref["step_ms"][-1],
+            "grid_over_reference": warm / ref["step_ms"][-1],
             "tokens_per_s_grid": batches[0]["tokens"].numel() / warm * 1e3,
             "load_s_max": max(r["load_s"] for r in results),
             "compare_s_max": max(r["compare_s"] for r in results),
             "peak_mem_bytes_by_process": [r["peak_mem_bytes"]
                                           for r in results],
             "comm_last_step_rank0": r0["comm_last_step"]}
+
+
+# -- phase 19: serving over process ranks -------------------------------------
+
+
+@contextlib.contextmanager
+def forward_drops(out: list):
+    """Each ``transformer.forward`` call's ``moe_dropped`` appended to
+    ``out`` (the serving calls return the logits and the caches only)."""
+    from repro_torch.models import transformer
+    real = transformer.forward
+
+    def tapped(*a, **k):
+        x, caches, aux = real(*a, **k)
+        if "moe_dropped" in aux:
+            out.append(float(aux["moe_dropped"]))
+        return x, caches, aux
+
+    transformer.forward = tapped
+    try:
+        yield
+    finally:
+        transformer.forward = real
+
+
+@contextlib.contextmanager
+def routes_tap(out: list):
+    """Each router call's expert ids, every token's sorted (int16, on the
+    card), appended to ``out``: the stacked sphere's ``(ranks, tokens,
+    k)``, a process's ``(1, tokens, k)``, the dense dispatch's
+    ``(tokens, k)``."""
+    from repro_torch.models import moe
+    real = moe._route
+
+    def tapped(params, x_flat, cfg):
+        top_i, top_p, aux = real(params, x_flat, cfg)
+        out.append(top_i.sort(dim=-1).values.short())
+        return top_i, top_p, aux
+
+    moe._route = tapped
+    try:
+        yield
+    finally:
+        moe._route = real
+
+
+def moved_choices(torch, mine, theirs):
+    """Per token, how many of its k experts in ``mine`` are not among
+    those of ``theirs`` (both ``(..., tokens, k)``)."""
+    same = (mine[..., :, None] == theirs[..., None, :]).any(-1)
+    return (~same).sum(-1)
+
+
+def serve_cells() -> list:
+    """Phase 19's cells, one dict a cell: its phase line's name, the
+    cell, the config (depth cut where ``SERVE_RANKS_CELLS`` says) and the
+    grid."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    out = []
+    for line, cell, arch, grid, layers in SERVE_RANKS_CELLS:
+        cfg = get_config(arch)
+        if layers is not None:
+            cfg = dataclasses.replace(cfg, num_layers=layers)
+        out.append({"line": line, "cell": cell, "cfg": cfg, "grid": grid,
+                    "kind": "serve"})
+    return out
+
+
+def serve_ranks_reference(torch, dev, cfg, grid, directory: str,
+                          seed: int) -> dict:
+    """Phase 19's reference of one cell, on the card in this process:
+    the weights drawn from ``seed`` (phase 12's draw, for its MoE), phase
+    12's prompts (8 x 1024 uniform tokens from ``default_rng(seed)``), the
+    prefill into caches of 1040 slots (the MoE: phase 12's stacked grid
+    prefill on ``Ranks(1, 8)``, K1 in the sphere shuffle) and
+    ``DECODE_STEPS`` greedy steps (the MoE: phase 12's decode, the dense
+    dispatch of the whole batch). The planted faults read here: step 0
+    decoded again from a copy of the prefill's caches with layer 0's
+    entries zeroed (a cache block left unwritten), and the largest cache
+    entry at the last step's slot (a write skipped). Written to
+    ``directory`` for the processes: the prompts, the decode's tokens,
+    each call's logits (float32, the real vocabulary) and the final
+    caches (bfloat16 as their int16 bits)."""
+    import numpy as np
+    from repro_torch.comm import Ranks
+    from repro_torch.models import build
+    model = build(cfg)
+    v = cfg.vocab
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    params = model.init(gen, dev)
+    prompts = np.random.default_rng(seed).integers(
+        0, v, (PREFILL_PROMPTS, PREFILL_LEN)).astype(np.int32)
+    save_npy(directory, "prompts", prompts)
+    toks = torch.from_numpy(prompts).to(dev)
+    rk = (Ranks(shape=grid, axes=("data", "model"), device=dev)
+          if cfg.family == "moe" else None)
+    drops, step_ms, tokens, routes = [], [], [], []
+    out = {}
+    with torch.inference_mode(), forward_drops(drops), routes_tap(routes):
+        caches = model.init_caches(PREFILL_PROMPTS, PREFILL_MAX_LEN, dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lg, caches = model.prefill(params, {"tokens": toks}, caches,
+                                   ranks=rk)
+        torch.cuda.synchronize()
+        out["prefill_ms"] = (time.perf_counter() - t0) * 1e3
+        if routes:
+            save_npy(directory, "routes_prefill", torch.stack(routes))
+            routes.clear()
+        logits = [lg[:, -1, :v].float()]
+        nxt = logits[0].argmax(-1).to(torch.int32)
+        for t in range(DECODE_STEPS):
+            batch = {"tokens": nxt[:, None], "pos": torch.full(
+                (PREFILL_PROMPTS, 1), PREFILL_LEN + t, dtype=torch.int32,
+                device=dev)}
+            if t == 0:
+                fault = {k: c.clone() for k, c in caches.items()}
+                for k, c in fault.items():
+                    if k != "pos":
+                        c[0, :, :PREFILL_LEN] = 0
+                kept = len(drops)
+                lg_f, _ = model.decode_step(params, fault, batch)
+                del drops[kept:], fault
+                routes.clear()
+            tokens.append(nxt)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lg, caches = model.decode_step(params, caches, batch)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            logits.append(lg[:, -1, :v].float())
+            if t == 0:
+                out["fault_cache_layer0_unwritten"] = float(
+                    (lg_f[:, -1, :v].float() - logits[1]).abs().max())
+                del lg_f
+            nxt = logits[-1].argmax(-1).to(torch.int32)
+    last = caches["pos"] == PREFILL_LEN + DECODE_STEPS - 1
+    out["fault_last_write_skipped"] = min(
+        float(c[last].float().abs().max()) for k, c in caches.items()
+        if k != "pos")
+    if cfg.family == "moe":
+        # a planted fault for the routing: each token given its
+        # neighbour's experts (the prefill's routing one token off)
+        prefill_routes = torch.from_numpy(np.array(load_npy(
+            directory, "routes_prefill"))).to(dev)
+        out["fault_routes_one_token_off"] = float(moved_choices(
+            torch, prefill_routes[..., 1:, :], prefill_routes[..., :-1, :]
+        ).sum()) / (prefill_routes[..., 1:, :].numel())
+    save_npy(directory, "tokens", torch.stack(tokens))
+    if routes:                  # (steps, layers, rows, k)
+        save_npy(directory, "routes_decode", torch.stack(routes).reshape(
+            DECODE_STEPS, cfg.num_layers, PREFILL_PROMPTS, -1))
+    for i, lg in enumerate(logits):
+        save_npy(directory, f"logits{i}", lg)
+    for k, c in caches.items():
+        save_npy(directory, f"cache.{k}",
+                 c.view(torch.int16) if c.dtype == torch.bfloat16 else c)
+    out.update(dropped=drops, decode_step_ms=step_ms,
+               decode_step_ms_p50=percentile(step_ms, 50),
+               peak_mem_bytes=torch.cuda.max_memory_allocated(),
+               logits_finite=all(bool(torch.isfinite(x).all())
+                                 for x in logits))
+    del params, caches, logits
+    return out
+
+
+def rank_serve(ranks, directory: str, cfg, seed: int) -> dict:
+    """One of phase 19's 8 processes: its blocks of the weights drawn
+    from ``seed`` (``init(..., ranks=)``: each tensor whole on the card,
+    its block kept) and of the caches (``init_caches(..., ranks=)``), the
+    prefill of its data rows of the reference's prompts and the decode
+    teacher-forced on the reference's tokens, through ``prefill`` and
+    ``decode_step``; each call timed from a barrier to its synchronised
+    end, its collectives counted and logged and K1's launches counted;
+    its logits and its cache blocks held here against the reference's
+    (what is returned: the largest differences)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.comm import axis_position
+    from repro_torch.kernels import partition
+    from repro_torch.models import build
+    dev = ranks.device
+    model = build(cfg)
+    v = cfg.vocab
+    torch.cuda.reset_peak_memory_stats(dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    params = model.init(gen, ranks=ranks)
+    torch.cuda.synchronize(dev)
+    out = {"rank": ranks.rank, "init_s": time.perf_counter() - t0,
+           "param_bytes": sum(p.numel() * p.element_size()
+                              for p in params.parameters()),
+           "logits_err": [], "step_ms": [], "counts": [], "k1": []}
+    b = PREFILL_PROMPTS // ranks.axis_size("data")
+    rows = slice(axis_position(ranks, "data") * b,
+                 (axis_position(ranks, "data") + 1) * b)
+    prompts = torch.from_numpy(np.array(
+        load_npy(directory, "prompts")[rows])).to(dev)
+    tokens = torch.from_numpy(np.array(load_npy(directory, "tokens"))).to(
+        dev)[:, rows]
+    caches = model.init_caches(PREFILL_PROMPTS, PREFILL_MAX_LEN,
+                               ranks=ranks)
+    out["cache_bytes"] = sum(c.numel() * c.element_size()
+                             for c in caches.values())
+    drops, routes = [], []
+    moe = cfg.family == "moe"
+    me = axis_position(ranks, "model")
+    # each call's routing against the reference's: the expert choices
+    # it moved, and the tokens (rows, positions) that took another
+    rerouted = torch.zeros((b, PREFILL_MAX_LEN), dtype=torch.int32,
+                           device=dev)
+    out["moved_choices"] = []
+
+    def compare_routes(i):
+        if not moe:
+            return
+        mine = torch.stack(routes)
+        routes.clear()
+        if i == 0:          # this process's sequence block of every row
+            want = torch.from_numpy(np.array(load_npy(
+                directory, "routes_prefill")[:, me])).to(dev)
+            moved = moved_choices(torch, mine[:, 0], want)
+            s_loc = PREFILL_LEN // ranks.axis_size("model")
+            hit = (moved.sum(0) > 0).reshape(b, s_loc).to(torch.int32)
+            rerouted[:, me * s_loc:(me + 1) * s_loc] = hit
+            out["moved_choices_prefill_by_layer"] = moved.sum(1).tolist()
+        else:
+            want = torch.from_numpy(np.array(load_npy(
+                directory, "routes_decode")[i - 1][:, rows])).to(dev)
+            moved = moved_choices(torch, mine, want)
+            rerouted[:, PREFILL_LEN + i - 1] = (moved.sum(0) > 0).to(
+                torch.int32)
+        out["moved_choices"].append(int(moved.sum()))
+
+    def timed(call, i):
+        ranks.collectives.clear()
+        ranks.log = [] if i <= 1 else None
+        before = partition.KERNEL.launches
+        dist.barrier()
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        lg, new = call()
+        torch.cuda.synchronize(dev)
+        ms = (time.perf_counter() - t0) * 1e3
+        out["k1"].append(partition.KERNEL.launches - before)
+        out["counts"].append(dict(ranks.collectives))
+        if i <= 1:           # the prefill's and the first step's
+            out[f"comm_call{i}"] = comm_by_op_axis(ranks.log)
+        ranks.log = None
+        compare_routes(i)
+        want = torch.from_numpy(np.array(load_npy(
+            directory, f"logits{i}")[rows])).to(dev)
+        out["logits_err"].append(float(
+            (lg[:, -1, :v].float() - want).abs().max()))
+        return new, ms
+
+    with torch.inference_mode(), forward_drops(drops), routes_tap(routes):
+        caches, out["prefill_ms"] = timed(lambda: model.prefill(
+            params, {"tokens": prompts}, caches, ranks=ranks), 0)
+        for t in range(DECODE_STEPS):
+            batch = {"tokens": tokens[t][:, None], "pos": torch.full(
+                (b, 1), PREFILL_LEN + t, dtype=torch.int32, device=dev)}
+            caches, ms = timed(lambda: model.decode_step(
+                params, caches, batch, ranks=ranks), t + 1)
+            out["step_ms"].append(ms)
+    out["peak_mem_bytes"] = torch.cuda.max_memory_allocated(dev)
+    out["dropped"] = drops
+    if moe:      # the prefill's rerouted positions of every block
+        from repro_torch.comm import gather_from
+        s_loc = PREFILL_LEN // ranks.axis_size("model")
+        block = rerouted[:, me * s_loc:(me + 1) * s_loc].contiguous()
+        rerouted[:, :PREFILL_LEN] = gather_from(ranks, block, "model", 1)
+    out["rerouted_tokens"] = int((rerouted > 0).sum())
+    specs = model.batch_cache_specs(PREFILL_PROMPTS, ("data",))
+    pos = caches["pos"]
+    want_pos = torch.from_numpy(np.array(ranks.local_shard(
+        load_npy(directory, "cache.pos"), specs["pos"]))).to(dev)
+    out["cache_pos_equal"] = bool(torch.equal(pos, want_pos))
+    out["cache_err"] = {}
+    for k, c in caches.items():
+        if k == "pos":
+            continue
+        want = torch.from_numpy(np.array(ranks.local_shard(
+            load_npy(directory, f"cache.{k}"), specs[k]))).to(dev).view(
+                torch.bfloat16)
+        shape = want_pos.shape + (1,) * (c.dim() - want_pos.dim())
+        written = (want_pos >= 0).reshape(shape)
+        # the slots of tokens that took the reference's experts in every
+        # layer (every written slot, without a MoE)
+        keep = (rerouted == 0)[None, :, :want_pos.shape[2]]
+        held = written & keep.reshape(keep.shape + shape[3:])
+        diff = (c.float() - want.float()).abs()
+        out["cache_err"][k] = float((diff * held).max())
+        out["cache_err_all_written"] = max(
+            out.get("cache_err_all_written", 0.0),
+            float((diff * written).max()))
+        out[f"cache_empty_zero_{k}"] = not bool((c * ~written).any())
+    del params, caches
+    return out
+
+
+def serve_line(cfg, grid, reference_s, spawn_s) -> dict:
+    """What phase 19 prints of one cell besides its checks."""
+    from repro_torch.configs import get_config
+    return {"arch": cfg.arch_id, "family": cfg.family,
+            "attn": cfg.attn_type, "layers": cfg.num_layers,
+            "published_layers": get_config(cfg.arch_id).num_layers,
+            "d_model": cfg.d_model, "heads": cfg.n_heads,
+            "kv_heads": cfg.n_kv_heads, "vocab": cfg.vocab,
+            "grid": dict(zip(("data", "model"), grid)),
+            "processes": math.prod(grid), "backend": "gloo",
+            "transport": "gloo over CUDA tensors, chosen by name: 8 "
+                         "processes share one card, and NCCL takes one "
+                         "card a rank",
+            "prompts": PREFILL_PROMPTS, "prompt_len": PREFILL_LEN,
+            "cache_len": PREFILL_MAX_LEN, "decode_steps": DECODE_STEPS,
+            "teacher_forced_on": "the reference's greedy tokens",
+            "reference_kind": (f"stacked Ranks {grid}: phase 12's grid "
+                               f"prefill and its decode"
+                               if cfg.family == "moe" else "one process"),
+            "device": nvidia_smi_line(), "reference_s": reference_s,
+            "spawn_s_all_cells": spawn_s}
+
+
+def check_serve_ranks(cfg, grid, ref, results, bounds) -> tuple:
+    """Phase 19's checks of one cell against its reference: every call's
+    logits within ``bounds["logits"]`` and every written cache slot
+    within ``["cache"]`` (each bound below its planted fault's reading;
+    a MoE's slots of the tokens that took the reference's experts in
+    every layer), ``pos`` equal, empty slots zero; a MoE's routing
+    within ``["moved_share"]`` of the reference's expert choices and
+    ``moe_dropped`` the reference's at every call that routed alike,
+    else within what the moved choices can change (a decode's drops
+    depend on the per-expert counts alone, one a moved choice; the
+    sphere prefill's on its send and regroup capacities, two); the
+    collectives of each decode step ``serve_collectives``', K1 twice a
+    MoE layer a prefill in each process and never in a decode step, the
+    caches' bytes the specs'. Returns (the checked numbers,
+    failures)."""
+    from repro_torch.comm import shard_slices
+    from repro_torch.models import build
+    from repro_torch.models.attention import tp_layout
+    from repro_torch.models.registry import meta_params
+    bad = []
+    logits_err = [max(r["logits_err"][i] for r in results)
+                  for i in range(DECODE_STEPS + 1)]
+    cache_err = max(e for r in results for e in r["cache_err"].values())
+    readings = {"logits": ref["fault_cache_layer0_unwritten"],
+                "cache": ref["fault_last_write_skipped"]}
+    for what, got in (("logits", max(logits_err)), ("cache", cache_err)):
+        if got > bounds[what]:
+            bad.append(f"{what}: {got} > {bounds[what]}")
+        if readings[what] <= bounds[what]:
+            bad.append(f"{what}: the planted fault reads {readings[what]}, "
+                       f"within the bound {bounds[what]}")
+    if not all(r["cache_pos_equal"] for r in results):
+        bad.append("cache pos differs from the reference's")
+    if not all(v for r in results for k, v in r.items()
+               if k.startswith("cache_empty_zero_")):
+        bad.append("an empty cache slot is not zero")
+    if not ref["logits_finite"]:
+        bad.append("the reference's logits are not finite")
+    moved = []
+    if cfg.family == "moe":
+        heads = [r for rank, r in enumerate(results) if rank % grid[1] == 0]
+        moved = [sum(r["moved_choices"][0] for r in results)] + [
+            sum(r["moved_choices"][i] for r in heads)
+            for i in range(1, DECODE_STEPS + 1)]
+        choices = (PREFILL_PROMPTS * (PREFILL_LEN + DECODE_STEPS)
+                   * cfg.num_layers * cfg.top_k)
+        readings["moved_share"] = ref["fault_routes_one_token_off"]
+        if sum(moved) > bounds["moved_share"] * choices:
+            bad.append(f"{sum(moved)} of {choices} routed choices differ "
+                       f"from the reference's (bound "
+                       f"{bounds['moved_share']})")
+        if readings["moved_share"] <= bounds["moved_share"]:
+            bad.append(f"moved_share: the planted fault reads "
+                       f"{readings['moved_share']}, within the bound")
+        if any(r["dropped"] != results[0]["dropped"] for r in results):
+            bad.append("the processes' moe_dropped differ")
+        for i, (got, want) in enumerate(zip(results[0]["dropped"],
+                                            ref["dropped"])):
+            room = moved[i] * (2 if i == 0 else 1)
+            if abs(got - want) > room:
+                bad.append(f"call {i}: moe_dropped {got} against the "
+                           f"reference's {want}, {moved[i]} choices moved")
+    attn = meta_params(cfg).blocks[0].attn
+    want = serve_collectives(cfg, tp_layout(cfg, attn, grid[1]), grid[0])
+    if any(c != want for r in results for c in r["counts"][1:]):
+        bad.append(f"decode collectives {results[0]['counts'][1:]} != "
+                   f"{want}")
+    k1 = [2 * cfg.num_layers if cfg.family == "moe" else 0] + \
+        [0] * DECODE_STEPS
+    if any(r["k1"] != k1 for r in results):
+        bad.append(f"K1 launches {[r['k1'] for r in results]} != {k1} a "
+                   f"process")
+    model = build(cfg)
+    whole = model.init_caches(PREFILL_PROMPTS, PREFILL_MAX_LEN, "meta")
+    specs = model.batch_cache_specs(PREFILL_PROMPTS, ("data",))
+    for rank, r in enumerate(results):
+        want_bytes = sum(
+            t[shard_slices(t.shape, specs[k], grid, ("data", "model"),
+                           rank)].numel() * t.element_size()
+            for k, t in whole.items())
+        if r["cache_bytes"] != want_bytes:
+            bad.append(f"process {rank}: cache bytes {r['cache_bytes']} != "
+                       f"the specs' {want_bytes}")
+    tokens = PREFILL_PROMPTS * PREFILL_LEN
+    prefill = max(r["prefill_ms"] for r in results)
+    steps = [max(r["step_ms"][t] for r in results)
+             for t in range(DECODE_STEPS)]
+    line = {"logits_max_abs_err_by_call": logits_err,
+            "cache_max_abs_err": cache_err,
+            "cache_max_abs_err_every_written_slot": max(
+                r["cache_err_all_written"] for r in results),
+            "bounds": bounds, "moved_choices_by_call": moved,
+            "moved_choices_prefill_by_layer": [
+                sum(layer) for layer in zip(*(
+                    r.get("moved_choices_prefill_by_layer", [])
+                    for r in results))],
+            "rerouted_tokens": results[0]["rerouted_tokens"],
+            "planted_fault_readings": readings,
+            "moe_dropped_processes": results[0]["dropped"],
+            "moe_dropped_reference": ref["dropped"],
+            "decode_collectives": want,
+            "k1_launches_by_process": [sum(r["k1"]) for r in results],
+            "prefill_ms": prefill,
+            "prefill_tokens_per_s": tokens / prefill * 1e3,
+            "decode_step_ms_p50": percentile(steps, 50),
+            "decode_step_ms": steps,
+            "reference_prefill_ms": ref["prefill_ms"],
+            "reference_decode_step_ms_p50": ref["decode_step_ms_p50"],
+            "reference_peak_mem_bytes": ref["peak_mem_bytes"],
+            "init_s_max": max(r["init_s"] for r in results),
+            "param_bytes_by_process": [r["param_bytes"] for r in results],
+            "cache_bytes_by_process": [r["cache_bytes"] for r in results],
+            "peak_mem_bytes_by_process": [r["peak_mem_bytes"]
+                                          for r in results],
+            "comm_prefill_rank0": results[0]["comm_call0"],
+            "comm_decode_step_rank0": results[0]["comm_call1"]}
+    return line, bad
 
 
 def cell_file(ready_dir: str, what: str, i: int) -> str:
@@ -5151,8 +5716,9 @@ def wait_file(path: str, abort: str, alive=None) -> None:
 
 
 def rank_train_cells(ranks, ready_dir: str, n_cells: int) -> list:
-    """:func:`rank_train` of each cell in turn in one process, as soon as
-    the parent has handed it over (its arguments in
+    """:func:`rank_train` (or phase 19's :func:`rank_serve`) of each cell
+    in turn in one process, as soon as
+    the parent has handed it over (its kind and arguments in
     ``cell_file(ready_dir, "cell", i)``, written once its reference is
     done), on the cell's ``(data, model)`` grid (a grid other than the
     spawn's built once over the same processes), the card's memory freed
@@ -5168,18 +5734,19 @@ def rank_train_cells(ranks, ready_dir: str, n_cells: int) -> list:
     for i in range(n_cells):
         path = cell_file(ready_dir, "cell", i)
         wait_file(path, abort)
-        grid, args = torch.load(path, weights_only=False)
+        grid, kind, args = torch.load(path, weights_only=False)
         if grid not in grids:
             grids[grid] = ProcessRanks(grid, ranks.axes,
                                        backend=ranks.backend,
                                        device=ranks.device)
-        out.append(rank_train(grids[grid], *args))
+        run = rank_serve if kind == "serve" else rank_train
+        out.append(run(grids[grid], *args))
         gc.collect()
         torch.cuda.empty_cache()
         dist.barrier()
         if ranks.rank == 0:
             shutil.rmtree(args[0], ignore_errors=True)
-            if args[6] is not None:           # phase 16's checkpoints
+            if kind == "train" and args[6] is not None:   # phase 16's
                 shutil.rmtree(args[6], ignore_errors=True)
             put_file(cell_file(ready_dir, "done", i), True)
     return out
@@ -5218,8 +5785,9 @@ def grid_cells(torch, seed: int) -> list:
          "cell": "train-minicpm3-4b-2x4-8proc-1xH100",
          "cfg": dataclasses.replace(get_config(MLA_TRAIN_ARCH),
                                     num_layers=MLA_TRAIN_LAYERS),
-         "seq": TRAIN_SEQ, "bounds": MLA_RANKS_BOUNDS,
-         "leaves": MLA_RANKS_GRAD_LEAVES, "floor": False, "faults": True}]
+         "seq": TRAIN_SEQ, "steps": MLA_TRAIN_STEPS,
+         "bounds": MLA_RANKS_BOUNDS, "leaves": MLA_RANKS_GRAD_LEAVES,
+         "floor": False, "faults": True}]
     for arch, (cell, layers, leaves) in SSM_RANKS_CELLS.items():
         cfg = get_config(arch)
         if layers is not None:
@@ -5267,7 +5835,7 @@ def train_grid_path(torch, dev, seed: int) -> dict:
     out = {"phase": "train_grid", "paths": {}, "references_s": 0.0}
     order = {arch: i for i, arch in enumerate(GRID_CELL_ORDER)}
     cells = sorted(grid_cells(torch, seed),
-                   key=lambda c: order[c["cfg"].arch_id])
+                   key=lambda c: order[c["cfg"].arch_id]) + serve_cells()
     dirs, failures = [], []
     ready = tempfile.mkdtemp(prefix="chip_smoke_cells_",
                              dir="/dev/shm" if os.path.isdir("/dev/shm")
@@ -5292,23 +5860,31 @@ def train_grid_path(torch, dev, seed: int) -> dict:
                     raise RuntimeError(f"{c['ckpt_root']} has {free} bytes "
                                        f"free; phase 16's checkpoints need "
                                        f"{need}")
-            if "batches" not in c:
-                c["batches"] = train_ranks_batches(
-                    torch, c["cfg"], c["seq"], TRAIN_RANKS_STEPS, dev, seed)
             dirs.append(ranks_dir())
             t0 = time.perf_counter()
-            c["ref"] = train_ranks_reference(
-                torch, dev, c["cfg"], c["batches"], c["opt"], dirs[-1],
-                c["leaves"], grid=c["grid"] if c["stacked"] else None,
-                floor=c["floor"], faults=c["faults"])
+            if c.get("kind") == "serve":
+                with torch.inference_mode():
+                    c["ref"] = serve_ranks_reference(
+                        torch, dev, c["cfg"], c["grid"], dirs[-1], seed)
+                handed = ("serve", (dirs[-1], c["cfg"], seed))
+            else:
+                if "batches" not in c:
+                    c["batches"] = train_ranks_batches(
+                        torch, c["cfg"], c["seq"],
+                        c.get("steps", TRAIN_RANKS_STEPS), dev,
+                        seed)
+                c["ref"] = train_ranks_reference(
+                    torch, dev, c["cfg"], c["batches"], c["opt"], dirs[-1],
+                    c["leaves"], grid=c["grid"] if c["stacked"] else None,
+                    floor=c["floor"], faults=c["faults"])
+                handed = ("train", (dirs[-1], c["batches"], c["opt"],
+                                    sum(c["ref"]["lrs"]), c["cfg"],
+                                    c["leaves"], c.get("ckpt_root")))
             c["reference_s"] = time.perf_counter() - t0
             out["references_s"] += c["reference_s"]
             gc.collect()
             torch.cuda.empty_cache()
-            put_file(cell_file(ready, "cell", i),
-                     (c["grid"], (dirs[-1], c["batches"], c["opt"],
-                                  sum(c["ref"]["lrs"]), c["cfg"],
-                                  c["leaves"], c.get("ckpt_root"))))
+            put_file(cell_file(ready, "cell", i), (c["grid"],) + handed)
         per_rank, spawn_s = spawn.join()
     except BaseException as e:
         spawn.stop(e)
@@ -5317,6 +5893,17 @@ def train_grid_path(torch, dev, seed: int) -> dict:
             shutil.rmtree(d, ignore_errors=True)
     out["spawn_s"] = spawn_s
     for i, c in enumerate(cells):
+        if c.get("kind") == "serve":
+            results = [r[i] for r in per_rank]
+            line, bad = check_serve_ranks(c["cfg"], c["grid"], c["ref"],
+                                          results,
+                                          SERVE_RANKS_BOUNDS[c["line"]])
+            out["paths"][c["line"]] = {
+                "cell": c["cell"], "cut": grid_cut(c["cfg"]),
+                **serve_line(c["cfg"], c["grid"], c["reference_s"],
+                             spawn_s), **line}
+            failures += [f"{c['cell']}: {f}" for f in bad]
+            continue
         cfg, batches, ref = c["cfg"], c["batches"], c["ref"]
         results = [r[i] for r in per_rank]
         positions = batches[0]["tokens"].shape[1] + (
@@ -5572,7 +6159,11 @@ def main(argv=None) -> int:
                       f"{MOE_TRAIN_LAYERS} MoE layers, {MOE_TRAIN_STEPS} "
                       f"steps with remat: send pack + regroup, forward and "
                       f"recompute": grid["paths"]["train_ranks_families_moe"][
-                          "k1_launches"]},
+                          "k1_launches"],
+                      "8 processes: Qwen1.5-MoE-A2.7B served on (1, 8), "
+                      "the prefill's 24 MoE layers: send pack + regroup":
+                          sum(grid["paths"]["serve_ranks_moe"][
+                              "k1_launches_by_process"])},
         "bitonic_sort": {"dataflow sort, flat": mp["launches"]["bitonic_sort"],
                          "dataflow sort, (dc, node)":
                              wide["launches"]["bitonic_sort"],

@@ -31,7 +31,10 @@ by columns, ``wo`` by rows): the down projections, their norms and the
 decoupled rope key run replicated, and the latents enter the heads'
 products through one ``copy_to``, so the replicated weights take their
 whole gradient on every rank; heads that ``model`` does not divide
-raise.
+raise. Both take this process's block of a cache over ranks (prefill
+and decode: :func:`_attn_model_parallel`, :func:`_mla_model_parallel`),
+its data rows and the KV heads the JAX package's ``cache_specs`` give
+it.
 
 Scores follow the JAX package's rounding: its einsums take bfloat16
 operands and accumulate and return float32 (``preferred_element_type``),
@@ -242,38 +245,72 @@ def tp_layout(cfg: ModelConfig, params: Params, model: int) -> str:
     return "heads"
 
 
+def _cache_heads(cfg: ModelConfig, cache: Dict, layout: str,
+                 kv_heads: int) -> str:
+    """How a rank holding ``kv_heads`` KV heads meets its layer's cache
+    block: ``"own"`` (the block holds exactly the rank's heads: the cache
+    shards them as ``wk`` does, or both hold every head) or
+    ``"gather"`` (the cache holds every KV head, ``wk``/``wv`` shard
+    them: the JAX package's ``_kv_spec`` keeps KV heads that do not
+    divide 16 whole). A cache that shards heads the rank computes whole
+    (the sequence layout) raises."""
+    held = cache["k"].shape[2]
+    if held == kv_heads:
+        return "own"
+    if layout == "heads" and held == cfg.n_kv_heads:
+        return "gather"
+    raise ValueError(f"{cfg.arch_id}: a cache block of {held} KV heads "
+                     f"against {kv_heads} computed by the rank in the "
+                     f"{layout} layout: not ported")
+
+
 def _attn_model_parallel(params, x, cfg: ModelConfig, q_pos, ranks,
                          causal: bool, rope: bool = True,
-                         cross_kv: Optional[Tuple] = None):
+                         cross_kv: Optional[Tuple] = None,
+                         cache: Optional[Dict] = None):
     """Self- or cross-attention over the replicated ``x`` (B, S, d) on a
     process holding its shards (see the module docstring); the output is
     replicated. ``cross_kv=(k, v, kv_pos)``: keys and values this rank
     computed from the encoder output (its KV heads in the heads layout,
     every one in the sequence layout), which entered through
     ``copy_to`` (:func:`repro_torch.models.encdec.decode_stack`), so
-    their gradients are summed over ``model`` there."""
+    their gradients are summed over ``model`` there.
+
+    ``cache``: this process's block of the layer's cache (its data rows,
+    every slot; the KV heads its spec gives it), written in place with
+    the new positions, then attended over. Heads layout: the rank writes
+    its KV heads where the block holds just those; where the block holds
+    every KV head and ``wk``/``wv`` shard them, the new keys and values
+    are gathered over ``model`` (one ``all_gather``), every head written
+    and the rank's own read back. Sequence layout: every rank projects
+    and writes the keys and values of every position and attends from
+    its block of query rows; one position (a decode step) is attended by
+    every rank whole, as the JAX package's ``_seq_shard`` leaves a
+    sequence of one unsharded: no collective."""
     B, S, _ = x.shape
     hd, m = cfg.hd, ranks.axis_size("model")
     layout = tp_layout(cfg, params, m)
     window = (cfg.window if cfg.attn_type == "swa" and cross_kv is None
               else None)
     h = enter_parallel(ranks, x)
+    me = axis_position(ranks, "model")
 
     def proj(inp, name, heads):
         y = parallel_product(inp, params[name])
         return y.reshape(inp.shape[0], inp.shape[1], heads, hd)
 
+    split = layout == "sequence" and S > 1
     if layout == "heads":
         hq, pq = h, q_pos
         heads = cfg.n_heads // m
         kv_heads = (cfg.n_kv_heads if sharded_dim(params, "wk") is None
                     else cfg.n_kv_heads // m)
     else:
-        if S % m:
+        if split and S % m:
             raise ValueError(f"sequence-parallel attention: {S} positions "
                              f"do not split over {m} model ranks")
-        rows = slice(axis_position(ranks, "model") * (S // m),
-                     (axis_position(ranks, "model") + 1) * (S // m))
+        rows = (slice(me * (S // m), (me + 1) * (S // m)) if split
+                else slice(None))
         hq, pq = h[:, rows], q_pos[:, rows]
         heads, kv_heads = cfg.n_heads, cfg.n_kv_heads
     q = proj(hq, "wq", heads)
@@ -289,13 +326,23 @@ def _attn_model_parallel(params, x, cfg: ModelConfig, q_pos, ranks,
     if rope and cross_kv is None:
         q = apply_rope(q, pq, cfg.rope_theta)
         k = apply_rope(k, q_pos, cfg.rope_theta)
+    if cache is not None and cross_kv is None:
+        if _cache_heads(cfg, cache, layout, kv_heads) == "gather":
+            kv = gather_from(ranks, torch.stack([k, v]), "model", 3)
+            cache = _cache_update(cache, kv[0], kv[1], q_pos)
+            mine = slice(me * kv_heads, (me + 1) * kv_heads)
+            k, v = cache["k"][:, :, mine], cache["v"][:, :, mine]
+        else:
+            cache = _cache_update(cache, k, v, q_pos)
+            k, v = cache["k"], cache["v"]
+        kv_pos = cache["pos"]
     out = _sdpa(q, k, v, pq, kv_pos, causal=causal and cross_kv is None,
                 window=window, scale=hd ** -0.5)
     out = out.reshape(B, hq.shape[1], heads * hd)
     if layout == "heads":
-        return row_parallel(ranks, out, params["wo"])
-    return gather_from(ranks, out @ params["wo"].to(COMPUTE_DTYPE), "model",
-                       1)
+        return row_parallel(ranks, out, params["wo"]), cache
+    out = out @ params["wo"].to(COMPUTE_DTYPE)
+    return (gather_from(ranks, out, "model", 1) if split else out), cache
 
 
 def attn_apply(params, x, cfg: ModelConfig, q_pos,
@@ -309,16 +356,14 @@ def attn_apply(params, x, cfg: ModelConfig, q_pos,
     values precomputed from an encoder (only ``q_norm`` applies to q; no
     rope, no cache write). ``ranks`` holding shards
     (:func:`repro_torch.comm.model_parallel`): the model-parallel
-    attention of a full forward, causal or not, with rope or without
-    (the encoder's and the decoder's self-attention of the enc-dec), or
-    cross-attention over ``cross_kv`` from this rank's shards. Returns
-    (out, cache)."""
+    attention, causal or not, with rope or without (the encoder's and
+    the decoder's self-attention of the enc-dec), over a full forward or
+    this process's block of a cache, or cross-attention over
+    ``cross_kv`` from this rank's shards
+    (:func:`_attn_model_parallel`). Returns (out, cache)."""
     if model_parallel(ranks):
-        if cache is not None:
-            raise ValueError("model-parallel attention runs a full "
-                             "forward: no cache")
         return _attn_model_parallel(params, x, cfg, q_pos, ranks, causal,
-                                    rope, cross_kv), None
+                                    rope, cross_kv, cache)
     B, S, _ = x.shape
     hd = cfg.hd
     x = x.to(COMPUTE_DTYPE)
@@ -386,7 +431,22 @@ def _mla_core(q_nope, s_rope, k_nope, val, q_pos, kv_pos, scale: float):
                         val.float()).to(COMPUTE_DTYPE)
 
 
-def _mla_model_parallel(params, x, cfg: ModelConfig, q_pos, ranks):
+def _mla_cache_write(cache: Dict, ckv, k_rope, q_pos) -> Dict:
+    """Write the latents ``ckv`` (B, S, kv_rank) and the rope key
+    ``k_rope`` (B, S, 1, rope) of the new positions into an MLA cache, in
+    place."""
+    B = ckv.shape[0]
+    T = cache["ckv"].shape[1]
+    slots = (q_pos % T).long()
+    b_idx = torch.arange(B, device=slots.device)[:, None].expand_as(slots)
+    cache["ckv"][b_idx, slots] = ckv.to(cache["ckv"].dtype)
+    cache["k_rope"][b_idx, slots] = k_rope[:, :, 0].to(cache["k_rope"].dtype)
+    cache["pos"][b_idx, slots] = q_pos.to(torch.int32)
+    return cache
+
+
+def _mla_model_parallel(params, x, cfg: ModelConfig, q_pos, ranks,
+                        cache: Optional[Dict] = None):
     """MLA over the replicated ``x`` (B, S, d) on a process holding its
     shards: the latents (``cq``, ``ckv`` and the rope key, computed
     replicated) enter this rank's heads through one ``copy_to``, whose
@@ -395,7 +455,13 @@ def _mla_model_parallel(params, x, cfg: ModelConfig, q_pos, ranks):
     every head as well (the JAX package's ``"bshr,btkr->bkst"``, the
     same for all heads): each rank sums its heads' and one ``psum``
     forward (``reduce_from``) and one backward (``copy_to``) join them,
-    ``(B, S, rope)`` float32 each. The output is replicated."""
+    ``(B, S, rope)`` float32 each. The output is replicated.
+
+    ``cache``: this process's block (its data rows, every slot: the
+    latent cache's spec has no ``model`` entry). Every rank writes the
+    new latents and rope keys whole, then its heads take ``wk_up`` and
+    ``wv_up`` of the whole cache's latents (the ``absorb=False`` path)
+    and the rope scores read the cached rope keys."""
     B, S, _ = x.shape
     m = ranks.axis_size("model")
     tp_layout(cfg, params, m)
@@ -409,20 +475,29 @@ def _mla_model_parallel(params, x, cfg: ModelConfig, q_pos, ranks):
     ckv = rms_norm(ckv_full[..., :r], params["kv_norm"], cfg.norm_eps)
     k_rope = apply_rope(ckv_full[..., r:].reshape(B, S, 1, rope_d), q_pos,
                         cfg.rope_theta)
-    lat = enter_parallel(ranks, torch.cat(
-        [cq, ckv, k_rope.reshape(B, S, rope_d)], dim=-1))
-    cqf, ckvf, krf = lat.split([qr, r, rope_d], dim=-1)
+    if cache is None:
+        lat = enter_parallel(ranks, torch.cat(
+            [cq, ckv, k_rope.reshape(B, S, rope_d)], dim=-1))
+        cqf, ckvf, krf = lat.split([qr, r, rope_d], dim=-1)
+        kv_pos = q_pos
+    else:
+        cache = _mla_cache_write(cache, ckv, k_rope, q_pos)
+        cqf = enter_parallel(ranks, cq)
+        ckvf = enter_parallel(ranks, cache["ckv"])
+        krf = cache["k_rope"].to(COMPUTE_DTYPE).float()
+        kv_pos = cache["pos"]
+    T = ckvf.shape[1]
     q = parallel_product(cqf, params["wq_up"]).reshape(B, S, H, nope + rope_d)
     q_rope = apply_rope(q[..., nope:], q_pos, cfg.rope_theta)
     q_rope = copy_to(ranks, reduce_from(ranks, q_rope.float().sum(dim=2),
                                         "model"), "model")
     s_rope = torch.einsum("bsr,btr->bst", q_rope,
                           krf.to(COMPUTE_DTYPE).float())[:, None]
-    k_nope = parallel_product(ckvf, params["wk_up"]).reshape(B, S, H, nope)
-    val = parallel_product(ckvf, params["wv_up"]).reshape(B, S, H, vh)
-    out = _mla_core(q[..., :nope], s_rope, k_nope, val, q_pos, q_pos,
+    k_nope = parallel_product(ckvf, params["wk_up"]).reshape(B, T, H, nope)
+    val = parallel_product(ckvf, params["wv_up"]).reshape(B, T, H, vh)
+    out = _mla_core(q[..., :nope], s_rope, k_nope, val, q_pos, kv_pos,
                     (nope + rope_d) ** -0.5)
-    return row_parallel(ranks, out.reshape(B, S, H * vh), params["wo"])
+    return row_parallel(ranks, out.reshape(B, S, H * vh), params["wo"]), cache
 
 
 def mla_apply(params, x, cfg: ModelConfig, q_pos,
@@ -435,13 +510,16 @@ def mla_apply(params, x, cfg: ModelConfig, q_pos,
     (the model path); ``absorb=True`` folds ``wk_up``/``wv_up`` into the
     query and the output, every product from float32 operands, as the
     JAX package computes it. ``ranks`` holding shards
-    (:func:`repro_torch.comm.model_parallel`): the heads-sharded full
-    forward of the module docstring. Returns (out, cache)."""
+    (:func:`repro_torch.comm.model_parallel`): the heads-sharded MLA of
+    the module docstring, over a full forward or this process's block of
+    a cache (:func:`_mla_model_parallel`); absorption over ranks is not
+    ported. Returns (out, cache)."""
     if model_parallel(ranks):
-        if cache is not None or absorb:
-            raise ValueError("model-parallel MLA runs the full forward of a "
-                             "decoder: no cache, no absorption")
-        return _mla_model_parallel(params, x, cfg, q_pos, ranks), None
+        if absorb:
+            raise ValueError("model-parallel MLA with absorb=True (wk_up "
+                             "and wv_up folded into the query and the "
+                             "output over sharded heads): not ported")
+        return _mla_model_parallel(params, x, cfg, q_pos, ranks, cache)
     B, S, _ = x.shape
     H = cfg.n_heads
     nope, rope_d, vh = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
@@ -461,13 +539,7 @@ def mla_apply(params, x, cfg: ModelConfig, q_pos,
     k_rope = apply_rope(k_rope, q_pos, cfg.rope_theta)
 
     if cache is not None:
-        T = cache["ckv"].shape[1]
-        slots = (q_pos % T).long()
-        b_idx = torch.arange(B, device=slots.device)[:, None].expand_as(slots)
-        cache["ckv"][b_idx, slots] = ckv.to(cache["ckv"].dtype)
-        cache["k_rope"][b_idx, slots] = k_rope[:, :, 0].to(
-            cache["k_rope"].dtype)
-        cache["pos"][b_idx, slots] = q_pos.to(torch.int32)
+        cache = _mla_cache_write(cache, ckv, k_rope, q_pos)
         ckv_t = cache["ckv"].to(COMPUTE_DTYPE)
         k_rope_t = cache["k_rope"][:, :, None].to(COMPUTE_DTYPE)
         kv_pos = cache["pos"]

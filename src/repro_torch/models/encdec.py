@@ -21,7 +21,11 @@ over every encoder position in the cross-attention). The encoder output
 enters the decoder once, through ``copy_to``: each rank's cross keys and
 values read all of it, but only for its own query rows or heads, so the
 backward sums its gradient over ``model`` before the encoder sees it.
-Serving over process ranks is not ported.
+Serving over process ranks runs the same branches over this process's
+block of the decoder's self-attention caches
+(:func:`repro_torch.models.attention.attn_apply`, without rope), the
+cross keys and values recomputed from the encoder output every call,
+as the JAX package's ``decode_step`` does.
 """
 
 from __future__ import annotations
@@ -159,13 +163,11 @@ def decode_stack(params: EncDec, cfg: ModelConfig, tokens, enc_out,
     """Decoder over tokens; ``enc_out`` precomputed. ``caches``: the
     stacked self-attention caches (decode, written in place) or None
     (teacher forcing). ``ranks`` holding shards: the model-parallel
-    teacher-forced forward (no caches), the logits this rank's
-    vocabulary columns. Returns (logits at every position, caches)."""
+    decoder, over a full forward or this process's blocks of the caches,
+    the logits this rank's vocabulary columns. Returns (logits at every
+    position, caches)."""
     B, S = tokens.shape
     tp = model_parallel(ranks)
-    if tp and caches is not None:
-        raise ValueError("the model-parallel enc-dec runs the teacher-"
-                         "forced forward: no caches")
     x = embed_lookup(params.embed, tokens, ranks)
     if q_pos is None:
         q_pos = _positions(B, S, x.device)

@@ -92,14 +92,19 @@ def dense_init(param: torch.Tensor, generator: Optional[torch.Generator],
     default, ``d_in`` the second-to-last axis), rows ``zero_from:`` of
     the first axis zeroed (padded experts, padded vocabulary), then cast
     to the parameter's dtype. Only this one tensor exists in float32, on
-    the parameter's device."""
-    scale = scale if scale is not None else param.shape[-2] ** -0.5
-    w = torch.randn(param.shape, generator=generator, dtype=torch.float32,
+    the parameter's device. A parameter that holds one process's block
+    (``global_shape`` and ``block`` set on it,
+    :func:`repro_torch.models.registry.process_params`) draws the whole
+    tensor, so the generator moves as for the whole model, and keeps its
+    block."""
+    shape = getattr(param, "global_shape", param.shape)
+    scale = scale if scale is not None else shape[-2] ** -0.5
+    w = torch.randn(shape, generator=generator, dtype=torch.float32,
                     device=param.device)
     w *= scale
     if zero_from is not None:
         w[zero_from:] = 0.0
-    param.copy_(w)
+    param.copy_(w[getattr(param, "block", ())])
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor,

@@ -26,7 +26,11 @@ expert weights it holds: rows ``me * e_loc : (me + 1) * e_loc`` of
 model-parallel block (:func:`moe_apply_parallel`) the process takes its
 sequence block of its data row's replicated activation, dispatches it,
 and ``gather_from`` joins the blocks again; the shared experts are
-column- then row-parallel over ``model``.
+column- then row-parallel over ``model``. Where the positions do not
+split over ``model`` (every decode step), the JAX package's gate takes
+the dense dispatch, and so does the process: over its block of the
+routed experts, the capacity counted over the whole batch
+(:func:`moe_apply_dense_parallel`).
 
 ``moe_aux`` and ``moe_dropped`` are data row 0's values, as the JAX
 package's ``out_specs=P()`` hands them out; the gradient of ``moe_aux``
@@ -51,7 +55,7 @@ from repro_torch.core.shuffle import ShufflePlan
 from repro_torch.kernels.ops import partition_pack
 from repro_torch.models.layers import (COMPUTE_DTYPE, Params, dense_init,
                                        enter_parallel, parallel_product,
-                                       row_parallel, silu)
+                                       silu)
 
 
 def padded_experts(cfg: ModelConfig, tp: int = 16) -> int:
@@ -164,12 +168,27 @@ def _shared_ffn(params, x: torch.Tensor, ranks=None,
         h = h * (x @ params["ws_up"].to(COMPUTE_DTYPE))
         out = h @ params["ws_down"].to(COMPUTE_DTYPE)
     else:
-        h = silu(parallel_product(xf, params["ws_gate"]))
-        h = h * parallel_product(xf, params["ws_up"])
-        out = row_parallel(ranks, h, params["ws_down"])
-    g = (x @ params["shared_gate"].to(COMPUTE_DTYPE)).float()
-    g = 1.0 / (1.0 + torch.exp(-g))                     # jax.nn.sigmoid
-    return out * g.to(COMPUTE_DTYPE)
+        out = reduce_from(ranks, _shared_part(params, xf), "model").to(
+            COMPUTE_DTYPE)
+    return out * _shared_gate(params, x)
+
+
+def _shared_part(params, xf: torch.Tensor) -> torch.Tensor:
+    """This rank's float32 part of the model-parallel shared experts'
+    output (:func:`repro_torch.models.layers.row_parallel`'s before its
+    sum)."""
+    h = silu(parallel_product(xf, params["ws_gate"]))
+    h = h * parallel_product(xf, params["ws_up"])
+    return h.to(COMPUTE_DTYPE).float() @ params["ws_down"].to(
+        COMPUTE_DTYPE).float()
+
+
+def _shared_gate(params, x: torch.Tensor) -> torch.Tensor:
+    """The shared experts' gate, ``sigmoid(x @ shared_gate)`` in
+    bfloat16."""
+    g = (x.to(COMPUTE_DTYPE) @ params["shared_gate"].to(
+        COMPUTE_DTYPE)).float()
+    return (1.0 / (1.0 + torch.exp(-g))).to(COMPUTE_DTYPE)  # jax.nn.sigmoid
 
 
 class _RowZeroValue(torch.autograd.Function):
@@ -357,25 +376,25 @@ def moe_apply_parallel(params, h: torch.Tensor, cfg: ModelConfig,
     process's data row of the activation, replicated over ``model``,
     and ``params`` hold the process's shards (the routed experts' and the
     shared experts' blocks by their specs, the router and ``shared_gate``
-    whole). The output is replicated too.
+    whole). The output is replicated too. The JAX package's gate: the
+    sphere dispatch where the ``S`` positions split over ``model``
+    (training, a prefill), else the expert-sharded dense dispatch
+    (:func:`moe_apply_dense_parallel`: every decode step; it serves only,
+    without gradients).
 
-    ``h`` enters once through ``enter_parallel`` (whose backward sums its
-    gradient over ``model``). The process dispatches its block of
-    ``S / model`` positions, the block ``P(dp, "model", None)`` gives it
-    in the JAX package's ``shard_map``, with K1 in the send pack and the
-    regroup, and ``gather_from`` joins the blocks' outputs; the shared
-    experts run on the whole ``h``. The router reads the process's own
-    tokens only: its gradient is a part of the whole, summed over
-    ``model`` by the trainer."""
+    Sphere: ``h`` enters once through ``enter_parallel`` (whose backward
+    sums its gradient over ``model``). The process dispatches its block
+    of ``S / model`` positions, the block ``P(dp, "model", None)`` gives
+    it in the JAX package's ``shard_map``, with K1 in the send pack and
+    the regroup, and ``gather_from`` joins the blocks' outputs; the
+    shared experts run on the whole ``h``. The router reads the
+    process's own tokens only: its gradient is a part of the whole,
+    summed over ``model`` by the trainer."""
     b, s, d = h.shape
     m = ranks.axis_size("model")
-    if cfg.moe_impl != "sphere":
-        raise ValueError(f"{cfg.arch_id}: a model-parallel MoE dispatches "
-                         f"through the sphere shuffle, not {cfg.moe_impl!r}")
+    if cfg.moe_impl != "sphere" or s % m:
+        return moe_apply_dense_parallel(params, h, cfg, ranks, dp_axes)
     _grid_layout(ranks, dp_axes, ("model",))
-    if s % m:
-        raise ValueError(f"a model-parallel MoE: {s} positions do not split "
-                         f"over {m} expert ranks")
     s_loc = s // m
     plan = ShufflePlan.for_ranks(
         ranks, plan_experts(cfg, params["w_gate"].shape[0] * m, m),
@@ -457,6 +476,89 @@ def moe_apply_dense(params, x: torch.Tensor, cfg: ModelConfig):
     out = out.reshape(b, s, d).to(COMPUTE_DTYPE)
     if cfg.n_shared_experts:
         out = out + _shared_ffn(params, x)
+    return out, {"moe_aux": aux, "moe_dropped": dropped}
+
+
+def moe_apply_dense_parallel(params, h: torch.Tensor, cfg: ModelConfig,
+                             ranks: Ranks,
+                             dp_axes: Sequence[str] = ("data",)):
+    """:func:`moe_apply_dense` of the whole batch over process ranks,
+    expert-sharded: ``h`` ``(b, S, d)`` is this process's data rows,
+    replicated over ``model``; ``params`` hold the process's block of
+    ``E_pad / model`` routed experts (``("model", None, None)``) and
+    the shared experts' column and row blocks. Serving only (no
+    gradients).
+
+    Every model rank routes its replicated tokens with the replicated
+    router, so all agree. The capacity is the whole batch's, as the JAX
+    package's dense dispatch over the global batch counts it: ``cap``
+    from the global token count, and each (token, choice) takes the slot
+    its expert's count reaches in token-major order over the whole
+    batch, so a data rank starts each expert's count at the lower data
+    ranks' total. One ``all_gather`` over the data axes of this rank's
+    per-expert counts and router probability sums (float32, exact
+    counts) gives those totals, the global ``moe_aux`` and the global
+    drop count (each expert keeps ``min(count, cap)``). The rank runs its
+    experts' slots; one ``reduce_from`` over ``model`` sums the ranks'
+    float32 outputs and, beside them in the same call, the shared
+    experts' row-parallel parts, each sum rounded to bfloat16 once as the
+    one process rounds it."""
+    if torch.is_grad_enabled():
+        raise ValueError(f"{cfg.arch_id}: the model-parallel dense dispatch "
+                         f"(positions that do not split over model, or "
+                         f"moe_impl={cfg.moe_impl!r}) serves only, without "
+                         f"gradients; training dispatches through the "
+                         f"sphere shuffle")
+    b, s, d = h.shape
+    n, k = b * s, cfg.top_k
+    m = ranks.axis_size("model")
+    e_loc = params["w_gate"].shape[0]
+    e_pad = e_loc * m
+    x_flat = h.reshape(n, d)
+    top_i, top_p, _ = _route(params, x_flat, cfg)
+    probs = torch.softmax(x_flat.float() @ params["router"].float(), dim=-1)
+    ids = top_i.reshape(n * k).long()
+    oh = (ids[:, None] == torch.arange(e_pad, device=ids.device)).to(
+        torch.int32)                                         # (n*k, E)
+    mine = torch.cat([oh.sum(dim=0).float(),
+                      probs.sum(dim=0)])                     # (E_pad + E,)
+    dp = ranks.axis_size(tuple(dp_axes))
+    if dp > 1:
+        every = ranks.all_gather(mine[None, None], tuple(dp_axes))
+        every = every.reshape(dp, -1)
+        row = axis_position(ranks, dp_axes)
+        prefix = every[:row, :e_pad].sum(dim=0).to(torch.int32)
+        total = every.sum(dim=0)
+    else:
+        prefix = torch.zeros(e_pad, dtype=torch.int32, device=h.device)
+        total = mine
+    n_all = n * dp
+    counts, psum = total[:e_pad], total[e_pad:]
+    cap = max(int(n_all * k / cfg.num_experts * cfg.capacity_factor), 1)
+    pos = (torch.cumsum(oh, dim=0) - 1 + prefix).gather(
+        1, ids[:, None])[:, 0]
+    first = axis_position(ranks, "model") * e_loc
+    keep = pos < cap
+    here = keep & (ids >= first) & (ids < first + e_loc)
+    slot = torch.where(here, (ids - first) * cap + pos, e_loc * cap)
+    xe = torch.zeros((e_loc * cap + 1, d), dtype=torch.float32,
+                     device=h.device)
+    xe[slot] = torch.repeat_interleave(x_flat.float(), k, dim=0)
+    ye = _expert_ffn(params["w_gate"], params["w_up"], params["w_down"],
+                     xe[:-1].reshape(e_loc, cap, d))
+    ye = torch.cat([ye.reshape(e_loc * cap, d),
+                    ye.new_zeros((1, d))]).float()
+    w = top_p.reshape(n * k, 1) * here[:, None].float()
+    parts = [(ye[slot] * w).reshape(n, k, d).sum(dim=1)]
+    if cfg.n_shared_experts:
+        parts.append(_shared_part(params, enter_parallel(ranks, x_flat)))
+    sums = reduce_from(ranks, torch.stack(parts), "model").to(COMPUTE_DTYPE)
+    out = sums[0].reshape(b, s, d)
+    if cfg.n_shared_experts:
+        out = out + (sums[1] * _shared_gate(params, x_flat)).reshape(b, s, d)
+    hits = counts[:cfg.num_experts] / n_all / k
+    aux = cfg.num_experts * torch.sum(psum / n_all * hits)
+    dropped = torch.clamp(counts - cap, min=0).sum()
     return out, {"moe_aux": aux, "moe_dropped": dropped}
 
 

@@ -5,15 +5,17 @@ decoder-only LMs (``dense`` with GQA/SWA/MLA, ``moe``, ``ssm``,
 ``hybrid``, ``vlm``) build a :class:`transformer.DecoderLM`; ``audio``
 builds an :class:`encdec.EncDec`. The bundle exposes:
 
-  init(generator=None, device=None, dtype=None)      -> params
+  init(generator=None, device=None, dtype=None, ranks=None) -> params
   train_loss(params, batch, ranks=None, dp_axes)     -> (loss, metrics)
-  prefill(params, batch, caches, ranks=None)         -> (logits, caches)
-  decode_step(params, caches, batch, ranks=None)     -> (logits, caches)
-  init_caches(batch, max_len, device=None)
+  prefill(params, batch, caches, ranks=None, dp_axes) -> (logits, caches)
+  decode_step(params, caches, batch, ranks=None, dp_axes)
+                                                     -> (logits, caches)
+  init_caches(batch, max_len, device=None, ranks=None, dp_axes)
   input_specs(shape_name)      -> {name: (shape, torch dtype)}
   param_specs()                -> {name: spec}
   batch_specs(shape_name, dp)  -> {name: spec}
   cache_specs(shape_name, dp)  -> the caches' layout, a spec a leaf
+  batch_cache_specs(batch, dp) -> the same for a batch of ``batch`` rows
 
 ``init(dtype=torch.float32)`` gives the training form (every parameter
 float32 with a gradient, as the JAX package's ``init``); the default is
@@ -45,6 +47,20 @@ the inputs of a shape and for the caches (whose layout is the JAX
 package's: a layer-stacked dict or a list of per-layer dicts). A
 :class:`repro_torch.comm.ProcessRanks` process cuts its block of a
 tensor by its spec (``local_shard``).
+
+Serving over process ranks (a :class:`repro_torch.comm.ProcessRanks`
+grid with ``data`` and ``model`` axes, the decoder-only attention
+families and the enc-dec): each process holds its blocks of the weights
+(``init(..., ranks=)`` draws the whole model one tensor at a time and
+keeps its blocks; :func:`process_params` cuts them from a source), its
+``data`` rows of the batch and its blocks of every cache leaf as
+``batch_cache_specs(batch, dp)`` lays them out (``init_caches(...,
+ranks=)`` allocates those blocks only). ``prefill`` and ``decode_step``
+write the caches' blocks in place and return this process's rows of
+the logits over the whole vocabulary (the vocab-parallel readout
+gathered over ``model`` once). Not ported, and raising: a cache whose
+time axis the specs shard (batch 1, not sliding-window) and the
+recurrent caches (Mamba2, mLSTM, sLSTM).
 """
 
 from __future__ import annotations
@@ -52,14 +68,22 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Callable, Dict, Optional, Sequence
 
+import numpy as np
 import torch
+from torch import nn
 
-from repro_torch.comm import Spec, resolve_device
+from repro_torch.comm import (Spec, gather_from, model_parallel,
+                              resolve_device, shard_slices)
 from repro_torch.configs.base import SHAPES, ModelConfig
-from repro_torch.models import encdec, transformer
+from repro_torch.models import attention, encdec, transformer
 from repro_torch.models.convert import jax_order
 from repro_torch.models.layers import COMPUTE_DTYPE, param_specs
 from repro_torch.models.ssm import mamba2_dims, mlstm_dims
+
+#: the slice of the port that brings what :func:`init_caches` refuses
+#: over process ranks
+_NEXT_SLICE = ("not ported over process ranks: the recurrent caches and "
+               "the time-sharded cache come in the next slice of the port")
 
 
 def _device(device) -> torch.device:
@@ -70,10 +94,75 @@ def _device(device) -> torch.device:
     return resolve_device(device)
 
 
-def _init(make, cfg: ModelConfig, generator, device, dtype):
+def process_ranks(ranks) -> bool:
+    """Whether ``ranks`` are one process's row of a grid of several
+    (:class:`repro_torch.comm.ProcessRanks`): the serving calls then hold
+    this process's blocks only."""
+    return ranks is not None and ranks.rows == 1 and ranks.world > 1
+
+
+def _serves_over_ranks(cfg: ModelConfig) -> None:
+    """Raise for a model whose serving over process ranks is not ported:
+    one with a recurrent block."""
+    kinds = set(transformer.layer_pattern(cfg)) - set(transformer.ATTN_KINDS)
+    if cfg.family != "audio" and kinds:
+        raise ValueError(f"{cfg.arch_id}: {sorted(kinds)} blocks hold "
+                         f"recurrent caches, {_NEXT_SLICE}")
+
+
+@torch.no_grad()
+def process_params(cfg: ModelConfig, ranks, *, generator=None,
+                   source=None):
+    """The serving form of ``cfg``'s model holding this process's block of
+    every parameter (the block its spec gives the process, on
+    ``ranks.device``): cut from ``source`` (``{port name: array or
+    tensor}`` of the whole model, e.g. ``convert.flatten`` of the JAX
+    package's tree; only the block is read), else drawn from
+    ``generator`` as ``init`` draws the one-process model, one whole
+    tensor at a time on the generator's device, bit for bit the block of
+    the one-process weights. An attention layout the grid's ``model``
+    axis cannot take raises first (:func:`attention.tp_layout`)."""
+    _serves_over_ranks(cfg)
+    params = meta_params(cfg)
+    if "model" in ranks.axes:
+        for mod in params.modules():
+            if isinstance(mod, (attention.Attention, attention.MLA)):
+                attention.tp_layout(cfg, mod, ranks.axis_size("model"))
+    for _, mod in params.named_modules():
+        for name, p in list(mod._parameters.items()):
+            block = shard_slices(p.shape, mod.specs[name], ranks.shape,
+                                 ranks.axes, ranks.rank)
+            local = torch.empty(p[block].shape, dtype=p.dtype,
+                                device=ranks.device)
+            new = nn.Parameter(local, requires_grad=False)
+            new.global_shape, new.block = tuple(p.shape), block
+            mod._parameters[name] = new
+    if source is None:
+        if generator is None:
+            raise ValueError("process ranks draw the weights from a seeded "
+                             "generator or cut them from a source")
+        params.init_weights(generator)
+        return params
+    for name, p in params.named_parameters():
+        b = source[name][p.block]
+        b = b if isinstance(b, torch.Tensor) else torch.from_numpy(
+            np.array(b, np.float32))
+        p.copy_(b.to(p.dtype))
+    return params
+
+
+def _init(make, cfg: ModelConfig, generator, device, dtype, ranks=None):
     """Random weights drawn on ``device`` (default: the card) from
     ``generator`` (default: torch's global one), one tensor at a time;
-    ``dtype=torch.float32`` draws the training form."""
+    ``dtype=torch.float32`` draws the training form. Process ``ranks``:
+    this process's blocks of the serving form (:func:`process_params`;
+    the training form over ranks is ``trainer.init_train_state``'s)."""
+    if process_ranks(ranks):
+        if dtype is not None:
+            raise ValueError("over process ranks, init draws the serving "
+                             "form; trainer.init_train_state the training "
+                             "form")
+        return process_params(cfg, ranks, generator=generator)
     params = make(cfg, resolve_device(device))
     if dtype is not None:
         if dtype != torch.float32:
@@ -151,11 +240,17 @@ def _batch_specs(cfg: ModelConfig, shape_name: str,
     return {k: specs[k] for k in _input_specs(cfg, shape_name)}
 
 
-def _lm_cache_specs(cfg: ModelConfig, shape_name: str, dp: Sequence[str]):
-    """The JAX package's ``cache_specs``: long-context shapes (batch 1,
-    not sliding-window) shard the cache's time axis over the dp axes."""
-    b = SHAPES[shape_name].global_batch
-    shard_t = b == 1 and cfg.attn_type != "swa"
+def _shard_t(cfg: ModelConfig, b: int) -> bool:
+    """Whether the caches of a batch of ``b`` shard their time axis:
+    long-context batches (1 row), not sliding-window."""
+    return b == 1 and cfg.attn_type != "swa"
+
+
+def lm_cache_specs(cfg: ModelConfig, b: int, dp: Sequence[str]):
+    """The JAX package's ``cache_specs`` for a batch of ``b`` rows:
+    long-context batches (batch 1, not sliding-window) shard the cache's
+    time axis over the dp axes."""
+    shard_t = _shard_t(cfg, b)
     pattern = transformer.layer_pattern(cfg)
     if transformer.homogeneous(cfg):
         return _stacked(_layer_cache_spec(cfg, pattern[0], b, dp, shard_t))
@@ -163,6 +258,45 @@ def _lm_cache_specs(cfg: ModelConfig, shape_name: str, dp: Sequence[str]):
     for _ in transformer._shared_attn_points(cfg):
         specs.append(_layer_cache_spec(cfg, "shared_attn", b, dp, shard_t))
     return specs
+
+
+def encdec_cache_specs(cfg: ModelConfig, b: int, dp: Sequence[str]):
+    """The enc-dec's ``cache_specs`` for a batch of ``b`` rows: the
+    decoder's layer-stacked self-attention caches."""
+    return _stacked(_layer_cache_spec(cfg, "dense", b, dp))
+
+
+def _process_caches(cfg: ModelConfig, batch: int, max_len: int, ranks,
+                    dp_axes: Sequence[str], specs, make):
+    """This process's blocks of the caches ``make(batch, max_len, "meta")``
+    lays out, cut by ``specs`` (the same layout): each leaf allocated at
+    its block's shape only, ``pos`` at -1 (empty slots), the rest 0."""
+    _serves_over_ranks(cfg)
+    if _shard_t(cfg, batch) and cfg.family != "audio":
+        raise ValueError(f"{cfg.arch_id}: a batch of 1 shards the caches' "
+                         f"time axis over {tuple(dp_axes)}, {_NEXT_SLICE}")
+
+    def cut(leaf, spec):
+        block = shard_slices(leaf.shape, spec, ranks.shape, ranks.axes,
+                             ranks.rank)
+        return torch.full(leaf[block].shape, -1 if leaf.dtype == torch.int32
+                          else 0, dtype=leaf.dtype, device=ranks.device)
+
+    def walk(leaves, specs):
+        if isinstance(leaves, dict):
+            return {k: walk(v, specs[k]) for k, v in leaves.items()}
+        if isinstance(leaves, list):
+            return [walk(v, sp) for v, sp in zip(leaves, specs)]
+        return cut(leaves, specs)
+    return walk(make(batch, max_len, torch.device("meta")), specs)
+
+
+def _whole_vocab(logits, ranks):
+    """The serving calls' logits over the whole vocabulary: the
+    vocab-parallel readout's columns gathered over ``model``."""
+    if model_parallel(ranks):
+        return gather_from(ranks, logits, "model", -1)
+    return logits
 
 
 def _input_specs(cfg: ModelConfig, shape_name: str) -> Dict:
@@ -197,11 +331,12 @@ class Model:
     train_loss: Callable      # (params, batch, ranks, dp_axes)
     prefill: Callable         # (params, batch, caches, ranks, dp_axes)
     decode_step: Callable     # (params, caches, batch, ranks, dp_axes)
-    init_caches: Callable     # (batch, max_len, device=None)
+    init_caches: Callable     # (batch, max_len, device, ranks, dp_axes)
     input_specs: Callable     # (shape_name) -> {name: (shape, dtype)}
     param_specs: Callable     # () -> {name: spec}
     batch_specs: Callable     # (shape_name, dp) -> {name: spec}
     cache_specs: Callable     # (shape_name, dp) -> caches' layout of specs
+    batch_cache_specs: Callable  # (batch, dp) -> the same, by batch size
 
 
 def build(cfg: ModelConfig) -> Model:
@@ -212,8 +347,9 @@ def build(cfg: ModelConfig) -> Model:
 
 def _build_lm(cfg: ModelConfig) -> Model:
     def init(generator: Optional[torch.Generator] = None, device=None,
-             dtype: Optional[torch.dtype] = None):
-        return _init(transformer.DecoderLM, cfg, generator, device, dtype)
+             dtype: Optional[torch.dtype] = None, ranks=None):
+        return _init(transformer.DecoderLM, cfg, generator, device, dtype,
+                     ranks)
 
     def train_loss(params, batch: Dict, ranks=None, dp_axes=("data",)):
         return transformer.train_loss(params, cfg, batch, ranks, dp_axes)
@@ -226,7 +362,7 @@ def _build_lm(cfg: ModelConfig) -> Model:
             params, cfg, batch["tokens"], q_pos=None, caches=caches,
             ranks=ranks, dp_axes=dp_axes,
             img_embeds=batch.get("img_embeds"), last_only=True)
-        return logits, caches
+        return _whole_vocab(logits, ranks), caches
 
     @torch.inference_mode()
     def decode_step(params, caches, batch: Dict, ranks=None,
@@ -234,9 +370,15 @@ def _build_lm(cfg: ModelConfig) -> Model:
         logits, caches, _ = transformer.lm_forward(
             params, cfg, batch["tokens"], q_pos=batch["pos"], caches=caches,
             ranks=ranks, dp_axes=dp_axes)
-        return logits, caches
+        return _whole_vocab(logits, ranks), caches
 
-    def init_caches(batch: int, max_len: int, device=None):
+    def init_caches(batch: int, max_len: int, device=None, ranks=None,
+                    dp_axes=("data",)):
+        if process_ranks(ranks):
+            return _process_caches(
+                cfg, batch, max_len, ranks, dp_axes,
+                lm_cache_specs(cfg, batch, dp_axes),
+                lambda b, t, dev: transformer.init_caches(cfg, b, t, dev))
         return transformer.init_caches(cfg, batch, max_len, _device(device))
 
     return Model(cfg, init, train_loss, prefill, decode_step, init_caches,
@@ -244,42 +386,51 @@ def _build_lm(cfg: ModelConfig) -> Model:
                  lambda: _param_specs(cfg),
                  lambda shape_name, dp=("pod", "data"): _batch_specs(
                      cfg, shape_name, dp),
-                 lambda shape_name, dp=("pod", "data"): _lm_cache_specs(
-                     cfg, shape_name, dp))
+                 lambda shape_name, dp=("pod", "data"): lm_cache_specs(
+                     cfg, SHAPES[shape_name].global_batch, dp),
+                 lambda batch, dp=("pod", "data"): lm_cache_specs(
+                     cfg, batch, dp))
 
 
 def _build_encdec(cfg: ModelConfig) -> Model:
     def init(generator: Optional[torch.Generator] = None, device=None,
-             dtype: Optional[torch.dtype] = None):
-        return _init(encdec.EncDec, cfg, generator, device, dtype)
+             dtype: Optional[torch.dtype] = None, ranks=None):
+        return _init(encdec.EncDec, cfg, generator, device, dtype, ranks)
 
     def train_loss(params, batch: Dict, ranks=None, dp_axes=("data",)):
         return encdec.train_loss(params, cfg, batch, ranks)
 
     @torch.inference_mode()
     def prefill(params, batch: Dict, caches, ranks=None, dp_axes=("data",)):
-        enc_out = encdec.encode(params, cfg, batch["frames"])
-        return encdec.decode_stack(params, cfg, batch["tokens"], enc_out,
-                                   caches=caches)
+        enc_out = encdec.encode(params, cfg, batch["frames"], ranks)
+        logits, caches = encdec.decode_stack(
+            params, cfg, batch["tokens"], enc_out, caches=caches, ranks=ranks)
+        return _whole_vocab(logits, ranks), caches
 
     @torch.inference_mode()
     def decode_step(params, caches, batch: Dict, ranks=None,
                     dp_axes=("data",)):
         # the serving path carries the encoder output in the batch
-        return encdec.decode_stack(params, cfg, batch["tokens"],
-                                   batch["enc_out"], q_pos=batch["pos"],
-                                   caches=caches)
+        logits, caches = encdec.decode_stack(
+            params, cfg, batch["tokens"], batch["enc_out"],
+            q_pos=batch["pos"], caches=caches, ranks=ranks)
+        return _whole_vocab(logits, ranks), caches
 
-    def init_caches(batch: int, max_len: int, device=None):
+    def init_caches(batch: int, max_len: int, device=None, ranks=None,
+                    dp_axes=("data",)):
+        if process_ranks(ranks):
+            return _process_caches(
+                cfg, batch, max_len, ranks, dp_axes,
+                encdec_cache_specs(cfg, batch, dp_axes),
+                lambda b, t, dev: encdec.init_caches(cfg, b, t, dev))
         return encdec.init_caches(cfg, batch, max_len, _device(device))
-
-    def cache_specs(shape_name: str, dp=("pod", "data")):
-        return _stacked(_layer_cache_spec(
-            cfg, "dense", SHAPES[shape_name].global_batch, dp))
 
     return Model(cfg, init, train_loss, prefill, decode_step, init_caches,
                  lambda shape_name: _input_specs(cfg, shape_name),
                  lambda: _param_specs(cfg),
                  lambda shape_name, dp=("pod", "data"): _batch_specs(
                      cfg, shape_name, dp),
-                 cache_specs)
+                 lambda shape_name, dp=("pod", "data"): encdec_cache_specs(
+                     cfg, SHAPES[shape_name].global_batch, dp),
+                 lambda batch, dp=("pod", "data"): encdec_cache_specs(
+                     cfg, batch, dp))

@@ -90,8 +90,10 @@ def _parallel_only(ranks, cache) -> bool:
     if not model_parallel(ranks):
         return False
     if cache is not None:
-        raise ValueError("a model-parallel recurrent block runs the full "
-                         "forward of a decoder: no cache")
+        raise ValueError("a recurrent cache (Mamba2, mLSTM, sLSTM) over "
+                         "process ranks is not ported: the recurrent "
+                         "families' prefill and decode over ranks come in "
+                         "the next slice of the port")
     return True
 
 

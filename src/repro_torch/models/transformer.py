@@ -18,7 +18,9 @@ layouts: a homogeneous stack's are layer-stacked (``{"k", "v": (L, B, T,
 KV, hd), "pos": (L, B, T)}``, or MLA's latents), each layer reading and
 writing its own slice in place; a heterogeneous stack's are a **list** of
 per-layer dicts, the shared block's caches (one per application point)
-appended in application order.
+appended in application order. Over process ranks each process holds
+its blocks of the caches (``registry.init_caches(..., ranks=)``), and
+each layer reads and writes its slice of them as on one process.
 """
 
 from __future__ import annotations
