@@ -143,10 +143,10 @@ Phases, in order (any failure ends the script with a non-zero exit):
     caches over the same prefix. Phase 3 holds K1 at this phase's two
     shapes.
 13. ``serve-model-zoo``: the other five families at their published
-    configs (``configs/*.py``; MiniCPM3 at 31 of its 62 layers and
-    Zamba2 at 19 of its 38 since phase 19 needed the room,
-    ``ZOO_LAYERS``), random weights drawn on the card from
-    ``--seed``, one model at a time, each freed before the next:
+    configs (``configs/*.py``; MiniCPM3 at 16 of its 62 layers,
+    Zamba2 at 19 of its 38 and xLSTM at 6 of its 12 since phase 19
+    needed the room, ``ZOO_LAYERS``), random weights drawn on the card
+    from ``--seed``, one model at a time, each freed before the next:
     minicpm3_4b (MLA), xlstm_125m (mLSTM + sLSTM), zamba2_1_2b (Mamba2 +
     shared attention), whisper_small (enc-dec) and internvl2_1b (VLM).
     (1) A prefill of 8 prompts of 1024 tokens into caches of 1040
@@ -331,11 +331,12 @@ Phases 16-18 (and 19) share one spawn of 8 processes for their seven
     ``train_ranks_cells_<family>``), each against the one-process step
     on the card and checked as phase 16 is. (1)
     ``train-xlstm-125m-2x4-8proc-1xH100``: xLSTM-125M at its published
-    config (12 layers, 10 mLSTM and 2 sLSTM, d 768, d_in 1536, 4 heads,
-    chunk 256), one mLSTM head a model rank (the ``[z | x]`` exchange,
-    q, k, v and gates summed by ``reduce_scatter``, the norm's squares
-    summed), sLSTM's gates and output gathered around its recurrence,
-    which every model rank runs whole. (2)
+    width (d 768, d_in 1536, 4 heads, chunk 256), depth cut 12 -> 6 (5
+    mLSTM and the sLSTM at layer 5), one mLSTM head a model rank (the
+    ``[z | x]`` exchange, q, k, v and gates summed by
+    ``reduce_scatter``, the norm's squares summed), sLSTM's gates and
+    output gathered around its recurrence, which every model rank runs
+    whole. (2)
     ``train-zamba2-1.2b-2x4-8proc-1xH100``: Zamba2-1.2B at its published
     width (d 2048, d_in 4096, 64 SSM heads, state 64; the shared block's
     32 heads and d_ff 8192), depth cut 38 -> 6 (the shared block at
@@ -380,12 +381,14 @@ Phases 16-18 (and 19) share one spawn of 8 processes for their seven
     ``serve_ranks_<cell>``). Each process holds its blocks of the
     weights (``init(..., ranks=)``: each tensor drawn whole on the card
     from the seed, the block its spec gives the process kept), its data
-    rows of phase 12's 8 prompts of 1024 tokens and its blocks of the
-    caches of 1040 slots (``init_caches(..., ranks=)``, as the JAX
-    package's ``cache_specs`` lay them out), prefills through
+    rows of the prompts (every data rank the whole row of a batch of
+    one) and its blocks of the caches (``init_caches(..., ranks=)``, as
+    the JAX package's ``cache_specs`` lay them out), prefills through
     ``prefill`` and decodes ``DECODE_STEPS`` steps through
     ``decode_step`` teacher-forced on the reference's greedy tokens.
-    (1) ``serve-tinyllama-1.1b-2x4-8proc-1xH100``: TinyLlama-1.1B whole
+    The first four cells prefill phase 12's 8 prompts of 1024 tokens
+    into caches of 1040 slots. (1)
+    ``serve-tinyllama-1.1b-2x4-8proc-1xH100``: TinyLlama-1.1B whole
     (22 layers) on ``(2, 4)``, 8 heads and 1 of the 4 KV heads a model
     rank; the caches keep every KV head (``cache_specs`` shard KV heads
     only where 16 divides them), so each layer gathers the new keys and
@@ -398,20 +401,36 @@ Phases 16-18 (and 19) share one spawn of 8 processes for their seven
     8)``: the prefill through the sphere shuffle (K1 twice a MoE layer
     in every process), every decode step through the expert-sharded
     dense dispatch (8 experts a process, the capacity counted over the
-    whole batch). The references on the card: the one process's prefill
-    and greedy decode (the MoE: phase 12's stacked grid prefill on
-    ``Ranks(1, 8)`` and its decode), with two planted faults read: a
-    decode step from caches whose layer 0 was left unwritten, and the
-    largest entry at the last step's slot (a skipped write). Checks:
-    every call's logits and every written cache slot within
-    ``SERVE_RANKS_BOUNDS``, each below its fault's reading; ``pos``
-    equal and empty slots zero; ``moe_dropped`` the reference's; each
-    decode step's collectives ``serve_collectives``'; K1 as said and
-    none in a decode step; each process's cache bytes the specs'. Prints
-    the prefill wall and tokens/s, the decode step p50, the collectives
-    of the prefill and of a decode step by op and axis (gloo bytes and
-    host seconds), the peak memory and the weight and cache bytes a
-    process, beside the reference's walls.
+    whole batch). (4) ``serve-xlstm-125m-2x4-8proc-1xH100``: xLSTM-125M
+    whole (12 layers) on ``(2, 4)``: one mLSTM head a model rank, its
+    states kept whole in the caches (16 does not divide the 4 heads), so
+    each mLSTM layer gathers the new states over ``model``; the conv
+    windows the rank's channels; sLSTM's state whole on every rank,
+    whose recurrence each runs whole. (5)
+    ``serve-zamba2-1.2b-long-500k-2x4-8proc-1xH100``: Zamba2-1.2B at 12
+    of its 38 layers (the shared block at layers 5 and 11) at
+    ``long_500k``'s batch of one and 524288 slots on ``(2, 4)``: a prompt
+    of 64 tokens, decoded at positions 262140-262147; the shared block's
+    caches time-sharded over ``data`` (each data rank 262144 slots, 8 of
+    the 32 KV heads a model rank: 1.07 GB of the 8.6 GB a process), each
+    new position written only into the block that holds its slot, the
+    blocks' scores combined by a ``pmax`` and two sums over ``data``;
+    Mamba2's 64 heads owned, 16 a rank. The references on the card: the
+    one process's prefill and greedy decode (the MoE: phase 12's stacked
+    grid prefill on ``Ranks(1, 8)`` and its decode), with planted faults
+    read: a decode step from caches whose layer 0 was left unwritten,
+    the largest attention cache entry at the last step's slot (a write
+    skipped), and the recurrent layers' change at the last step (a state
+    not written back). Checks: every call's logits, every written
+    attention cache slot and every recurrent leaf (relative to its
+    largest entry) within ``SERVE_RANKS_BOUNDS``, each below its fault's
+    reading; ``pos`` equal and empty slots zero; ``moe_dropped`` the
+    reference's; each decode step's collectives ``serve_collectives``';
+    K1 as said and none in a decode step; each process's cache bytes the
+    specs'. Prints the prefill wall and tokens/s, the decode step p50,
+    the collectives of the prefill and of a decode step by op and axis
+    (gloo bytes and host seconds), the peak memory and the weight and
+    cache bytes a process, beside the reference's walls.
 
 Each path's launch counts are read from zero: every count is reset just
 before the path runs and read just after. The last lines are the
@@ -466,9 +485,11 @@ CHECK_CF = 8.0
 #: phase 13: the other five families at their published configs; whisper's
 #: decoder prompts are its published text context
 #: their depths where phase 19's room in the script's time limit cut them
-#: (MiniCPM3 62 -> 31, Zamba2 38 -> 19: half the layers, every block kind
-#: and, for Zamba2, 3 of the shared block's 6 points kept)
-ZOO_LAYERS = {"minicpm3_4b": 31, "zamba2_1_2b": 19}
+#: (MiniCPM3 62 -> 16, Zamba2 38 -> 19, xLSTM 12 -> 6: every block kind
+#: and, for Zamba2, 3 of the shared block's 6 points kept; MiniCPM3 at
+#: 31 until phase 19's recurrent cells needed more room; phase 19 serves
+#: xLSTM whole and Zamba2 at 12 layers on one card as its references)
+ZOO_LAYERS = {"minicpm3_4b": 16, "zamba2_1_2b": 19, "xlstm_125m": 6}
 ZOO_ARCHS = ("minicpm3_4b", "xlstm_125m", "zamba2_1_2b", "whisper_small",
              "internvl2_1b")
 WHISPER_PROMPT_LEN = 448
@@ -613,21 +634,24 @@ MLA_RANKS_GRAD_LEAVES = ("final_ln", "blocks.7.ln1",
                          "blocks.7.attn.wq_up", "blocks.7.attn.wk_up",
                          "blocks.7.attn.wv_up", "blocks.7.attn.wo",
                          "blocks.7.mlp.w_down")
-#: phase 18: xLSTM-125M at its published width and depth and Zamba2-1.2B
-#: at its published width with its depth cut 38 -> 6 (one point of the
-#: shared block, at layer 5; 12 layers and a second point at layer 11
-#: until the script's time limit needed the room), each trained 2 steps
-#: as 8 processes on
+#: phase 18: xLSTM-125M at its published width with its depth cut 12 ->
+#: 6 (5 mLSTM layers and the sLSTM at layer 5; whole until phase 19's
+#: xLSTM cell needed the room: its sLSTM loop is host-bound, and its
+#: reference's steps outlasted the processes' previous cell) and
+#: Zamba2-1.2B at its published width with its depth cut 38 -> 6 (one
+#: point of the shared block, at layer 5; 12 layers and a second point
+#: at layer 11 until the script's time limit needed the room), each
+#: trained 2 steps as 8 processes on
 #: (2, 4) on 8 x 1024 tokens of phase 16's corpus, against the one-process
 #: step; by architecture: (the cell, depth or None, the leaves whose
 #: first-step gradient blocks are held)
 SSM_RANKS_SEQ = 1024
 SSM_RANKS_CELLS = {
-    "xlstm_125m": ("train-xlstm-125m-2x4-8proc-1xH100", None, (
+    "xlstm_125m": ("train-xlstm-125m-2x4-8proc-1xH100", 6, (
         "embed", "final_ln", "blocks.0.cell.up_proj", "blocks.0.cell.wqkv",
-        "blocks.0.cell.wif", "blocks.10.cell.norm", "blocks.10.cell.wqkv",
-        "blocks.11.cell.w_gates", "blocks.11.cell.r_gates",
-        "blocks.11.cell.norm", "blocks.11.cell.out_proj")),
+        "blocks.0.cell.wif", "blocks.4.cell.norm", "blocks.4.cell.wqkv",
+        "blocks.5.cell.w_gates", "blocks.5.cell.r_gates",
+        "blocks.5.cell.norm", "blocks.5.cell.out_proj")),
     "zamba2_1_2b": ("train-zamba2-1.2b-2x4-8proc-1xH100", 6, (
         "embed", "final_ln", "blocks.0.mamba.in_zx", "blocks.0.mamba.in_bcdt",
         "blocks.5.mamba.in_zx", "blocks.5.mamba.in_bcdt",
@@ -705,29 +729,58 @@ VLM_TEXT_LEN = 768
 ENCDEC_RANKS_BOUNDS = dict(SSM_RANKS_BOUNDS)
 #: phase 19: serving as 8 processes in phases 16-18's spawn, after their
 #: cells: (phase line, cell, arch, (data, model) grid, depth or None for
-#: the published one). Each prefills phase 12's 8 prompts of 1024 tokens
-#: into caches of 1040 slots and decodes ``DECODE_STEPS`` steps teacher
-#: forced on its reference's greedy tokens: TinyLlama-1.1B whole (the
-#: heads layout; its 4 KV heads kept whole in the caches, gathered over
-#: ``model`` a layer), MiniCPM3-4B at phase 17's 8 layers (MLA, 10 heads
-#: a process) and Qwen1.5-MoE-A2.7B whole (phase 12's model and prompts:
-#: the sphere prefill with K1, the decode through the expert-sharded
-#: dense dispatch)
+#: the published one). Each prefills its prompts into its caches
+#: (``serve_shape``: phase 12's 8 prompts of 1024 tokens into 1040 slots
+#: unless ``SERVE_RANKS_SHAPES`` says otherwise) and decodes
+#: ``DECODE_STEPS`` steps teacher forced on its reference's greedy
+#: tokens: TinyLlama-1.1B whole (the heads layout; its 4 KV heads kept
+#: whole in the caches, gathered over ``model`` a layer), MiniCPM3-4B at
+#: phase 17's 8 layers (MLA, 10 heads a process), Qwen1.5-MoE-A2.7B whole
+#: (phase 12's model and prompts: the sphere prefill with K1, the decode
+#: through the expert-sharded dense dispatch), xLSTM-125M whole (10
+#: mLSTM layers whose 4 heads the caches keep whole, gathered over
+#: ``model`` a layer; 2 sLSTM layers) and Zamba2-1.2B at 12 of its 38
+#: layers (two points of the shared block) at ``long_500k``'s batch of
+#: one and 524288 slots: the shared block's caches time-sharded over
+#: ``data``, its 32 KV heads over ``model``, Mamba2's 64 heads owned by
+#: rank
 SERVE_RANKS_CELLS = (
     ("serve_ranks_tinyllama", "serve-tinyllama-1.1b-2x4-8proc-1xH100",
      TRAIN_ARCH, TRAIN_RANKS_GRID, None),
     ("serve_ranks_mla", "serve-minicpm3-4b-2x4-8proc-1xH100",
      MLA_TRAIN_ARCH, TRAIN_RANKS_GRID, MLA_TRAIN_LAYERS),
     ("serve_ranks_moe", "serve-qwen2-moe-a2.7b-1x8-8proc-1xH100",
-     SERVE_ARCH, SERVE_GRID, None))
+     SERVE_ARCH, SERVE_GRID, None),
+    ("serve_ranks_xlstm", "serve-xlstm-125m-2x4-8proc-1xH100",
+     "xlstm_125m", TRAIN_RANKS_GRID, None),
+    ("serve_ranks_zamba2_long",
+     "serve-zamba2-1.2b-long-500k-2x4-8proc-1xH100", "zamba2_1_2b",
+     TRAIN_RANKS_GRID, 12))
+#: the cells whose shape is not phase 12's: Zamba2-1.2B at long_500k, one
+#: row into its 524288 slots (8.6 GB of caches, 1.07 GB a process), a
+#: prompt of 64 (the prefill attends over the whole cache: a longer
+#: prompt's float32 scores would not fit the 8 processes and the
+#: reference on one card), decoded at 262140-262147, which straddle the
+#: boundary of the two data ranks' time blocks; TinyLlama's, MiniCPM3's
+#: and the MoE's 4 decode steps, not 8, since the two cells above needed
+#: the room in the script's time limit (PERF.md has their readings at 8)
+SERVE_RANKS_SHAPES = {
+    "serve_ranks_zamba2_long": {"prompts": 1, "prompt_len": 64,
+                                "cache_len": 524288, "first_pos": 262140},
+    **{line: {"steps": 4} for line in ("serve_ranks_tinyllama",
+                                       "serve_ranks_mla", "serve_ranks_moe")}}
 #: phase 19's bounds against the reference, by cell: the logits
-#: (float32, the real vocabulary) over every call, each written cache
-#: slot, and the MoE's share of routed choices that differ
+#: (float32, the real vocabulary) over every call, each written
+#: attention cache slot, each recurrent cache leaf relative to its
+#: largest entry, and the MoE's share of routed choices that differ
 SERVE_RANKS_BOUNDS = {
     "serve_ranks_tinyllama": {"logits": 0.25, "cache": 0.25},
     "serve_ranks_mla": {"logits": 1.5, "cache": 2.0},
     "serve_ranks_moe": {"logits": 2.25, "cache": 1.0,
-                        "moved_share": 0.12}}
+                        "moved_share": 0.12},
+    "serve_ranks_xlstm": {"logits": 0.75, "state": 0.15},
+    "serve_ranks_zamba2_long": {"logits": 0.25, "cache": 0.25,
+                                "state": 0.15}}
 #: phase 15's paths in the kernel table
 RANKED_PATHS = (("flat", "dataflow sort, flat"),
                 ("grid", "dataflow sort, (dc, node)"),
@@ -4429,37 +4482,90 @@ def train_collectives(cfg, layout, n_leaves: int, partial: bool,
     return {k: v for k, v in out.items() if v}
 
 
-def serve_collectives(cfg, layout, data: int) -> dict:
+#: the collectives of a recurrent layer a decode step over ``model``
+#: (see ``serve_collectives``), without the state gathers
+SERVE_RECURRENT = {"mamba": {"psum": 2, "all_to_all": 1},
+                   "mlstm": {"psum": 2, "all_to_all": 1,
+                             "reduce_scatter": 1},
+                   "slstm": {"all_gather": 2}}
+
+
+def serve_layout(cfg, model: int):
+    """The attention layout (``attention.tp_layout``) of ``cfg``'s serving
+    over ``model`` ranks: its decoder's attention, zamba2's shared
+    block's; None without attention (xLSTM)."""
+    from repro_torch.models.attention import tp_layout
+    from repro_torch.models.registry import meta_params
+    from repro_torch.models.transformer import ATTN_KINDS
+    p = meta_params(cfg)
+    if cfg.family == "audio":
+        attn = p.dec_blocks[0].self_attn
+    elif "shared_attn" in p:
+        attn = p.shared_attn.attn
+    else:
+        attn = next((b.attn for b in p.blocks if b.kind in ATTN_KINDS), None)
+    return None if attn is None else tp_layout(cfg, attn, model)
+
+
+def serve_collectives(cfg, layout, data: int, one_row: bool = False
+                      ) -> dict:
     """The collectives of one decode step over a ``(data, model)`` grid
-    from the layer count, which ``tests/test_torch_serve_dist.py`` also
-    holds the CPU processes to: the embedding's sum over ``model``; an
-    attention layer's sums (GQA by head: ``wo``'s; MLA: the rope query's
-    and ``wo``'s; by sequence: none, one position is attended whole),
-    and in the heads layout one ``all_gather`` of the new keys and
-    values where the cache keeps every KV head and ``wk`` shards them;
-    the MLP's row-parallel sum, or the MoE's expert-sharded dense
-    dispatch: one sum of the routed and the shared experts' parts and,
-    with more than one data rank, one ``all_gather`` of the per-expert
-    counts over ``data``; the enc-dec's decoder layers a self- and a
-    cross-attention each (no cache, so no gather, in the latter); the
-    logits gathered over ``model`` once."""
-    from repro_torch.models.registry import _kv_spec
+    from the layer pattern, which ``tests/test_torch_serve_dist.py`` and
+    ``tests/test_torch_serve_dist_recurrent.py`` also hold the CPU
+    processes to: the embedding's sum over ``model``; an attention
+    layer's (zamba2's shared block at each of its points) sums (GQA by
+    head: ``wo``'s; MLA: the rope query's and ``wo``'s; by sequence:
+    none, one position is attended whole), and in the heads layout one
+    ``all_gather`` of the new keys and values where the cache keeps
+    every KV head and ``wk`` shards them; at a batch of one
+    (``one_row``) over more than one data rank, not sliding-window, the
+    time-sharded cache's ``pmax`` and two sums over ``data``; the MLP's
+    row-parallel sum, or the MoE's expert-sharded dense dispatch: one
+    sum of the routed and the shared experts' parts and, with more than
+    one data rank, one ``all_gather`` of the per-expert counts over
+    ``data``; the enc-dec's decoder layers a self- and a cross-attention
+    each (no cache, so no gather, in the latter); a recurrent layer
+    (``SERVE_RECURRENT``): Mamba2's ``[z | x]`` exchange, its norm's and
+    ``out_proj``'s sums, mLSTM's the same with its q, k, v and gates'
+    ``reduce_scatter``, and one ``all_gather`` of the new states where
+    the cache keeps every head (16 not dividing them); sLSTM's gates'
+    and output's ``all_gather``, and one of its state where the cache
+    shards its heads; the logits gathered over ``model`` once."""
+    from repro_torch.models.registry import _kv_spec, _layer_cache_spec
+    from repro_torch.models.transformer import (_shared_attn_points,
+                                                layer_pattern)
     mla = cfg.attn_type == "mla"
     heads = layout == "heads"
     gathered = (heads and not mla and _kv_spec(cfg) is None
                 and cfg.n_kv_heads > 1)
     attn = {"psum": (2 if mla else 1) if heads else 0,
             "all_gather": int(gathered)}
+    if (one_row and data > 1 and cfg.attn_type != "swa"
+            and cfg.family != "audio"):
+        attn["psum"] += 2
+        attn["pmax"] = 1
     if cfg.family == "moe":
         ffn = {"psum": 1, "all_gather": int(data > 1)}
     else:
         ffn = {"psum": 1}
-    layer = {op: attn.get(op, 0) + ffn.get(op, 0) for op in ("psum",
-                                                            "all_gather")}
+    layer = {op: attn.get(op, 0) + ffn.get(op, 0)
+             for op in set(attn) | set(ffn)}
     if cfg.family == "audio":
         layer["psum"] += int(heads)
-    out = {"psum": 1 + cfg.num_layers * layer["psum"],
-           "all_gather": 1 + cfg.num_layers * layer["all_gather"]}
+        kinds = ["dec"] * cfg.num_layers
+    else:
+        kinds = layer_pattern(cfg) + ["shared_attn"] * len(
+            _shared_attn_points(cfg))
+    out = {"psum": 1, "all_gather": 1}
+    for kind in kinds:
+        ops = dict(SERVE_RECURRENT.get(kind, layer))
+        if kind in SERVE_RECURRENT:
+            spec = _layer_cache_spec(cfg, kind, 2, ("data",))
+            state = spec[{"mamba": "ssm", "mlstm": "C", "slstm": "c"}[kind]]
+            if (state[1] is None) == (kind != "slstm"):
+                ops["all_gather"] = ops.get("all_gather", 0) + 1
+        for op, n in ops.items():
+            out[op] = out.get(op, 0) + n
     return {k: v for k, v in out.items() if v}
 
 
@@ -5295,10 +5401,20 @@ def moved_choices(torch, mine, theirs):
     return (~same).sum(-1)
 
 
+def serve_shape(line: str) -> dict:
+    """A phase 19 cell's prompts, their length, the caches' length, the
+    decode's first position and its steps: phase 12's (8 prompts of 1024
+    tokens into 1040 slots, ``DECODE_STEPS`` steps from 1024) unless
+    ``SERVE_RANKS_SHAPES`` says otherwise."""
+    return dict({"prompts": PREFILL_PROMPTS, "prompt_len": PREFILL_LEN,
+                 "cache_len": PREFILL_MAX_LEN, "first_pos": PREFILL_LEN,
+                 "steps": DECODE_STEPS}, **SERVE_RANKS_SHAPES.get(line, {}))
+
+
 def serve_cells() -> list:
     """Phase 19's cells, one dict a cell: its phase line's name, the
-    cell, the config (depth cut where ``SERVE_RANKS_CELLS`` says) and the
-    grid."""
+    cell, the config (depth cut where ``SERVE_RANKS_CELLS`` says), the
+    grid and the shape (:func:`serve_shape`)."""
     import dataclasses
     from repro_torch.configs import get_config
     out = []
@@ -5307,37 +5423,85 @@ def serve_cells() -> list:
         if layers is not None:
             cfg = dataclasses.replace(cfg, num_layers=layers)
         out.append({"line": line, "cell": cell, "cfg": cfg, "grid": grid,
-                    "kind": "serve"})
+                    "kind": "serve", "shape": serve_shape(line)})
     return out
 
 
+def cache_groups(caches) -> list:
+    """A model's caches as a list of leaf dicts: a layer-stacked cache as
+    one (its leaves lead with the layer axis), a heterogeneous stack's
+    per-layer dicts as they are. The attention caches hold ``pos``."""
+    return [caches] if isinstance(caches, dict) else list(caches)
+
+
+def layer0_unwritten(torch, caches):
+    """The caches of phase 19's planted fault "layer 0 left unwritten":
+    layer 0's entries zero (its state as ``init_caches`` gives it: the
+    first layer of every cell is attention, Mamba2 or mLSTM, which start
+    at zero), ``pos`` kept. A stacked cache is copied whole; of a list,
+    the recurrent layers are copied and the later attention layers shared
+    (the fault's decode step writes only the slot that the real step then
+    writes again), so that a 524288-slot cache is never held twice."""
+    if isinstance(caches, dict):
+        fault = {k: c.clone() for k, c in caches.items()}
+        for k, c in fault.items():
+            if k != "pos":
+                c[0] = 0
+        return fault
+    out = []
+    for i, layer in enumerate(caches):
+        if i == 0:
+            out.append({k: c.clone() if k == "pos" else torch.zeros_like(c)
+                        for k, c in layer.items()})
+        else:
+            out.append(layer if "pos" in layer else
+                       {k: c.clone() for k, c in layer.items()})
+    return out
+
+
+def state_change(before: list, after: list) -> float:
+    """The planted fault "a recurrent state not written back" at the last
+    decode step: for each recurrent layer, its leaves' largest change over
+    the step relative to the leaf's largest entry; the smallest over the
+    layers (any layer's write skipped reads at least this)."""
+    return min(max(float((a[k].float() - b[k].float()).abs().max())
+                   / max(float(a[k].float().abs().max()), 1e-30)
+                   for k in a) for b, a in zip(before, after))
+
+
 def serve_ranks_reference(torch, dev, cfg, grid, directory: str,
-                          seed: int) -> dict:
+                          seed: int, shape: dict) -> dict:
     """Phase 19's reference of one cell, on the card in this process:
-    the weights drawn from ``seed`` (phase 12's draw, for its MoE), phase
-    12's prompts (8 x 1024 uniform tokens from ``default_rng(seed)``), the
-    prefill into caches of 1040 slots (the MoE: phase 12's stacked grid
-    prefill on ``Ranks(1, 8)``, K1 in the sphere shuffle) and
-    ``DECODE_STEPS`` greedy steps (the MoE: phase 12's decode, the dense
-    dispatch of the whole batch). The planted faults read here: step 0
-    decoded again from a copy of the prefill's caches with layer 0's
-    entries zeroed (a cache block left unwritten), and the largest cache
-    entry at the last step's slot (a write skipped). Written to
-    ``directory`` for the processes: the prompts, the decode's tokens,
-    each call's logits (float32, the real vocabulary) and the final
-    caches (bfloat16 as their int16 bits)."""
+    the weights drawn from ``seed`` (phase 12's draw, for its MoE), the
+    prompts (``shape["prompts"]`` x ``["prompt_len"]`` uniform tokens from
+    ``default_rng(seed)``: phase 12's 8 x 1024 but for Zamba2's long
+    cell), the prefill into caches of ``["cache_len"]`` slots (the MoE:
+    phase 12's stacked grid prefill on ``Ranks(1, 8)``, K1 in the sphere
+    shuffle) and ``["steps"]`` greedy steps from position
+    ``["first_pos"]`` (the MoE: phase 12's decode, the dense dispatch of
+    the whole batch). The planted faults read here: step 0 decoded again
+    from the prefill's caches with layer 0 unwritten
+    (:func:`layer0_unwritten`); the largest attention cache entry at the
+    last step's slot (a write skipped); the recurrent layers' change at
+    the last step (:func:`state_change`). Written to ``directory`` for
+    the processes: the prompts, the decode's tokens, each call's logits
+    (float32, the real vocabulary) and the final caches (bfloat16 as
+    their int16 bits; of an attention cache only the written slots,
+    ``cache<i>.slots`` their indices)."""
     import numpy as np
     from repro_torch.comm import Ranks
     from repro_torch.models import build
     model = build(cfg)
     v = cfg.vocab
+    n_rows, first, steps = (shape["prompts"], shape["first_pos"],
+                            shape["steps"])
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     params = model.init(gen, dev)
     prompts = np.random.default_rng(seed).integers(
-        0, v, (PREFILL_PROMPTS, PREFILL_LEN)).astype(np.int32)
+        0, v, (n_rows, shape["prompt_len"])).astype(np.int32)
     save_npy(directory, "prompts", prompts)
     toks = torch.from_numpy(prompts).to(dev)
     rk = (Ranks(shape=grid, axes=("data", "model"), device=dev)
@@ -5345,7 +5509,7 @@ def serve_ranks_reference(torch, dev, cfg, grid, directory: str,
     drops, step_ms, tokens, routes = [], [], [], []
     out = {}
     with torch.inference_mode(), forward_drops(drops), routes_tap(routes):
-        caches = model.init_caches(PREFILL_PROMPTS, PREFILL_MAX_LEN, dev)
+        caches = model.init_caches(n_rows, shape["cache_len"], dev)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         lg, caches = model.prefill(params, {"tokens": toks}, caches,
@@ -5357,19 +5521,19 @@ def serve_ranks_reference(torch, dev, cfg, grid, directory: str,
             routes.clear()
         logits = [lg[:, -1, :v].float()]
         nxt = logits[0].argmax(-1).to(torch.int32)
-        for t in range(DECODE_STEPS):
+        recurrent = [g for g in cache_groups(caches) if "pos" not in g]
+        for t in range(steps):
             batch = {"tokens": nxt[:, None], "pos": torch.full(
-                (PREFILL_PROMPTS, 1), PREFILL_LEN + t, dtype=torch.int32,
-                device=dev)}
+                (n_rows, 1), first + t, dtype=torch.int32, device=dev)}
             if t == 0:
-                fault = {k: c.clone() for k, c in caches.items()}
-                for k, c in fault.items():
-                    if k != "pos":
-                        c[0, :, :PREFILL_LEN] = 0
+                fault = layer0_unwritten(torch, caches)
                 kept = len(drops)
                 lg_f, _ = model.decode_step(params, fault, batch)
                 del drops[kept:], fault
                 routes.clear()
+            if t == steps - 1 and recurrent:
+                before = [{k: c.clone() for k, c in g.items()}
+                          for g in recurrent]
             tokens.append(nxt)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -5382,10 +5546,16 @@ def serve_ranks_reference(torch, dev, cfg, grid, directory: str,
                     (lg_f[:, -1, :v].float() - logits[1]).abs().max())
                 del lg_f
             nxt = logits[-1].argmax(-1).to(torch.int32)
-    last = caches["pos"] == PREFILL_LEN + DECODE_STEPS - 1
-    out["fault_last_write_skipped"] = min(
-        float(c[last].float().abs().max()) for k, c in caches.items()
-        if k != "pos")
+    attention = [g for g in cache_groups(caches) if "pos" in g]
+    last = first + steps - 1
+    if attention:
+        out["fault_last_write_skipped"] = min(
+            float(c[g["pos"] == last].float().abs().max())
+            for g in attention for k, c in g.items() if k != "pos")
+    if recurrent:
+        out["fault_last_state_not_written"] = state_change(before,
+                                                           recurrent)
+        del before
     if cfg.family == "moe":
         # a planted fault for the routing: each token given its
         # neighbour's experts (the prefill's routing one token off)
@@ -5397,12 +5567,20 @@ def serve_ranks_reference(torch, dev, cfg, grid, directory: str,
     save_npy(directory, "tokens", torch.stack(tokens))
     if routes:                  # (steps, layers, rows, k)
         save_npy(directory, "routes_decode", torch.stack(routes).reshape(
-            DECODE_STEPS, cfg.num_layers, PREFILL_PROMPTS, -1))
+            steps, cfg.num_layers, n_rows, -1))
     for i, lg in enumerate(logits):
         save_npy(directory, f"logits{i}", lg)
-    for k, c in caches.items():
-        save_npy(directory, f"cache.{k}",
-                 c.view(torch.int16) if c.dtype == torch.bfloat16 else c)
+    for i, g in enumerate(cache_groups(caches)):
+        idx = None
+        if "pos" in g:
+            T = g["pos"].shape[-1]
+            idx = torch.nonzero((g["pos"].reshape(-1, T) >= 0).any(0))[:, 0]
+            save_npy(directory, f"cache{i}.slots", idx)
+        for k, c in g.items():
+            if idx is not None:
+                c = c.index_select(g["pos"].dim() - 1, idx)
+            save_npy(directory, f"cache{i}.{k}",
+                     c.view(torch.int16) if c.dtype == torch.bfloat16 else c)
     out.update(dropped=drops, decode_step_ms=step_ms,
                decode_step_ms_p50=percentile(step_ms, 50),
                peak_mem_bytes=torch.cuda.max_memory_allocated(),
@@ -5412,16 +5590,86 @@ def serve_ranks_reference(torch, dev, cfg, grid, directory: str,
     return out
 
 
-def rank_serve(ranks, directory: str, cfg, seed: int) -> dict:
+def rank_cache_errors(torch, ranks, directory: str, caches, specs,
+                      rerouted) -> dict:
+    """One process's cache blocks against the reference's: an attention
+    cache's ``pos`` equal to the reference's over the block's slots (a
+    time block's from its first slot), its written slots' entries
+    (bfloat16) within the largest difference returned as
+    ``cache_err`` (of the slots of tokens that took the reference's
+    experts in every layer, ``rerouted`` marking the others by row and
+    slot; all written slots: ``cache_err_all_written``), its empty slots
+    zero; a recurrent leaf's largest difference relative to the
+    reference's largest entry, ``state_err`` (a state left unwritten
+    reads 1)."""
+    import numpy as np
+    from repro_torch.comm import axis_position
+    from repro_torch.models.attention import TimeBlock
+    out = {"cache_pos_equal": True, "cache_empty_zero": True}
+    dev = ranks.device
+
+    def block(name, spec, dtype):
+        w = torch.from_numpy(np.array(ranks.local_shard(
+            load_npy(directory, name), spec))).to(dev)
+        return w.view(torch.bfloat16) if dtype == torch.bfloat16 else w
+
+    for i, (g, sp) in enumerate(zip(cache_groups(caches),
+                                    cache_groups(specs))):
+        if "pos" not in g:
+            for k, c in g.items():
+                want = block(f"cache{i}.{k}", sp[k], c.dtype).float()
+                err = float((c.float() - want).abs().max()) / max(
+                    float(want.abs().max()), 1e-30)
+                out["state_err"] = max(out.get("state_err", 0.0), err)
+                by_leaf = out.setdefault("state_err_by_leaf", {})
+                by_leaf[k] = max(by_leaf.get(k, 0.0), err)
+            continue
+        pos = g["pos"]
+        ax, T = pos.dim() - 1, pos.shape[-1]
+        t0 = (axis_position(ranks, g.axes) * T
+              if isinstance(g, TimeBlock) else 0)
+        idx = torch.from_numpy(np.array(load_npy(
+            directory, f"cache{i}.slots"))).to(dev)
+        sel = torch.nonzero((idx >= t0) & (idx < t0 + T))[:, 0]
+        local = idx[sel] - t0
+
+        def want(k, dtype):
+            # the saved slots carry no time blocks: cut the other dims
+            spec = tuple(None if d == ax else e
+                         for d, e in enumerate(sp[k]))
+            return block(f"cache{i}.{k}", spec, dtype).index_select(ax, sel)
+        want_pos = torch.full_like(pos, -1).index_copy_(
+            ax, local, want("pos", pos.dtype))
+        out["cache_pos_equal"] &= bool(torch.equal(pos, want_pos))
+        written = want_pos >= 0
+        keep = (rerouted[:, local] == 0).reshape(
+            (1,) * (ax - 1) + (pos.shape[ax - 1], local.numel()))
+        for k, c in g.items():
+            if k == "pos":
+                continue
+            tail = (1,) * (c.dim() - pos.dim())
+            diff = (c.index_select(ax, local).float()
+                    - want(k, c.dtype).float()).abs()
+            out["cache_err"] = max(out.get("cache_err", 0.0), float(
+                (diff * keep.reshape(keep.shape + tail)).max()))
+            out["cache_err_all_written"] = max(
+                out.get("cache_err_all_written", 0.0), float(diff.max()))
+            out["cache_empty_zero"] &= not bool(
+                (c * ~written.reshape(written.shape + tail)).any())
+    return out
+
+
+def rank_serve(ranks, directory: str, cfg, seed: int, shape: dict) -> dict:
     """One of phase 19's 8 processes: its blocks of the weights drawn
     from ``seed`` (``init(..., ranks=)``: each tensor whole on the card,
     its block kept) and of the caches (``init_caches(..., ranks=)``), the
-    prefill of its data rows of the reference's prompts and the decode
-    teacher-forced on the reference's tokens, through ``prefill`` and
-    ``decode_step``; each call timed from a barrier to its synchronised
-    end, its collectives counted and logged and K1's launches counted;
-    its logits and its cache blocks held here against the reference's
-    (what is returned: the largest differences)."""
+    prefill of its data rows of the reference's prompts (every data rank
+    the whole row of a batch of one) and the decode teacher-forced on the
+    reference's tokens, through ``prefill`` and ``decode_step``; each
+    call timed from a barrier to its synchronised end, its collectives
+    counted and logged and K1's launches counted; its logits and its
+    cache blocks held here against the reference's (what is returned:
+    the largest differences, :func:`rank_cache_errors`)."""
     import numpy as np
     import torch
     import torch.distributed as dist
@@ -5431,6 +5679,8 @@ def rank_serve(ranks, directory: str, cfg, seed: int) -> dict:
     dev = ranks.device
     model = build(cfg)
     v = cfg.vocab
+    n_rows, plen, first = (shape["prompts"], shape["prompt_len"],
+                           shape["first_pos"])
     torch.cuda.reset_peak_memory_stats(dev)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
@@ -5442,23 +5692,23 @@ def rank_serve(ranks, directory: str, cfg, seed: int) -> dict:
            "param_bytes": sum(p.numel() * p.element_size()
                               for p in params.parameters()),
            "logits_err": [], "step_ms": [], "counts": [], "k1": []}
-    b = PREFILL_PROMPTS // ranks.axis_size("data")
-    rows = slice(axis_position(ranks, "data") * b,
-                 (axis_position(ranks, "data") + 1) * b)
+    b = n_rows // ranks.axis_size("data") if n_rows > 1 else n_rows
+    start = axis_position(ranks, "data") * b if n_rows > 1 else 0
+    rows = slice(start, start + b)
     prompts = torch.from_numpy(np.array(
         load_npy(directory, "prompts")[rows])).to(dev)
     tokens = torch.from_numpy(np.array(load_npy(directory, "tokens"))).to(
         dev)[:, rows]
-    caches = model.init_caches(PREFILL_PROMPTS, PREFILL_MAX_LEN,
-                               ranks=ranks)
+    caches = model.init_caches(n_rows, shape["cache_len"], ranks=ranks)
     out["cache_bytes"] = sum(c.numel() * c.element_size()
-                             for c in caches.values())
+                             for g in cache_groups(caches)
+                             for c in g.values())
     drops, routes = [], []
     moe = cfg.family == "moe"
     me = axis_position(ranks, "model")
     # each call's routing against the reference's: the expert choices
     # it moved, and the tokens (rows, positions) that took another
-    rerouted = torch.zeros((b, PREFILL_MAX_LEN), dtype=torch.int32,
+    rerouted = torch.zeros((b, shape["cache_len"]), dtype=torch.int32,
                            device=dev)
     out["moved_choices"] = []
 
@@ -5471,7 +5721,7 @@ def rank_serve(ranks, directory: str, cfg, seed: int) -> dict:
             want = torch.from_numpy(np.array(load_npy(
                 directory, "routes_prefill")[:, me])).to(dev)
             moved = moved_choices(torch, mine[:, 0], want)
-            s_loc = PREFILL_LEN // ranks.axis_size("model")
+            s_loc = plen // ranks.axis_size("model")
             hit = (moved.sum(0) > 0).reshape(b, s_loc).to(torch.int32)
             rerouted[:, me * s_loc:(me + 1) * s_loc] = hit
             out["moved_choices_prefill_by_layer"] = moved.sum(1).tolist()
@@ -5479,8 +5729,7 @@ def rank_serve(ranks, directory: str, cfg, seed: int) -> dict:
             want = torch.from_numpy(np.array(load_npy(
                 directory, "routes_decode")[i - 1][:, rows])).to(dev)
             moved = moved_choices(torch, mine, want)
-            rerouted[:, PREFILL_LEN + i - 1] = (moved.sum(0) > 0).to(
-                torch.int32)
+            rerouted[:, first + i - 1] = (moved.sum(0) > 0).to(torch.int32)
         out["moved_choices"].append(int(moved.sum()))
 
     def timed(call, i):
@@ -5508,9 +5757,9 @@ def rank_serve(ranks, directory: str, cfg, seed: int) -> dict:
     with torch.inference_mode(), forward_drops(drops), routes_tap(routes):
         caches, out["prefill_ms"] = timed(lambda: model.prefill(
             params, {"tokens": prompts}, caches, ranks=ranks), 0)
-        for t in range(DECODE_STEPS):
+        for t in range(shape["steps"]):
             batch = {"tokens": tokens[t][:, None], "pos": torch.full(
-                (b, 1), PREFILL_LEN + t, dtype=torch.int32, device=dev)}
+                (b, 1), first + t, dtype=torch.int32, device=dev)}
             caches, ms = timed(lambda: model.decode_step(
                 params, caches, batch, ranks=ranks), t + 1)
             out["step_ms"].append(ms)
@@ -5518,41 +5767,21 @@ def rank_serve(ranks, directory: str, cfg, seed: int) -> dict:
     out["dropped"] = drops
     if moe:      # the prefill's rerouted positions of every block
         from repro_torch.comm import gather_from
-        s_loc = PREFILL_LEN // ranks.axis_size("model")
+        s_loc = plen // ranks.axis_size("model")
         block = rerouted[:, me * s_loc:(me + 1) * s_loc].contiguous()
-        rerouted[:, :PREFILL_LEN] = gather_from(ranks, block, "model", 1)
+        rerouted[:, :plen] = gather_from(ranks, block, "model", 1)
     out["rerouted_tokens"] = int((rerouted > 0).sum())
-    specs = model.batch_cache_specs(PREFILL_PROMPTS, ("data",))
-    pos = caches["pos"]
-    want_pos = torch.from_numpy(np.array(ranks.local_shard(
-        load_npy(directory, "cache.pos"), specs["pos"]))).to(dev)
-    out["cache_pos_equal"] = bool(torch.equal(pos, want_pos))
-    out["cache_err"] = {}
-    for k, c in caches.items():
-        if k == "pos":
-            continue
-        want = torch.from_numpy(np.array(ranks.local_shard(
-            load_npy(directory, f"cache.{k}"), specs[k]))).to(dev).view(
-                torch.bfloat16)
-        shape = want_pos.shape + (1,) * (c.dim() - want_pos.dim())
-        written = (want_pos >= 0).reshape(shape)
-        # the slots of tokens that took the reference's experts in every
-        # layer (every written slot, without a MoE)
-        keep = (rerouted == 0)[None, :, :want_pos.shape[2]]
-        held = written & keep.reshape(keep.shape + shape[3:])
-        diff = (c.float() - want.float()).abs()
-        out["cache_err"][k] = float((diff * held).max())
-        out["cache_err_all_written"] = max(
-            out.get("cache_err_all_written", 0.0),
-            float((diff * written).max()))
-        out[f"cache_empty_zero_{k}"] = not bool((c * ~written).any())
+    out.update(rank_cache_errors(
+        torch, ranks, directory, caches,
+        model.batch_cache_specs(n_rows, ("data",)), rerouted))
     del params, caches
     return out
 
 
-def serve_line(cfg, grid, reference_s, spawn_s) -> dict:
+def serve_line(cfg, grid, shape, reference_s, spawn_s) -> dict:
     """What phase 19 prints of one cell besides its checks."""
     from repro_torch.configs import get_config
+    from repro_torch.models.registry import _shard_t
     return {"arch": cfg.arch_id, "family": cfg.family,
             "attn": cfg.attn_type, "layers": cfg.num_layers,
             "published_layers": get_config(cfg.arch_id).num_layers,
@@ -5563,8 +5792,13 @@ def serve_line(cfg, grid, reference_s, spawn_s) -> dict:
             "transport": "gloo over CUDA tensors, chosen by name: 8 "
                          "processes share one card, and NCCL takes one "
                          "card a rank",
-            "prompts": PREFILL_PROMPTS, "prompt_len": PREFILL_LEN,
-            "cache_len": PREFILL_MAX_LEN, "decode_steps": DECODE_STEPS,
+            "prompts": shape["prompts"], "prompt_len": shape["prompt_len"],
+            "cache_len": shape["cache_len"],
+            "decode_positions": [shape["first_pos"],
+                                 shape["first_pos"] + shape["steps"] - 1],
+            "decode_steps": shape["steps"],
+            "cache_time_sharded_over_data": (
+                _shard_t(cfg, shape["prompts"]) and grid[0] > 1),
             "teacher_forced_on": "the reference's greedy tokens",
             "reference_kind": (f"stacked Ranks {grid}: phase 12's grid "
                                f"prefill and its decode"
@@ -5573,16 +5807,17 @@ def serve_line(cfg, grid, reference_s, spawn_s) -> dict:
             "spawn_s_all_cells": spawn_s}
 
 
-def check_serve_ranks(cfg, grid, ref, results, bounds) -> tuple:
+def check_serve_ranks(cfg, grid, shape, ref, results, bounds) -> tuple:
     """Phase 19's checks of one cell against its reference: every call's
-    logits within ``bounds["logits"]`` and every written cache slot
-    within ``["cache"]`` (each bound below its planted fault's reading;
-    a MoE's slots of the tokens that took the reference's experts in
-    every layer), ``pos`` equal, empty slots zero; a MoE's routing
-    within ``["moved_share"]`` of the reference's expert choices and
-    ``moe_dropped`` the reference's at every call that routed alike,
-    else within what the moved choices can change (a decode's drops
-    depend on the per-expert counts alone, one a moved choice; the
+    logits within ``bounds["logits"]``, every written attention cache
+    slot within ``["cache"]`` and every recurrent leaf within
+    ``["state"]`` relative to its largest entry (each bound below its
+    planted fault's reading; a MoE's slots of the tokens that took the
+    reference's experts in every layer), ``pos`` equal, empty slots zero;
+    a MoE's routing within ``["moved_share"]`` of the reference's expert
+    choices and ``moe_dropped`` the reference's at every call that routed
+    alike, else within what the moved choices can change (a decode's
+    drops depend on the per-expert counts alone, one a moved choice; the
     sphere prefill's on its send and regroup capacities, two); the
     collectives of each decode step ``serve_collectives``', K1 twice a
     MoE layer a prefill in each process and never in a decode step, the
@@ -5590,24 +5825,27 @@ def check_serve_ranks(cfg, grid, ref, results, bounds) -> tuple:
     failures)."""
     from repro_torch.comm import shard_slices
     from repro_torch.models import build
-    from repro_torch.models.attention import tp_layout
-    from repro_torch.models.registry import meta_params
     bad = []
+    n_rows, plen, steps = (shape["prompts"], shape["prompt_len"],
+                           shape["steps"])
     logits_err = [max(r["logits_err"][i] for r in results)
-                  for i in range(DECODE_STEPS + 1)]
-    cache_err = max(e for r in results for e in r["cache_err"].values())
-    readings = {"logits": ref["fault_cache_layer0_unwritten"],
-                "cache": ref["fault_last_write_skipped"]}
-    for what, got in (("logits", max(logits_err)), ("cache", cache_err)):
-        if got > bounds[what]:
-            bad.append(f"{what}: {got} > {bounds[what]}")
+                  for i in range(steps + 1)]
+    got = {"logits": max(logits_err)}
+    readings = {"logits": ref["fault_cache_layer0_unwritten"]}
+    for what, fault in (("cache", "fault_last_write_skipped"),
+                        ("state", "fault_last_state_not_written")):
+        if fault in ref:
+            got[what] = max(r[f"{what}_err"] for r in results)
+            readings[what] = ref[fault]
+    for what in got:
+        if got[what] > bounds[what]:
+            bad.append(f"{what}: {got[what]} > {bounds[what]}")
         if readings[what] <= bounds[what]:
             bad.append(f"{what}: the planted fault reads {readings[what]}, "
                        f"within the bound {bounds[what]}")
     if not all(r["cache_pos_equal"] for r in results):
         bad.append("cache pos differs from the reference's")
-    if not all(v for r in results for k, v in r.items()
-               if k.startswith("cache_empty_zero_")):
+    if not all(r["cache_empty_zero"] for r in results):
         bad.append("an empty cache slot is not zero")
     if not ref["logits_finite"]:
         bad.append("the reference's logits are not finite")
@@ -5616,9 +5854,9 @@ def check_serve_ranks(cfg, grid, ref, results, bounds) -> tuple:
         heads = [r for rank, r in enumerate(results) if rank % grid[1] == 0]
         moved = [sum(r["moved_choices"][0] for r in results)] + [
             sum(r["moved_choices"][i] for r in heads)
-            for i in range(1, DECODE_STEPS + 1)]
-        choices = (PREFILL_PROMPTS * (PREFILL_LEN + DECODE_STEPS)
-                   * cfg.num_layers * cfg.top_k)
+            for i in range(1, steps + 1)]
+        choices = (n_rows * (plen + steps) * cfg.num_layers
+                   * cfg.top_k)
         readings["moved_share"] = ref["fault_routes_one_token_off"]
         if sum(moved) > bounds["moved_share"] * choices:
             bad.append(f"{sum(moved)} of {choices} routed choices differ "
@@ -5629,41 +5867,47 @@ def check_serve_ranks(cfg, grid, ref, results, bounds) -> tuple:
                        f"{readings['moved_share']}, within the bound")
         if any(r["dropped"] != results[0]["dropped"] for r in results):
             bad.append("the processes' moe_dropped differ")
-        for i, (got, want) in enumerate(zip(results[0]["dropped"],
-                                            ref["dropped"])):
+        for i, (n, want) in enumerate(zip(results[0]["dropped"],
+                                          ref["dropped"])):
             room = moved[i] * (2 if i == 0 else 1)
-            if abs(got - want) > room:
-                bad.append(f"call {i}: moe_dropped {got} against the "
+            if abs(n - want) > room:
+                bad.append(f"call {i}: moe_dropped {n} against the "
                            f"reference's {want}, {moved[i]} choices moved")
-    attn = meta_params(cfg).blocks[0].attn
-    want = serve_collectives(cfg, tp_layout(cfg, attn, grid[1]), grid[0])
+    want = serve_collectives(cfg, serve_layout(cfg, grid[1]), grid[0],
+                             one_row=n_rows == 1)
     if any(c != want for r in results for c in r["counts"][1:]):
         bad.append(f"decode collectives {results[0]['counts'][1:]} != "
                    f"{want}")
     k1 = [2 * cfg.num_layers if cfg.family == "moe" else 0] + \
-        [0] * DECODE_STEPS
+        [0] * steps
     if any(r["k1"] != k1 for r in results):
         bad.append(f"K1 launches {[r['k1'] for r in results]} != {k1} a "
                    f"process")
     model = build(cfg)
-    whole = model.init_caches(PREFILL_PROMPTS, PREFILL_MAX_LEN, "meta")
-    specs = model.batch_cache_specs(PREFILL_PROMPTS, ("data",))
+    whole = cache_groups(model.init_caches(n_rows, shape["cache_len"],
+                                           "meta"))
+    specs = cache_groups(model.batch_cache_specs(n_rows, ("data",)))
     for rank, r in enumerate(results):
         want_bytes = sum(
-            t[shard_slices(t.shape, specs[k], grid, ("data", "model"),
+            t[shard_slices(t.shape, sp[k], grid, ("data", "model"),
                            rank)].numel() * t.element_size()
-            for k, t in whole.items())
+            for g, sp in zip(whole, specs) for k, t in g.items())
         if r["cache_bytes"] != want_bytes:
             bad.append(f"process {rank}: cache bytes {r['cache_bytes']} != "
                        f"the specs' {want_bytes}")
-    tokens = PREFILL_PROMPTS * PREFILL_LEN
+    tokens = n_rows * plen
     prefill = max(r["prefill_ms"] for r in results)
     steps = [max(r["step_ms"][t] for r in results)
-             for t in range(DECODE_STEPS)]
+             for t in range(steps)]
     line = {"logits_max_abs_err_by_call": logits_err,
-            "cache_max_abs_err": cache_err,
+            "cache_max_abs_err": got.get("cache"),
             "cache_max_abs_err_every_written_slot": max(
-                r["cache_err_all_written"] for r in results),
+                (r.get("cache_err_all_written", 0.0) for r in results)),
+            "state_max_rel_err": got.get("state"),
+            "state_max_rel_err_by_leaf": {
+                k: max(r.get("state_err_by_leaf", {}).get(k, 0.0)
+                       for r in results)
+                for k in results[0].get("state_err_by_leaf", {})},
             "bounds": bounds, "moved_choices_by_call": moved,
             "moved_choices_prefill_by_layer": [
                 sum(layer) for layer in zip(*(
@@ -5865,8 +6109,9 @@ def train_grid_path(torch, dev, seed: int) -> dict:
             if c.get("kind") == "serve":
                 with torch.inference_mode():
                     c["ref"] = serve_ranks_reference(
-                        torch, dev, c["cfg"], c["grid"], dirs[-1], seed)
-                handed = ("serve", (dirs[-1], c["cfg"], seed))
+                        torch, dev, c["cfg"], c["grid"], dirs[-1], seed,
+                        c["shape"])
+                handed = ("serve", (dirs[-1], c["cfg"], seed, c["shape"]))
             else:
                 if "batches" not in c:
                     c["batches"] = train_ranks_batches(
@@ -5895,13 +6140,13 @@ def train_grid_path(torch, dev, seed: int) -> dict:
     for i, c in enumerate(cells):
         if c.get("kind") == "serve":
             results = [r[i] for r in per_rank]
-            line, bad = check_serve_ranks(c["cfg"], c["grid"], c["ref"],
-                                          results,
+            line, bad = check_serve_ranks(c["cfg"], c["grid"], c["shape"],
+                                          c["ref"], results,
                                           SERVE_RANKS_BOUNDS[c["line"]])
             out["paths"][c["line"]] = {
                 "cell": c["cell"], "cut": grid_cut(c["cfg"]),
-                **serve_line(c["cfg"], c["grid"], c["reference_s"],
-                             spawn_s), **line}
+                **serve_line(c["cfg"], c["grid"], c["shape"],
+                             c["reference_s"], spawn_s), **line}
             failures += [f"{c['cell']}: {f}" for f in bad]
             continue
         cfg, batches, ref = c["cfg"], c["batches"], c["ref"]

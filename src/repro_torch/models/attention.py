@@ -36,6 +36,16 @@ and decode: :func:`_attn_model_parallel`, :func:`_mla_model_parallel`),
 its data rows and the KV heads the JAX package's ``cache_specs`` give
 it.
 
+A batch of one (not sliding-window) shards the cache's time axis over
+the dp axes (the JAX package's ``shard_t``): a :class:`TimeBlock`, its
+row replicated. Each new position is written only into the block that
+holds its slot, and each rank scores its block; the probabilities are
+the ones the whole cache gives (:func:`_softmax`: the row max a ``pmax``
+and the sum of ``exp`` a ``psum`` over those axes, the probabilities
+then rounded to bfloat16 as ever), and the blocks' float32 ``probs @ v``
+is summed over them before it is rounded: three collectives an attention
+layer a call, for GQA in either layout and for MLA's latent cache alike.
+
 Scores follow the JAX package's rounding: its einsums take bfloat16
 operands and accumulate and return float32 (``preferred_element_type``),
 so here the bfloat16 operands are widened to float32 and multiplied in
@@ -161,11 +171,72 @@ def heads_shardable(cfg: ModelConfig) -> bool:
     return cfg.n_heads % cfg.tp_size == 0
 
 
+class TimeBlock(dict):
+    """One process's block of an attention layer's cache whose time axis
+    the specs shard over ``axes`` (a batch of one, not sliding-window):
+    the rank at ``i`` along ``axes`` holds slots ``[i T_b, (i + 1) T_b)``
+    of the whole cache, ``T_b`` the block's length. The leaves are the
+    cache's as ever (``registry.init_caches(..., ranks=)`` makes it)."""
+
+    def __init__(self, leaves=(), axes=()):
+        super().__init__(leaves)
+        self.axes = tuple(axes)
+
+
+def layer_cache(caches: Dict, i: int) -> Dict:
+    """Layer ``i`` of a layer-stacked cache (views of its leaves), a
+    :class:`TimeBlock` where the stack's is one."""
+    out = {k: v[i] for k, v in caches.items()}
+    return TimeBlock(out, caches.axes) if isinstance(caches, TimeBlock) \
+        else out
+
+
+def _block_start(cache: Dict, ranks) -> Optional[int]:
+    """The first slot of a :class:`TimeBlock` in the whole cache; None for
+    a whole cache (or a ring)."""
+    if not isinstance(cache, TimeBlock):
+        return None
+    return axis_position(ranks, cache.axes) * cache["pos"].shape[1]
+
+
+def _time_axes(cache: Optional[Dict]):
+    """The axes a cache's time blocks lie over (None: a whole cache)."""
+    return cache.axes if isinstance(cache, TimeBlock) else None
+
+
+def _over_blocks(ranks, op, x: torch.Tensor, axes) -> torch.Tensor:
+    """``ranks.psum`` or ``pmax`` of a process's ``x`` over ``axes``."""
+    return op(x[None], axes).reshape(x.shape)
+
+
+def _softmax(scores, ranks=None, axes=None):
+    """``softmax`` over the last dimension; over a time-sharded cache
+    (``axes``), over every block's slots: the row max a ``pmax`` and the
+    sum of ``exp`` a ``psum`` over ``axes``. A block with no occupied
+    slot (every score ``NEG_INF``) gives exactly zero weight."""
+    if axes is None:
+        return torch.softmax(scores, dim=-1)
+    top = _over_blocks(ranks, ranks.pmax,
+                       scores.amax(dim=-1, keepdim=True), axes)
+    e = torch.exp(scores - top)
+    return e / _over_blocks(ranks, ranks.psum, e.sum(dim=-1, keepdim=True),
+                            axes)
+
+
+def _sum_blocks(out, ranks=None, axes=None):
+    """A time block's float32 ``probs @ v`` summed over ``axes`` (a whole
+    cache's as it is)."""
+    return out if axes is None else _over_blocks(ranks, ranks.psum, out,
+                                                 axes)
+
+
 def _sdpa(q, k, v, q_pos, kv_pos, *, causal: bool, window: Optional[int],
-          scale: float):
+          scale: float, ranks=None, axes=None):
     """q: (B,S,H,hd); k,v: (B,T,KV,*); q_pos (B,S); kv_pos (B,T).
     Grouped-query attention with a float32 softmax; masks built from
-    positions, so the same code serves prefill and ring-buffer decode."""
+    positions, so the same code serves prefill and ring-buffer decode.
+    ``axes``: ``k`` and ``v`` are a time block of a cache sharded over
+    them (:func:`_softmax`, :func:`_sum_blocks`)."""
     B, S, H, hd = q.shape
     KV = k.shape[2]
     G = H // KV
@@ -178,23 +249,41 @@ def _sdpa(q, k, v, q_pos, kv_pos, *, causal: bool, window: Optional[int],
     if window is not None:
         mask = mask & (kv_pos[:, None, :] > q_pos[:, :, None] - window)
     scores = scores.masked_fill(~mask[:, None, None, :, :], NEG_INF)
-    probs = torch.softmax(scores, dim=-1).to(COMPUTE_DTYPE)
+    probs = _softmax(scores, ranks, axes).to(COMPUTE_DTYPE)
     out = torch.einsum("bkgst,btkh->bskgh", probs.float(),
                        v.to(COMPUTE_DTYPE).float())
+    out = _sum_blocks(out, ranks, axes)
     return out.reshape(B, S, H, v.shape[-1]).to(COMPUTE_DTYPE)
 
 
-def _cache_update(cache: Dict, new_k, new_v, q_pos) -> Dict:
+def _write_slots(q_pos, T: int, start: Optional[int]):
+    """Where a cache block of ``T`` slots takes the new positions
+    ``q_pos`` (B, S): ``(rows, slots, kept)``. A ring or a whole cache
+    (``start`` None): every position at slot ``p % T``, ``kept`` None; a
+    time block starting at slot ``start`` of the whole cache: only the
+    positions that fall in it (``kept`` selects them), at ``p - start``."""
+    b_idx = torch.arange(q_pos.shape[0], device=q_pos.device)[:, None]
+    b_idx = b_idx.expand_as(q_pos)
+    if start is None:
+        return b_idx, (q_pos % T).long(), None
+    slots = q_pos.long() - start
+    kept = (slots >= 0) & (slots < T)
+    return b_idx[kept], slots[kept], kept
+
+
+def _cache_update(cache: Dict, new_k, new_v, q_pos,
+                  start: Optional[int] = None) -> Dict:
     """Write new entries into the (possibly ring) cache, in place.
     new_k/new_v: (B, S_new, KV, hd); q_pos: (B, S_new) consecutive
     absolute positions. A ring of T slots keeps only the last T of them,
-    so only those are written: no slot is written twice."""
+    so only those are written: no slot is written twice. ``start``: the
+    cache is a time block from that slot (:func:`_write_slots`)."""
     T = cache["k"].shape[1]
-    if q_pos.shape[1] > T:
+    if start is None and q_pos.shape[1] > T:
         new_k, new_v, q_pos = new_k[:, -T:], new_v[:, -T:], q_pos[:, -T:]
-    slots = (q_pos % T).long()
-    b_idx = torch.arange(new_k.shape[0], device=slots.device)[:, None]
-    b_idx = b_idx.expand_as(slots)
+    b_idx, slots, kept = _write_slots(q_pos, T, start)
+    if kept is not None:
+        new_k, new_v, q_pos = new_k[kept], new_v[kept], q_pos[kept]
     cache["k"][b_idx, slots] = new_k.to(cache["k"].dtype)
     cache["v"][b_idx, slots] = new_v.to(cache["v"].dtype)
     cache["pos"][b_idx, slots] = q_pos.to(torch.int32)
@@ -277,8 +366,10 @@ def _attn_model_parallel(params, x, cfg: ModelConfig, q_pos, ranks,
     their gradients are summed over ``model`` there.
 
     ``cache``: this process's block of the layer's cache (its data rows,
-    every slot; the KV heads its spec gives it), written in place with
-    the new positions, then attended over. Heads layout: the rank writes
+    every slot or a :class:`TimeBlock`'s; the KV heads its spec gives
+    it), written in place with the new positions, then attended over
+    (the blocks of a time-sharded cache combined over its axes). Heads
+    layout: the rank writes
     its KV heads where the block holds just those; where the block holds
     every KV head and ``wk``/``wv`` shard them, the new keys and values
     are gathered over ``model`` (one ``all_gather``), every head written
@@ -326,18 +417,20 @@ def _attn_model_parallel(params, x, cfg: ModelConfig, q_pos, ranks,
     if rope and cross_kv is None:
         q = apply_rope(q, pq, cfg.rope_theta)
         k = apply_rope(k, q_pos, cfg.rope_theta)
+    axes = None
     if cache is not None and cross_kv is None:
+        start, axes = _block_start(cache, ranks), _time_axes(cache)
         if _cache_heads(cfg, cache, layout, kv_heads) == "gather":
             kv = gather_from(ranks, torch.stack([k, v]), "model", 3)
-            cache = _cache_update(cache, kv[0], kv[1], q_pos)
+            cache = _cache_update(cache, kv[0], kv[1], q_pos, start)
             mine = slice(me * kv_heads, (me + 1) * kv_heads)
             k, v = cache["k"][:, :, mine], cache["v"][:, :, mine]
         else:
-            cache = _cache_update(cache, k, v, q_pos)
+            cache = _cache_update(cache, k, v, q_pos, start)
             k, v = cache["k"], cache["v"]
         kv_pos = cache["pos"]
     out = _sdpa(q, k, v, pq, kv_pos, causal=causal and cross_kv is None,
-                window=window, scale=hd ** -0.5)
+                window=window, scale=hd ** -0.5, ranks=ranks, axes=axes)
     out = out.reshape(B, hq.shape[1], heads * hd)
     if layout == "heads":
         return row_parallel(ranks, out, params["wo"]), cache
@@ -360,7 +453,8 @@ def attn_apply(params, x, cfg: ModelConfig, q_pos,
     the decoder's self-attention of the enc-dec), over a full forward or
     this process's block of a cache, or cross-attention over
     ``cross_kv`` from this rank's shards
-    (:func:`_attn_model_parallel`). Returns (out, cache)."""
+    (:func:`_attn_model_parallel`); a :class:`TimeBlock` cache, over
+    process ``ranks`` whichever layout. Returns (out, cache)."""
     if model_parallel(ranks):
         return _attn_model_parallel(params, x, cfg, q_pos, ranks, causal,
                                     rope, cross_kv, cache)
@@ -392,9 +486,10 @@ def attn_apply(params, x, cfg: ModelConfig, q_pos,
         out = _sdpa(q, k, v, q_pos, q_pos, causal=causal, window=window,
                     scale=scale)
     else:
-        cache = _cache_update(cache, k, v, q_pos)
+        cache = _cache_update(cache, k, v, q_pos, _block_start(cache, ranks))
         out = _sdpa(q, cache["k"], cache["v"], q_pos, cache["pos"],
-                    causal=causal, window=window, scale=scale)
+                    causal=causal, window=window, scale=scale, ranks=ranks,
+                    axes=_time_axes(cache))
     out = out.reshape(B, S, cfg.n_heads * hd) @ params["wo"].to(COMPUTE_DTYPE)
     return out, cache
 
@@ -414,33 +509,38 @@ def init_cache_gqa(cfg: ModelConfig, batch: int, max_len: int,
 # -- MLA -----------------------------------------------------------------------------
 
 
-def _mla_core(q_nope, s_rope, k_nope, val, q_pos, kv_pos, scale: float):
+def _mla_core(q_nope, s_rope, k_nope, val, q_pos, kv_pos, scale: float,
+              ranks=None, axes=None):
     """MLA's scores and output with per-head keys and values: ``q_nope``
     ``(B, S, H, nope)``, ``k_nope`` ``(B, T, H, nope)``, ``val`` ``(B, T,
     H, v)``, ``s_rope`` the rope part of the scores ``(B, 1, S, T)``,
-    added to every head's; causal. Returns ``(B, S, H, v)`` bfloat16."""
+    added to every head's; causal; ``axes``: a time block of a cache
+    sharded over them, combined as :func:`_sdpa` does. Returns ``(B, S,
+    H, v)`` bfloat16."""
     mask = (kv_pos[:, None, :] >= 0) & (kv_pos[:, None, :]
                                         <= q_pos[:, :, None])
     s_nope = torch.einsum("bshn,bthn->bhst", q_nope.float(), k_nope.float())
     scores = (s_nope + s_rope) * scale
     del s_nope
     scores = scores.masked_fill(~mask[:, None], NEG_INF)
-    probs = torch.softmax(scores, dim=-1).to(COMPUTE_DTYPE)
+    probs = _softmax(scores, ranks, axes).to(COMPUTE_DTYPE)
     del scores
-    return torch.einsum("bhst,bthv->bshv", probs.float(),
-                        val.float()).to(COMPUTE_DTYPE)
+    out = torch.einsum("bhst,bthv->bshv", probs.float(), val.float())
+    return _sum_blocks(out, ranks, axes).to(COMPUTE_DTYPE)
 
 
-def _mla_cache_write(cache: Dict, ckv, k_rope, q_pos) -> Dict:
+def _mla_cache_write(cache: Dict, ckv, k_rope, q_pos,
+                     start: Optional[int] = None) -> Dict:
     """Write the latents ``ckv`` (B, S, kv_rank) and the rope key
     ``k_rope`` (B, S, 1, rope) of the new positions into an MLA cache, in
-    place."""
-    B = ckv.shape[0]
-    T = cache["ckv"].shape[1]
-    slots = (q_pos % T).long()
-    b_idx = torch.arange(B, device=slots.device)[:, None].expand_as(slots)
+    place; ``start``: the cache is a time block from that slot
+    (:func:`_write_slots`)."""
+    b_idx, slots, kept = _write_slots(q_pos, cache["ckv"].shape[1], start)
+    if kept is not None:
+        ckv, k_rope, q_pos = ckv[kept], k_rope[kept], q_pos[kept]
     cache["ckv"][b_idx, slots] = ckv.to(cache["ckv"].dtype)
-    cache["k_rope"][b_idx, slots] = k_rope[:, :, 0].to(cache["k_rope"].dtype)
+    cache["k_rope"][b_idx, slots] = k_rope[..., 0, :].to(
+        cache["k_rope"].dtype)
     cache["pos"][b_idx, slots] = q_pos.to(torch.int32)
     return cache
 
@@ -457,11 +557,12 @@ def _mla_model_parallel(params, x, cfg: ModelConfig, q_pos, ranks,
     forward (``reduce_from``) and one backward (``copy_to``) join them,
     ``(B, S, rope)`` float32 each. The output is replicated.
 
-    ``cache``: this process's block (its data rows, every slot: the
-    latent cache's spec has no ``model`` entry). Every rank writes the
-    new latents and rope keys whole, then its heads take ``wk_up`` and
-    ``wv_up`` of the whole cache's latents (the ``absorb=False`` path)
-    and the rope scores read the cached rope keys."""
+    ``cache``: this process's block (its data rows, every slot or a
+    :class:`TimeBlock`'s: the latent cache's spec has no ``model``
+    entry). Every rank writes the new latents and rope keys whole, then
+    its heads take ``wk_up`` and ``wv_up`` of the block's latents (the
+    ``absorb=False`` path) and the rope scores read the cached rope
+    keys; a time block's scores are combined over its axes."""
     B, S, _ = x.shape
     m = ranks.axis_size("model")
     tp_layout(cfg, params, m)
@@ -481,7 +582,8 @@ def _mla_model_parallel(params, x, cfg: ModelConfig, q_pos, ranks,
         cqf, ckvf, krf = lat.split([qr, r, rope_d], dim=-1)
         kv_pos = q_pos
     else:
-        cache = _mla_cache_write(cache, ckv, k_rope, q_pos)
+        cache = _mla_cache_write(cache, ckv, k_rope, q_pos,
+                                 _block_start(cache, ranks))
         cqf = enter_parallel(ranks, cq)
         ckvf = enter_parallel(ranks, cache["ckv"])
         krf = cache["k_rope"].to(COMPUTE_DTYPE).float()
@@ -496,7 +598,7 @@ def _mla_model_parallel(params, x, cfg: ModelConfig, q_pos, ranks,
     k_nope = parallel_product(ckvf, params["wk_up"]).reshape(B, T, H, nope)
     val = parallel_product(ckvf, params["wv_up"]).reshape(B, T, H, vh)
     out = _mla_core(q[..., :nope], s_rope, k_nope, val, q_pos, kv_pos,
-                    (nope + rope_d) ** -0.5)
+                    (nope + rope_d) ** -0.5, ranks, _time_axes(cache))
     return row_parallel(ranks, out.reshape(B, S, H * vh), params["wo"]), cache
 
 
@@ -538,8 +640,10 @@ def mla_apply(params, x, cfg: ModelConfig, q_pos,
     k_rope = ckv_full[..., r:].reshape(B, S, 1, rope_d)
     k_rope = apply_rope(k_rope, q_pos, cfg.rope_theta)
 
+    axes = _time_axes(cache)
     if cache is not None:
-        cache = _mla_cache_write(cache, ckv, k_rope, q_pos)
+        cache = _mla_cache_write(cache, ckv, k_rope, q_pos,
+                                 _block_start(cache, ranks))
         ckv_t = cache["ckv"].to(COMPUTE_DTYPE)
         k_rope_t = cache["k_rope"][:, :, None].to(COMPUTE_DTYPE)
         kv_pos = cache["pos"]
@@ -560,9 +664,10 @@ def mla_apply(params, x, cfg: ModelConfig, q_pos,
         scores = (s_nope + s_rope) * scale          # (B,H,S,T)
         del s_nope
         scores = scores.masked_fill(~mask[:, None], NEG_INF)
-        probs = torch.softmax(scores, dim=-1)
+        probs = _softmax(scores, ranks, axes)
         del scores
-        o_lat = torch.einsum("bhst,btr->bshr", probs, ckv_f)
+        o_lat = _sum_blocks(torch.einsum("bhst,btr->bshr", probs, ckv_f),
+                            ranks, axes)
         wv = params["wv_up"].float().reshape(r, H, vh)
         out = torch.einsum("bshr,rhv->bshv", o_lat, wv).to(COMPUTE_DTYPE)
     else:
@@ -570,7 +675,8 @@ def mla_apply(params, x, cfg: ModelConfig, q_pos,
         k_nope = (ckv_t @ params["wk_up"].to(COMPUTE_DTYPE)).reshape(
             B, T, H, nope)
         val = (ckv_t @ params["wv_up"].to(COMPUTE_DTYPE)).reshape(B, T, H, vh)
-        out = _mla_core(q_nope, s_rope, k_nope, val, q_pos, kv_pos, scale)
+        out = _mla_core(q_nope, s_rope, k_nope, val, q_pos, kv_pos, scale,
+                        ranks, axes)
 
     out = out.reshape(B, S, H * vh) @ params["wo"].to(COMPUTE_DTYPE)
     return out, cache

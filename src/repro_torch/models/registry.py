@@ -49,18 +49,22 @@ package's: a layer-stacked dict or a list of per-layer dicts). A
 tensor by its spec (``local_shard``).
 
 Serving over process ranks (a :class:`repro_torch.comm.ProcessRanks`
-grid with ``data`` and ``model`` axes, the decoder-only attention
-families and the enc-dec): each process holds its blocks of the weights
-(``init(..., ranks=)`` draws the whole model one tensor at a time and
-keeps its blocks; :func:`process_params` cuts them from a source), its
-``data`` rows of the batch and its blocks of every cache leaf as
-``batch_cache_specs(batch, dp)`` lays them out (``init_caches(...,
-ranks=)`` allocates those blocks only). ``prefill`` and ``decode_step``
-write the caches' blocks in place and return this process's rows of
-the logits over the whole vocabulary (the vocab-parallel readout
-gathered over ``model`` once). Not ported, and raising: a cache whose
-time axis the specs shard (batch 1, not sliding-window) and the
-recurrent caches (Mamba2, mLSTM, sLSTM).
+grid with ``data`` and ``model`` axes, every family): each process holds
+its blocks of the weights (``init(..., ranks=)`` draws the whole model
+one tensor at a time and keeps its blocks; :func:`process_params` cuts
+them from a source), its ``data`` rows of the batch (every data rank the
+whole row of a batch of one, which the specs replicate) and its blocks
+of every cache leaf as ``batch_cache_specs(batch, dp)`` lays them out
+(``init_caches(..., ranks=)`` allocates those blocks only): the
+attention caches, the recurrent states and conv windows
+(:mod:`repro_torch.models.ssm`), and at a batch of one (not
+sliding-window) the attention caches' time blocks over ``dp``
+(:class:`repro_torch.models.attention.TimeBlock`). ``prefill`` and
+``decode_step`` write the caches' blocks in place and return this
+process's rows of the logits over the whole vocabulary (the
+vocab-parallel readout gathered over ``model`` once). Not ported, and
+raising: the MoE at a batch of one over a ``dp`` axis of more than one
+rank (:data:`_MOE_ONE_ROW`).
 """
 
 from __future__ import annotations
@@ -73,17 +77,19 @@ import torch
 from torch import nn
 
 from repro_torch.comm import (Spec, gather_from, model_parallel,
-                              resolve_device, shard_slices)
+                              resolve_device, shard_slices, spec_axes)
 from repro_torch.configs.base import SHAPES, ModelConfig
 from repro_torch.models import attention, encdec, transformer
 from repro_torch.models.convert import jax_order
 from repro_torch.models.layers import COMPUTE_DTYPE, param_specs
 from repro_torch.models.ssm import mamba2_dims, mlstm_dims
 
-#: the slice of the port that brings what :func:`init_caches` refuses
-#: over process ranks
-_NEXT_SLICE = ("not ported over process ranks: the recurrent caches and "
-               "the time-sharded cache come in the next slice of the port")
+#: why :func:`init_caches` over process ranks refuses the MoE at a batch
+#: of one over several data ranks
+_MOE_ONE_ROW = ("the MoE at batch 1 over a data axis of more than one rank "
+                "is not ported: the row is replicated over {dp}, and the "
+                "decode's all_gather of per-expert counts over them would "
+                "count it once a data rank")
 
 
 def _device(device) -> torch.device:
@@ -101,15 +107,6 @@ def process_ranks(ranks) -> bool:
     return ranks is not None and ranks.rows == 1 and ranks.world > 1
 
 
-def _serves_over_ranks(cfg: ModelConfig) -> None:
-    """Raise for a model whose serving over process ranks is not ported:
-    one with a recurrent block."""
-    kinds = set(transformer.layer_pattern(cfg)) - set(transformer.ATTN_KINDS)
-    if cfg.family != "audio" and kinds:
-        raise ValueError(f"{cfg.arch_id}: {sorted(kinds)} blocks hold "
-                         f"recurrent caches, {_NEXT_SLICE}")
-
-
 @torch.no_grad()
 def process_params(cfg: ModelConfig, ranks, *, generator=None,
                    source=None):
@@ -122,7 +119,6 @@ def process_params(cfg: ModelConfig, ranks, *, generator=None,
     tensor at a time on the generator's device, bit for bit the block of
     the one-process weights. An attention layout the grid's ``model``
     axis cannot take raises first (:func:`attention.tp_layout`)."""
-    _serves_over_ranks(cfg)
     params = meta_params(cfg)
     if "model" in ranks.axes:
         for mod in params.modules():
@@ -270,25 +266,38 @@ def _process_caches(cfg: ModelConfig, batch: int, max_len: int, ranks,
                     dp_axes: Sequence[str], specs, make):
     """This process's blocks of the caches ``make(batch, max_len, "meta")``
     lays out, cut by ``specs`` (the same layout): each leaf allocated at
-    its block's shape only, ``pos`` at -1 (empty slots), the rest 0."""
-    _serves_over_ranks(cfg)
-    if _shard_t(cfg, batch) and cfg.family != "audio":
-        raise ValueError(f"{cfg.arch_id}: a batch of 1 shards the caches' "
-                         f"time axis over {tuple(dp_axes)}, {_NEXT_SLICE}")
+    its block's shape only and filled as ``make`` fills it (every leaf is
+    one value: ``pos`` -1 for empty slots, sLSTM's ``n`` 1, the rest 0;
+    read from ``make(1, 1)`` on the CPU). An attention cache whose time
+    axis the specs shard over more than one rank is a
+    :class:`attention.TimeBlock` over those axes."""
+    dp = ranks.axis_size(tuple(dp_axes))
+    if cfg.family == "moe" and batch == 1 and dp > 1:
+        raise ValueError(f"{cfg.arch_id}: " + _MOE_ONE_ROW.format(
+            dp=tuple(dp_axes)))
 
-    def cut(leaf, spec):
+    def cut(leaf, spec, small):
         block = shard_slices(leaf.shape, spec, ranks.shape, ranks.axes,
                              ranks.rank)
-        return torch.full(leaf[block].shape, -1 if leaf.dtype == torch.int32
-                          else 0, dtype=leaf.dtype, device=ranks.device)
+        fill = small.reshape(-1)[0]
+        if not bool((small == fill).all()):
+            raise ValueError(f"a cache leaf of {cfg.arch_id} is not filled "
+                             f"with one value")
+        return torch.full(leaf[block].shape, fill.item(), dtype=leaf.dtype,
+                          device=ranks.device)
 
-    def walk(leaves, specs):
-        if isinstance(leaves, dict):
-            return {k: walk(v, specs[k]) for k, v in leaves.items()}
+    def walk(leaves, specs, small):
         if isinstance(leaves, list):
-            return [walk(v, sp) for v, sp in zip(leaves, specs)]
-        return cut(leaves, specs)
-    return walk(make(batch, max_len, torch.device("meta")), specs)
+            return [walk(*a) for a in zip(leaves, specs, small)]
+        if not isinstance(leaves, dict):
+            return cut(leaves, specs, small)
+        out = {k: walk(v, specs[k], small[k]) for k, v in leaves.items()}
+        t = specs["pos"][-1] if "pos" in specs else None
+        if t is None or ranks.axis_size(spec_axes((t,))) == 1:
+            return out
+        return attention.TimeBlock(out, spec_axes((t,)))
+    return walk(make(batch, max_len, torch.device("meta")), specs,
+                make(1, 1, torch.device("cpu")))
 
 
 def _whole_vocab(logits, ranks):

@@ -43,6 +43,34 @@ blocks its specs give the process, and a rank runs its heads:
   the replicated ``r_gates``, ``gate_bias`` and ``norm``; ``out_proj``
   is column-parallel, its blocks gathered. No collective runs inside
   the time loop.
+
+Caches over process ranks (prefill and decode): each process holds the
+block of every cache leaf that the JAX package's ``cache_specs`` give it
+(``registry.init_caches(..., ranks=)``), its data rows of the batch and,
+along the heads or channels, either just its rank's part (**owned**) or
+every rank's (**kept whole**: the specs put heads on ``model`` only where
+16 divides them). A rank reads its part of a block (:func:`_read_own`)
+and writes its new part: in place where the block is owned; where the
+block is kept whole, the parts of every such leaf of the layer are
+gathered over ``model`` in one ``all_gather`` and written whole, so no
+rank leaves another's slots stale (:func:`_write_own`).
+
+- Mamba2: ``ssm`` (heads) owned where 16 divides the heads (Zamba2-1.2B's
+  64), else kept whole and gathered; ``conv_x`` (channels) the rank's
+  heads' ``x`` channels, owned; ``conv_bc`` replicated, every rank
+  writing the whole window it computes replicated.
+- mLSTM: ``C``, ``n``, ``m`` (heads) owned or kept whole by the same rule
+  (xLSTM-125M's 4 heads: kept whole); ``conv`` (channels) owned.
+- sLSTM: ``c``, ``n``, ``h``, ``m`` (heads). Every model rank runs the
+  whole recurrence: a block kept whole is read and written as it is, no
+  collective; an owned block (16 dividing the heads) is gathered over
+  ``model`` before the recurrence (one ``all_gather``) and the rank
+  writes its heads back.
+
+The prefill starts the chunked scan (the sLSTM loop) from the block's
+state, a decode step (``L == 1``) takes the recurrent step on the rank's
+heads, and the conv windows are read from and written to the rank's
+channels.
 """
 
 from __future__ import annotations
@@ -82,19 +110,6 @@ def tp_heads(cfg: ModelConfig, kind: str, model: int) -> int:
         raise ValueError(f"{cfg.arch_id}: {H} {kind} heads do not split "
                          f"over {model} ranks of the model axis")
     return H // model
-
-
-def _parallel_only(ranks, cache) -> bool:
-    """Whether to take the model-parallel branch: a full forward (no
-    cache) on a process holding shards."""
-    if not model_parallel(ranks):
-        return False
-    if cache is not None:
-        raise ValueError("a recurrent cache (Mamba2, mLSTM, sLSTM) over "
-                         "process ranks is not ported: the recurrent "
-                         "families' prefill and decode over ranks come in "
-                         "the next slice of the port")
-    return True
 
 
 def zx_plan(d_in: int, model: int, rank: int):
@@ -141,6 +156,48 @@ def _write(cache: Dict, new: Dict) -> Dict:
     """Copy ``new``'s states into ``cache``'s tensors, in place."""
     for k, v in new.items():
         cache[k].copy_(v)
+    return cache
+
+
+def _read_own(ranks, block: torch.Tensor, dim: int, n: int) -> torch.Tensor:
+    """This rank's ``n`` heads or channels along ``dim`` of its cache
+    ``block``: the block itself where it holds just those (owned), else
+    the rank's slice of a block that keeps every rank's."""
+    if block.shape[dim] == n:
+        return block
+    return block.narrow(dim, axis_position(ranks, "model") * n, n)
+
+
+def _write_own(ranks, cache: Dict, new: Dict) -> Dict:
+    """Write this rank's new states into its cache blocks, in place:
+    ``new`` is ``{leaf: (the rank's part, the dim of its heads or
+    channels)}``. An owned block takes its part as it is; the parts of
+    the blocks that keep every rank's are gathered over ``model`` in one
+    ``all_gather`` (float32: every leaf's dtype converts exactly) and
+    written whole."""
+    m = ranks.axis_size("model")
+    whole = []
+    for k, (t, d) in new.items():
+        held = cache[k].shape[d]
+        if held == t.shape[d]:
+            cache[k].copy_(t)
+        elif held == m * t.shape[d]:
+            whole.append(k)
+        else:
+            raise ValueError(f"a cache block of {held} along dim {d} of "
+                             f"{k!r} against the rank's {t.shape[d]} over "
+                             f"{m} model ranks")
+    if not whole:
+        return cache
+    parts = [new[k][0].movedim(new[k][1], 0) for k in whole]
+    flat = torch.cat([p.float().reshape(-1) for p in parts])
+    every = gather_from(ranks, flat, "model", 0).reshape(m, -1)
+    off = 0
+    for k, p in zip(whole, parts):
+        full = every[:, off:off + p.numel()].reshape(
+            (m * p.shape[0],) + tuple(p.shape[1:]))
+        cache[k].copy_(full.movedim(0, new[k][1]))
+        off += p.numel()
     return cache
 
 
@@ -227,9 +284,10 @@ def _causal_conv(x, w, b, state=None):
 def mamba2_apply(params, x, cfg: ModelConfig, cache: Optional[Dict] = None,
                  ranks=None):
     """x: (B, L, d). Returns (y (B,L,d), cache). ``ranks`` holding
-    shards: the model-parallel full forward of the module docstring."""
-    if _parallel_only(ranks, cache):
-        return _mamba2_parallel(params, x, cfg, ranks), None
+    shards: the model-parallel forward of the module docstring, over this
+    process's cache blocks where there is a cache."""
+    if model_parallel(ranks):
+        return _mamba2_parallel(params, x, cfg, ranks, cache)
     B, L, _ = x.shape
     d_in, H, Pdim = mamba2_dims(cfg)
     N = cfg.ssm_state
@@ -270,35 +328,56 @@ def mamba2_apply(params, x, cfg: ModelConfig, cache: Optional[Dict] = None,
     return out, cache
 
 
-def _mamba2_parallel(params, x, cfg: ModelConfig, ranks):
+def _mamba2_parallel(params, x, cfg: ModelConfig, ranks,
+                     cache: Optional[Dict] = None):
     """Mamba2 over the replicated ``x`` on a process holding its shards
-    (the module docstring); the output is replicated."""
+    (the module docstring); the output is replicated. ``cache``: this
+    process's blocks, read and written as the module docstring says.
+    Returns (y, cache)."""
     B, L, _ = x.shape
     d_in, H, Pdim = mamba2_dims(cfg)
     N = cfg.ssm_state
     heads = tp_heads(cfg, "mamba", ranks.axis_size("model"))
+    w = heads * Pdim
     xc = x.to(COMPUTE_DTYPE)
     zx = parallel_product(enter_parallel(ranks, xc), params["in_zx"])
     z, xi = _zx_heads(ranks, zx, d_in).chunk(2, dim=-1)
     bcdt = xc @ params["in_bcdt"].to(COMPUTE_DTYPE)
     bc, dt_raw = bcdt[..., :2 * N], bcdt[..., 2 * N:]
-    xi, _ = _causal_conv(xi, params["conv_x"].to(COMPUTE_DTYPE),
-                         params["conv_x_b"].to(COMPUTE_DTYPE))
-    bc, _ = _causal_conv(bc, params["conv_bc"].to(COMPUTE_DTYPE),
-                         params["conv_bc_b"].to(COMPUTE_DTYPE))
+    xi, new_conv_x = _causal_conv(
+        xi, params["conv_x"].to(COMPUTE_DTYPE),
+        params["conv_x_b"].to(COMPUTE_DTYPE),
+        None if cache is None else _read_own(ranks, cache["conv_x"], 2, w))
+    bc, new_conv_bc = _causal_conv(
+        bc, params["conv_bc"].to(COMPUTE_DTYPE),
+        params["conv_bc_b"].to(COMPUTE_DTYPE),
+        None if cache is None else cache["conv_bc"])
     # B, C and dt feed every head: their gradient summed over model
     shared = copy_to(ranks, torch.cat([bc, dt_raw], dim=-1).float(), "model")
     Bs, Cs, dt_all = shared.split([N, N, H], dim=-1)
     dt = softplus(_head_block(dt_all, ranks, heads)
                   + _head_block(params["dt_bias"], ranks, heads))
     A = -torch.exp(_head_block(params["a_log"], ranks, heads))
-    y, _ = _ssd_chunked(xi.reshape(B, L, heads, Pdim), Bs, Cs, dt, A,
-                        _head_block(params["d_skip"], ranks, heads),
-                        cfg.chunk_size)
-    y = y.reshape(B, L, heads * Pdim)
+    d_skip = _head_block(params["d_skip"], ranks, heads)
+    xs = xi.reshape(B, L, heads, Pdim)
+    state = None if cache is None else _read_own(ranks, cache["ssm"], 1,
+                                                 heads)
+    if L == 1 and cache is not None:
+        y, new_ssm = _ssd_step(xs[:, 0], Bs[:, 0], Cs[:, 0], dt[:, 0], A,
+                               d_skip, state)
+        y = y[:, None]
+    else:
+        y, new_ssm = _ssd_chunked(xs, Bs, Cs, dt, A, d_skip, cfg.chunk_size,
+                                  state)
+    y = y.reshape(B, L, w)
     y = rms_norm_parallel(ranks, y * silu(z.float()).to(COMPUTE_DTYPE),
                           params["norm"], cfg.norm_eps, d_in)
-    return row_parallel(ranks, y, params["out_proj"])
+    out = row_parallel(ranks, y, params["out_proj"])
+    if cache is not None:
+        _write_own(ranks, cache, {"ssm": (new_ssm, 1),
+                                  "conv_x": (new_conv_x, 2),
+                                  "conv_bc": (new_conv_bc, 2)})
+    return out, cache
 
 
 def _ssd_step(x, Bv, Cv, dt, A, d_skip, state):
@@ -547,9 +626,10 @@ def _mlstm_step(q, k, v, log_i, log_f, cache):
 def mlstm_apply(params, x, cfg: ModelConfig, cache: Optional[Dict] = None,
                 ranks=None):
     """x: (B, L, d). Returns (y, cache). ``ranks`` holding shards: the
-    model-parallel full forward of the module docstring."""
-    if _parallel_only(ranks, cache):
-        return _mlstm_parallel(params, x, cfg, ranks), None
+    model-parallel forward of the module docstring, over this process's
+    cache blocks where there is a cache."""
+    if model_parallel(ranks):
+        return _mlstm_parallel(params, x, cfg, ranks, cache)
     B, L, _ = x.shape
     d_in, H, Pdim = mlstm_dims(cfg)
     up = x.to(COMPUTE_DTYPE) @ params["up_proj"].to(COMPUTE_DTYPE)
@@ -580,9 +660,12 @@ def mlstm_apply(params, x, cfg: ModelConfig, cache: Optional[Dict] = None,
     return out, cache
 
 
-def _mlstm_parallel(params, x, cfg: ModelConfig, ranks):
+def _mlstm_parallel(params, x, cfg: ModelConfig, ranks,
+                    cache: Optional[Dict] = None):
     """mLSTM over the replicated ``x`` on a process holding its shards
-    (the module docstring); the output is replicated."""
+    (the module docstring); the output is replicated. ``cache``: this
+    process's blocks, read and written as the module docstring says.
+    Returns (y, cache)."""
     B, L, _ = x.shape
     d_in, H, Pdim = mlstm_dims(cfg)
     m = ranks.axis_size("model")
@@ -590,8 +673,10 @@ def _mlstm_parallel(params, x, cfg: ModelConfig, ranks):
     w = heads * Pdim
     up = parallel_product(enter_parallel(ranks, x), params["up_proj"])
     z, xi = _zx_heads(ranks, up, d_in).chunk(2, dim=-1)
-    xi, _ = _causal_conv(xi, params["conv_w"].to(COMPUTE_DTYPE),
-                         params["conv_b"].to(COMPUTE_DTYPE))
+    xi, new_conv = _causal_conv(
+        xi, params["conv_w"].to(COMPUTE_DTYPE),
+        params["conv_b"].to(COMPUTE_DTYPE),
+        None if cache is None else _read_own(ranks, cache["conv"], 2, w))
     xf = xi.float()
     # this rank's channels' parts of q, k, v and the gates, laid out by
     # the rank whose heads each column is, summed and kept there
@@ -610,11 +695,23 @@ def _mlstm_parallel(params, x, cfg: ModelConfig, ranks):
          _head_block(bias[H:], ranks, heads)])
     log_i = torch.clamp(gates[..., :heads], max=15.0)
     log_f = log_sigmoid(gates[..., heads:])
-    y, _ = _mlstm_chunked(q, k, v, log_i, log_f, cfg.chunk_size)
+    state = None if cache is None else {
+        k_: _read_own(ranks, cache[k_], 1, heads) for k_ in ("C", "n", "m")}
+    if L == 1 and cache is not None:
+        y, new_rec = _mlstm_step(q[:, 0], k[:, 0], v[:, 0], log_i[:, 0],
+                                 log_f[:, 0], state)
+        y = y[:, None]
+    else:
+        y, new_rec = _mlstm_chunked(q, k, v, log_i, log_f, cfg.chunk_size,
+                                    state)
     y = rms_norm_parallel(ranks, y.reshape(B, L, w)
                           * silu(z.float()).to(COMPUTE_DTYPE),
                           params["norm"], cfg.norm_eps, d_in)
-    return row_parallel(ranks, y, params["down_proj"])
+    out = row_parallel(ranks, y, params["down_proj"])
+    if cache is not None:
+        _write_own(ranks, cache, dict(
+            {k_: (t, 1) for k_, t in new_rec.items()}, conv=(new_conv, 2)))
+    return out, cache
 
 
 def mlstm_init_cache(cfg: ModelConfig, batch: int, device=None) -> Dict:
@@ -674,27 +771,36 @@ def slstm_apply(params, x, cfg: ModelConfig, cache: Optional[Dict] = None,
                 ranks=None):
     """A loop over time (sLSTM is a true recurrence). x: (B,L,d).
     ``ranks`` holding shards: the input gates and the output gathered
-    over ``model`` around the replicated recurrence (the module
-    docstring)."""
+    over ``model`` around the replicated recurrence, from and into this
+    process's cache blocks (the module docstring)."""
     B, L, d = x.shape
-    tp = _parallel_only(ranks, cache)
-    if tp:
-        tp_heads(cfg, "slstm", ranks.axis_size("model"))
-        wx = gather_from(ranks, parallel_product(enter_parallel(ranks, x),
-                                                 params["w_gates"]),
-                         "model", -1)
-    else:
+    tp = model_parallel(ranks)
+    if not tp:
         wx = x.to(COMPUTE_DTYPE) @ params["w_gates"].to(COMPUTE_DTYPE)
+        y, state = _slstm_scan(params, wx.float() + params["gate_bias"],
+                               cfg, cache)
+        out = y @ params["out_proj"].to(COMPUTE_DTYPE)
+        if cache is not None:
+            _write(cache, state)
+        return out, cache
+    heads = tp_heads(cfg, "slstm", ranks.axis_size("model"))
+    wx = gather_from(ranks, parallel_product(enter_parallel(ranks, x),
+                                             params["w_gates"]), "model", -1)
+    names = ("c", "n", "h", "m")
+    owned = cache is not None and cache["c"].shape[1] != slstm_heads(cfg)[0]
+    whole = cache
+    if owned:          # every rank runs every head: gather the state
+        every = gather_from(ranks, torch.stack([cache[k] for k in names]),
+                            "model", 2)
+        whole = dict(zip(names, every.unbind(0)))
     y, state = _slstm_scan(params, wx.float() + params["gate_bias"], cfg,
-                           cache)
-    if tp:
-        out = gather_from(ranks, parallel_product(enter_parallel(ranks, y),
-                                                  params["out_proj"]),
-                          "model", -1)
-        return out, None
-    out = y @ params["out_proj"].to(COMPUTE_DTYPE)
+                           whole)
+    out = gather_from(ranks, parallel_product(enter_parallel(ranks, y),
+                                              params["out_proj"]),
+                      "model", -1)
     if cache is not None:
-        _write(cache, state)
+        _write(cache, {k: _read_own(ranks, state[k], 1, heads) if owned
+                       else state[k] for k in names})
     return out, cache
 
 

@@ -129,7 +129,7 @@ def _attn_block(params, x, cfg: ModelConfig, q_pos, cache, ranks, dp_axes):
                                       ranks=ranks)
     else:
         a, new_cache = attn.attn_apply(params["attn"], h, cfg, q_pos, cache,
-                                       ranks=ranks if tp else None)
+                                       ranks=ranks)
     # the JAX package multiplies by the scale rounded to bfloat16 (a
     # weakly typed Python float takes the array's dtype)
     scale = round_scalar(cfg.residual_scale, a.dtype)
@@ -225,8 +225,7 @@ def forward(params: DecoderLM, cfg: ModelConfig, x, q_pos,
     if homogeneous(cfg):
         auxs = []
         for i, block in enumerate(params.blocks):
-            c = ({k: v[i] for k, v in caches.items()} if caches is not None
-                 else None)
+            c = attn.layer_cache(caches, i) if caches is not None else None
             x, _, aux = remat_call(cfg.remat, _attn_block, block, x, cfg,
                                    q_pos, c, ranks, dp_axes)
             if aux:

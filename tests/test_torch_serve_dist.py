@@ -96,15 +96,13 @@ from repro.models import build as jax_build
 from repro_torch.comm import Ranks, shard_slices, spawn_ranks
 from repro_torch.configs.base import get_smoke_config
 from repro_torch.models import build
-from repro_torch.models.attention import tp_layout
 from repro_torch.models.convert import flatten, params_from_numpy
-from repro_torch.models.registry import meta_params
 import torch_serve_dist_paths as spaths
 
 from test_torch_jax_refs import SRC
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
-from chip_smoke import serve_collectives  # noqa: E402  (imports no JAX)
+from chip_smoke import serve_collectives, serve_layout  # noqa: E402
 
 GRID, AXES = (2, 2), ("data", "model")
 BATCH, PROMPT, MAX_LEN, STEPS = 8, 16, 48, 8
@@ -179,7 +177,8 @@ def cases():
         out[name] = {"cfg": cfg, "tree": tree, "arrays": arrays,
                      "flat": {n: torch.from_numpy(np.array(v))
                               for n, v in flatten(tree).items()},
-                     "inputs": _torch_inputs(arrays)}
+                     "inputs": _torch_inputs(arrays),
+                     "jax": [arch, replace, BATCH, MAX_LEN]}
     return out
 
 
@@ -230,8 +229,9 @@ _JAX_CODE = """
             lambda s, a: jax.device_put(a, NamedSharding(mesh, s)), specs,
             tree, is_leaf=lambda x: isinstance(x, P))
 
-    def rows(a):
-        return P("data", *([None] * (a.ndim - 1)))
+    def rows(a):       # a batch of one is replicated over data
+        return P("data" if a.shape[0] > 1 else None,
+                 *([None] * (a.ndim - 1)))
 
     def batch_of(arrays):
         return {k: jax.device_put(
@@ -243,7 +243,7 @@ _JAX_CODE = """
         return jax.jit(fn).lower(*args).compile(NO_EXCESS)
 
     out = {}
-    for name, (arch, replace) in spec["cases"].items():
+    for name, (arch, replace, n_rows, max_len) in spec["cases"].items():
         cfg = dataclasses.replace(get_smoke_config(arch), **replace)
         model = build(cfg)
         moe = cfg.family == "moe"
@@ -251,9 +251,10 @@ _JAX_CODE = """
         with mesh:
             params, p_specs = model.init(jax.random.PRNGKey(0))
             params = put(params, p_specs)
-            c_specs = model.cache_specs("prefill_32k", dp=DP)
-            caches = put(model.init_caches(spec["batch"], spec["max_len"]),
-                         c_specs)
+            # a batch of one: long_500k's layout (the time axis over data)
+            c_specs = model.cache_specs(
+                "long_500k" if n_rows == 1 else "prefill_32k", dp=DP)
+            caches = put(model.init_caches(n_rows, max_len), c_specs)
             batch = batch_of({k[len(pre):]: v for k, v in data.items()
                               if k.startswith(pre)})
             if moe:   # the prefill's body, with its drop count
@@ -307,9 +308,12 @@ _JAX_CODE = """
         for i, a in enumerate(logits):
             out[f"{name}.logits{i}"] = a
         out[name + ".dropped"] = np.asarray(drops)
-        for k, v in caches.items():
-            out[f"{name}.cache.{k}"] = np.asarray(
-                v, np.int32 if k == "pos" else np.float32)
+        layers = caches if isinstance(caches, list) else [caches]
+        for i, c in enumerate(layers):
+            tag = f".{i}" if isinstance(caches, list) else ""
+            for k, v in c.items():
+                out[f"{name}.cache{tag}.{k}"] = np.asarray(
+                    v, np.int32 if k == "pos" else np.float32)
     np.savez(spec["out"], **out)
 """
 
@@ -317,14 +321,16 @@ _JAX_CODE = """
 def _start_jax(cases, d, err):
     """The JAX package's prefill and decode steps of every case on a
     ``(2, 2)`` mesh of 4 virtual CPU devices, in a subprocess (started
-    here, waited for later; its standard error to the file ``err``)."""
+    here, waited for later; its standard error to the file ``err``).
+    Each case's ``"jax"`` entry: ``[arch, replaced fields, batch,
+    caches' length]`` (a batch of one takes ``long_500k``'s cache specs,
+    its row replicated over ``data``)."""
     arrays = {f"{name}.{k}": v for name, c in cases.items()
               for k, v in c["arrays"].items()}
     np.savez(d / "inputs.npz", **arrays)
-    spec = {"grid": GRID, "axes": AXES, "batch": BATCH, "max_len": MAX_LEN,
-            "steps": STEPS, "inputs": str(d / "inputs.npz"),
-            "out": str(d / "out.npz"),
-            "cases": {n: CASES[n][:2] for n in cases}}
+    spec = {"grid": GRID, "axes": AXES, "steps": STEPS,
+            "inputs": str(d / "inputs.npz"), "out": str(d / "out.npz"),
+            "cases": {n: c["jax"] for n, c in cases.items()}}
     env = dict(os.environ)
     env["XLA_FLAGS"] = ("--xla_force_host_platform_device_count=4 "
                         "--xla_allow_excess_precision=false")
@@ -335,18 +341,25 @@ def _start_jax(cases, d, err):
         env=env, stdout=subprocess.DEVNULL, stderr=err)
 
 
-def _jax_results(raw: dict) -> dict:
+def _jax_results(raw: dict, names) -> dict:
+    """The JAX subprocess's results of the cases ``names``: a
+    heterogeneous stack's caches as a list of per-layer dicts."""
     out = {}
-    for name in CASES:
+    for name in names:
+        caches = {}
+        for k, v in raw.items():
+            if k.startswith(name + ".cache"):
+                *layer, leaf = k[len(name + ".cache"):].lstrip(".").split(".")
+                caches.setdefault(int(layer[0]) if layer else None, {})[
+                    leaf] = torch.from_numpy(v)
         out[name] = {
             "logits": [torch.from_numpy(raw[f"{name}.logits{i}"])
                        for i in range(STEPS + 1)],
             "routes": [raw[f"{name}.routes{t}"] for t in range(STEPS)
                        if f"{name}.routes{t}" in raw],
             "dropped": [float(v) for v in raw[name + ".dropped"]],
-            "caches": {k.split(".")[-1]: torch.from_numpy(v)
-                       for k, v in raw.items()
-                       if k.startswith(name + ".cache.")}}
+            "caches": (caches[None] if None in caches else
+                       [caches[i] for i in sorted(caches)])}
     return out
 
 
@@ -375,7 +388,8 @@ def runs(cases, tmp_path_factory):
             proc.kill()
             proc.wait()
     assert proc.returncode == 0, (d / "stderr.txt").read_text()
-    for name, r in _jax_results(dict(np.load(d / "out.npz"))).items():
+    for name, r in _jax_results(dict(np.load(d / "out.npz")),
+                                cases).items():
         refs[name]["jax"] = r
     return results, seconds, refs
 
@@ -597,10 +611,7 @@ def test_decode_collectives_equal_the_prediction(spawned, cases, case):
     processes to (``serve_collectives``)."""
     results, _ = spawned
     cfg = cases[case]["cfg"]
-    layout = tp_layout(cfg, meta_params(cfg).blocks[0].attn if
-                       cfg.family != "audio" else
-                       meta_params(cfg).dec_blocks[0].self_attn, GRID[1])
-    want = serve_collectives(cfg, layout, GRID[0])
+    want = serve_collectives(cfg, serve_layout(cfg, GRID[1]), GRID[0])
     for res in results:
         assert len(res[case]["counts"]) == STEPS
         for counts in res[case]["counts"]:
@@ -610,21 +621,23 @@ def test_decode_collectives_equal_the_prediction(spawned, cases, case):
 def test_what_is_not_ported_raises(spawned):
     """Split KV heads (2 over 4 model ranks, on a ``(1, 4)`` grid over
     the same processes), 3 MLA heads over 2 model ranks, 6 experts that
-    pad to 16 in the weights and to 6 for 2 expert ranks, a batch of one
-    (its caches would shard their time axis) and the recurrent caches
-    raise, each naming what is not ported."""
+    pad to 16 in the weights and to 6 for 2 expert ranks, and the MoE at
+    a batch of one over 2 data ranks (the decode's all_gather of
+    per-expert counts would count its replicated row once a data rank)
+    raise, each naming what is not ported; nothing else of
+    ``raising_cases`` does (the time-sharded and recurrent caches are
+    ``tests/test_torch_serve_dist_recurrent.py``'s)."""
     results, _ = spawned
     for res in results:
         msgs = res["raises"]
+        assert set(msgs) == {"split_kv", "mla_heads", "padding",
+                             "moe_one_row"}
         assert "split-dim KV columns (2 KV heads over 4 model ranks" in \
             msgs["split_kv"]
         assert "3 MLA heads do not split over 2" in msgs["mla_heads"]
         assert "pad 6 experts to 6" in msgs["padding"]
-        assert "a batch of 1 shards the caches' time axis" in \
-            msgs["time_sharded"]
-        for arch in ("xlstm", "zamba2"):
-            assert "recurrent caches, not ported over process ranks" in \
-                msgs[arch], arch
+        assert "the MoE at batch 1 over a data axis of more than one " \
+            "rank is not ported" in msgs["moe_one_row"]
 
 
 def test_processes_start_from_the_source_weights(cases):

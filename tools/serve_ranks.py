@@ -3,17 +3,21 @@
 processes.
 
 One spawn of 8 gloo processes runs phase 19's cells
-(``chip_smoke.SERVE_RANKS_CELLS``: TinyLlama-1.1B and MiniCPM3-4B at 8
-layers on ``(data, model) = (2, 4)``, Qwen1.5-MoE-A2.7B on ``(1, 8)``),
-each as soon as its reference on the card in this process is done
-(``chip_smoke.train_grid_path`` with phases 16-18's training cells left
-out). Prints each cell's line (``chip_smoke.check_serve_ranks``: the
-logits' and caches' differences against the reference beside their
-bounds and planted faults, prefill and decode walls, collectives, gloo
-bytes and seconds, peak memory a process), the phase's seconds and the
-card's name and power limit; exits 1 if a check fails.
+(``chip_smoke.SERVE_RANKS_CELLS``: TinyLlama-1.1B, MiniCPM3-4B at 8
+layers and xLSTM-125M on ``(data, model) = (2, 4)``, Qwen1.5-MoE-A2.7B
+on ``(1, 8)``, Zamba2-1.2B at 12 layers on ``(2, 4)`` at ``long_500k``'s
+batch of one and 524288 slots, its shared block's caches time-sharded
+over ``data``), each as soon as its reference on the card in this
+process is done (``chip_smoke.train_grid_path`` with phases 16-18's
+training cells left out). ``--cells`` keeps the cells of the phase lines
+it names (``serve_ranks_xlstm,serve_ranks_zamba2_long``). Prints each
+cell's line (``chip_smoke.check_serve_ranks``: the logits', caches' and
+recurrent states' differences against the reference beside their bounds
+and planted faults, prefill and decode walls, collectives, gloo bytes
+and seconds, peak memory a process), the phase's seconds and the card's
+name and power limit; exits 1 if a check fails.
 
-    python3 tools/serve_ranks.py [--seed 0]
+    python3 tools/serve_ranks.py [--seed 0] [--cells LINE,LINE]
 """
 
 import argparse
@@ -33,7 +37,13 @@ import chip_smoke  # noqa: E402
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--cells", default=None,
+                    help="comma-separated phase lines to keep")
     args = ap.parse_args()
+    if args.cells:
+        keep = args.cells.split(",")
+        chip_smoke.SERVE_RANKS_CELLS = tuple(
+            c for c in chip_smoke.SERVE_RANKS_CELLS if c[0] in keep)
     import torch
     if not torch.cuda.is_available():
         print("serve_ranks: no card", file=sys.stderr)
