@@ -432,6 +432,19 @@ Phases 16-18 (and 19) share one spawn of 8 processes for their seven
     (gloo bytes and host seconds), the peak memory and the weight and
     cache bytes a process, beside the reference's walls.
 
+20. ``dryrun_check``: the dry run (``repro_torch.launch.dryrun``) held
+    to the card. A subprocess, started after the build and running on
+    the CPU beside the phases after it, traces phase 16's step on a fake
+    ``(2, 4)`` grid (``dryrun.trace``: a ``fake`` process group and
+    ``FakeTensorMode``, rank 0's program): TinyLlama-1.1B at 11 layers, 8
+    x 2048 tokens, phase 16's remat, no master copy and ZeRO-1. Checks:
+    its collectives by op and axes (calls and bytes) equal to the
+    logged step of phase 16's process 0 exactly, and its peak live bytes
+    within ``DRYRUN_PEAK_SHARE`` of every process's
+    ``torch.cuda.max_memory_allocated()`` over phase 16's steps. Prints
+    both, the trace's seconds and each process's memory at the start of
+    the steps beside the trace's state bytes.
+
 Each path's launch counts are read from zero: every count is reset just
 before the path runs and read just after. The last lines are the
 script's total seconds, the kernel table as one JSON object, the ``nvidia-smi`` name/power line, and
@@ -543,6 +556,18 @@ GRID_CELL_ORDER = ("zamba2_1_2b", "qwen2_moe_a2_7b", "whisper_small",
                    "tinyllama_1_1b", "xlstm_125m", "internvl2_1b",
                    "minicpm3_4b")
 GRID_TIMEOUT_S = 900
+#: phase 20: the share of a process's peak memory over phase 16's steps
+#: (``torch.cuda.max_memory_allocated``) within which the dry run's trace
+#: of the step must read its peak live bytes. The trace counts each
+#: tensor's storage bytes; the card's allocator also holds what no
+#: tensor of the program shows: its blocks rounded up to 512 bytes, the
+#: cuBLAS and cuBLASLt workspaces of each thread that runs products
+#: (the forward's and autograd's), the scratch CUDA kernels take from
+#: it, and whatever tensors earlier cells left alive in the process.
+#: Phase 16's readings on an NVIDIA H100 80GB HBM3 at 700 W before this
+#: phase (4.754e9 to 4.761e9 bytes) lie 5.4-5.5% above the trace's
+#: 4.4997e9 bytes
+DRYRUN_PEAK_SHARE = 0.10
 #: phase 16's checkpoints: the state after its steps saved from (2, 4) as
 #: 4 slices (the launcher's), restored onto (4, 2) and saved again; the
 #: Sector root's bound (/dev/shm is host memory: 2 x 7.39 GB a checkpoint
@@ -4889,6 +4914,7 @@ def rank_train(ranks, directory: str, batches, opt_cfg, sum_lr: float,
         kept.update({n: (grads[n].cpu(), specs[n]) for n in grad_leaves})
 
     torch.cuda.reset_peak_memory_stats(dev)
+    out["mem_at_reset_bytes"] = torch.cuda.memory_allocated(dev)
     last = len(batches) - 1
     for i, b in enumerate(batches):
         ranks.collectives.clear()
@@ -5347,6 +5373,8 @@ def ranks_phase_line(cfg, grid, ref, results, batches, reference_s,
             "compare_s_max": max(r["compare_s"] for r in results),
             "peak_mem_bytes_by_process": [r["peak_mem_bytes"]
                                           for r in results],
+            "mem_at_reset_bytes_by_process": [r["mem_at_reset_bytes"]
+                                              for r in results],
             "comm_last_step_rank0": r0["comm_last_step"]}
 
 
@@ -6193,6 +6221,91 @@ def train_grid_path(torch, dev, seed: int) -> dict:
     return out
 
 
+# -- phase 20: the dry run held to the card -----------------------------------
+
+
+def train_ranks_trace(path: str) -> None:
+    """Phase 16's step traced by the dry run (run in a process of its own:
+    the trace holds a fake default process group), its measurements
+    written to ``path`` as JSON."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch import dryrun
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH),
+                              num_layers=TRAIN_RANKS_LAYERS)
+    got = dryrun.trace(cfg, ShapeSpec("train_ranks", TRAIN_SEQ, TRAIN_BATCH,
+                                      "train"),
+                       TRAIN_RANKS_GRID, ("data", "model"), zero1=True,
+                       master=False)
+    with open(path, "w") as f:
+        json.dump({"calls": got["collectives"]["calls"],
+                   "peak_live_bytes": got["peak_live_bytes"],
+                   "state_live_bytes": got["state_live_bytes"],
+                   "counted_flops": got["flops"],
+                   "trace_s": time.perf_counter() - t0}, f)
+
+
+def start_dryrun_trace() -> tuple:
+    """:func:`train_ranks_trace` started in a subprocess on the CPU:
+    ``(process, result path, start time)``."""
+    import tempfile
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
+    atexit.register(shutil.rmtree, out_dir, True)
+    path = os.path.join(out_dir, "trace.json")
+    with open(os.path.join(out_dir, "output.txt"), "w") as output:
+        proc = subprocess.Popen(
+            [sys.executable, "-c",
+             f"import chip_smoke; chip_smoke.train_ranks_trace({path!r})"],
+            cwd=HERE, stdout=output, stderr=subprocess.STDOUT)
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    return proc, path, time.perf_counter()
+
+
+def dryrun_check(started: tuple, line: dict) -> dict:
+    """Phase 20: the trace of :func:`start_dryrun_trace` against phase
+    16's line; raises on a mismatch, after printing the comparison."""
+    proc, path, t0 = started
+    proc.wait(timeout=600)
+    waited = time.perf_counter() - t0
+    if proc.returncode != 0:
+        with open(os.path.join(os.path.dirname(path), "output.txt")) as f:
+            text = f.read()
+        raise AssertionError(f"phase 20: the dry run's trace failed:\n"
+                             f"{text[-4000:]}")
+    with open(path) as f:
+        got = json.load(f)
+    card = {k: {"calls": v["calls"], "bytes": v["bytes"]}
+            for k, v in line["comm_last_step_rank0"].items()}
+    peaks = line["peak_mem_bytes_by_process"]
+    shares = [(p - got["peak_live_bytes"]) / p for p in peaks]
+    out = {"phase": "dryrun_check", "cell": line["cell"],
+           "device": nvidia_smi_line(),
+           "trace_s": got["trace_s"], "subprocess_wall_s": waited,
+           "collectives_trace": got["calls"],
+           "collectives_card_process0": card,
+           "collectives_equal": got["calls"] == card,
+           "peak_live_bytes_trace": got["peak_live_bytes"],
+           "peak_mem_bytes_by_process": peaks,
+           "peak_share_above_trace_by_process": shares,
+           "peak_share_bound": DRYRUN_PEAK_SHARE,
+           "state_live_bytes_trace": got["state_live_bytes"],
+           "mem_at_reset_bytes_by_process":
+               line["mem_at_reset_bytes_by_process"],
+           "counted_flops_trace": got["counted_flops"]}
+    log(json.dumps(out))
+    bad = []
+    if not out["collectives_equal"]:
+        bad.append("the trace's collectives differ from phase 16's log")
+    if max(abs(x) for x in shares) > DRYRUN_PEAK_SHARE:
+        bad.append(f"peak memory: the trace's {got['peak_live_bytes']} "
+                   f"against {peaks} (shares {shares})")
+    if bad:
+        raise AssertionError("phase 20: " + "; ".join(bad))
+    return out
+
+
 def check_rank_moe(torch, results, m) -> dict:
     """Each process's block against the stacked layer: routing, per-expert
     counts and drops exact, ``moe_aux`` within 1e-6 relative, the output
@@ -6284,6 +6397,8 @@ def main(argv=None) -> int:
     for name, r in built.items():
         for line in r.ptxas:
             log(f"  {name}: {line}")
+    # phase 20's trace, on the CPU beside the phases on the card
+    dryrun_trace = start_dryrun_trace()
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(args.seed)
@@ -6375,6 +6490,7 @@ def main(argv=None) -> int:
         log(json.dumps({"phase": name, **p}))
     log(json.dumps({k: grid[k] for k in ("phase", "references_s",
                                          "spawn_s", "phase_s")}))
+    dryrun_check(dryrun_trace, grid["paths"]["train_ranks"])
     phase11 = {r["run"]: r["launches"] for r in chaos["runs"]}
     host_faults = {r["run"]: r["launches"] for r in chaos["host"]}
 

@@ -75,6 +75,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.distributed as dist
+from torch._subclasses.fake_tensor import is_fake
 
 DeviceLike = Union[str, torch.device, None]
 #: an axis name, a tuple of names, or None for every axis.
@@ -365,6 +366,12 @@ _reduce_scatter_single = getattr(dist, "reduce_scatter_single", None) or \
     getattr(dist, "reduce_scatter_tensor", None)
 
 
+#: the backends whose collectives take host tensors over any group: gloo,
+#: and ``fake`` (``torch.testing``'s process group of a traced program,
+#: which moves nothing)
+_HOST_BACKENDS = ("gloo", "fake")
+
+
 def _all_reduce_max(t: torch.Tensor, group=None) -> None:
     dist.all_reduce(t, op=dist.ReduceOp.MAX, group=group)
 
@@ -386,7 +393,8 @@ class ProcessRanks(Ranks):
     ``log``: set it to a list and each collective appends ``{"op", "axes",
     "bytes", "seconds"}``: the bytes this rank hands to the transport and
     the call's host time, the card synchronised before and after it (a
-    measurement mode: the synchronisations cost what they cost).
+    measurement mode: the synchronisations cost what they cost; a traced
+    program's fake tensors are neither synchronised nor timed).
 
     Host tensors (a checkpoint's bytes, :meth:`gather_to_first`), objects
     and barriers go over the whole grid. Under gloo that is the default
@@ -461,8 +469,10 @@ class ProcessRanks(Ranks):
 
     def host_group(self):
         """The group of the whole grid for host tensors and objects: the
-        default group (None) under gloo, else a gloo group of its own."""
-        if self.backend == "gloo":
+        default group (None) under gloo (or the ``fake`` backend of a
+        traced program, which takes any tensor), else a gloo group of its
+        own."""
+        if self.backend in _HOST_BACKENDS:
             return None
         if self._host is None:
             self._host = dist.new_group(backend="gloo")
@@ -473,7 +483,7 @@ class ProcessRanks(Ranks):
         host tensors with ``host``."""
         key = tuple(a for a in self.axes if a in names)
         whole = len(key) == len(self.axes)
-        if host and self.backend != "gloo":
+        if host and self.backend not in _HOST_BACKENDS:
             if not whole:
                 raise ValueError(f"{self.backend} takes device tensors: "
                                  f"host tensors go over the whole grid, "
@@ -482,10 +492,18 @@ class ProcessRanks(Ranks):
         return None if whole else self._groups[key]
 
     def _call(self, op: str, names: Tuple[str, ...], fn, *tensors) -> None:
-        """``fn(*tensors, group=...)``, logged when :attr:`log` is a list."""
+        """``fn(*tensors, group=...)``, logged when :attr:`log` is a list
+        (a traced call of fake tensors with no synchronisation or timing:
+        its ``seconds`` are 0)."""
         group = self._group(names, tensors[-1].device.type == "cpu")
         if self.log is None:
             fn(*tensors, group=group)
+            return
+        if is_fake(tensors[-1]):
+            fn(*tensors, group=group)
+            self.log.append({"op": op, "axes": list(names),
+                             "bytes": tensors[-1].numel()
+                             * tensors[-1].element_size(), "seconds": 0.0})
             return
         cuda = self.device.type == "cuda"
         if cuda:

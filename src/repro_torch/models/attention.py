@@ -258,17 +258,35 @@ def _sdpa(q, k, v, q_pos, kv_pos, *, causal: bool, window: Optional[int],
 
 def _write_slots(q_pos, T: int, start: Optional[int]):
     """Where a cache block of ``T`` slots takes the new positions
-    ``q_pos`` (B, S): ``(rows, slots, kept)``. A ring or a whole cache
-    (``start`` None): every position at slot ``p % T``, ``kept`` None; a
-    time block starting at slot ``start`` of the whole cache: only the
-    positions that fall in it (``kept`` selects them), at ``p - start``."""
-    b_idx = torch.arange(q_pos.shape[0], device=q_pos.device)[:, None]
-    b_idx = b_idx.expand_as(q_pos)
+    ``q_pos`` (B, S), consecutive in each row: ``(rows, slots, src,
+    kept)``. A ring or a whole cache (``start`` None): every position at
+    slot ``p % T``, ``src`` and ``kept`` None. A time block starting at
+    slot ``start`` of the whole cache: a window of ``min(S, T)`` slots a
+    row that holds every new position falling in the block, slot ``j``
+    taking new position ``src[b, j]`` where ``kept`` and keeping its
+    value elsewhere; no slot twice, and no shape depends on the positions
+    (a traced program's cannot)."""
+    B, S = q_pos.shape
+    b_idx = torch.arange(B, device=q_pos.device)[:, None]
     if start is None:
-        return b_idx, (q_pos % T).long(), None
-    slots = q_pos.long() - start
-    kept = (slots >= 0) & (slots < T)
-    return b_idx[kept], slots[kept], kept
+        return b_idx.expand_as(q_pos), (q_pos % T).long(), None, None
+    W = min(S, T)
+    first = q_pos[:, :1].long()
+    slots = (first - start).clamp(0, T - W) + torch.arange(
+        W, device=q_pos.device)
+    src = slots + start - first
+    kept = (src >= 0) & (src < S)
+    return b_idx.expand_as(slots), slots, src.clamp(0, S - 1), kept
+
+
+def _write(cache: Dict, key: str, rows, slots, src, kept, new) -> None:
+    """``new`` (B, S, ...) into ``cache[key]`` at :func:`_write_slots`'
+    ``rows, slots`` (a time block's kept positions only)."""
+    new = new.to(cache[key].dtype)
+    if src is not None:
+        mask = kept.reshape(kept.shape + (1,) * (new.dim() - 2))
+        new = torch.where(mask, new[rows, src], cache[key][rows, slots])
+    cache[key][rows, slots] = new
 
 
 def _cache_update(cache: Dict, new_k, new_v, q_pos,
@@ -281,12 +299,10 @@ def _cache_update(cache: Dict, new_k, new_v, q_pos,
     T = cache["k"].shape[1]
     if start is None and q_pos.shape[1] > T:
         new_k, new_v, q_pos = new_k[:, -T:], new_v[:, -T:], q_pos[:, -T:]
-    b_idx, slots, kept = _write_slots(q_pos, T, start)
-    if kept is not None:
-        new_k, new_v, q_pos = new_k[kept], new_v[kept], q_pos[kept]
-    cache["k"][b_idx, slots] = new_k.to(cache["k"].dtype)
-    cache["v"][b_idx, slots] = new_v.to(cache["v"].dtype)
-    cache["pos"][b_idx, slots] = q_pos.to(torch.int32)
+    at = _write_slots(q_pos, T, start)
+    _write(cache, "k", *at, new_k)
+    _write(cache, "v", *at, new_v)
+    _write(cache, "pos", *at, q_pos)
     return cache
 
 
@@ -535,13 +551,10 @@ def _mla_cache_write(cache: Dict, ckv, k_rope, q_pos,
     ``k_rope`` (B, S, 1, rope) of the new positions into an MLA cache, in
     place; ``start``: the cache is a time block from that slot
     (:func:`_write_slots`)."""
-    b_idx, slots, kept = _write_slots(q_pos, cache["ckv"].shape[1], start)
-    if kept is not None:
-        ckv, k_rope, q_pos = ckv[kept], k_rope[kept], q_pos[kept]
-    cache["ckv"][b_idx, slots] = ckv.to(cache["ckv"].dtype)
-    cache["k_rope"][b_idx, slots] = k_rope[..., 0, :].to(
-        cache["k_rope"].dtype)
-    cache["pos"][b_idx, slots] = q_pos.to(torch.int32)
+    at = _write_slots(q_pos, cache["ckv"].shape[1], start)
+    _write(cache, "ckv", *at, ckv)
+    _write(cache, "k_rope", *at, k_rope[..., 0, :])
+    _write(cache, "pos", *at, q_pos)
     return cache
 
 

@@ -75,10 +75,11 @@ from typing import Any, Callable, Dict, Optional, Sequence
 import numpy as np
 import torch
 from torch import nn
+from torch._subclasses.fake_tensor import unset_fake_temporarily
 
 from repro_torch.comm import (Spec, gather_from, model_parallel,
                               resolve_device, shard_slices, spec_axes)
-from repro_torch.configs.base import SHAPES, ModelConfig
+from repro_torch.configs.base import SHAPES, ModelConfig, ShapeSpec
 from repro_torch.models import attention, encdec, transformer
 from repro_torch.models.convert import jax_order
 from repro_torch.models.layers import COMPUTE_DTYPE, param_specs
@@ -226,10 +227,16 @@ def _stacked(specs: Dict[str, Spec]) -> Dict[str, Spec]:
     return {k: (None,) + s for k, s in specs.items()}
 
 
-def _batch_specs(cfg: ModelConfig, shape_name: str,
+def _shape(shape) -> ShapeSpec:
+    """A shape's :class:`ShapeSpec`: one of ``SHAPES`` by name, or given
+    (another size of a shape, as the dry run's checks trace)."""
+    return SHAPES[shape] if isinstance(shape, str) else shape
+
+
+def _batch_specs(cfg: ModelConfig, shape_name,
                  dp: Sequence[str]) -> Dict[str, Spec]:
     """The specs of ``shape_name``'s inputs: the batch over ``dp``."""
-    bs = _dp(SHAPES[shape_name].global_batch, dp)
+    bs = _dp(_shape(shape_name).global_batch, dp)
     specs = {"tokens": (bs, None), "labels": (bs, None), "pos": (bs, None),
              "img_embeds": (bs, None, None), "frames": (bs, None, None),
              "enc_out": (bs, None, None)}
@@ -276,28 +283,38 @@ def _process_caches(cfg: ModelConfig, batch: int, max_len: int, ranks,
         raise ValueError(f"{cfg.arch_id}: " + _MOE_ONE_ROW.format(
             dp=tuple(dp_axes)))
 
-    def cut(leaf, spec, small):
-        block = shard_slices(leaf.shape, spec, ranks.shape, ranks.axes,
-                             ranks.rank)
+    def fills(small):
+        if isinstance(small, list):
+            return [fills(v) for v in small]
+        if isinstance(small, dict):
+            return {k: fills(v) for k, v in small.items()}
         fill = small.reshape(-1)[0]
         if not bool((small == fill).all()):
             raise ValueError(f"a cache leaf of {cfg.arch_id} is not filled "
                              f"with one value")
-        return torch.full(leaf[block].shape, fill.item(), dtype=leaf.dtype,
+        return fill.item()
+
+    def cut(leaf, spec, fill):
+        block = shard_slices(leaf.shape, spec, ranks.shape, ranks.axes,
+                             ranks.rank)
+        return torch.full(leaf[block].shape, fill, dtype=leaf.dtype,
                           device=ranks.device)
 
-    def walk(leaves, specs, small):
+    def walk(leaves, specs, fill):
         if isinstance(leaves, list):
-            return [walk(*a) for a in zip(leaves, specs, small)]
+            return [walk(*a) for a in zip(leaves, specs, fill)]
         if not isinstance(leaves, dict):
-            return cut(leaves, specs, small)
-        out = {k: walk(v, specs[k], small[k]) for k, v in leaves.items()}
+            return cut(leaves, specs, fill)
+        out = {k: walk(v, specs[k], fill[k]) for k, v in leaves.items()}
         t = specs["pos"][-1] if "pos" in specs else None
         if t is None or ranks.axis_size(spec_axes((t,))) == 1:
             return out
         return attention.TimeBlock(out, spec_axes((t,)))
-    return walk(make(batch, max_len, torch.device("meta")), specs,
-                make(1, 1, torch.device("cpu")))
+    # the fills are read from real tensors, also where a traced program
+    # (FakeTensorMode) allocates the caches
+    with unset_fake_temporarily():
+        values = fills(make(1, 1, torch.device("cpu")))
+    return walk(make(batch, max_len, torch.device("meta")), specs, values)
 
 
 def _whole_vocab(logits, ranks):
@@ -308,10 +325,11 @@ def _whole_vocab(logits, ranks):
     return logits
 
 
-def _input_specs(cfg: ModelConfig, shape_name: str) -> Dict:
-    """The inputs of ``shape_name`` as ``{name: (shape, torch dtype)}``,
-    the JAX package's ``input_specs`` without its sharding."""
-    sp = SHAPES[shape_name]
+def _input_specs(cfg: ModelConfig, shape_name) -> Dict:
+    """The inputs of ``shape_name`` (a name of ``SHAPES`` or a
+    :class:`ShapeSpec`) as ``{name: (shape, torch dtype)}``, the JAX
+    package's ``input_specs`` without its sharding."""
+    sp = _shape(shape_name)
     b, s = sp.global_batch, sp.seq_len
     tok = lambda n: ((b, n), torch.int32)            # noqa: E731
     if cfg.family == "audio":

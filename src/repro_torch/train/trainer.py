@@ -296,6 +296,27 @@ def _blocks(meta) -> list:
                                 else [])
 
 
+def check_grid_layout(cfg, model: int, meta=None) -> None:
+    """Raise ``ValueError`` where the model of ``cfg`` cannot be laid out
+    over a ``model`` axis of ``model`` ranks (the layouts
+    :func:`jit_train_step` lists); ``meta``: its :func:`meta_params`."""
+    meta = meta_params(cfg) if meta is None else meta
+    for block in _blocks(meta):
+        attns = [a for a in ("attn", "self_attn", "cross_attn")
+                 if a in block]
+        for a in attns:
+            tp_layout(cfg, block[a], model)
+        if not attns:
+            tp_heads(cfg, block.kind, model)
+        if "moe" in block:
+            plan_experts(cfg, block.moe.w_gate.shape[0], model)
+    if cfg.family == "audio" and cfg.enc_seq % model and tp_layout(
+            cfg, meta.enc_blocks[0].attn, model) == "sequence":
+        raise ValueError(f"{cfg.arch_id}: {cfg.enc_seq} encoder frames "
+                         f"do not split over {model} model ranks of the "
+                         f"sequence-parallel attention")
+
+
 def _loss_count(ranks: Ranks, dp: Tuple[str, ...], micro: Mapping,
                 dsize: int) -> torch.Tensor:
     """The divisor of this data rank's masked loss: the micro batch's
@@ -349,7 +370,7 @@ def jit_train_step(model: Model, opt_cfg: AdamWConfig, ranks: Ranks,
     weights, Mamba2, mLSTM or sLSTM heads that ``model`` does not divide
     (:func:`repro_torch.models.ssm.tp_heads`), and encoder frames that
     the sequence layout does not split over ``model`` (Whisper's 1500
-    over 8)."""
+    over 8): :func:`check_grid_layout`."""
     cfg = model.cfg
     dp = tuple(dp_axes)
     p_specs, opt_specs = make_state_shardings(model, _sizes(ranks),
@@ -368,21 +389,7 @@ def jit_train_step(model: Model, opt_cfg: AdamWConfig, ranks: Ranks,
                          f"dispatches through the sphere shuffle over a "
                          f"model axis of more than one rank; {ranks!r}")
     if tp:
-        m = ranks.axis_size("model")
-        for block in _blocks(meta):
-            attns = [a for a in ("attn", "self_attn", "cross_attn")
-                     if a in block]
-            for a in attns:
-                tp_layout(cfg, block[a], m)
-            if not attns:
-                tp_heads(cfg, block.kind, m)
-            if "moe" in block:
-                plan_experts(cfg, block.moe.w_gate.shape[0], m)
-        if cfg.family == "audio" and cfg.enc_seq % m and tp_layout(
-                cfg, meta.enc_blocks[0].attn, m) == "sequence":
-            raise ValueError(f"{cfg.arch_id}: {cfg.enc_seq} encoder frames "
-                             f"do not split over {m} model ranks of the "
-                             f"sequence-parallel attention")
+        check_grid_layout(cfg, ranks.axis_size("model"), meta)
     shapes = {n: tuple(p.shape) for n, p in meta.named_parameters()}
     local = {n: _local_shape(shapes[n], sp, ranks)
              for n, sp in p_specs.items()}

@@ -61,7 +61,7 @@ def test_port_file_list_covers_the_slice():
                  "models/ssm.py", "models/encdec.py", "train/optimizer.py",
                  "train/trainer.py", "train/checkpoint.py",
                  "data/synthetic.py", "data/pipeline.py", "data/__init__.py",
-                 "launch/mesh.py"):
+                 "launch/mesh.py", "launch/dryrun.py"):
         assert want in names
     csrc = ROOT / "src" / "repro_torch" / "kernels" / "csrc"
     assert (csrc / "bucket_hist.cu").exists()
