@@ -284,7 +284,20 @@ Phases 16-18 (and 19) share one spawn of 8 processes for their seven
     stays below 40 GB. Prints the save, exchange, upload and restore
     seconds, each process's gloo bytes and seconds, and the root's bytes
     after each save with its file system. A process that raises or
-    outlasts its limit fails the phase.
+    outlasts its limit fails the phase. Besides (the line
+    ``train_ranks_split_kv``), ``train-tinyllama-1.1b-1x8-8proc-1xH100``:
+    TinyLlama-1.1B at its published width, depth cut 22 -> 4, on
+    ``(data, model) = (1, 8)``, where its 4 KV heads split over the 8
+    model ranks (the split-dim KV layout: each process projects 32 of a
+    KV head's 64 columns, gathers the keys and values whole over
+    ``model`` before rope, its ``reduce_scatter`` in the backward, and
+    attends its 4 query heads against the one KV head they use), 2 steps
+    on 8 x 1024 tokens of the corpus at the launcher's optimizer,
+    against the one-process step under phase 16's bounds but for the
+    gradients' absolute term (``SPLIT_KV_BOUNDS``), the first and last
+    layers' ``wq``, ``wk``, ``wv`` and ``wo`` among the held leaves; the reference also reads the planted faults of phase 18
+    (half the batch's gradient halved, the steps without their update),
+    and the phase fails where one reads within its bound.
 17. ``train_ranks_families``: two paths, each as 8 gloo processes on
     ``cuda:0`` checked as phase 16 is (the MoE cell's printed as
     ``train_ranks_families_moe``, MiniCPM3's as
@@ -415,7 +428,13 @@ Phases 16-18 (and 19) share one spawn of 8 processes for their seven
     the 32 KV heads a model rank: 1.07 GB of the 8.6 GB a process), each
     new position written only into the block that holds its slot, the
     blocks' scores combined by a ``pmax`` and two sums over ``data``;
-    Mamba2's 64 heads owned, 16 a rank. The references on the card: the
+    Mamba2's 64 heads owned, 16 a rank. (6)
+    ``serve-tinyllama-1.1b-1x8-8proc-1xH100``: TinyLlama-1.1B at phase
+    16's 11 layers on ``(1, 8)``, its 4 KV heads split over the 8 model
+    ranks: each layer gathers the new keys' and values' columns whole
+    over ``model`` (one ``all_gather``) before rope and writes every
+    head into the caches, which keep every KV head; 4 decode steps. The
+    references on the card: the
     one process's prefill and greedy decode (the MoE: phase 12's stacked
     grid prefill on ``Ranks(1, 8)`` and its decode), with planted faults
     read: a decode step from caches whose layer 0 was left unwritten,
@@ -434,14 +453,17 @@ Phases 16-18 (and 19) share one spawn of 8 processes for their seven
 
 20. ``dryrun_check``: the dry run (``repro_torch.launch.dryrun``) held
     to the card. A subprocess, started after the build and running on
-    the CPU beside the phases after it, traces phase 16's step on a fake
-    ``(2, 4)`` grid (``dryrun.trace``: a ``fake`` process group and
-    ``FakeTensorMode``, rank 0's program): TinyLlama-1.1B at 11 layers, 8
-    x 2048 tokens, phase 16's remat, no master copy and ZeRO-1. Checks:
-    its collectives by op and axes (calls and bytes) equal to the
-    logged step of phase 16's process 0 exactly, and its peak live bytes
-    within ``DRYRUN_PEAK_SHARE`` of every process's
-    ``torch.cuda.max_memory_allocated()`` over phase 16's steps. Prints
+    the CPU beside the phases after it, traces phase 16's steps on fake
+    grids (``dryrun.trace``: a ``fake`` process group and
+    ``FakeTensorMode``, rank 0's program; ``DRYRUN_CELLS``): TinyLlama-1.1B
+    at 11 layers, 8 x 2048 tokens on ``(2, 4)``, and its split-dim KV
+    cell, 4 layers, 8 x 1024 tokens on ``(1, 8)``, each with phase 16's
+    remat, no master copy and ZeRO-1. Checks: each trace's collectives
+    by op and axes (calls and bytes) equal to the logged step of its
+    cell's process 0 exactly, and its peak live bytes within
+    ``DRYRUN_PEAK_SHARE`` of every process's
+    ``torch.cuda.max_memory_allocated()`` over the cell's steps (the
+    lines ``dryrun_check`` and ``dryrun_check_split_kv``). Prints
     both, the trace's seconds and each process's memory at the start of
     the steps beside the trace's state bytes.
 
@@ -566,7 +588,8 @@ GRID_TIMEOUT_S = 900
 #: it, and whatever tensors earlier cells left alive in the process.
 #: Phase 16's readings on an NVIDIA H100 80GB HBM3 at 700 W before this
 #: phase (4.754e9 to 4.761e9 bytes) lie 5.4-5.5% above the trace's
-#: 4.4997e9 bytes
+#: 4.4997e9 bytes; its split-dim KV cell's, alone on the card
+#: (1.6302e9 to 1.6312e9), 4.7-4.8% above 1.5531e9
 DRYRUN_PEAK_SHARE = 0.10
 #: phase 16's checkpoints: the state after its steps saved from (2, 4) as
 #: 4 slices (the launcher's), restored onto (4, 2) and saved again; the
@@ -598,6 +621,33 @@ TRAIN_RANKS_BOUNDS = {
     "grad_rtol_leaf": {"embed": TRAIN_RTOL_GRAD_EMBED},
     "params": {"max_over_sum_lr": 2.0, "share_beyond_0.05_sum_lr": 0.01,
                "share_beyond_0.005_sum_lr": 0.5}}
+#: phase 16's split-dim KV cell: TinyLlama-1.1B at its published width,
+#: depth cut 22 -> 4, on (1, 8), where its 4 KV heads split over 8 model
+#: ranks (each process holds half a KV head's 64 columns, gathered whole
+#: before rope): 2 steps on 8 x 1024 tokens of phase 16's corpus at the
+#: launcher's optimizer, against the one-process step under
+#: ``TRAIN_RANKS_BOUNDS``, beside the planted faults; the leaves whose
+#: first-step gradient blocks are held (the first and the last layer's
+#: attention)
+SPLIT_KV_GRID = (1, 8)
+SPLIT_KV_LAYERS, SPLIT_KV_SEQ = 4, 1024
+#: its bounds: phase 16's without the gradients' absolute term, whose
+#: 1e-3 exceeds the last layer's whole ``wq`` and ``wk`` gradients at
+#: init (largest entries 8.5e-4 and 1.0e-3 on an NVIDIA H100 80GB HBM3
+#: at 700 W), where the planted faults would read within it; each held
+#: leaf within 3% of its largest value (the processes read 0.1-1.1%,
+#: the half-batch fault 31-64%)
+SPLIT_KV_BOUNDS = dict(TRAIN_RANKS_BOUNDS, grad_atol=0.0)
+SPLIT_KV_GRAD_LEAVES = (
+    "embed", "final_ln", "blocks.0.attn.wq", "blocks.0.attn.wk",
+    "blocks.0.attn.wv", "blocks.0.attn.wo", "blocks.3.attn.wq",
+    "blocks.3.attn.wk", "blocks.3.attn.wv", "blocks.3.attn.wo",
+    "blocks.3.mlp.w_down")
+#: phase 20's traced cells: phase line, depth, grid, positions a row
+DRYRUN_CELLS = {
+    "train_ranks": (TRAIN_RANKS_LAYERS, TRAIN_RANKS_GRID, TRAIN_SEQ),
+    "train_ranks_split_kv": (SPLIT_KV_LAYERS, SPLIT_KV_GRID,
+                             SPLIT_KV_SEQ)}
 #: leaves whose first-step gradient blocks are held to the one process's
 TRAIN_GRAD_LEAVES = ("embed", "final_ln", "blocks.0.ln1", "blocks.0.attn.wq",
                      "blocks.0.attn.wk", "blocks.5.attn.wo",
@@ -768,7 +818,10 @@ ENCDEC_RANKS_BOUNDS = dict(SSM_RANKS_BOUNDS)
 #: layers (two points of the shared block) at ``long_500k``'s batch of
 #: one and 524288 slots: the shared block's caches time-sharded over
 #: ``data``, its 32 KV heads over ``model``, Mamba2's 64 heads owned by
-#: rank
+#: rank; and TinyLlama-1.1B at phase 16's 11 layers on (1, 8), its 4 KV
+#: heads split over the 8 model ranks (the split-dim KV layout: half a
+#: KV head's columns a process, gathered whole a layer, every head
+#: written into the caches)
 SERVE_RANKS_CELLS = (
     ("serve_ranks_tinyllama", "serve-tinyllama-1.1b-2x4-8proc-1xH100",
      TRAIN_ARCH, TRAIN_RANKS_GRID, None),
@@ -780,7 +833,9 @@ SERVE_RANKS_CELLS = (
      "xlstm_125m", TRAIN_RANKS_GRID, None),
     ("serve_ranks_zamba2_long",
      "serve-zamba2-1.2b-long-500k-2x4-8proc-1xH100", "zamba2_1_2b",
-     TRAIN_RANKS_GRID, 12))
+     TRAIN_RANKS_GRID, 12),
+    ("serve_ranks_split_kv", "serve-tinyllama-1.1b-1x8-8proc-1xH100",
+     TRAIN_ARCH, SPLIT_KV_GRID, TRAIN_RANKS_LAYERS))
 #: the cells whose shape is not phase 12's: Zamba2-1.2B at long_500k, one
 #: row into its 524288 slots (8.6 GB of caches, 1.07 GB a process), a
 #: prompt of 64 (the prefill attends over the whole cache: a longer
@@ -793,7 +848,8 @@ SERVE_RANKS_SHAPES = {
     "serve_ranks_zamba2_long": {"prompts": 1, "prompt_len": 64,
                                 "cache_len": 524288, "first_pos": 262140},
     **{line: {"steps": 4} for line in ("serve_ranks_tinyllama",
-                                       "serve_ranks_mla", "serve_ranks_moe")}}
+                                       "serve_ranks_mla", "serve_ranks_moe",
+                                       "serve_ranks_split_kv")}}
 #: phase 19's bounds against the reference, by cell: the logits
 #: (float32, the real vocabulary) over every call, each written
 #: attention cache slot, each recurrent cache leaf relative to its
@@ -805,7 +861,8 @@ SERVE_RANKS_BOUNDS = {
                         "moved_share": 0.12},
     "serve_ranks_xlstm": {"logits": 0.75, "state": 0.15},
     "serve_ranks_zamba2_long": {"logits": 0.25, "cache": 0.25,
-                                "state": 0.15}}
+                                "state": 0.15},
+    "serve_ranks_split_kv": {"logits": 0.25, "cache": 0.25}}
 #: phase 15's paths in the kernel table
 RANKED_PATHS = (("flat", "dataflow sort, flat"),
                 ("grid", "dataflow sort, (dc, node)"),
@@ -4444,7 +4501,13 @@ def train_collectives(cfg, layout, n_leaves: int, partial: bool,
     experts' sum, not the MLP's sum, the combine, the aux sums or the
     output gather. The backward sums each ``copy_to``'s gradient: the
     attention's input (MLA: its latents and its rope query), the MLP's
-    or MoE's input. A recurrent layer (``RECURRENT_COLLECTIVES``):
+    or MoE's input. The split-dim KV layout adds the new keys' and
+    values' ``all_gather`` forward and in the recompute and its
+    ``reduce_scatter`` in the backward; MLA's split heads the four
+    ``all_to_all``s that move the pieces of heads (``wq_up``'s,
+    ``wk_up``'s and ``wv_up``'s products to their owners, the output
+    back before ``wo``) forward, in the recompute and, inverse, in the
+    backward. A recurrent layer (``RECURRENT_COLLECTIVES``):
     Mamba2's ``[z | x]`` exchange, the norm's square sum and
     ``out_proj``'s sum forward, the exchange and the square sum again in
     the recompute, and in the backward the square sum, the exchange and
@@ -4471,7 +4534,7 @@ def train_collectives(cfg, layout, n_leaves: int, partial: bool,
     from repro_torch.models.transformer import (_shared_attn_points,
                                                 layer_pattern)
     mla = cfg.attn_type == "mla"
-    attn_fwd = {"heads": 2 if mla else 1, "sequence": 0}.get(layout, 0)
+    attn_fwd = 0 if layout in (None, "sequence") else 2 if mla else 1
     attn_bwd = 2 if mla else 1
     if cfg.family == "moe":
         ffn_fwd = 2 + (data > 1) + bool(cfg.n_shared_experts)
@@ -4479,9 +4542,11 @@ def train_collectives(cfg, layout, n_leaves: int, partial: bool,
         gathers, a2a = 1, 3
     else:
         ffn_fwd, ffn_re, gathers, a2a = 1, 0, 0, 0
-    seq_gathers = 2 if layout == "sequence" else 0
+    seq_gathers = 2 if layout in ("sequence", "split_kv") else 0
     attention = {"psum": attn_fwd + ffn_fwd + attn_fwd + ffn_re + attn_bwd
-                 + 1, "all_gather": gathers + seq_gathers, "all_to_all": a2a}
+                 + 1, "all_gather": gathers + seq_gathers,
+                 "all_to_all": a2a + 12 * (layout == "split_heads"),
+                 "reduce_scatter": int(layout == "split_kv")}
     n_zero = n_leaves if n_zero is None else n_zero
     zero = n_zero if data > 1 else 0
     plain = n_leaves - n_zero if data > 1 else 0
@@ -4542,7 +4607,9 @@ def serve_collectives(cfg, layout, data: int, one_row: bool = False
     head: ``wo``'s; MLA: the rope query's and ``wo``'s; by sequence:
     none, one position is attended whole), and in the heads layout one
     ``all_gather`` of the new keys and values where the cache keeps
-    every KV head and ``wk`` shards them; at a batch of one
+    every KV head and ``wk`` shards them, and in the split-dim KV layout
+    (the columns of a head gathered whole); MLA's split heads their four
+    ``all_to_all``s; at a batch of one
     (``one_row``) over more than one data rank, not sliding-window, the
     time-sharded cache's ``pmax`` and two sums over ``data``; the MLP's
     row-parallel sum, or the MoE's expert-sharded dense dispatch: one
@@ -4560,11 +4627,12 @@ def serve_collectives(cfg, layout, data: int, one_row: bool = False
     from repro_torch.models.transformer import (_shared_attn_points,
                                                 layer_pattern)
     mla = cfg.attn_type == "mla"
-    heads = layout == "heads"
-    gathered = (heads and not mla and _kv_spec(cfg) is None
-                and cfg.n_kv_heads > 1)
+    heads = layout not in (None, "sequence")
+    gathered = (layout == "split_kv" or heads and not mla
+                and _kv_spec(cfg) is None and cfg.n_kv_heads > 1)
     attn = {"psum": (2 if mla else 1) if heads else 0,
-            "all_gather": int(gathered)}
+            "all_gather": int(gathered),
+            "all_to_all": 4 * (layout == "split_heads")}
     if (one_row and data > 1 and cfg.attn_type != "swa"
             and cfg.family != "audio"):
         attn["psum"] += 2
@@ -4604,7 +4672,9 @@ def model_gathers(cfg, layout, grid, seq: int) -> list:
     the self- and the cross-attention); sLSTM's input gates twice, ``(B
     / data, S, 4 d / model)``, and its output once, ``(B / data, S, d /
     model)``, bfloat16; the gradient of mLSTM's q, k, v and gates, ``(B
-    / data, S, (3 d_in + 2 H) / model)`` float32."""
+    / data, S, (3 d_in + 2 H) / model)`` float32; the split-dim KV
+    layout's new keys and values twice, ``(2, B / data, S, KV hd /
+    model)`` bfloat16."""
     from repro_torch.models.ssm import mlstm_dims
     from repro_torch.models.transformer import (_shared_attn_points,
                                                 layer_pattern)
@@ -4624,6 +4694,8 @@ def model_gathers(cfg, layout, grid, seq: int) -> list:
             out.append(block)
         if kind in ("dense", "moe", "shared_attn") and layout == "sequence":
             out += [block] * 2
+        if kind in ("dense", "moe", "shared_attn") and layout == "split_kv":
+            out += [2 * rows * cfg.n_kv_heads * cfg.hd // m * 2] * 2
         if kind == "slstm":
             out += [rows * 4 * cfg.d_model // m * 2] * 2 + [
                 rows * cfg.d_model // m * 2]
@@ -6076,6 +6148,14 @@ def grid_cells(torch, seed: int) -> list:
                  faults=True)
     for c in out[1:]:
         c.update(grid=TRAIN_RANKS_GRID, stacked=False, opt=launcher, k1=0)
+    out.append({"line": "train_ranks_split_kv",
+                "cell": "train-tinyllama-1.1b-1x8-8proc-1xH100",
+                "cfg": dataclasses.replace(get_config(TRAIN_ARCH),
+                                           num_layers=SPLIT_KV_LAYERS),
+                "seq": SPLIT_KV_SEQ, "bounds": SPLIT_KV_BOUNDS,
+                "leaves": SPLIT_KV_GRAD_LEAVES, "floor": False,
+                "faults": True, "grid": SPLIT_KV_GRID, "stacked": False,
+                "opt": launcher, "k1": 0})
     return out
 
 
@@ -6197,6 +6277,9 @@ def train_grid_path(torch, dev, seed: int) -> dict:
                         reference_moe_metrics=ref["metrics"])
         if cfg.attn_type == "mla":
             line["heads_per_rank"] = cfg.n_heads // c["grid"][1]
+        if c["line"] == "train_ranks_split_kv":
+            line.update(layout="split_kv", kv_columns_per_rank=(
+                cfg.n_kv_heads * cfg.hd // c["grid"][1]))
         if cfg.family == "audio":
             half = TRAIN_BATCH // c["grid"][0]
             line["encoder_frames"] = cfg.enc_seq
@@ -6225,26 +6308,28 @@ def train_grid_path(torch, dev, seed: int) -> dict:
 
 
 def train_ranks_trace(path: str) -> None:
-    """Phase 16's step traced by the dry run (run in a process of its own:
-    the trace holds a fake default process group), its measurements
-    written to ``path`` as JSON."""
+    """Phase 16's steps traced by the dry run, each cell of
+    ``DRYRUN_CELLS`` in turn (run in a process of its own: the trace
+    holds a fake default process group), their measurements written to
+    ``path`` as JSON by phase line."""
     import dataclasses
     from repro_torch.configs import get_config
     from repro_torch.configs.base import ShapeSpec
     from repro_torch.launch import dryrun
-    t0 = time.perf_counter()
-    cfg = dataclasses.replace(get_config(TRAIN_ARCH),
-                              num_layers=TRAIN_RANKS_LAYERS)
-    got = dryrun.trace(cfg, ShapeSpec("train_ranks", TRAIN_SEQ, TRAIN_BATCH,
-                                      "train"),
-                       TRAIN_RANKS_GRID, ("data", "model"), zero1=True,
-                       master=False)
+    out = {}
+    for line, (layers, grid, seq) in DRYRUN_CELLS.items():
+        t0 = time.perf_counter()
+        cfg = dataclasses.replace(get_config(TRAIN_ARCH), num_layers=layers)
+        got = dryrun.trace(cfg, ShapeSpec(line, seq, TRAIN_BATCH, "train"),
+                           grid, ("data", "model"), zero1=True,
+                           master=False)
+        out[line] = {"calls": got["collectives"]["calls"],
+                     "peak_live_bytes": got["peak_live_bytes"],
+                     "state_live_bytes": got["state_live_bytes"],
+                     "counted_flops": got["flops"],
+                     "trace_s": time.perf_counter() - t0}
     with open(path, "w") as f:
-        json.dump({"calls": got["collectives"]["calls"],
-                   "peak_live_bytes": got["peak_live_bytes"],
-                   "state_live_bytes": got["state_live_bytes"],
-                   "counted_flops": got["flops"],
-                   "trace_s": time.perf_counter() - t0}, f)
+        json.dump(out, f)
 
 
 def start_dryrun_trace() -> tuple:
@@ -6263,9 +6348,12 @@ def start_dryrun_trace() -> tuple:
     return proc, path, time.perf_counter()
 
 
-def dryrun_check(started: tuple, line: dict) -> dict:
-    """Phase 20: the trace of :func:`start_dryrun_trace` against phase
-    16's line; raises on a mismatch, after printing the comparison."""
+def dryrun_check(started: tuple, lines: dict) -> dict:
+    """Phase 20: the traces of :func:`start_dryrun_trace` against the
+    lines of ``DRYRUN_CELLS`` (``{phase line: line}``): each trace's
+    collectives equal to its cell's process 0's logged step, and its
+    peak live bytes within ``DRYRUN_PEAK_SHARE`` of each process's;
+    raises on a mismatch, after printing the comparisons."""
     proc, path, t0 = started
     proc.wait(timeout=600)
     waited = time.perf_counter() - t0
@@ -6275,32 +6363,37 @@ def dryrun_check(started: tuple, line: dict) -> dict:
         raise AssertionError(f"phase 20: the dry run's trace failed:\n"
                              f"{text[-4000:]}")
     with open(path) as f:
-        got = json.load(f)
-    card = {k: {"calls": v["calls"], "bytes": v["bytes"]}
-            for k, v in line["comm_last_step_rank0"].items()}
-    peaks = line["peak_mem_bytes_by_process"]
-    shares = [(p - got["peak_live_bytes"]) / p for p in peaks]
-    out = {"phase": "dryrun_check", "cell": line["cell"],
-           "device": nvidia_smi_line(),
-           "trace_s": got["trace_s"], "subprocess_wall_s": waited,
-           "collectives_trace": got["calls"],
-           "collectives_card_process0": card,
-           "collectives_equal": got["calls"] == card,
-           "peak_live_bytes_trace": got["peak_live_bytes"],
-           "peak_mem_bytes_by_process": peaks,
-           "peak_share_above_trace_by_process": shares,
-           "peak_share_bound": DRYRUN_PEAK_SHARE,
-           "state_live_bytes_trace": got["state_live_bytes"],
-           "mem_at_reset_bytes_by_process":
-               line["mem_at_reset_bytes_by_process"],
-           "counted_flops_trace": got["counted_flops"]}
-    log(json.dumps(out))
-    bad = []
-    if not out["collectives_equal"]:
-        bad.append("the trace's collectives differ from phase 16's log")
-    if max(abs(x) for x in shares) > DRYRUN_PEAK_SHARE:
-        bad.append(f"peak memory: the trace's {got['peak_live_bytes']} "
-                   f"against {peaks} (shares {shares})")
+        traced = json.load(f)
+    out, bad = {}, []
+    for name, line in lines.items():
+        got = traced[name]
+        card = {k: {"calls": v["calls"], "bytes": v["bytes"]}
+                for k, v in line["comm_last_step_rank0"].items()}
+        peaks = line["peak_mem_bytes_by_process"]
+        shares = [(p - got["peak_live_bytes"]) / p for p in peaks]
+        out[name] = {
+            "phase": "dryrun_check" + name[len("train_ranks"):],
+            "cell": line["cell"], "device": nvidia_smi_line(),
+            "trace_s": got["trace_s"], "subprocess_wall_s": waited,
+            "collectives_trace": got["calls"],
+            "collectives_card_process0": card,
+            "collectives_equal": got["calls"] == card,
+            "peak_live_bytes_trace": got["peak_live_bytes"],
+            "peak_mem_bytes_by_process": peaks,
+            "peak_share_above_trace_by_process": shares,
+            "peak_share_bound": DRYRUN_PEAK_SHARE,
+            "state_live_bytes_trace": got["state_live_bytes"],
+            "mem_at_reset_bytes_by_process":
+                line["mem_at_reset_bytes_by_process"],
+            "counted_flops_trace": got["counted_flops"]}
+        log(json.dumps(out[name]))
+        if not out[name]["collectives_equal"]:
+            bad.append(f"{name}: the trace's collectives differ from the "
+                       f"processes' log")
+        if max(abs(x) for x in shares) > DRYRUN_PEAK_SHARE:
+            bad.append(f"{name}: peak memory: the trace's "
+                       f"{got['peak_live_bytes']} against {peaks} (shares "
+                       f"{shares})")
     if bad:
         raise AssertionError("phase 20: " + "; ".join(bad))
     return out
@@ -6490,7 +6583,7 @@ def main(argv=None) -> int:
         log(json.dumps({"phase": name, **p}))
     log(json.dumps({k: grid[k] for k in ("phase", "references_s",
                                          "spawn_s", "phase_s")}))
-    dryrun_check(dryrun_trace, grid["paths"]["train_ranks"])
+    dryrun_check(dryrun_trace, {k: grid["paths"][k] for k in DRYRUN_CELLS})
     phase11 = {r["run"]: r["launches"] for r in chaos["runs"]}
     host_faults = {r["run"]: r["launches"] for r in chaos["host"]}
 

@@ -739,6 +739,23 @@ class _GatherFrom(torch.autograd.Function):
         return g.narrow(ctx.dim, ctx.start, ctx.n), None, None, None
 
 
+class _GatherHeads(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, ranks, axis, dim):
+        ctx.ranks, ctx.axis, ctx.dim = ranks, axis, dim
+        part = x.movedim(dim, 0).contiguous()
+        full = ranks.all_gather(part.unsqueeze(0), axis)
+        full = full.reshape((-1,) + tuple(part.shape[1:]))
+        return full.movedim(0, dim).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        part = g.float().movedim(ctx.dim, 0).contiguous()
+        mine = ctx.ranks.reduce_scatter(part.unsqueeze(0), ctx.axis)[0]
+        return (mine.movedim(0, ctx.dim).to(g.dtype).contiguous(), None,
+                None, None)
+
+
 class _Exchange(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, ranks, axis, dim, send, recv):
@@ -819,6 +836,22 @@ def gather_from(ranks: "ProcessRanks", x: torch.Tensor, axis: AxisLike,
     attention."""
     _one_row(ranks)
     return _GatherFrom.apply(x, ranks, axis, dim % x.dim())
+
+
+def gather_heads(ranks: "ProcessRanks", x: torch.Tensor, axis: AxisLike,
+                 dim: int) -> torch.Tensor:
+    """``all_gather`` along ``dim`` over ``axis`` forward (the blocks in
+    ``x``'s dtype, in the axis's order); the backward sums the
+    gradient over ``axis`` and keeps this rank's block
+    (``reduce_scatter``, in float32, rounded once to the gradient's
+    dtype): the transpose of :func:`scatter_sum`. Where each rank holds
+    a block of some heads' columns and every rank reads whole heads, each
+    another one (the split-dim keys and values of ``1 < KV < model``):
+    the gradient of a rank's columns is what every rank reading their
+    head sends back, where :func:`gather_from` would keep only its
+    own."""
+    _one_row(ranks)
+    return _GatherHeads.apply(x, ranks, axis, dim % x.dim())
 
 
 def exchange(ranks: "ProcessRanks", x: torch.Tensor, send: Sequence[int],

@@ -121,9 +121,12 @@ LONG_CONTEXT_SKIP = ("full attention cannot run long-context decode "
                      "(DESIGN.md §4)")
 #: cells traced at once, each by a process of its own on one core
 CELLS_AT_ONCE = max(1, (os.cpu_count() or 2) // 2)
-LAYOUT_WAITS = ("the port cannot lay this model out over the grid's model "
-                "axis yet: waits for ROADMAP.md queue 1, \"The layouts at "
-                "the dry run's model = 16\"")
+#: why the rest of the cells that ``check_grid_layout`` refuses skip:
+#: xLSTM-125M's recurrent heads and Whisper-small's encoder frames
+LAYOUT_WAITS = ("the port cannot lay xLSTM's mLSTM and sLSTM heads or "
+                "Whisper's encoder frames out over the grid's model axis "
+                "yet: waits for ROADMAP.md queue 1, \"The layouts at the "
+                "dry run's model = 16\"")
 
 
 # -- the analytic columns (the JAX dry run's arithmetic) ----------------------

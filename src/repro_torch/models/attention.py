@@ -17,21 +17,26 @@ Over process ranks that hold shards
 branch its weights' specs give it (:func:`tp_layout`, the JAX package's
 rules at ``tp_size``): the heads sharded (``wk``/``wv`` too, or
 replicated when there is one KV head), ``wo`` row-parallel with
-``reduce_from``; or, where the heads do not divide ``tp_size``, every
-weight replicated and the JAX package's ``_seq_shard``: each rank
-attends from its block of query rows to every key, and ``gather_from``
-joins the rows. Rope is optional (the enc-dec's self-attention runs
-without it), and cross-attention attends from the same query heads or
-rows over every encoder position, its keys and values the rank's
-products of the encoder output. A KV head split over ranks (``1 < KV <
-model``) raises. On stacked ranks ``_seq_shard`` is a sharding
+``reduce_from``; the split-dim keys and values of ``1 < KV < model``
+(``wk``/``wv`` column-split, so that a rank holds part of one KV head's
+dimensions), gathered whole over ``model`` before ``k_norm`` and rope;
+or, where the heads do not divide ``tp_size``, every weight replicated
+and the JAX package's ``_seq_shard``: each rank attends from its block
+of query rows to every key, and ``gather_from`` joins the rows. Rope is
+optional (the enc-dec's self-attention runs without it), and
+cross-attention attends from the same query heads or rows over every
+encoder position, its keys and values the rank's products of the
+encoder output. On stacked ranks ``_seq_shard`` is a sharding
 constraint with nothing to do. :func:`mla_apply` over such ranks shards
 MLA's heads as ``_mla_init``'s specs do (``wq_up``, ``wk_up``, ``wv_up``
 by columns, ``wo`` by rows): the down projections, their norms and the
 decoupled rope key run replicated, and the latents enter the heads'
 products through one ``copy_to``, so the replicated weights take their
-whole gradient on every rank; heads that ``model`` does not divide
-raise. Both take this process's block of a cache over ranks (prefill
+whole gradient on every rank; where ``model`` does not divide the
+heads, the column blocks end inside heads, and an ``exchange`` after
+each column-parallel product moves the pieces of each head to the one
+rank that attends it (:func:`mla_pieces`), the inverse one before
+``wo``. Both take this process's block of a cache over ranks (prefill
 and decode: :func:`_attn_model_parallel`, :func:`_mla_model_parallel`),
 its data rows and the KV heads the JAX package's ``cache_specs`` give
 it.
@@ -56,12 +61,14 @@ attention call is used: it rounds differently.
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.comm import (axis_position, copy_to, gather_from,
-                              model_parallel, reduce_from)
+from repro_torch.comm import (axis_position, copy_to, exchange,
+                              gather_from, gather_heads, model_parallel,
+                              reduce_from)
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import (COMPUTE_DTYPE, Params, apply_rope,
                                        dense_init, enter_parallel,
@@ -309,14 +316,24 @@ def _cache_update(cache: Dict, new_k, new_v, q_pos,
 def tp_layout(cfg: ModelConfig, params: Params, model: int) -> str:
     """The model-parallel branch of an attention whose weights carry
     ``params.specs``, on a ``model`` axis of ``model`` ranks:
-    ``"heads"`` (a rank holds ``H / model`` query heads and the ``KV /
-    model`` KV heads they use, or every KV head when ``wk``/``wv`` are
-    replicated, ``KV == 1``; MLA: ``H / model`` heads of ``wq_up``,
-    ``wk_up``, ``wv_up`` and ``wo``) or ``"sequence"`` (every weight
-    replicated: ``_seq_shard``). Raises where a head would split over
-    ranks: the split-dim KV columns of ``1 < KV < model`` (TinyLlama at
-    ``model`` = 16), or query heads that ``model`` does not divide
-    (MiniCPM3's 40 at ``model`` = 16)."""
+
+    - ``"heads"``: a rank holds ``H / model`` query heads and the ``KV /
+      model`` KV heads they use, or every KV head where ``wk``/``wv``
+      are replicated (``KV == 1``); MLA: ``H / model`` heads of
+      ``wq_up``, ``wk_up``, ``wv_up`` and ``wo``;
+    - ``"split_kv"``: ``wk``/``wv`` column-split with ``1 < KV < model``
+      (TinyLlama's 4 KV heads at ``model`` = 8 or 16): a rank holds
+      ``KV hd / model`` columns of one KV head, gathered whole before
+      ``k_norm`` and rope (:func:`gather_heads`); ``KV`` must divide
+      ``model``, so that the rank's ``H / model`` query heads all use one
+      KV head (:func:`kv_head_of_rank`);
+    - ``"split_heads"`` (MLA): heads that ``model`` does not divide
+      (MiniCPM3's 40 at ``model`` = 16): each weight's column block ends
+      inside a head, and each head is attended by one owner
+      (:func:`mla_pieces`);
+    - ``"sequence"``: every weight replicated (``_seq_shard``).
+
+    Anything else raises ``ValueError``, naming the shape."""
     if cfg.attn_type == "mla":
         want = {n: (1 if n in ("wq_up", "wk_up", "wv_up") else
                     0 if n == "wo" else None) for n in params.specs}
@@ -324,11 +341,15 @@ def tp_layout(cfg: ModelConfig, params: Params, model: int) -> str:
         if got != want:
             raise ValueError(f"{cfg.arch_id}: MLA specs {params.specs} are "
                              f"not column/row-parallel by head")
-        if cfg.n_heads % model:
-            raise ValueError(f"{cfg.arch_id}: {cfg.n_heads} MLA heads do not "
-                             f"split over {model} model ranks: a head's "
-                             f"columns would split over ranks, not ported")
-        return "heads"
+        if cfg.n_heads % model == 0:
+            return "heads"
+        for name, width in _mla_widths(cfg).items():
+            if cfg.n_heads * width % model:
+                raise ValueError(
+                    f"{cfg.arch_id}: {cfg.n_heads} MLA heads do not split "
+                    f"over {model} model ranks: {name}'s {cfg.n_heads} x "
+                    f"{width} columns do not divide into {model} blocks")
+        return "split_heads"
     q, kv = sharded_dim(params, "wq"), sharded_dim(params, "wk")
     if q is None:
         if kv is not None or sharded_dim(params, "wo") is not None:
@@ -341,32 +362,85 @@ def tp_layout(cfg: ModelConfig, params: Params, model: int) -> str:
     if cfg.n_heads % model:
         raise ValueError(f"{cfg.arch_id}: {cfg.n_heads} query heads do not "
                          f"split over {model} model ranks")
-    if kv is not None and cfg.n_kv_heads % model:
+    if kv is None or cfg.n_kv_heads % model == 0:
+        return "heads"
+    if model % cfg.n_kv_heads:
         raise ValueError(
             f"{cfg.arch_id}: split-dim KV columns ({cfg.n_kv_heads} KV heads "
-            f"over {model} model ranks, 1 < KV < model) split a head's "
-            f"dimensions over ranks, which needs a partial score "
-            f"contraction over a sub-group of the model axis: not ported")
-    return "heads"
+            f"over {model} model ranks) neither split whole over the ranks "
+            f"nor divide them: a rank's {cfg.n_heads // model} query heads "
+            f"would use parts of two KV heads")
+    return "split_kv"
+
+
+def kv_head_of_rank(n_heads: int, n_kv_heads: int, model: int,
+                    rank: int) -> int:
+    """The KV head the query heads of the rank at ``rank`` along a
+    ``model`` axis of ``model`` ranks use in the ``"split_kv"`` layout:
+    its first query head's, ``(rank H / model) // (H / KV)``."""
+    return rank * (n_heads // model) // (n_heads // n_kv_heads)
+
+
+def _mla_widths(cfg: ModelConfig) -> Dict[str, int]:
+    """The columns a head has in each of MLA's column-parallel weights
+    (``wo``'s rows a head are ``wv_up``'s columns)."""
+    return {"wq_up": cfg.qk_nope_dim + cfg.qk_rope_dim,
+            "wk_up": cfg.qk_nope_dim, "wv_up": cfg.v_head_dim}
+
+
+def mla_owned_heads(n_heads: int, model: int, rank: int) -> range:
+    """The heads the rank at ``rank`` attends in the ``"split_heads"``
+    layout: those whose first column lies in its block, ``owner(h) =
+    floor(h model / H)``, the same in every weight (each holds ``H /
+    model`` heads' columns a rank)."""
+    return range(-(-rank * n_heads // model),
+                 -(-(rank + 1) * n_heads // model))
+
+
+@functools.lru_cache(maxsize=None)
+def mla_pieces(n_heads: int, width: int, model: int
+               ) -> Tuple[Tuple[Tuple[int, ...], ...],
+                          Tuple[Tuple[int, ...], ...]]:
+    """The piece table of one MLA weight whose ``n_heads`` heads of
+    ``width`` columns each are split by column over ``model`` ranks:
+    ``(send, recv)``, ``send[r][j]`` the columns of rank ``r``'s block
+    that belong to heads rank ``j`` owns (:func:`mla_owned_heads`),
+    ``recv[j][r] = send[r][j]``. A rank's block sends its consecutive
+    pieces to their owners in rank order, and an owner's received pieces
+    join in rank order into its heads' columns, in order. The columns
+    divide into ``model`` blocks (:func:`tp_layout` checks)."""
+    c = n_heads * width // model
+    owned = [mla_owned_heads(n_heads, model, j) for j in range(model)]
+
+    def overlap(r: int, j: int) -> int:
+        lo = max(r * c, owned[j].start * width)
+        hi = min((r + 1) * c, owned[j].stop * width)
+        return max(hi - lo, 0)
+    send = tuple(tuple(overlap(r, j) for j in range(model))
+                 for r in range(model))
+    recv = tuple(tuple(send[r][j] for r in range(model))
+                 for j in range(model))
+    return send, recv
 
 
 def _cache_heads(cfg: ModelConfig, cache: Dict, layout: str,
                  kv_heads: int) -> str:
     """How a rank holding ``kv_heads`` KV heads meets its layer's cache
-    block: ``"own"`` (the block holds exactly the rank's heads: the cache
-    shards them as ``wk`` does, or both hold every head) or
-    ``"gather"`` (the cache holds every KV head, ``wk``/``wv`` shard
-    them: the JAX package's ``_kv_spec`` keeps KV heads that do not
-    divide 16 whole). A cache that shards heads the rank computes whole
-    (the sequence layout) raises."""
+    block, in any of :func:`tp_layout`'s three GQA layouts: ``"own"``
+    (the block holds exactly the rank's heads: the cache shards them as
+    ``wk`` does, or both hold every head, as the sequence layout and the
+    split-dim keys gathered whole do) or ``"gather"`` (the heads layout,
+    the cache holding every KV head while ``wk``/``wv`` shard them: the
+    JAX package's ``_kv_spec`` keeps KV heads that do not divide 16
+    whole). A block of other heads raises."""
     held = cache["k"].shape[2]
     if held == kv_heads:
         return "own"
     if layout == "heads" and held == cfg.n_kv_heads:
         return "gather"
     raise ValueError(f"{cfg.arch_id}: a cache block of {held} KV heads "
-                     f"against {kv_heads} computed by the rank in the "
-                     f"{layout} layout: not ported")
+                     f"against {kv_heads} held by the rank in the "
+                     f"{layout} layout")
 
 
 def _attn_model_parallel(params, x, cfg: ModelConfig, q_pos, ranks,
@@ -389,7 +463,13 @@ def _attn_model_parallel(params, x, cfg: ModelConfig, q_pos, ranks,
     its KV heads where the block holds just those; where the block holds
     every KV head and ``wk``/``wv`` shard them, the new keys and values
     are gathered over ``model`` (one ``all_gather``), every head written
-    and the rank's own read back. Sequence layout: every rank projects
+    and the rank's own read back. Split-dim KV layout: the rank's
+    columns of the new keys and values are gathered whole over ``model``
+    (:func:`repro_torch.comm.gather_heads`, one ``all_gather``; its
+    backward a ``reduce_scatter``) before ``k_norm`` and rope, every
+    head written into the block, which holds every KV head, and the
+    rank's query heads attend the one KV head they use
+    (:func:`kv_head_of_rank`). Sequence layout: every rank projects
     and writes the keys and values of every position and attends from
     its block of query rows; one position (a decode step) is attended by
     every rank whole, as the JAX package's ``_seq_shard`` leaves a
@@ -407,12 +487,7 @@ def _attn_model_parallel(params, x, cfg: ModelConfig, q_pos, ranks,
         return y.reshape(inp.shape[0], inp.shape[1], heads, hd)
 
     split = layout == "sequence" and S > 1
-    if layout == "heads":
-        hq, pq = h, q_pos
-        heads = cfg.n_heads // m
-        kv_heads = (cfg.n_kv_heads if sharded_dim(params, "wk") is None
-                    else cfg.n_kv_heads // m)
-    else:
+    if layout == "sequence":
         if split and S % m:
             raise ValueError(f"sequence-parallel attention: {S} positions "
                              f"do not split over {m} model ranks")
@@ -420,12 +495,26 @@ def _attn_model_parallel(params, x, cfg: ModelConfig, q_pos, ranks,
                 else slice(None))
         hq, pq = h[:, rows], q_pos[:, rows]
         heads, kv_heads = cfg.n_heads, cfg.n_kv_heads
+    else:
+        hq, pq = h, q_pos
+        heads = cfg.n_heads // m
+        kv_heads = (cfg.n_kv_heads // m if layout == "heads"
+                    and sharded_dim(params, "wk") is not None
+                    else cfg.n_kv_heads)
     q = proj(hq, "wq", heads)
-    if cross_kv is None:
-        k, v = proj(h, "wk", kv_heads), proj(h, "wv", kv_heads)
+    if cross_kv is not None:
+        k, v, kv_pos = cross_kv
+    elif layout == "split_kv":
+        # this rank's columns of one KV head, gathered whole (every
+        # head) before k_norm and rope, which read a head's whole width
+        kv = torch.stack([parallel_product(h, params["wk"]),
+                          parallel_product(h, params["wv"])])
+        kv = gather_heads(ranks, kv, "model", 3)
+        k, v = kv.reshape(2, B, S, kv_heads, hd).unbind(0)
         kv_pos = q_pos
     else:
-        k, v, kv_pos = cross_kv
+        k, v = proj(h, "wk", kv_heads), proj(h, "wv", kv_heads)
+        kv_pos = q_pos
     if cfg.qk_norm:
         q = rms_norm(q, params["q_norm"], cfg.norm_eps)
         if cross_kv is None:
@@ -445,10 +534,13 @@ def _attn_model_parallel(params, x, cfg: ModelConfig, q_pos, ranks,
             cache = _cache_update(cache, k, v, q_pos, start)
             k, v = cache["k"], cache["v"]
         kv_pos = cache["pos"]
+    if layout == "split_kv":
+        j = kv_head_of_rank(cfg.n_heads, cfg.n_kv_heads, m, me)
+        k, v = k[:, :, j:j + 1], v[:, :, j:j + 1]
     out = _sdpa(q, k, v, pq, kv_pos, causal=causal and cross_kv is None,
                 window=window, scale=hd ** -0.5, ranks=ranks, axes=axes)
     out = out.reshape(B, hq.shape[1], heads * hd)
-    if layout == "heads":
+    if layout != "sequence":
         return row_parallel(ranks, out, params["wo"]), cache
     out = out @ params["wo"].to(COMPUTE_DTYPE)
     return (gather_from(ranks, out, "model", 1) if split else out), cache
@@ -562,13 +654,21 @@ def _mla_model_parallel(params, x, cfg: ModelConfig, q_pos, ranks,
                         cache: Optional[Dict] = None):
     """MLA over the replicated ``x`` (B, S, d) on a process holding its
     shards: the latents (``cq``, ``ckv`` and the rope key, computed
-    replicated) enter this rank's heads through one ``copy_to``, whose
-    backward sums their gradient over ``model``; ``wo`` is row-parallel.
+    replicated) enter this rank's column blocks through one ``copy_to``,
+    whose backward sums their gradient over ``model``; ``wo`` is
+    row-parallel. Where ``model`` does not divide the heads
+    (``"split_heads"``), a block ends inside a head: after each of
+    ``wq_up``'s, ``wk_up``'s and ``wv_up``'s products one ``exchange``
+    moves the pieces of each head to its owner (:func:`mla_pieces`), the
+    rank attends the heads it owns (:func:`mla_owned_heads`), and before
+    ``wo`` the inverse ``exchange`` returns their output columns to the
+    blocks of ``wo``'s rows; each exchange's backward is its inverse.
     The rope part of the scores contracts the query's rope columns over
     every head as well (the JAX package's ``"bshr,btkr->bkst"``, the
-    same for all heads): each rank sums its heads' and one ``psum``
-    forward (``reduce_from``) and one backward (``copy_to``) join them,
-    ``(B, S, rope)`` float32 each. The output is replicated.
+    same for all heads): each rank sums its heads' (the heads it owns)
+    and one ``psum`` forward (``reduce_from``) and one backward
+    (``copy_to``) join them, ``(B, S, rope)`` float32 each. The output
+    is replicated.
 
     ``cache``: this process's block (its data rows, every slot or a
     :class:`TimeBlock`'s: the latent cache's spec has no ``model``
@@ -578,10 +678,23 @@ def _mla_model_parallel(params, x, cfg: ModelConfig, q_pos, ranks,
     keys; a time block's scores are combined over its axes."""
     B, S, _ = x.shape
     m = ranks.axis_size("model")
-    tp_layout(cfg, params, m)
-    H = cfg.n_heads // m
+    layout = tp_layout(cfg, params, m)
+    me = axis_position(ranks, "model")
     nope, rope_d, vh = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
     qr, r = cfg.q_lora_rank, cfg.kv_lora_rank
+    H = len(mla_owned_heads(cfg.n_heads, m, me))
+
+    def own(y, width, back=False):
+        """``y``'s last dimension from this rank's column block to the
+        columns of the heads it owns (``back``: the inverse)."""
+        if layout == "heads":
+            return y
+        send, recv = mla_pieces(cfg.n_heads, width, m)
+        send, recv = send[me], recv[me]
+        if back:
+            send, recv = recv, send
+        return exchange(ranks, y, send, recv, "model", -1)
+
     x = x.to(COMPUTE_DTYPE)
     cq = rms_norm(x @ params["wq_down"].to(COMPUTE_DTYPE), params["q_norm"],
                   cfg.norm_eps)
@@ -602,17 +715,20 @@ def _mla_model_parallel(params, x, cfg: ModelConfig, q_pos, ranks,
         krf = cache["k_rope"].to(COMPUTE_DTYPE).float()
         kv_pos = cache["pos"]
     T = ckvf.shape[1]
-    q = parallel_product(cqf, params["wq_up"]).reshape(B, S, H, nope + rope_d)
+    q = own(parallel_product(cqf, params["wq_up"]), nope + rope_d)
+    q = q.reshape(B, S, H, nope + rope_d)
     q_rope = apply_rope(q[..., nope:], q_pos, cfg.rope_theta)
     q_rope = copy_to(ranks, reduce_from(ranks, q_rope.float().sum(dim=2),
                                         "model"), "model")
     s_rope = torch.einsum("bsr,btr->bst", q_rope,
                           krf.to(COMPUTE_DTYPE).float())[:, None]
-    k_nope = parallel_product(ckvf, params["wk_up"]).reshape(B, T, H, nope)
-    val = parallel_product(ckvf, params["wv_up"]).reshape(B, T, H, vh)
-    out = _mla_core(q[..., :nope], s_rope, k_nope, val, q_pos, kv_pos,
+    k_nope = own(parallel_product(ckvf, params["wk_up"]), nope)
+    val = own(parallel_product(ckvf, params["wv_up"]), vh)
+    out = _mla_core(q[..., :nope], s_rope, k_nope.reshape(B, T, H, nope),
+                    val.reshape(B, T, H, vh), q_pos, kv_pos,
                     (nope + rope_d) ** -0.5, ranks, _time_axes(cache))
-    return row_parallel(ranks, out.reshape(B, S, H * vh), params["wo"]), cache
+    out = own(out.reshape(B, S, H * vh), vh, back=True)
+    return row_parallel(ranks, out, params["wo"]), cache
 
 
 def mla_apply(params, x, cfg: ModelConfig, q_pos,

@@ -17,7 +17,8 @@ specs), and :func:`jit_train_step` runs the step the JAX package jits
 over a mesh, with every collective explicit: the batch over the data
 axes, the decoder model-parallel over ``model`` (the layers'
 ``copy_to``/``reduce_from``/``gather_from``; GQA, SWA or MLA attention,
-the MLP or the MoE with its dispatch's ``all_to_all``s; Mamba2 and mLSTM
+the split-dim keys and values gathered by ``gather_heads`` and MLA's
+split heads moved by ``exchange``, the MLP or the MoE with its dispatch's ``all_to_all``s; Mamba2 and mLSTM
 by head with their ``[z | x]`` exchange, mLSTM's ``scatter_sum`` and the
 norms' ``sum_both``, sLSTM's gates gathered; zamba2's shared attention
 block at each of its points; the VLM's image tokens in front of the
@@ -298,8 +299,17 @@ def _blocks(meta) -> list:
 
 def check_grid_layout(cfg, model: int, meta=None) -> None:
     """Raise ``ValueError`` where the model of ``cfg`` cannot be laid out
-    over a ``model`` axis of ``model`` ranks (the layouts
-    :func:`jit_train_step` lists); ``meta``: its :func:`meta_params`."""
+    over a ``model`` axis of ``model`` ranks; ``meta``: its
+    :func:`meta_params`. Every attention takes one of
+    :func:`repro_torch.models.attention.tp_layout`'s layouts (by heads,
+    split-dim KV, MLA's split heads, by sequence). What raises: KV heads
+    that neither split whole over ``model`` nor divide it, MLA columns
+    that do not divide into ``model`` blocks, Mamba2, mLSTM or sLSTM
+    heads that ``model`` does not divide
+    (:func:`repro_torch.models.ssm.tp_heads`: xLSTM-125M's 4 at 8 or
+    16), experts padded otherwise for ``model`` expert ranks than for
+    the weights, and encoder frames that the sequence layout does not
+    split over ``model`` (Whisper-small's 1500 over 8 or 16)."""
     meta = meta_params(cfg) if meta is None else meta
     for block in _blocks(meta):
         attns = [a for a in ("attn", "self_attn", "cross_attn")
@@ -363,14 +373,9 @@ def jit_train_step(model: Model, opt_cfg: AdamWConfig, ranks: Ranks,
     parameters cast from them.
 
     Every family: the dense (GQA, SWA, MLA), MoE, SSM (xLSTM) and hybrid
-    (zamba2) decoders, the VLM (internvl2) and the enc-dec (whisper).
-    Raise: a KV head split over model ranks, MLA heads that ``model``
-    does not divide (:func:`repro_torch.models.attention.tp_layout`),
-    experts padded otherwise for ``model`` expert ranks than for the
-    weights, Mamba2, mLSTM or sLSTM heads that ``model`` does not divide
-    (:func:`repro_torch.models.ssm.tp_heads`), and encoder frames that
-    the sequence layout does not split over ``model`` (Whisper's 1500
-    over 8): :func:`check_grid_layout`."""
+    (zamba2) decoders, the VLM (internvl2) and the enc-dec (whisper),
+    the attention by heads, by split-dim KV columns, by MLA's split heads
+    or by sequence. What raises: :func:`check_grid_layout`."""
     cfg = model.cfg
     dp = tuple(dp_axes)
     p_specs, opt_specs = make_state_shardings(model, _sizes(ranks),

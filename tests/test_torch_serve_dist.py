@@ -619,8 +619,9 @@ def test_decode_collectives_equal_the_prediction(spawned, cases, case):
 
 
 def test_what_is_not_ported_raises(spawned):
-    """Split KV heads (2 over 4 model ranks, on a ``(1, 4)`` grid over
-    the same processes), 3 MLA heads over 2 model ranks, 6 experts that
+    """Split KV heads that do not divide the model ranks (3 over 4, on a
+    ``(1, 4)`` grid over the same processes), 3 MLA heads of 5 value
+    columns over 2 model ranks, 6 experts that
     pad to 16 in the weights and to 6 for 2 expert ranks, and the MoE at
     a batch of one over 2 data ranks (the decode's all_gather of
     per-expert counts would count its replicated row once a data rank)
@@ -632,7 +633,7 @@ def test_what_is_not_ported_raises(spawned):
         msgs = res["raises"]
         assert set(msgs) == {"split_kv", "mla_heads", "padding",
                              "moe_one_row"}
-        assert "split-dim KV columns (2 KV heads over 4 model ranks" in \
+        assert "split-dim KV columns (3 KV heads over 4 model ranks" in \
             msgs["split_kv"]
         assert "3 MLA heads do not split over 2" in msgs["mla_heads"]
         assert "pad 6 experts to 6" in msgs["padding"]

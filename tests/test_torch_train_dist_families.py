@@ -575,8 +575,8 @@ def test_no_weight_is_gathered_over_model(spawned, cases, case):
 
 def test_what_is_not_ported_raises(spawned):
     """On ``(2, 2)``: 6 experts pad to 16 in the weights but to 6 for 2
-    expert ranks; 3 MLA heads, 1 xLSTM head and 3 Mamba2 heads do not
-    split over 2 ranks; smoke xLSTM, zamba2, whisper and internvl2 (the
+    expert ranks; 3 MLA heads of 5 value columns, 1 xLSTM head and 3
+    Mamba2 heads do not split over 2 ranks; smoke xLSTM, zamba2, whisper and internvl2 (the
     SSM, hybrid, enc-dec and VLM families) build."""
     results, _ = spawned
     for res in results:
@@ -594,7 +594,9 @@ def test_what_is_not_ported_raises(spawned):
 
 def test_published_configs_raise_where_they_do_not_split():
     """Qwen1.5-MoE's 60 experts pad alike only on 8 or 16 expert ranks;
-    MiniCPM3's 40 MLA heads do not split over 16 model ranks."""
+    MiniCPM3's 40 MLA heads split over 16 model ranks mid-head (the
+    split-heads layout), and raise where a weight's columns do not
+    divide into the model ranks' blocks (``wk_up``'s 40 x 64 over 3)."""
     qwen = get_config("qwen2_moe_a2_7b")
     e_weights = padded_experts(qwen)
     assert e_weights == 64
@@ -606,8 +608,9 @@ def test_published_configs_raise_where_they_do_not_split():
     attn = meta_params(dataclasses.replace(cfg, num_layers=1)).blocks[0].attn
     assert tp_layout(cfg, attn, 4) == "heads"
     assert tp_layout(cfg, attn, 8) == "heads"
+    assert tp_layout(cfg, attn, 16) == "split_heads"
     with pytest.raises(ValueError, match="40 MLA heads do not split"):
-        tp_layout(cfg, attn, 16)
+        tp_layout(cfg, attn, 3)
 
 
 def test_stacked_moe_step_reaches_no_model_parallel_code(monkeypatch, cases):

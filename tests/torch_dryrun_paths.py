@@ -3,7 +3,8 @@
 ``tests/test_torch_dryrun.py`` holds the dry run's trace of a process's
 program (``repro_torch.launch.dryrun.trace``: a fake process group,
 ``FakeTensorMode``) to the same program run by 4 gloo CPU processes on
-the same ``(2, 2)`` grid (:func:`real_programs`, given to
+the same ``(2, 2)`` grid, or the ``(1, 4)`` one over them for the heads
+split over 4 model ranks (:func:`real_programs`, given to
 ``comm.spawn_ranks``): one case a family and kind, each the dry run's
 ``run_program``. Run as a script, this file traces the cases of the
 families it is given, each program on a fake grid of its own, and saves
@@ -33,12 +34,28 @@ FAMILIES = {"dense": ("tinyllama_1_1b", {"tp_size": 2}),
             "moe": ("qwen2_moe_a2_7b", {"num_experts": 16}),
             "mla": ("minicpm3_4b", {}),
             "hybrid": ("zamba2_1_2b", {}),
-            "encdec": ("whisper_small", {})}
+            "encdec": ("whisper_small", {}),
+            # heads split over 4 model ranks: 2 KV heads, half a head a
+            # rank; 10 MLA heads, 2.5 a rank, cut inside the nope part
+            "split_kv": ("tinyllama_1_1b", {"tp_size": 4}),
+            "mla_split": ("minicpm3_4b", {
+                "d_model": 80, "n_heads": 10, "n_kv_heads": 10,
+                "qk_nope_dim": 16, "qk_rope_dim": 8, "v_head_dim": 8})}
+#: the families traced on a grid other than ``GRID``, over the same 4
+#: processes
+GRIDS = {"split_kv": (1, 4), "mla_split": (1, 4)}
+#: the families whose ranks attend unequal numbers of heads (2 or 3 of
+#: the 10 MLA heads), so that their programs' FLOPs and bytes differ
+UNEVEN = ("mla_split",)
 
 
 def config(family: str):
     arch, replace = FAMILIES[family]
     return dataclasses.replace(get_smoke_config(arch), **replace)
+
+
+def grid(family: str):
+    return GRIDS.get(family, GRID)
 
 
 def shapes(family: str) -> dict:
@@ -61,14 +78,21 @@ def summary(got: dict, shape, axes, rank: int) -> dict:
 
 
 def real_programs(ranks, families) -> dict:
-    """Every kind of each family's program on the real process group."""
+    """Every kind of each family's program on the real process group (on
+    the family's grid, built once over the same processes)."""
+    from repro_torch.comm import ProcessRanks
+    grids = {tuple(ranks.shape): ranks}
     out = {}
     for fam in families:
+        g = grid(fam)
+        if g not in grids:
+            grids[g] = ProcessRanks(g, ranks.axes, backend=ranks.backend,
+                                    device=ranks.device)
+        rk = grids[g]
         model = build(config(fam))
         for kind, sp in shapes(fam).items():
-            got = dryrun.run_program(model, sp, ranks, ("data",))
-            out[(fam, kind)] = summary(got, ranks.shape, ranks.axes,
-                                       ranks.rank)
+            got = dryrun.run_program(model, sp, rk, ("data",))
+            out[(fam, kind)] = summary(got, rk.shape, rk.axes, rk.rank)
     return out
 
 
@@ -78,8 +102,8 @@ def fake_programs(families) -> dict:
     out = {}
     for fam in families:
         for kind, sp in shapes(fam).items():
-            got = dryrun.trace(config(fam), sp, GRID, AXES)
-            out[(fam, kind)] = summary(got, GRID, AXES, 0)
+            got = dryrun.trace(config(fam), sp, grid(fam), AXES)
+            out[(fam, kind)] = summary(got, grid(fam), AXES, 0)
     return out
 
 

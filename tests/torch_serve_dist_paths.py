@@ -116,7 +116,8 @@ def rank_serve(ranks: ProcessRanks, cfg, flat: dict, inputs: dict) -> dict:
 def raising_cases() -> dict:
     """What serving over ``(2, 2)`` (or a ``(1, 4)`` grid over the same
     processes, for the split KV heads) refuses, ``{name: (config, grid,
-    batch)}``: two KV heads over 4 model ranks; 3 MLA heads over 2;
+    batch)}``: three KV heads over 4 model ranks (which they neither
+    split over nor divide); 3 MLA heads of 5 value columns over 2;
     smoke qwen2-moe's 6 experts (the weights pad them to 16, two expert
     ranks to 6); the MoE (16 experts) at a batch of one over 2 data
     ranks, whose one row the decode's per-expert counts would count
@@ -124,9 +125,11 @@ def raising_cases() -> dict:
     tiny = get_smoke_config("tinyllama_1_1b")
     mla = get_smoke_config("minicpm3_4b")
     moe = get_smoke_config("qwen2_moe_a2_7b")
-    return {"split_kv": (dataclasses.replace(tiny, tp_size=4), (1, 4), 4),
-            "mla_heads": (dataclasses.replace(mla, n_heads=3, n_kv_heads=3),
-                          (2, 2), 4),
+    return {"split_kv": (dataclasses.replace(tiny, d_model=96, n_heads=12,
+                                             n_kv_heads=3, tp_size=4),
+                         (1, 4), 4),
+            "mla_heads": (dataclasses.replace(mla, n_heads=3, n_kv_heads=3,
+                                              v_head_dim=5), (2, 2), 4),
             "padding": (moe, (2, 2), 4),
             "moe_one_row": (dataclasses.replace(moe, num_experts=16),
                             (2, 2), 1)}

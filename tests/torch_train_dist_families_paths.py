@@ -55,12 +55,14 @@ def run_cases(ranks, cases: dict, opt_cfg: AdamWConfig) -> dict:
 def raising_configs() -> dict:
     """Configs ``jit_train_step`` refuses on a model axis of 2: smoke
     qwen2-moe's 6 experts (the weights pad them to 16, two expert ranks
-    to 6), MLA with 3 heads, xLSTM with 1 head, Mamba2 with 3 (zamba2 at
+    to 6), MLA with 3 heads of 5 value columns (``wv_up``'s 15 do not
+    split into 2 blocks), xLSTM with 1 head, Mamba2 with 3 (zamba2 at
     ``d_model`` 96); with smoke xLSTM, zamba2, whisper and internvl2,
     which it builds."""
     mla = get_smoke_config("minicpm3_4b")
     return {"padding": get_smoke_config("qwen2_moe_a2_7b"),
-            "mla_heads": dataclasses.replace(mla, n_heads=3, n_kv_heads=3),
+            "mla_heads": dataclasses.replace(mla, n_heads=3, n_kv_heads=3,
+                                             v_head_dim=5),
             "xlstm_heads": dataclasses.replace(
                 get_smoke_config("xlstm_125m"), ssm_heads=1),
             "mamba_heads": dataclasses.replace(

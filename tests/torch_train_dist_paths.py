@@ -137,8 +137,9 @@ def collectives(ranks) -> dict:
 
 
 def split_dim_config():
-    """1 < KV < model on a model axis of 2: 3 KV heads with the heads
-    sharded (smoke TinyLlama with 6 heads of 8 and ``tp_size`` 2)."""
+    """KV heads that neither split whole over a model axis of 2 nor
+    divide it: 3 KV heads with the heads sharded (smoke TinyLlama with 6
+    heads of 8 and ``tp_size`` 2)."""
     return dataclasses.replace(get_smoke_config("tinyllama_1_1b"),
                                d_model=48, n_heads=6, n_kv_heads=3,
                                tp_size=2)
