@@ -170,8 +170,9 @@ Phases, in order (any failure ends the script with a non-zero exit):
     8 requests complete, every token below the vocabulary. No kernel
     lies on these paths: every model's run reads zero launches of each.
 14. ``train``: (1) ``train-tinyllama-1.1b``: TinyLlama-1.1B at its
-    published width, its depth cut 22 -> 11 layers as phase 16's (the
-    script's time limit), through ``repro_torch.launch.train.train``, the
+    published width, its depth cut 22 -> 6 layers (the script's time
+    limit; 11, phase 16's, until phase 18's (1, 8) cells needed the
+    room), through ``repro_torch.launch.train.train``, the
     launcher's main path: a Sector deployment of 4 slaves with
     replication 2 in a ``tempfile.mkdtemp()`` directory, the synthetic
     corpus as 8 Sector slices, ``SectorDataPipeline`` batches of 8
@@ -339,7 +340,8 @@ Phases 16-18 (and 19) share one spawn of 8 processes for their seven
     path's warm step against its reference, gloo bytes and seconds by op
     and axis, the peak memory a process and K1's launches.
 18. ``train_ranks_cells``: four families as 8 gloo processes on
-    ``cuda:0`` on ``(data, model) = (2, 4)`` (each process trains a
+    ``cuda:0`` on ``(data, model) = (2, 4)``, two of them on ``(1, 8)``
+    too (each process trains a
     cell, frees it, trains the next; the lines printed as
     ``train_ranks_cells_<family>``), each against the one-process step
     on the card and checked as phase 16 is. (1)
@@ -367,9 +369,22 @@ Phases 16-18 (and 19) share one spawn of 8 processes for their seven
     64-448 drawn from the seed, the loss the global masked mean. (4)
     ``train-internvl2-1b-2x4-8proc-1xH100``: InternVL2-1B's LM at its
     published width (d 896, 14 heads, 2 KV heads, d_ff 4864, vocab
-    151655), depth cut 24 -> 12, sequence layout: 8 rows of 256 image
+    151655), depth cut 24 -> 6, sequence layout: 8 rows of 256 image
     embeddings drawn on the card in front of 768 tokens of the corpus,
-    the loss on the text. All at the launcher's lr and warmup. The
+    the loss on the text. (5)
+    ``train-xlstm-125m-1x8-8proc-1xH100`` and (6)
+    ``train-whisper-small-1x8-8proc-1xH100``: cells (1) and (3) on
+    ``(1, 8)``, where ``model`` outnumbers the heads: each of xLSTM's 4
+    mLSTM heads spans 2 processes (each holds 192 of the head's 384
+    ``v`` channels and its head's whole ``q``, ``k`` and gates, all from
+    the one ``scatter_sum``, and runs its rows of the head's state), its
+    sLSTM whole on every process; Whisper's 12 heads in the sequence
+    layout over 8 ranks that do not divide its 1500 frames: 188 query
+    rows a process, the last 184, padded to 188 for the gather (the 448
+    decoder positions: 56 each). They are held to their ``(2, 4)``
+    twin's one-process reference, its floor, faults and bounds
+    (``REUSED_REFERENCES``: a reference does not depend on the grid).
+    All at the launcher's lr and warmup. The
     reference also reads the one process's own floor (its first gradient
     over two halves of the batch, its steps over two micro batches) and
     two planted faults: the gradient of the batch's first half of rows
@@ -433,7 +448,11 @@ Phases 16-18 (and 19) share one spawn of 8 processes for their seven
     16's 11 layers on ``(1, 8)``, its 4 KV heads split over the 8 model
     ranks: each layer gathers the new keys' and values' columns whole
     over ``model`` (one ``all_gather``) before rope and writes every
-    head into the caches, which keep every KV head; 4 decode steps. The
+    head into the caches, which keep every KV head; 4 decode steps. (7)
+    ``serve-xlstm-125m-1x8-8proc-1xH100``: cell (4) on ``(1, 8)``, each
+    mLSTM head over 2 processes, each reading its rows of the head's
+    state ``C`` and writing the whole state after one ``all_gather``;
+    4 decode steps, as cell (4)'s, whose reference it reuses. The
     references on the card: the
     one process's prefill and greedy decode (the MoE: phase 12's stacked
     grid prefill on ``Ranks(1, 8)`` and its decode), with planted faults
@@ -456,14 +475,18 @@ Phases 16-18 (and 19) share one spawn of 8 processes for their seven
     the CPU beside the phases after it, traces phase 16's steps on fake
     grids (``dryrun.trace``: a ``fake`` process group and
     ``FakeTensorMode``, rank 0's program; ``DRYRUN_CELLS``): TinyLlama-1.1B
-    at 11 layers, 8 x 2048 tokens on ``(2, 4)``, and its split-dim KV
-    cell, 4 layers, 8 x 1024 tokens on ``(1, 8)``, each with phase 16's
+    at 11 layers, 8 x 2048 tokens on ``(2, 4)``, its split-dim KV
+    cell, 4 layers, 8 x 1024 tokens on ``(1, 8)``, and phase 18's
+    xLSTM-125M at 6 layers, 8 x 1024 tokens on ``(1, 8)`` (its sLSTM
+    loop traced in blocks: ``ssm.TIME_BLOCKS``), each with phase 16's
     remat, no master copy and ZeRO-1. Checks: each trace's collectives
     by op and axes (calls and bytes) equal to the logged step of its
-    cell's process 0 exactly, and its peak live bytes within
-    ``DRYRUN_PEAK_SHARE`` of every process's
+    cell's process 0 exactly, and its peak live bytes, plus the copy of
+    the step's largest ``reduce_scatter`` input that gloo holds and NCCL
+    does not, within ``DRYRUN_PEAK_SHARE`` of every process's
     ``torch.cuda.max_memory_allocated()`` over the cell's steps (the
-    lines ``dryrun_check`` and ``dryrun_check_split_kv``). Prints
+    lines ``dryrun_check``, ``dryrun_check_split_kv`` and
+    ``dryrun_check_cells_ssm_1x8``). Prints
     both, the trace's seconds and each process's memory at the start of
     the steps beside the trace's state bytes.
 
@@ -537,12 +560,13 @@ STREAM_CARRY = 1 << 18
 TENANTS = {"free": 1.0, "pro": 3.0, "enterprise": 4.0}
 STREAM_STEPS = 34
 #: phase 14: TinyLlama-1.1B at its published width through the launcher's
-#: functions, its depth cut 22 -> 11 as phase 16's (8 sequences of its
+#: functions, its depth cut 22 -> 6 (11 until phase 18's (1, 8) cells
+#: needed the room; 8 sequences of its
 #: 2048-token context, 8 steps, an async save at step 4, the launcher's
 #: lr and warmup); Qwen1.5-MoE-A2.7B at its published width with its
 #: depth cut to 2 layers, 3 steps on phase 12's grid and prompts
 TRAIN_ARCH = "tinyllama_1_1b"
-TRAIN_LAUNCH_LAYERS = 11
+TRAIN_LAUNCH_LAYERS = 6
 TRAIN_LAUNCH_STEPS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_CKPT_EVERY = 8, 8, 2048, 4
 #: the schedule's ``total_steps`` and the corpus's length that phases
 #: 16-18 build from: the launcher's at 16 steps, phase 14's before its cut
@@ -586,6 +610,14 @@ GRID_TIMEOUT_S = 900
 #: cuBLAS and cuBLASLt workspaces of each thread that runs products
 #: (the forward's and autograd's), the scratch CUDA kernels take from
 #: it, and whatever tensors earlier cells left alive in the process.
+#: Gloo's ``reduce_scatter`` besides holds a copy of its input (on the
+#: CPU a 64 MB input leaves 64 MB more live after the call and reads 128
+#: MB more at its peak), which NCCL, whose grids the dry run traces, does
+#: not make: the trace's peak is held with the step's largest
+#: ``reduce_scatter`` input added. Phase 18's xLSTM cell on (1, 8), whose
+#: 252 MB ``scatter_sum`` is a sixth of its peak, read 1.6125e9 on an
+#: NVIDIA H100 80GB HBM3 at 700 W against 1.2893e9 traced: the trace, 0.0704e9 left from its twin
+#: at the start and one 0.2522e9 copy within 0.1%.
 #: Phase 16's readings on an NVIDIA H100 80GB HBM3 at 700 W before this
 #: phase (4.754e9 to 4.761e9 bytes) lie 5.4-5.5% above the trace's
 #: 4.4997e9 bytes; its split-dim KV cell's, alone on the card
@@ -643,11 +675,15 @@ SPLIT_KV_GRAD_LEAVES = (
     "blocks.0.attn.wv", "blocks.0.attn.wo", "blocks.3.attn.wq",
     "blocks.3.attn.wk", "blocks.3.attn.wv", "blocks.3.attn.wo",
     "blocks.3.mlp.w_down")
-#: phase 20's traced cells: phase line, depth, grid, positions a row
+#: phase 20's traced cells: phase line, arch, depth, grid, positions a
+#: row (phase 18's xLSTM cell on (1, 8): its mLSTM heads split over the
+#: model ranks, its sLSTM whole on each)
 DRYRUN_CELLS = {
-    "train_ranks": (TRAIN_RANKS_LAYERS, TRAIN_RANKS_GRID, TRAIN_SEQ),
-    "train_ranks_split_kv": (SPLIT_KV_LAYERS, SPLIT_KV_GRID,
-                             SPLIT_KV_SEQ)}
+    "train_ranks": (TRAIN_ARCH, TRAIN_RANKS_LAYERS, TRAIN_RANKS_GRID,
+                    TRAIN_SEQ),
+    "train_ranks_split_kv": (TRAIN_ARCH, SPLIT_KV_LAYERS, SPLIT_KV_GRID,
+                             SPLIT_KV_SEQ),
+    "train_ranks_cells_ssm_1x8": ("xlstm_125m", 6, (1, 8), 1024)}
 #: leaves whose first-step gradient blocks are held to the one process's
 TRAIN_GRAD_LEAVES = ("embed", "final_ln", "blocks.0.ln1", "blocks.0.attn.wq",
                      "blocks.0.attn.wk", "blocks.5.attn.wo",
@@ -767,7 +803,8 @@ SSM_RANKS_BOUNDS = {
                "share_beyond_0.005_sum_lr": 0.95}}
 #: phase 18's enc-dec and VLM cells (in phase 18's spawn):
 #: Whisper-small and InternVL2-1B at their published widths, depths cut
-#: (Whisper 12 + 12 -> 6 + 6 layers, InternVL2 24 -> 12) to fit the
+#: (Whisper 12 + 12 -> 6 + 6 layers, InternVL2 24 -> 6, 12 until the
+#: (1, 8) cells below needed the room) to fit the
 #: script's time limit, each trained 2 steps as 8 processes on (2, 4)
 #: against the one-process step; by architecture: (the cell, the
 #: config's cuts, the leaves whose first-step gradient blocks are held).
@@ -787,11 +824,11 @@ ENCDEC_RANKS_CELLS = {
         "dec_blocks.5.cross_attn.wk", "dec_blocks.5.cross_attn.wo",
         "dec_blocks.5.mlp.w_down")),
     "internvl2_1b": ("train-internvl2-1b-2x4-8proc-1xH100",
-                     {"num_layers": 12}, (
+                     {"num_layers": 6}, (
         "embed", "final_ln", "img_proj", "blocks.0.ln1",
-        "blocks.0.attn.wq", "blocks.0.attn.wk", "blocks.11.attn.wv",
-        "blocks.11.attn.wo", "blocks.11.mlp.w_gate",
-        "blocks.11.mlp.w_down"))}
+        "blocks.0.attn.wq", "blocks.0.attn.wk", "blocks.5.attn.wv",
+        "blocks.5.attn.wo", "blocks.5.mlp.w_gate",
+        "blocks.5.mlp.w_down"))}
 WHISPER_TRANSCRIPT_MIN = 64
 VLM_TEXT_LEN = 768
 #: the enc-dec and VLM cells' bounds, fixed before their first reading:
@@ -802,6 +839,22 @@ VLM_TEXT_LEN = 768
 #: over two micro batches) and the planted half-batch fault, and the
 #: phase fails where a fault reads within its bound
 ENCDEC_RANKS_BOUNDS = dict(SSM_RANKS_BOUNDS)
+#: phases 18 and 19's cells on (1, 8), for users who shard an xLSTM or a
+#: Whisper over a model axis wider than its heads: xLSTM-125M's 4 mLSTM
+#: heads each over 2 model ranks (192 of a head's 384 ``v`` channels a
+#: process, its ``q``, ``k`` and gates whole), its sLSTM whole on every
+#: rank; Whisper-small's 12 heads against 8 ranks in the sequence layout
+#: with uneven blocks (1500 frames: 188 rows a process, the last 184; 448
+#: tokens: 56). Each trains (or serves) the model, depth and batch of the
+#: (2, 4) cell it names and is held to that cell's one-process reference
+#: and bounds: a reference does not depend on the grid, so the cell
+#: reuses it (its directory copied before the (2, 4) cell's processes
+#: remove theirs); by phase line: the (2, 4) cell's line
+SPLIT_RECURRENT_GRID = (1, 8)
+REUSED_REFERENCES = {
+    "train_ranks_cells_ssm_1x8": "train_ranks_cells_ssm",
+    "train_ranks_cells_audio_1x8": "train_ranks_cells_audio",
+    "serve_ranks_xlstm_1x8": "serve_ranks_xlstm"}
 #: phase 19: serving as 8 processes in phases 16-18's spawn, after their
 #: cells: (phase line, cell, arch, (data, model) grid, depth or None for
 #: the published one). Each prefills its prompts into its caches
@@ -831,6 +884,8 @@ SERVE_RANKS_CELLS = (
      SERVE_ARCH, SERVE_GRID, None),
     ("serve_ranks_xlstm", "serve-xlstm-125m-2x4-8proc-1xH100",
      "xlstm_125m", TRAIN_RANKS_GRID, None),
+    ("serve_ranks_xlstm_1x8", "serve-xlstm-125m-1x8-8proc-1xH100",
+     "xlstm_125m", SPLIT_RECURRENT_GRID, None),
     ("serve_ranks_zamba2_long",
      "serve-zamba2-1.2b-long-500k-2x4-8proc-1xH100", "zamba2_1_2b",
      TRAIN_RANKS_GRID, 12),
@@ -843,13 +898,16 @@ SERVE_RANKS_CELLS = (
 #: reference on one card), decoded at 262140-262147, which straddle the
 #: boundary of the two data ranks' time blocks; TinyLlama's, MiniCPM3's
 #: and the MoE's 4 decode steps, not 8, since the two cells above needed
-#: the room in the script's time limit (PERF.md has their readings at 8)
+#: the room in the script's time limit (PERF.md has their readings at 8),
+#: and xLSTM's two cells' 4 since the (1, 8) cell needed it
 SERVE_RANKS_SHAPES = {
     "serve_ranks_zamba2_long": {"prompts": 1, "prompt_len": 64,
                                 "cache_len": 524288, "first_pos": 262140},
     **{line: {"steps": 4} for line in ("serve_ranks_tinyllama",
                                        "serve_ranks_mla", "serve_ranks_moe",
-                                       "serve_ranks_split_kv")}}
+                                       "serve_ranks_split_kv",
+                                       "serve_ranks_xlstm",
+                                       "serve_ranks_xlstm_1x8")}}
 #: phase 19's bounds against the reference, by cell: the logits
 #: (float32, the real vocabulary) over every call, each written
 #: attention cache slot, each recurrent cache leaf relative to its
@@ -860,6 +918,7 @@ SERVE_RANKS_BOUNDS = {
     "serve_ranks_moe": {"logits": 2.25, "cache": 1.0,
                         "moved_share": 0.12},
     "serve_ranks_xlstm": {"logits": 0.75, "state": 0.15},
+    "serve_ranks_xlstm_1x8": {"logits": 0.75, "state": 0.15},
     "serve_ranks_zamba2_long": {"logits": 0.25, "cache": 0.25,
                                 "state": 0.15},
     "serve_ranks_split_kv": {"logits": 0.25, "cache": 0.25}}
@@ -4672,36 +4731,42 @@ def model_gathers(cfg, layout, grid, seq: int) -> list:
     the self- and the cross-attention); sLSTM's input gates twice, ``(B
     / data, S, 4 d / model)``, and its output once, ``(B / data, S, d /
     model)``, bfloat16; the gradient of mLSTM's q, k, v and gates, ``(B
-    / data, S, (3 d_in + 2 H) / model)`` float32; the split-dim KV
-    layout's new keys and values twice, ``(2, B / data, S, KV hd /
-    model)`` bfloat16."""
-    from repro_torch.models.ssm import mlstm_dims
+    / data, S, 2 h P + d_in / model + 2 h)`` float32, ``h`` the heads a
+    rank runs (one where a head spans ranks, ``H / model`` else) of ``P``
+    channels; the split-dim KV layout's new keys and values twice, ``(2,
+    B / data, S, KV hd / model)`` bfloat16. The sequence layout's blocks
+    are ``ceil(S / model)`` rows, padded where ``model`` does not divide
+    ``S``."""
+    from repro_torch.models.ssm import mlstm_dims, tp_heads
     from repro_torch.models.transformer import (_shared_attn_points,
                                                 layer_pattern)
     data, m = grid
     rows = TRAIN_BATCH // data * seq
     block = rows // m * cfg.d_model * 2
+    seq_block = TRAIN_BATCH // data * -(-seq // m) * cfg.d_model * 2
     if cfg.family == "audio":
         if layout != "sequence":
             return []
-        frames = TRAIN_BATCH // data * cfg.enc_seq // m * cfg.d_model * 2
+        frames = (TRAIN_BATCH // data * -(-cfg.enc_seq // m) * cfg.d_model
+                  * 2)
         return ([frames] * 2 * cfg.enc_layers
-                + [block] * 4 * cfg.num_layers)
+                + [seq_block] * 4 * cfg.num_layers)
     out = []
     for kind in layer_pattern(cfg) + ["shared_attn"] * len(
             _shared_attn_points(cfg)):
         if kind == "moe":
             out.append(block)
         if kind in ("dense", "moe", "shared_attn") and layout == "sequence":
-            out += [block] * 2
+            out += [seq_block] * 2
         if kind in ("dense", "moe", "shared_attn") and layout == "split_kv":
             out += [2 * rows * cfg.n_kv_heads * cfg.hd // m * 2] * 2
         if kind == "slstm":
             out += [rows * 4 * cfg.d_model // m * 2] * 2 + [
                 rows * cfg.d_model // m * 2]
         if kind == "mlstm":
-            d_in, H, _ = mlstm_dims(cfg)
-            out.append(rows * (3 * d_in + 2 * H) // m * 4)
+            d_in, _, P = mlstm_dims(cfg)
+            h = tp_heads(cfg, "mlstm", m)
+            out.append(rows * (2 * h * P + d_in // m + 2 * h) * 4)
     return out
 
 
@@ -6148,6 +6213,11 @@ def grid_cells(torch, seed: int) -> list:
                  faults=True)
     for c in out[1:]:
         c.update(grid=TRAIN_RANKS_GRID, stacked=False, opt=launcher, k1=0)
+    for line, src in REUSED_REFERENCES.items():
+        if line.startswith("train"):
+            twin = next(c for c in out if c["line"] == src)
+            out.append(dict(twin, line=line, grid=SPLIT_RECURRENT_GRID,
+                            cell=twin["cell"].replace("-2x4-", "-1x8-")))
     out.append({"line": "train_ranks_split_kv",
                 "cell": "train-tinyllama-1.1b-1x8-8proc-1xH100",
                 "cfg": dataclasses.replace(get_config(TRAIN_ARCH),
@@ -6212,14 +6282,15 @@ def train_grid_path(torch, dev, seed: int) -> dict:
                     raise RuntimeError(f"{c['ckpt_root']} has {free} bytes "
                                        f"free; phase 16's checkpoints need "
                                        f"{need}")
-            dirs.append(ranks_dir())
+            dirs.append(c.get("reused_dir") or ranks_dir())
             t0 = time.perf_counter()
-            if c.get("kind") == "serve":
+            if "reused_dir" in c:
+                pass                 # the reference of its (2, 4) twin
+            elif c.get("kind") == "serve":
                 with torch.inference_mode():
                     c["ref"] = serve_ranks_reference(
                         torch, dev, c["cfg"], c["grid"], dirs[-1], seed,
                         c["shape"])
-                handed = ("serve", (dirs[-1], c["cfg"], seed, c["shape"]))
             else:
                 if "batches" not in c:
                     c["batches"] = train_ranks_batches(
@@ -6230,6 +6301,15 @@ def train_grid_path(torch, dev, seed: int) -> dict:
                     torch, dev, c["cfg"], c["batches"], c["opt"], dirs[-1],
                     c["leaves"], grid=c["grid"] if c["stacked"] else None,
                     floor=c["floor"], faults=c["faults"])
+            for twin in cells[i + 1:]:
+                if REUSED_REFERENCES.get(twin["line"]) == c["line"]:
+                    twin.update(ref=c["ref"], batches=c.get("batches"),
+                                reused_dir=ranks_dir())
+                    shutil.copytree(dirs[-1], twin["reused_dir"],
+                                    dirs_exist_ok=True)
+            if c.get("kind") == "serve":
+                handed = ("serve", (dirs[-1], c["cfg"], seed, c["shape"]))
+            else:
                 handed = ("train", (dirs[-1], c["batches"], c["opt"],
                                     sum(c["ref"]["lrs"]), c["cfg"],
                                     c["leaves"], c.get("ckpt_root")))
@@ -6317,14 +6397,17 @@ def train_ranks_trace(path: str) -> None:
     from repro_torch.configs.base import ShapeSpec
     from repro_torch.launch import dryrun
     out = {}
-    for line, (layers, grid, seq) in DRYRUN_CELLS.items():
+    for line, (arch, layers, grid, seq) in DRYRUN_CELLS.items():
         t0 = time.perf_counter()
-        cfg = dataclasses.replace(get_config(TRAIN_ARCH), num_layers=layers)
+        cfg = dataclasses.replace(get_config(arch), num_layers=layers)
         got = dryrun.trace(cfg, ShapeSpec(line, seq, TRAIN_BATCH, "train"),
                            grid, ("data", "model"), zero1=True,
                            master=False)
         out[line] = {"calls": got["collectives"]["calls"],
                      "peak_live_bytes": got["peak_live_bytes"],
+                     "gloo_copy_bytes": max(
+                         [e["bytes"] for e in got["log"]
+                          if e["op"] == "reduce_scatter"], default=0),
                      "state_live_bytes": got["state_live_bytes"],
                      "counted_flops": got["flops"],
                      "trace_s": time.perf_counter() - t0}
@@ -6352,7 +6435,9 @@ def dryrun_check(started: tuple, lines: dict) -> dict:
     """Phase 20: the traces of :func:`start_dryrun_trace` against the
     lines of ``DRYRUN_CELLS`` (``{phase line: line}``): each trace's
     collectives equal to its cell's process 0's logged step, and its
-    peak live bytes within ``DRYRUN_PEAK_SHARE`` of each process's;
+    peak live bytes, plus gloo's copy of the step's largest
+    ``reduce_scatter`` input, within ``DRYRUN_PEAK_SHARE`` of each
+    process's;
     raises on a mismatch, after printing the comparisons."""
     proc, path, t0 = started
     proc.wait(timeout=600)
@@ -6370,7 +6455,8 @@ def dryrun_check(started: tuple, lines: dict) -> dict:
         card = {k: {"calls": v["calls"], "bytes": v["bytes"]}
                 for k, v in line["comm_last_step_rank0"].items()}
         peaks = line["peak_mem_bytes_by_process"]
-        shares = [(p - got["peak_live_bytes"]) / p for p in peaks]
+        held = got["peak_live_bytes"] + got["gloo_copy_bytes"]
+        shares = [(p - held) / p for p in peaks]
         out[name] = {
             "phase": "dryrun_check" + name[len("train_ranks"):],
             "cell": line["cell"], "device": nvidia_smi_line(),
@@ -6379,6 +6465,7 @@ def dryrun_check(started: tuple, lines: dict) -> dict:
             "collectives_card_process0": card,
             "collectives_equal": got["calls"] == card,
             "peak_live_bytes_trace": got["peak_live_bytes"],
+            "gloo_copy_bytes": got["gloo_copy_bytes"],
             "peak_mem_bytes_by_process": peaks,
             "peak_share_above_trace_by_process": shares,
             "peak_share_bound": DRYRUN_PEAK_SHARE,
@@ -6392,7 +6479,8 @@ def dryrun_check(started: tuple, lines: dict) -> dict:
                        f"processes' log")
         if max(abs(x) for x in shares) > DRYRUN_PEAK_SHARE:
             bad.append(f"{name}: peak memory: the trace's "
-                       f"{got['peak_live_bytes']} against {peaks} (shares "
+                       f"{got['peak_live_bytes']} and gloo's copy "
+                       f"{got['gloo_copy_bytes']} against {peaks} (shares "
                        f"{shares})")
     if bad:
         raise AssertionError("phase 20: " + "; ".join(bad))

@@ -13,15 +13,24 @@ implementations back :func:`repro_torch.kernels.ops.sort_segments` /
 Backends are ``"cuda"`` and ``"cpu"``. On the CPU the kernels are not
 candidates — they cannot run there — and every choice records that as a
 skip reason. The cell key is ``(kv, dtype, num_segments, segment_len,
-backend)``.
+backend)``: where the JAX package's key ends in its backend and Pallas
+mode (``...|cpu|interp``), the port's ends in ``cuda`` or ``cpu``, so a
+table measured by one package never matches the other's cells.
 
 Resolution order (first hit wins):
 
 1. ``REPRO_KERNEL_FORCE=radix|bitonic|oracle`` — unconditional override,
 2. the in-process cache (each cell is measured at most once —
    :data:`MEASUREMENTS`),
-3. a pre-loaded table entry (:func:`load_table`),
-4. below :data:`MIN_MEASURE_ELEMS`: the static default ``"oracle"``,
+3. a table entry: :func:`load_table`, or the file ``REPRO_AUTOTUNE_TABLE``
+   names, read once (``benchmarks/kernel_bench.py``'s layout,
+   ``{"results": {"autotune_table": {"entries": {...}}}}``, where
+   ``"results"`` and ``"entries"`` may each be left out, so that
+   ``autotune_table`` holds the bare ``key -> algo`` mapping; a missing or
+   unreadable file is ignored, as is a file without ``autotune_table``),
+4. below :data:`MIN_MEASURE_ELEMS`, or with ``REPRO_AUTOTUNE=0``: the
+   static default ``"oracle"`` (on the card too: the user's switch, not a
+   fallback),
 5. measure every eligible candidate on synthetic data of the cell's shape
    (CUDA events), pick the fastest. A candidate outside its envelope is
    skipped with a recorded reason. A kernel that fails raises: the tuner
@@ -32,6 +41,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import json
 import os
 import time
 from typing import Callable, Dict, Mapping
@@ -52,6 +62,8 @@ ALGOS = ("bitonic", "radix", "oracle")
 STABLE_ALGOS = frozenset({"radix", "oracle"})
 
 FORCE_ENV = "REPRO_KERNEL_FORCE"
+TABLE_ENV = "REPRO_AUTOTUNE_TABLE"
+MEASURE_ENV = "REPRO_AUTOTUNE"
 
 BACKENDS = ("cuda", "cpu")
 
@@ -84,6 +96,7 @@ MEASUREMENTS: "collections.Counter[str]" = collections.Counter()
 _cache: Dict[str, Choice] = {}
 _cached_view: Dict[str, Choice] = {}
 _table: Dict[str, str] = {}
+_table_loaded = False
 
 
 def cell_key(num_segments: int, segment_len: int, dtype: torch.dtype,
@@ -102,6 +115,8 @@ def reset() -> None:
     _cached_view.clear()
     _table.clear()
     MEASUREMENTS.clear()
+    global _table_loaded
+    _table_loaded = False
 
 
 def is_stable(algo: str) -> bool:
@@ -123,6 +138,25 @@ def export_table() -> Dict[str, Dict]:
     return {k: {"algo": c.algo, "source": c.source,
                 "melem": dict(c.melem), "skipped": dict(c.skipped)}
             for k, c in _cache.items()}
+
+
+def _load_table_env() -> None:
+    global _table_loaded
+    if _table_loaded:
+        return
+    _table_loaded = True
+    path = os.environ.get(TABLE_ENV)
+    if not path or not os.path.exists(path):
+        return
+    try:
+        with open(path) as f:
+            doc = json.load(f)
+    except (OSError, ValueError):
+        return
+    results = doc.get("results", doc)
+    table = results.get("autotune_table", {})
+    load_table(table.get("entries", table) if isinstance(table, Mapping)
+               else {})
 
 
 def _synth(num_segments: int, segment_len: int, dtype: torch.dtype,
@@ -217,9 +251,11 @@ def choose(num_segments: int, segment_len: int, dtype: torch.dtype, *,
     hit = _cached_view.get(key)
     if hit is not None:
         return hit
+    _load_table_env()
     if key in _table:
         choice = Choice(_table[key], "table")
-    elif num_segments * segment_len < MIN_MEASURE_ELEMS:
+    elif (num_segments * segment_len < MIN_MEASURE_ELEMS
+          or os.environ.get(MEASURE_ENV) == "0"):
         choice = _static(device)
     else:
         choice = _measure(num_segments, segment_len, dtype, kv, device)

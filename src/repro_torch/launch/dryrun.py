@@ -50,9 +50,15 @@ One JSON a cell, ``{arch}__{shape}__{single|multi}.json``:
 A cell the port cannot run is written ``skipped`` with its reason:
 ``long_500k`` on a full-attention architecture (the JAX dry run's
 reason), and a model that the grid's ``model`` axis cannot lay out
-(:func:`repro_torch.train.trainer.check_grid_layout`), which waits for
-ROADMAP.md's queue 1 item on those layouts. Any other exception is a
-cell's ``error``.
+(:func:`repro_torch.train.trainer.check_grid_layout`; no published
+configuration here since xLSTM-125M's heads and Whisper-small's frames
+split over 16). Any other exception is a cell's ``error``.
+
+The trace runs sLSTM's time loop, and mLSTM's chunks without gradients,
+in 64 blocks at most, each block's steps at once
+(:data:`repro_torch.models.ssm.TIME_BLOCKS`): the same FLOPs,
+collectives and stacked tensors as the loops, in 64 steps' ops, so that
+a 32768-position prefill traces in seconds.
 """
 
 from __future__ import annotations
@@ -82,6 +88,7 @@ from repro_torch.configs.base import (ARCH_IDS, SHAPES, ModelConfig,
                                       ShapeSpec, get_config)
 from repro_torch.kernels import ops as kops
 from repro_torch.launch.mesh import Grid, dp_axes_of, make_production_mesh
+from repro_torch.models import ssm
 from repro_torch.models.convert import jax_order, stacked_collections
 from repro_torch.models.moe import padded_experts
 from repro_torch.models.registry import Model, build, meta_params
@@ -119,14 +126,11 @@ _JAX_OP = {"psum": "all-reduce", "pmax": "all-reduce",
 #: why a full-attention architecture skips ``long_500k``, the JAX dry run's
 LONG_CONTEXT_SKIP = ("full attention cannot run long-context decode "
                      "(DESIGN.md §4)")
+#: the blocks of sLSTM's time loop and mLSTM's chunks a trace runs at
+#: most (:data:`repro_torch.models.ssm.TIME_BLOCKS`)
+TIME_BLOCKS = 64
 #: cells traced at once, each by a process of its own on one core
 CELLS_AT_ONCE = max(1, (os.cpu_count() or 2) // 2)
-#: why the rest of the cells that ``check_grid_layout`` refuses skip:
-#: xLSTM-125M's recurrent heads and Whisper-small's encoder frames
-LAYOUT_WAITS = ("the port cannot lay xLSTM's mLSTM and sLSTM heads or "
-                "Whisper's encoder frames out over the grid's model axis "
-                "yet: waits for ROADMAP.md queue 1, \"The layouts at the "
-                "dry run's model = 16\"")
 
 
 # -- the analytic columns (the JAX dry run's arithmetic) ----------------------
@@ -506,8 +510,10 @@ def collective_terms(log: Sequence[Mapping], shape: Sequence[int],
 def fake_grid(shape: Sequence[int], axes: Sequence[str]):
     """A :class:`ProcessRanks` of rank 0 on a grid of ``shape`` over a
     ``fake`` process group of its world size, its tensors on the CPU,
-    inside ``FakeTensorMode``. The default process group is this
-    process's for the block: use it in a process of its own."""
+    inside ``FakeTensorMode``, sLSTM's time loop run in blocks
+    (:data:`repro_torch.models.ssm.TIME_BLOCKS`: the same FLOPs, 64
+    steps' ops). The default process group is this process's for the
+    block: use it in a process of its own."""
     from torch.testing._internal.distributed.fake_pg import FakeStore
     if dist.is_initialized():
         raise RuntimeError("a fake grid needs a process without a process "
@@ -516,9 +522,11 @@ def fake_grid(shape: Sequence[int], axes: Sequence[str]):
                             world_size=math.prod(shape))
     try:
         ranks = ProcessRanks(shape, axes, device="cpu")
+        ssm.TIME_BLOCKS = TIME_BLOCKS
         with FakeTensorMode(allow_non_fake_inputs=True):
             yield ranks
     finally:
+        ssm.TIME_BLOCKS = None
         dist.destroy_process_group()
 
 
@@ -543,7 +551,7 @@ def skip_reason(cfg: ModelConfig, shape_name: str, grid: Grid
     try:
         check_grid_layout(cfg, grid.sizes.get("model", 1))
     except ValueError as e:
-        return f"{e} ({LAYOUT_WAITS})"
+        return str(e)
     return None
 
 

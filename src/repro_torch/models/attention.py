@@ -22,7 +22,12 @@ replicated when there is one KV head), ``wo`` row-parallel with
 dimensions), gathered whole over ``model`` before ``k_norm`` and rope;
 or, where the heads do not divide ``tp_size``, every weight replicated
 and the JAX package's ``_seq_shard``: each rank attends from its block
-of query rows to every key, and ``gather_from`` joins the rows. Rope is
+of query rows to every key, and ``gather_from`` joins the rows. The
+blocks are ``ceil(S / model)`` rows, the last one shorter where
+``model`` does not divide ``S`` (:func:`seq_rows`): each is padded to
+that length for the gather and the result trimmed to ``S``, as GSPMD
+pads an uneven sharding; the keys are whole on every rank, so the
+padding changes no score. Rope is
 optional (the enc-dec's self-attention runs without it), and
 cross-attention attends from the same query heads or rows over every
 encoder position, its keys and values the rank's products of the
@@ -423,6 +428,26 @@ def mla_pieces(n_heads: int, width: int, model: int
     return send, recv
 
 
+def seq_rows(S: int, model: int, rank: int) -> slice:
+    """The query rows the rank at ``rank`` attends from in the sequence
+    layout: ``[r c, min((r + 1) c, S))`` with ``c = ceil(S / model)``, as
+    GSPMD pads an uneven split (Whisper-small's 1500 frames over 8 ranks:
+    188 a rank, the last 184; a block past ``S`` is empty)."""
+    c = -(-S // model)
+    return slice(min(rank * c, S), min((rank + 1) * c, S))
+
+
+def gather_rows(ranks, out: torch.Tensor, S: int) -> torch.Tensor:
+    """The sequence layout's rows ``out`` (B, rows, ...) of every model
+    rank (:func:`seq_rows`) joined into the ``S`` rows of the whole: each
+    block padded to ``ceil(S / model)`` rows for one ``all_gather``, the
+    result trimmed to ``S``, so the padding rows take zero gradient."""
+    c = -(-S // ranks.axis_size("model"))
+    pad = (0, 0) * (out.dim() - 2) + (0, c - out.shape[1])
+    out = torch.nn.functional.pad(out, pad)
+    return gather_from(ranks, out, "model", 1)[:, :S]
+
+
 def _cache_heads(cfg: ModelConfig, cache: Dict, layout: str,
                  kv_heads: int) -> str:
     """How a rank holding ``kv_heads`` KV heads meets its layer's cache
@@ -488,11 +513,7 @@ def _attn_model_parallel(params, x, cfg: ModelConfig, q_pos, ranks,
 
     split = layout == "sequence" and S > 1
     if layout == "sequence":
-        if split and S % m:
-            raise ValueError(f"sequence-parallel attention: {S} positions "
-                             f"do not split over {m} model ranks")
-        rows = (slice(me * (S // m), (me + 1) * (S // m)) if split
-                else slice(None))
+        rows = seq_rows(S, m, me) if split else slice(None)
         hq, pq = h[:, rows], q_pos[:, rows]
         heads, kv_heads = cfg.n_heads, cfg.n_kv_heads
     else:
@@ -543,7 +564,7 @@ def _attn_model_parallel(params, x, cfg: ModelConfig, q_pos, ranks,
     if layout != "sequence":
         return row_parallel(ranks, out, params["wo"]), cache
     out = out @ params["wo"].to(COMPUTE_DTYPE)
-    return (gather_from(ranks, out, "model", 1) if split else out), cache
+    return (gather_rows(ranks, out, S) if split else out), cache
 
 
 def attn_apply(params, x, cfg: ModelConfig, q_pos,

@@ -37,12 +37,20 @@ blocks its specs give the process, and a rank runs its heads:
   channels: one :func:`repro_torch.comm.scatter_sum` sums the partial q,
   k, v and gates and keeps this rank's heads' (its backward gathers the
   gradient every rank's channels feed); ``if_bias`` is sliced by head.
+  Where the heads are fewer than the ranks and divide them (xLSTM-125M's
+  4 over 8 or 16), each head spans ``model / H`` ranks
+  (:func:`mlstm_share`): the ``scatter_sum`` gives each of them its
+  head's whole q, k and gates and its own ``d_in / model`` channels of
+  v, and the rank runs the rows of the head's ``C`` (``(P_v, P_k)``) for
+  those channels, with ``n`` and ``m`` whole, so no collective runs
+  inside the chunk loop.
 - sLSTM: ``w_gates`` is column-parallel over ``[i | f | z | o]`` (at
   ``model`` = 4 a rank holds one whole gate), so ``gather_from`` rebuilds
   the input gates and every model rank runs the whole recurrence with
   the replicated ``r_gates``, ``gate_bias`` and ``norm``; ``out_proj``
   is column-parallel, its blocks gathered. No collective runs inside
-  the time loop.
+  the time loop, and the heads need not divide ``model`` (only a cache
+  that shards them asks it).
 
 Caches over process ranks (prefill and decode): each process holds the
 block of every cache leaf that the JAX package's ``cache_specs`` give it
@@ -60,7 +68,10 @@ rank leaves another's slots stale (:func:`_write_own`).
   heads' ``x`` channels, owned; ``conv_bc`` replicated, every rank
   writing the whole window it computes replicated.
 - mLSTM: ``C``, ``n``, ``m`` (heads) owned or kept whole by the same rule
-  (xLSTM-125M's 4 heads: kept whole); ``conv`` (channels) owned.
+  (xLSTM-125M's 4 heads: kept whole); ``conv`` (channels) owned. Where a
+  head spans ranks, each reads its rows of its head's ``C`` and the
+  head's ``n`` and ``m``, and the one ``all_gather`` joins the rows of
+  ``C`` in rank order.
 - sLSTM: ``c``, ``n``, ``h``, ``m`` (heads). Every model rank runs the
   whole recurrence: a block kept whole is read and written as it is, no
   collective; an owned block (16 dividing the heads) is gathered over
@@ -89,6 +100,26 @@ from repro_torch.models.layers import (COMPUTE_DTYPE, Params, dense_init,
                                        row_parallel, silu)
 
 
+#: run sLSTM's time loop, and mLSTM's chunks without gradients, in this
+#: many blocks at most, each block's steps (chunks) at once from the
+#: state they are given (:func:`time_blocks`); None: step by step. The
+#: dry run sets it while it traces on fake tensors
+#: (:func:`repro_torch.launch.dryrun.fake_grid`), which hold no values,
+#: so that a trace of 32768 positions costs 64 steps' ops with the
+#: loop's FLOPs and stacked tensors (a block's temporaries are 1 / 64 of
+#: the sequence's, a step's the loop's)
+TIME_BLOCKS: Optional[int] = None
+
+
+def time_blocks(n: int):
+    """The ``(start, stop)`` blocks of :data:`TIME_BLOCKS` over ``n``
+    steps, or None to run them one by one."""
+    if TIME_BLOCKS is None:
+        return None
+    size = -(-n // TIME_BLOCKS)
+    return [(a, min(a + size, n)) for a in range(0, n, size)]
+
+
 def softplus(x: torch.Tensor) -> torch.Tensor:
     """``jax.nn.softplus`` (``logaddexp(x, 0)``) op by op."""
     return torch.clamp(x, min=0) + torch.log1p(torch.exp(-x.abs()))
@@ -100,16 +131,40 @@ def log_sigmoid(x: torch.Tensor) -> torch.Tensor:
 
 
 def tp_heads(cfg: ModelConfig, kind: str, model: int) -> int:
-    """The heads a rank runs of a recurrent block (``"mamba"``,
-    ``"mlstm"``, ``"slstm"``) on a ``model`` axis of ``model`` ranks;
-    raises where the heads do not split over them."""
+    """The heads of a recurrent block (``"mamba"``, ``"mlstm"``,
+    ``"slstm"``) whose state a rank of a ``model`` axis of ``model``
+    ranks runs; raises where they do not lay out over those ranks:
+
+    - Mamba2: ``H / model``; ``model`` must divide the heads;
+    - mLSTM: ``H / model``, or 1 where the heads divide ``model``: each
+      head then spans ``model / H`` ranks, and a rank runs the rows of
+      its head's state for its channels of ``v`` (:func:`mlstm_share`);
+      the heads neither dividing nor divided by ``model`` raise, as do
+      split heads whose cache the specs would shard (16 dividing them);
+    - sLSTM: every rank runs every head, so ``H / model`` where ``model``
+      divides the heads and ``H`` where the cache keeps the heads whole
+      (16 does not divide them); heads that the cache shards over
+      ``model`` and ``model`` does not divide raise."""
     H = {"mamba": lambda: mamba2_dims(cfg)[1],
          "mlstm": lambda: mlstm_dims(cfg)[1],
          "slstm": lambda: slstm_heads(cfg)[0]}[kind]()
-    if H % model:
-        raise ValueError(f"{cfg.arch_id}: {H} {kind} heads do not split "
-                         f"over {model} ranks of the model axis")
-    return H // model
+    if H % model == 0:
+        return H // model
+    if kind == "mlstm" and model % H == 0 and H % 16:
+        return 1
+    if kind == "slstm" and H % 16:
+        return H
+    raise ValueError(f"{cfg.arch_id}: {H} {kind} heads do not split "
+                     f"over {model} ranks of the model axis")
+
+
+def mlstm_share(cfg: ModelConfig, model: int) -> int:
+    """The ranks of a ``model`` axis that run one mLSTM head: 1 where
+    ``model`` divides the heads, else ``model / H`` (xLSTM-125M's 4
+    heads of 384 channels: 2 at ``model`` = 8, 4 at 16), each holding
+    ``d_in / model`` channels of the head's ``v`` (:func:`tp_heads`
+    checks the layout)."""
+    return max(model // mlstm_dims(cfg)[1], 1)
 
 
 def zx_plan(d_in: int, model: int, rank: int):
@@ -168,25 +223,29 @@ def _read_own(ranks, block: torch.Tensor, dim: int, n: int) -> torch.Tensor:
     return block.narrow(dim, axis_position(ranks, "model") * n, n)
 
 
-def _write_own(ranks, cache: Dict, new: Dict) -> Dict:
+def _write_own(ranks, cache: Dict, new: Dict, share: int = 1) -> Dict:
     """Write this rank's new states into its cache blocks, in place:
     ``new`` is ``{leaf: (the rank's part, the dim of its heads or
-    channels)}``. An owned block takes its part as it is; the parts of
-    the blocks that keep every rank's are gathered over ``model`` in one
+    channels)}`` or, for a state whose heads span ``share`` ranks,
+    ``(part, heads dim, rows dim)``: each of those ranks holds its rows of
+    the head's state along ``rows dim`` (mLSTM's ``C``), or the whole
+    state, the same on each, where ``rows dim`` is None (its ``n`` and
+    ``m``). An owned block takes its part as it is; the parts of the
+    blocks that keep every rank's are gathered over ``model`` in one
     ``all_gather`` (float32: every leaf's dtype converts exactly) and
-    written whole."""
+    written whole, a shared head's rows joined in rank order."""
     m = ranks.axis_size("model")
     whole = []
-    for k, (t, d) in new.items():
-        held = cache[k].shape[d]
-        if held == t.shape[d]:
+    for k, (t, d, *shared) in new.items():
+        held, sh = cache[k].shape[d], share if shared else 1
+        if held == t.shape[d] and sh == 1:
             cache[k].copy_(t)
-        elif held == m * t.shape[d]:
+        elif held * sh == m * t.shape[d]:
             whole.append(k)
         else:
             raise ValueError(f"a cache block of {held} along dim {d} of "
                              f"{k!r} against the rank's {t.shape[d]} over "
-                             f"{m} model ranks")
+                             f"{m} model ranks, {sh} a head")
     if not whole:
         return cache
     parts = [new[k][0].movedim(new[k][1], 0) for k in whole]
@@ -194,10 +253,18 @@ def _write_own(ranks, cache: Dict, new: Dict) -> Dict:
     every = gather_from(ranks, flat, "model", 0).reshape(m, -1)
     off = 0
     for k, p in zip(whole, parts):
+        _, d, *shared = new[k]
+        sh = share if shared else 1
         full = every[:, off:off + p.numel()].reshape(
-            (m * p.shape[0],) + tuple(p.shape[1:]))
-        cache[k].copy_(full.movedim(0, new[k][1]))
+            (m // sh, sh) + tuple(p.shape))
         off += p.numel()
+        if shared and shared[0] is not None:
+            row = shared[0] + (shared[0] < d)
+            full = torch.cat(full.unbind(1), dim=1 + row)
+        else:
+            full = full[:, 0]
+        cache[k].copy_(full.reshape((-1,) + tuple(full.shape[2:]))
+                       .movedim(0, d))
     return cache
 
 
@@ -534,13 +601,16 @@ class MLSTM(Params):
 
 
 def _mlstm_chunked(q, k, v, log_i, log_f, Q: int, init_state=None):
-    """Stabilized chunk-parallel mLSTM. q,k,v: (B,L,H,P); log_i/log_f:
-    (B,L,H). Quadratic only within chunks of length Q; the loop carries
-    the stabilized matrix state across chunks. Without ``init_state`` the
+    """Stabilized chunk-parallel mLSTM. q,k: (B,L,H,P); v: (B,L,H,Pv)
+    (``Pv`` a rank's rows of a head that spans ranks, else ``P``);
+    log_i/log_f: (B,L,H). Quadratic only within chunks of length Q; the
+    loop carries the stabilized matrix state across chunks
+    (:func:`_mlstm_chunk`). Without ``init_state`` the
     stabilizer starts at -1e30 (``mlstm_init_cache`` starts it at 0).
     Padding gives ``log_i`` -1e30 and ``log_f`` 0. Returns (y (B,L,H,P)
     bfloat16, state dict {C, n, m})."""
     B, L, H, Pd = q.shape
+    Pv = v.shape[-1]
     pad = (-L) % Q
     if pad:
         F = torch.nn.functional
@@ -553,12 +623,12 @@ def _mlstm_chunked(q, k, v, log_i, log_f, Q: int, init_state=None):
     C = Lp // Q
     qc = (q.float() * (Pd ** -0.5)).reshape(B, C, Q, H, Pd)
     kc = k.float().reshape(B, C, Q, H, Pd)
-    vc = v.float().reshape(B, C, Q, H, Pd)
+    vc = v.float().reshape(B, C, Q, H, Pv)
     lic = log_i.float().reshape(B, C, Q, H)
     lfc = log_f.float().reshape(B, C, Q, H)
 
     if init_state is None:
-        Cm = torch.zeros((B, H, Pd, Pd), dtype=torch.float32, device=q.device)
+        Cm = torch.zeros((B, H, Pv, Pd), dtype=torch.float32, device=q.device)
         nv = torch.zeros((B, H, Pd), dtype=torch.float32, device=q.device)
         m_prev = torch.full((B, H), -1e30, dtype=torch.float32,
                             device=q.device)
@@ -566,46 +636,78 @@ def _mlstm_chunked(q, k, v, log_i, log_f, Q: int, init_state=None):
         Cm, nv, m_prev = init_state["C"], init_state["n"], init_state["m"]
 
     tri = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=q.device))
+    blocks = (None if torch.is_grad_enabled() and q.requires_grad
+              else time_blocks(C))
+    if blocks is not None:
+        # each block of chunks at once from the state before it (without
+        # gradients: with them the loop's states carry every earlier
+        # chunk's, which chunks at once would not, so its backward FLOPs
+        # would differ)
+        ys = []
+        for a, b in blocks:
+            def rows(t):
+                return t[:, a:b].reshape(B * (b - a), *t.shape[2:])
+
+            def over_chunks(t):
+                return t[:, None].expand(B, b - a, *t.shape[1:]).reshape(
+                    B * (b - a), *t.shape[1:])
+            y, *state = _mlstm_chunk(
+                rows(qc), rows(kc), rows(vc), rows(lic), rows(lfc),
+                *map(over_chunks, (Cm, nv, m_prev)), tri)
+            ys.append(y.reshape(B, b - a, Q, H, Pv))
+            Cm, nv, m_prev = (t.reshape(B, b - a, *t.shape[1:])[:, -1]
+                              for t in state)
+        y = torch.cat(ys, dim=1).reshape(B, Lp, H, Pv)[:, :L]
+        return y, {"C": Cm, "n": nv, "m": m_prev}
     ys = []
     for c in range(C):
-        qq, kk, vv = qc[:, c], kc[:, c], vc[:, c]
-        li, lf = lic[:, c], lfc[:, c]
-        b = torch.cumsum(lf, dim=1)                           # (B,Q,H)
-        g = li - b
-        localmax = torch.cummax(g, dim=1).values
-        m_t = torch.maximum(m_prev[:, None] + b, b + localmax)
-        inter_decay = torch.exp(b + m_prev[:, None] - m_t)    # (B,Q,H)
-        # intra weights: (B,Q,Q,H) for t >= s
-        dlog = b[:, :, None, :] - b[:, None, :, :] + li[:, None, :, :] \
-            - m_t[:, :, None, :]
-        w = torch.where(tri[None, :, :, None], torch.exp(dlog), 0.0)
-        s = torch.einsum("bthp,bshp->btsh", qq, kk)
-        sw = s * w
-        y_intra = torch.einsum("btsh,bshp->bthp", sw, vv)
-        # state layout: Cm[p, n] = sum_s v_p k_n
-        y_inter = torch.einsum("bthn,bhpn->bthp", qq, Cm) \
-            * inter_decay[..., None]
-        n_intra = torch.sum(sw, dim=2)
-        n_inter = torch.einsum("bthp,bhp->bth", qq, nv) * inter_decay
-        den = torch.maximum(torch.abs(n_intra + n_inter), torch.exp(-m_t))
-        ys.append(((y_intra + y_inter) / den[..., None]).to(COMPUTE_DTYPE))
-
-        # end-of-chunk state
-        m_end = m_t[:, -1]                                    # (B,H)
-        b_end = b[:, -1]
-        carry_decay = torch.exp(b_end + m_prev - m_end)
-        upd_w = torch.exp(b_end[:, None] - b + li - m_end[:, None])
-        Cm = Cm * carry_decay[..., None, None] + torch.einsum(
-            "bshp,bshn->bhpn", vv * upd_w[..., None], kk)
-        nv = nv * carry_decay[..., None] + torch.einsum(
-            "bsh,bshp->bhp", upd_w, kk)
-        m_prev = m_end
-    y = torch.stack(ys, dim=1).reshape(B, Lp, H, Pd)[:, :L]
+        yc, Cm, nv, m_prev = _mlstm_chunk(qc[:, c], kc[:, c], vc[:, c],
+                                          lic[:, c], lfc[:, c], Cm, nv,
+                                          m_prev, tri)
+        ys.append(yc)
+    y = torch.stack(ys, dim=1).reshape(B, Lp, H, Pv)[:, :L]
     return y, {"C": Cm, "n": nv, "m": m_prev}
 
 
+def _mlstm_chunk(qq, kk, vv, li, lf, Cm, nv, m_prev, tri):
+    """One chunk of :func:`_mlstm_chunked` from the state ``(Cm, nv,
+    m_prev)`` before it: ``(y (B,Q,H,Pv) bfloat16, the state after
+    it)``. Under :data:`TIME_BLOCKS` a block of chunks at once, each on
+    its own rows."""
+    b = torch.cumsum(lf, dim=1)                               # (B,Q,H)
+    g = li - b
+    localmax = torch.cummax(g, dim=1).values
+    m_t = torch.maximum(m_prev[:, None] + b, b + localmax)
+    inter_decay = torch.exp(b + m_prev[:, None] - m_t)        # (B,Q,H)
+    # intra weights: (B,Q,Q,H) for t >= s
+    dlog = b[:, :, None, :] - b[:, None, :, :] + li[:, None, :, :] \
+        - m_t[:, :, None, :]
+    w = torch.where(tri[None, :, :, None], torch.exp(dlog), 0.0)
+    s = torch.einsum("bthp,bshp->btsh", qq, kk)
+    sw = s * w
+    y_intra = torch.einsum("btsh,bshp->bthp", sw, vv)
+    # state layout: Cm[p, n] = sum_s v_p k_n
+    y_inter = torch.einsum("bthn,bhpn->bthp", qq, Cm) \
+        * inter_decay[..., None]
+    n_intra = torch.sum(sw, dim=2)
+    n_inter = torch.einsum("bthp,bhp->bth", qq, nv) * inter_decay
+    den = torch.maximum(torch.abs(n_intra + n_inter), torch.exp(-m_t))
+    y = ((y_intra + y_inter) / den[..., None]).to(COMPUTE_DTYPE)
+
+    # end-of-chunk state
+    m_end = m_t[:, -1]                                        # (B,H)
+    b_end = b[:, -1]
+    carry_decay = torch.exp(b_end + m_prev - m_end)
+    upd_w = torch.exp(b_end[:, None] - b + li - m_end[:, None])
+    Cm = Cm * carry_decay[..., None, None] + torch.einsum(
+        "bshp,bshn->bhpn", vv * upd_w[..., None], kk)
+    nv = nv * carry_decay[..., None] + torch.einsum(
+        "bsh,bshp->bhp", upd_w, kk)
+    return y, Cm, nv, m_end
+
+
 def _mlstm_step(q, k, v, log_i, log_f, cache):
-    """Recurrent step. q,k,v: (B,H,P); log_i/log_f: (B,H)."""
+    """Recurrent step. q,k: (B,H,P); v: (B,H,Pv); log_i/log_f: (B,H)."""
     C, n, m = cache["C"], cache["n"], cache["m"]
     m_new = torch.maximum(log_f + m, log_i)
     f_eff = torch.exp(log_f + m - m_new)
@@ -665,12 +767,26 @@ def _mlstm_parallel(params, x, cfg: ModelConfig, ranks,
     """mLSTM over the replicated ``x`` on a process holding its shards
     (the module docstring); the output is replicated. ``cache``: this
     process's blocks, read and written as the module docstring says.
-    Returns (y, cache)."""
+    Returns (y, cache).
+
+    Where a head spans ``share = model / H`` ranks (:func:`mlstm_share`),
+    each of them receives, in the one ``scatter_sum``, the whole ``q``,
+    ``k`` and both gates of its head (their columns repeated for each
+    rank of the head, so their gradients add up over those ranks in the
+    backward) and only its own ``d_in / model`` channels of ``v``. The
+    state ``C`` is ``(P_v, P_k)``: the rank updates its ``v`` rows of it,
+    and ``n`` and ``m``, which read only ``k`` and the gates, whole, so
+    ``C q`` gives its channels of ``y`` and no collective runs inside the
+    chunk loop."""
     B, L, _ = x.shape
     d_in, H, Pdim = mlstm_dims(cfg)
     m = ranks.axis_size("model")
-    heads = tp_heads(cfg, "mlstm", m)
-    w = heads * Pdim
+    hq = tp_heads(cfg, "mlstm", m)
+    share = mlstm_share(cfg, m)
+    groups = m // share                   # distinct heads' blocks
+    me = axis_position(ranks, "model")
+    h0 = me * H // m                      # the rank's first head
+    w = d_in // m
     up = parallel_product(enter_parallel(ranks, x), params["up_proj"])
     z, xi = _zx_heads(ranks, up, d_in).chunk(2, dim=-1)
     xi, new_conv = _causal_conv(
@@ -679,24 +795,35 @@ def _mlstm_parallel(params, x, cfg: ModelConfig, ranks,
         None if cache is None else _read_own(ranks, cache["conv"], 2, w))
     xf = xi.float()
     # this rank's channels' parts of q, k, v and the gates, laid out by
-    # the rank whose heads each column is, summed and kept there
+    # the rank that runs each column (q, k and the gates once for each
+    # rank sharing the head), summed and kept there
     qkv = xf @ params["wqkv"].to(COMPUTE_DTYPE).float()
     gates = xf @ params["wif"].to(COMPUTE_DTYPE).float()
+
+    def by_rank(t, heads_dim):
+        return t.repeat_interleave(share, dim=heads_dim)
+    qk = by_rank(qkv[..., :2 * d_in].reshape(B, L, 2, groups, hq * Pdim), 3)
     parts = torch.cat(
-        [qkv.reshape(B, L, 3, m, w).movedim(3, 2).reshape(B, L, m, 3 * w),
-         gates.reshape(B, L, 2, m, heads).movedim(3, 2).reshape(
-             B, L, m, 2 * heads)], dim=-1)
+        [qk.movedim(3, 2).reshape(B, L, m, 2 * hq * Pdim),
+         qkv[..., 2 * d_in:].reshape(B, L, m, w),
+         by_rank(gates.reshape(B, L, 2, groups, hq), 3).movedim(3, 2)
+         .reshape(B, L, m, 2 * hq)], dim=-1)
     mine = scatter_sum(ranks, parts, "model", 2).reshape(B, L, -1)
-    q, k, v = [t.reshape(B, L, heads, Pdim) for t in
-               mine[..., :3 * w].to(COMPUTE_DTYPE).chunk(3, dim=-1)]
+    q, k, v = [t.reshape(B, L, hq, -1) for t in
+               mine[..., :2 * hq * Pdim + w].to(COMPUTE_DTYPE).split(
+                   [hq * Pdim, hq * Pdim, w], dim=-1)]
     bias = params["if_bias"]
-    gates = mine[..., 3 * w:].to(COMPUTE_DTYPE).float() + torch.cat(
-        [_head_block(bias[:H], ranks, heads),
-         _head_block(bias[H:], ranks, heads)])
-    log_i = torch.clamp(gates[..., :heads], max=15.0)
-    log_f = log_sigmoid(gates[..., heads:])
-    state = None if cache is None else {
-        k_: _read_own(ranks, cache[k_], 1, heads) for k_ in ("C", "n", "m")}
+    gates = mine[..., 2 * hq * Pdim + w:].to(COMPUTE_DTYPE).float() \
+        + torch.cat([bias[h0:h0 + hq], bias[H + h0:H + h0 + hq]])
+    log_i = torch.clamp(gates[..., :hq], max=15.0)
+    log_f = log_sigmoid(gates[..., hq:])
+    state = None
+    if cache is not None:
+        state = {k_: (cache[k_] if cache[k_].shape[1] == hq
+                      else cache[k_].narrow(1, h0, hq))
+                 for k_ in ("C", "n", "m")}
+        if share > 1:                     # the rank's rows of C
+            state["C"] = state["C"].narrow(2, me % share * w, w)
     if L == 1 and cache is not None:
         y, new_rec = _mlstm_step(q[:, 0], k[:, 0], v[:, 0], log_i[:, 0],
                                  log_f[:, 0], state)
@@ -709,8 +836,10 @@ def _mlstm_parallel(params, x, cfg: ModelConfig, ranks,
                           params["norm"], cfg.norm_eps, d_in)
     out = row_parallel(ranks, y, params["down_proj"])
     if cache is not None:
-        _write_own(ranks, cache, dict(
-            {k_: (t, 1) for k_, t in new_rec.items()}, conv=(new_conv, 2)))
+        rec = ({k_: (t, 1) for k_, t in new_rec.items()} if share == 1 else
+               {"C": (new_rec["C"], 1, 2), "n": (new_rec["n"], 1, None),
+                "m": (new_rec["m"], 1, None)})
+        _write_own(ranks, cache, dict(rec, conv=(new_conv, 2)), share)
     return out, cache
 
 
@@ -829,6 +958,15 @@ def _slstm_step(wxt, h, c, n, m, r):
 def _slstm_loop(wx, r, c, n, h, m):
     """The recurrence over ``wx`` (B,L,4,H,P): ``(hs (B,L,H,P), c, n, h,
     m)``."""
+    blocks = time_blocks(wx.shape[1])
+    if blocks is not None:
+        hs = []
+        for a, b in blocks:
+            (h_t, c_t, n_t, m_t), _ = _slstm_at_once(wx[:, a:b], r, c, n, h,
+                                                     m)
+            hs.append(h_t)
+            h, c, n, m = (t[:, -1] for t in (h_t, c_t, n_t, m_t))
+        return torch.cat(hs, dim=1), c, n, h, m
     hs = []
     for t in range(wx.shape[1]):
         (h, c, n, m), _ = _slstm_step(wx[:, t], h, c, n, m, r)
@@ -836,19 +974,91 @@ def _slstm_loop(wx, r, c, n, h, m):
     return torch.stack(hs, dim=1), c, n, h, m
 
 
+def _slstm_at_once(wx, r, c, n, h, m):
+    """A block of :data:`TIME_BLOCKS`' form of the loop: :func:`_slstm_step`
+    once on the ``B T`` rows of the block's ``T`` positions (``wx``
+    (B,T,4,H,P)), each from the state it is given (not its
+    predecessor's: a trace on fake tensors, whose values do not exist).
+    The same ops on ``T`` times the rows, so the same FLOPs as ``T``
+    steps. Returns the new ``(h, c, n, m)`` and the gates, each (B,T,...)
+    as the loop would stack them."""
+    B, T = wx.shape[:2]
+
+    def over_time(t):
+        return t[:, None].expand(B, T, *t.shape[1:]).reshape(
+            B * T, *t.shape[1:])
+    state, gates = _slstm_step(wx.reshape(B * T, *wx.shape[2:]),
+                               over_time(h), over_time(c), over_time(n),
+                               over_time(m), r)
+    return tuple(t.reshape(B, T, *t.shape[1:]) for t in state), tuple(
+        g.reshape(B, T, *g.shape[1:]) for g in gates)
+
+
+def _slstm_step_back(r, dh, dc, dn, dm, cp, np_, c2, n2, pre_i, fm, i_g,
+                     f_g, z_g, o_g):
+    """The derivative of one :func:`_slstm_step` (each op's as autograd
+    would take it: ``maximum`` halving a tie, ``clamp`` passing where
+    ``n >= 1``): from the gradients of its new ``h``, ``c``, ``n`` and
+    ``m`` and what it saved (its input ``c``, ``n``, its new ``c``, ``n``
+    and its gates), the gradients of its four gates' pre-activations
+    (B,4,H,P) and of its input ``h``, ``c``, ``n`` and ``m``."""
+    B, H, Pd = dh.shape
+    # h = o_g * c2 / q, q = clamp(n2, min=1)
+    q = torch.clamp(n2, min=1.0)
+    d_oc = dh / q
+    dq = -dh * (o_g * c2) / (q * q)
+    do = d_oc * c2
+    dc = dc + d_oc * o_g
+    dn = dn + torch.where(n2 >= 1.0, dq, 0.0)
+    # c2 = f_g * cp + i_g * z_g, n2 = f_g * np + i_g
+    df = dc * cp + dn * np_
+    di = dc * z_g + dn
+    dz = dc * i_g
+    dc = dc * f_g
+    dn = dn * f_g
+    # i_g = exp(pre_i - m_new), f_g = exp(fm - m_new)
+    ai, af = di * i_g, df * f_g
+    dmn = dm - ai - af
+    split = torch.where(fm == pre_i, dmn / 2, dmn)
+    dfm = af + torch.where(fm < pre_i, 0.0, split)
+    d_pre_i = ai + torch.where(fm > pre_i, 0.0, split)
+    dpre = torch.stack([d_pre_i, dfm, dz * (1 - z_g * z_g),
+                        do * (1 - o_g) * o_g], dim=1)
+    dh = torch.einsum("bhq,hpq->bhp",
+                      dpre.transpose(1, 2).reshape(B, H, 4 * Pd), r)
+    return dpre, dh, dc, dn, dfm                 # fm = pre_f + m
+
+
 class _SLSTMScan(torch.autograd.Function):
     """:func:`_slstm_loop` as one autograd node, for training: the forward
     runs the same steps unrecorded and saves each step's states and
     gates stacked over time; the backward runs each op's derivative by
-    hand, step by step in reverse, as autograd would (``maximum`` halving
-    a tie, ``clamp`` passing where ``n >= 1``), and ``r_gates``' gradient
-    as one product over every step. Autograd's graph of the loop is
-    about 30 nodes a step, whose bookkeeping on the host costs more than
-    the step's small launches; the hand-written backward issues none of
-    it (float64 checks: ``tests/test_torch_train_dist_ssm.py``)."""
+    hand (:func:`_slstm_step_back`), step by step in reverse, as autograd
+    would, and ``r_gates``' gradient as one product over every step.
+    Autograd's graph of the loop is about 30 nodes a step, whose
+    bookkeeping on the host costs more than the step's small launches;
+    the hand-written backward issues none of it (float64 checks:
+    ``tests/test_torch_train_dist_ssm.py``). Under :data:`TIME_BLOCKS`
+    both run a block of steps at once (:func:`_slstm_at_once`)."""
 
     @staticmethod
     def forward(ctx, wx, r, c, n, h, m):
+        blocks = time_blocks(wx.shape[1])
+        if blocks is not None:
+            states = {"h": [h[:, None]], "c": [c[:, None]],
+                      "n": [n[:, None]]}
+            gates = [[] for _ in range(6)]
+            for a, b in blocks:
+                (h_t, c_t, n_t, m_t), g = _slstm_at_once(wx[:, a:b], r, c,
+                                                         n, h, m)
+                for k, v in (("h", h_t), ("c", c_t), ("n", n_t)):
+                    states[k].append(v)
+                for lst, v in zip(gates, g):
+                    lst.append(v)
+                h, c, n, m = (t[:, -1] for t in (h_t, c_t, n_t, m_t))
+            ctx.save_for_backward(r, *(torch.cat(v, dim=1) for v in
+                                       (*states.values(), *gates)))
+            return torch.cat(states["h"][1:], dim=1), c, n, h, m
         states = {"h": [h], "c": [c], "n": [n]}
         gates = [[] for _ in range(6)]
         for t in range(wx.shape[1]):
@@ -869,40 +1079,38 @@ class _SLSTMScan(torch.autograd.Function):
         def zero_if_none(g):
             return torch.zeros_like(H_all[:, 0]) if g is None else g
         dc, dn, dh, dm = (zero_if_none(g) for g in (dc, dn, dh, dm))
-        dpre = [None] * (L1 - 1)
-        for t in range(L1 - 2, -1, -1):
-            cp, np_, c2, n2 = C_all[:, t], N_all[:, t], C_all[:, t + 1], \
-                N_all[:, t + 1]
-            i_g, f_g, z_g, o_g = IG[:, t], FG[:, t], ZG[:, t], OG[:, t]
-            if dhs is not None:
-                dh = dh + dhs[:, t]
-            # h = o_g * c2 / q, q = clamp(n2, min=1)
-            q = torch.clamp(n2, min=1.0)
-            d_oc = dh / q
-            dq = -dh * (o_g * c2) / (q * q)
-            do = d_oc * c2
-            dc = dc + d_oc * o_g
-            dn = dn + torch.where(n2 >= 1.0, dq, 0.0)
-            # c2 = f_g * cp + i_g * z_g, n2 = f_g * np + i_g
-            df = dc * cp + dn * np_
-            di = dc * z_g + dn
-            dz = dc * i_g
-            dc = dc * f_g
-            dn = dn * f_g
-            # i_g = exp(pre_i - m_new), f_g = exp(fm - m_new)
-            ai, af = di * i_g, df * f_g
-            dmn = dm - ai - af
-            fm, pre_i = FM[:, t], PI[:, t]
-            split = torch.where(fm == pre_i, dmn / 2, dmn)
-            dfm = af + torch.where(fm < pre_i, 0.0, split)
-            d_pre_i = ai + torch.where(fm > pre_i, 0.0, split)
-            dm = dfm                              # fm = pre_f + m
-            dpre[t] = torch.stack([d_pre_i, dfm, dz * (1 - z_g * z_g),
-                                   do * (1 - o_g) * o_g], dim=1)
-            dh = torch.einsum("bhq,hpq->bhp",
-                              dpre[t].transpose(1, 2).reshape(B, H, 4 * Pd),
-                              r)
-        dwx = torch.stack(dpre, dim=1)                       # (B,L,4,H,P)
+        blocks = time_blocks(L1 - 1)
+        if blocks is not None:
+            dpre = []
+            for a, b in reversed(blocks):
+                T = b - a
+
+                def rows(t):
+                    return t[:, a:b].reshape(B * T, *t.shape[2:])
+
+                def over_time(t):
+                    return t[:, None].expand(B, T, *t.shape[1:]).reshape(
+                        B * T, *t.shape[1:])
+                dh_t = over_time(dh) + (0 if dhs is None else rows(dhs))
+                d_t = _slstm_step_back(
+                    r, dh_t, over_time(dc), over_time(dn), over_time(dm),
+                    rows(C_all), rows(N_all), rows(C_all[:, 1:]),
+                    rows(N_all[:, 1:]), *(rows(t) for t in (PI, FM, IG, FG,
+                                                            ZG, OG)))
+                dpre.append(d_t[0].reshape(B, T, 4, H, Pd))
+                dh, dc, dn, dm = (t.reshape(B, T, H, Pd)[:, 0]
+                                  for t in d_t[1:])
+            dwx = torch.cat(dpre[::-1], dim=1)                 # (B,L,4,H,P)
+        else:
+            dpre = [None] * (L1 - 1)
+            for t in range(L1 - 2, -1, -1):
+                if dhs is not None:
+                    dh = dh + dhs[:, t]
+                dpre[t], dh, dc, dn, dm = _slstm_step_back(
+                    r, dh, dc, dn, dm, C_all[:, t], N_all[:, t],
+                    C_all[:, t + 1], N_all[:, t + 1], PI[:, t], FM[:, t],
+                    IG[:, t], FG[:, t], ZG[:, t], OG[:, t])
+            dwx = torch.stack(dpre, dim=1)                   # (B,L,4,H,P)
         dr = torch.einsum("blhp,blhq->hpq", H_all[:, :-1],
                           dwx.transpose(2, 3).reshape(B, L1 - 1, H, 4 * Pd))
         return dwx, dr, dc, dn, dh, dm

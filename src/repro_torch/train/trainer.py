@@ -302,14 +302,16 @@ def check_grid_layout(cfg, model: int, meta=None) -> None:
     over a ``model`` axis of ``model`` ranks; ``meta``: its
     :func:`meta_params`. Every attention takes one of
     :func:`repro_torch.models.attention.tp_layout`'s layouts (by heads,
-    split-dim KV, MLA's split heads, by sequence). What raises: KV heads
-    that neither split whole over ``model`` nor divide it, MLA columns
-    that do not divide into ``model`` blocks, Mamba2, mLSTM or sLSTM
-    heads that ``model`` does not divide
-    (:func:`repro_torch.models.ssm.tp_heads`: xLSTM-125M's 4 at 8 or
-    16), experts padded otherwise for ``model`` expert ranks than for
-    the weights, and encoder frames that the sequence layout does not
-    split over ``model`` (Whisper-small's 1500 over 8 or 16)."""
+    split-dim KV, MLA's split heads, by sequence: blocks of ``ceil(S /
+    model)`` rows, so any length splits, Whisper-small's 1500 encoder
+    frames over 8 or 16 too), and every recurrent block one of
+    :func:`repro_torch.models.ssm.tp_heads`' (mLSTM heads split over
+    ranks, xLSTM-125M's 4 at 8 or 16; sLSTM whole on every rank). What
+    raises: KV heads that neither split whole over ``model`` nor divide
+    it, MLA columns that do not divide into ``model`` blocks, Mamba2
+    heads that ``model`` does not divide, mLSTM heads that neither
+    divide nor are divided by ``model``, and experts padded otherwise
+    for ``model`` expert ranks than for the weights."""
     meta = meta_params(cfg) if meta is None else meta
     for block in _blocks(meta):
         attns = [a for a in ("attn", "self_attn", "cross_attn")
@@ -320,11 +322,6 @@ def check_grid_layout(cfg, model: int, meta=None) -> None:
             tp_heads(cfg, block.kind, model)
         if "moe" in block:
             plan_experts(cfg, block.moe.w_gate.shape[0], model)
-    if cfg.family == "audio" and cfg.enc_seq % model and tp_layout(
-            cfg, meta.enc_blocks[0].attn, model) == "sequence":
-        raise ValueError(f"{cfg.arch_id}: {cfg.enc_seq} encoder frames "
-                         f"do not split over {model} model ranks of the "
-                         f"sequence-parallel attention")
 
 
 def _loss_count(ranks: Ranks, dp: Tuple[str, ...], micro: Mapping,

@@ -15,8 +15,9 @@ processes (``tests/torch_dryrun_paths.py``). (c) Full-width cells on the
 and Qwen1.5-MoE-A2.7B's ``train_4k`` count FLOPs within a band over the
 model FLOPs (:data:`FLOP_BAND`), the cells whose heads split over the
 model ranks (:data:`SPLIT`) within it over what their layout computes
-(:func:`layout_flops`), and the cells the port cannot run are
-``skipped`` with their reasons. (d) The command line writes a JSON a
+(:func:`layout_flops`), the cells the port cannot run are ``skipped``
+with their reasons, and those once skipped for their layouts (xLSTM's
+heads and Whisper's frames over 16 ranks) trace. (d) The command line writes a JSON a
 cell and exits 0. Besides, the three repairs tracing needed, each held
 on its own. Every trace runs in a process of its own (the fake default
 process group never stays in the test's process).
@@ -488,13 +489,21 @@ def test_cli_writes_both_grids(runs):
 
 
 @pytest.mark.parametrize("arch,shape,reason", [
-    ("whisper_small", "train_4k", "encoder frames"),
-    ("xlstm_125m", "long_500k", "4 mlstm heads do not split"),
-    ("xlstm_125m", "prefill_32k", "4 mlstm heads do not split"),
+    # once skipped for their layouts (Whisper-small's 1500 encoder frames
+    # and xLSTM-125M's 4 recurrent heads over model = 16): now traced
+    pytest.param("whisper_small", "train_4k", None,
+                 id="whisper_small-train_4k-encoder frames"),
+    pytest.param("xlstm_125m", "long_500k", None,
+                 id="xlstm_125m-long_500k-4 mlstm heads do not split"),
+    pytest.param("xlstm_125m", "prefill_32k", None,
+                 id="xlstm_125m-prefill_32k-4 mlstm heads do not split"),
     ("granite_34b", "long_500k", dryrun.LONG_CONTEXT_SKIP),
     ("tinyllama_1_1b", "long_500k", dryrun.LONG_CONTEXT_SKIP)])
 def test_cells_the_port_cannot_run_are_skipped(tmp_path, arch, shape,
                                                reason):
+    """Full attention's ``long_500k`` is skipped with the JAX dry run's
+    reason; the cells the model axis once could not lay out (``reason``
+    None) trace on both grids, with their roofline and no error."""
     got = _run([sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
                 arch, "--shape", shape, "--mesh", "both", "--out",
                 str(tmp_path)])
@@ -502,10 +511,14 @@ def test_cells_the_port_cannot_run_are_skipped(tmp_path, arch, shape,
     for mesh in ("single", "multi"):
         with open(tmp_path / f"{arch}__{shape}__{mesh}.json") as f:
             res = json.load(f)
+        assert "error" not in res
+        if reason is None:
+            assert "skipped" not in res and "roofline" in res
+            assert res["counted_flops_per_device"] > 0
+            assert res["collective_bytes_per_device"]["all-reduce"] > 0
+            continue
         assert reason in res["skipped"]
-        assert "error" not in res and "roofline" not in res
-        if reason != dryrun.LONG_CONTEXT_SKIP:
-            assert dryrun.LAYOUT_WAITS in res["skipped"]
+        assert "roofline" not in res
 
 
 # -- the repairs tracing needed -----------------------------------------------

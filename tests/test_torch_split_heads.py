@@ -605,13 +605,21 @@ def test_kv_heads_that_do_not_divide_model_raise():
     ("tinyllama_1_1b", 8, None), ("tinyllama_1_1b", 16, None),
     ("qwen3_moe_30b_a3b", 8, None), ("qwen3_moe_30b_a3b", 16, None),
     ("h2o_danube_1_8b", 16, None), ("minicpm3_4b", 16, None),
-    ("xlstm_125m", 16, "4 mlstm heads do not split over 16"),
-    ("whisper_small", 16, "1500 encoder frames do not split over 16")])
+    ("xlstm_125m", 16, None), ("whisper_small", 16, None),
+    ("xlstm_125m", 3, "4 mlstm heads do not split over 3"),
+    ("whisper_small:tp_size=4", 8, "12 query heads do not split over 8")])
 def test_published_configs_on_the_grid(arch, model, reason):
     """``check_grid_layout`` takes the published configs whose heads
-    split over ``model`` ranks, and still refuses xLSTM's heads and
-    Whisper's encoder frames, with their reasons."""
+    split over ``model`` ranks, xLSTM's mLSTM heads split over ranks and
+    Whisper's 1500 encoder frames in uneven sequence blocks among them,
+    and still refuses mLSTM heads that neither divide nor are divided by
+    ``model`` and query heads sharded by head that ``model`` does not
+    divide (Whisper at ``tp_size`` 4), with their reasons."""
+    arch, _, field = arch.partition(":")
     cfg = get_config(arch)
+    if field:
+        name, value = field.split("=")
+        cfg = dataclasses.replace(cfg, **{name: int(value)})
     if reason is None:
         check_grid_layout(cfg, model)
     else:

@@ -575,15 +575,16 @@ def test_no_weight_is_gathered_over_model(spawned, cases, case):
 
 def test_what_is_not_ported_raises(spawned):
     """On ``(2, 2)``: 6 experts pad to 16 in the weights but to 6 for 2
-    expert ranks; 3 MLA heads of 5 value columns, 1 xLSTM head and 3
-    Mamba2 heads do not split over 2 ranks; smoke xLSTM, zamba2, whisper and internvl2 (the
-    SSM, hybrid, enc-dec and VLM families) build."""
+    expert ranks; 3 MLA heads of 5 value columns, 3 xLSTM heads and 3
+    Mamba2 heads do not split over 2 ranks (1 xLSTM head would: it spans
+    both); smoke xLSTM, zamba2, whisper and internvl2 (the SSM, hybrid,
+    enc-dec and VLM families) build."""
     results, _ = spawned
     for res in results:
         msgs = res["raises"]
         assert "pad 6 experts to 6" in msgs["padding"]
         assert "3 MLA heads do not split over 2" in msgs["mla_heads"]
-        assert "1 mlstm heads do not split over 2 ranks of the model " \
+        assert "3 mlstm heads do not split over 2 ranks of the model " \
             "axis" in msgs["xlstm_heads"]
         assert "3 mamba heads do not split over 2 ranks of the model " \
             "axis" in msgs["mamba_heads"]

@@ -79,7 +79,8 @@ from repro_torch.models import build
 from repro_torch.models.attention import tp_layout
 from repro_torch.models.convert import flatten, named_leaves, params_from_numpy
 from repro_torch.models.registry import meta_params
-from repro_torch.models.ssm import mlstm_dims, tp_heads, zx_plan
+from repro_torch.models.ssm import (mlstm_dims, mlstm_share, tp_heads,
+                                    zx_plan)
 from repro_torch.models.transformer import _shared_attn_points, layer_pattern
 from repro_torch.train import optimizer as topt
 from repro_torch.train.trainer import (build_train_step, jit_train_step,
@@ -431,24 +432,36 @@ def test_zx_exchange_gives_each_rank_its_heads():
 
 
 def test_heads_that_do_not_split_raise():
-    """xLSTM-125M's 4 heads split over 4 model ranks, not 8; smoke xLSTM
-    with 1 head and smoke zamba2 at ``d_model`` 96 (3 Mamba2 heads) do
-    not split over 2. ``jit_train_step`` raises for them
+    """xLSTM-125M's 4 heads split over 4 model ranks, and over 8 or 16
+    each mLSTM head spans 2 or 4 ranks (one head's rows a rank) while
+    every rank runs all 4 sLSTM heads; smoke xLSTM's 1 head spans both
+    of 2. Smoke zamba2 at ``d_model`` 96 (3 Mamba2 heads) does not split
+    over 2, nor do 3 mLSTM heads over 2 or 4, nor 16 sLSTM heads, which
+    the cache shards, over 32: ``jit_train_step`` raises for them
     (``tests/test_torch_train_dist_families.py`` on process ranks)."""
     xl = get_config("xlstm_125m")
     assert tp_heads(xl, "mlstm", 4) == tp_heads(xl, "slstm", 4) == 1
-    for kind in ("mlstm", "slstm"):
-        with pytest.raises(ValueError, match=f"4 {kind} heads do not split "
-                           f"over 8 ranks of the model axis"):
-            tp_heads(xl, kind, 8)
+    for model, share in ((8, 2), (16, 4)):
+        assert tp_heads(xl, "mlstm", model) == 1
+        assert mlstm_share(xl, model) == share
+        assert tp_heads(xl, "slstm", model) == 4
+    assert mlstm_share(xl, 4) == 1
+    one = dataclasses.replace(get_smoke_config("xlstm_125m"), ssm_heads=1)
+    assert (tp_heads(one, "mlstm", 2), mlstm_share(one, 2)) == (1, 2)
     zb = get_config("zamba2_1_2b")
     assert tp_heads(zb, "mamba", 4) == 16
-    with pytest.raises(ValueError, match="1 mlstm heads do not split"):
-        tp_heads(dataclasses.replace(get_smoke_config("xlstm_125m"),
-                                     ssm_heads=1), "mlstm", 2)
     with pytest.raises(ValueError, match="3 mamba heads do not split"):
         tp_heads(dataclasses.replace(get_smoke_config("zamba2_1_2b"),
                                      d_model=96), "mamba", 2)
+    three = dataclasses.replace(get_smoke_config("xlstm_125m"), d_model=96,
+                                ssm_heads=3)
+    for model in (2, 4):
+        with pytest.raises(ValueError, match=f"3 mlstm heads do not split "
+                           f"over {model} ranks of the model axis"):
+            tp_heads(three, "mlstm", model)
+    with pytest.raises(ValueError, match="16 slstm heads do not split "
+                       "over 32"):
+        tp_heads(dataclasses.replace(xl, ssm_heads=16), "slstm", 32)
 
 
 def test_mamba2_gradient_is_finite_where_the_reference_overflows():
